@@ -1,0 +1,3 @@
+from repro_torch.training.step import init_train_state, make_train_step
+
+__all__ = ["init_train_state", "make_train_step"]
