@@ -12,24 +12,45 @@ Phases, in order; any failure exits non-zero:
    them;
 2. build: compile every kernel source under ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together;
-3. kernels: call each kernel's wrapper on CUDA tensors at the training
-   path's shape and at GQA, window, ragged, non-causal, head-dim and bf16
-   cases, and hold it against its plain PyTorch version on the same inputs;
-   time kernel, plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it);
-4. main path: ``repro_torch.launch.train.main`` trains the full-width
-   ``edl_paper`` decoder through a stop-free scale-out, with the launch
-   counts reset just before and read just after; the loss must be finite
-   and fall, the scale-out commit stop-free, the data exactly-once, and every
-   kernel launched. The launches made by the context preps' warm-ups are
-   counted apart, and the rest over the slot shards stepped gives the
-   launches per slot shard of a training step;
-5. print ``{"kernels": [...]}``, the main path's step time, the card line,
-   and last ``{"ok": true, "device": {...}}``.
+3. attention kernels: call each flash-attention kernel's wrapper on CUDA
+   tensors at the edl_paper path's shape and at GQA, window, ragged,
+   non-causal, head-dim and bf16 cases, and hold it against its plain
+   PyTorch version on the same inputs; time kernel, plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it);
+4. edl_paper path: ``repro_torch.launch.train.main`` trains the full-width
+   ``edl_paper`` decoder through a stop-free scale-out;
+5. WKV6 kernels: call each WKV6 kernel's wrapper at the rwkv6 path's shape
+   (one slot shard at p = 1 and at p = 2), at ragged L, at RWKV6's training
+   context, at extreme decays and at head dims 16, 32 and 64, with nonzero
+   s0 and dsT, inputs drawn from a seeded CPU generator, and hold it against
+   its plain PyTorch version on the same inputs; time kernel and plain
+   version (no single PyTorch call computes WKV6);
+6. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
+   ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, timing the
+   host-side init of its parameters; then the same trainer refits one batch
+   four times, and its loss must fall at every step; a held-out batch's
+   loss must stay above the tokens' entropy less a margin; and one slot
+   shard's loss and gradients must be the same with remat on and off.
+
+Each path runs with the launch counts reset just before and read just after;
+the loss must be finite, the scale-out commit stop-free, the data
+exactly-once, every kernel of the path launched and no other. On the
+edl_paper path the last loss must be below the first; on the rwkv6 path,
+where from the reference's init the loss of fresh noise tokens rises in
+the JAX trainer as in the port, the refit and held-out checks take its
+place. The launches
+made by the context preps' warm-ups are counted apart, the rest is divided
+by the slot shards stepped, and both must equal what the code predicts: one
+launch of each kernel per layer for each shard's forward and backward, with
+remat's recomputation a second forward launch. Then print
+``{"kernels": [...]}``, the paths' step times, the card line, and last
+``{"ok": true, "device": {...}}``.
 
 Peaks for the bounds are NVIDIA's published H100 SXM figures at 700 W.
 """
 import contextlib
+import gc
 import io
 import json
 import math
@@ -43,13 +64,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
-REPLACES = "src/repro/kernels/attention/kernel.py:85"
-SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+ATT = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+       "replaces": "src/repro/kernels/attention/kernel.py:85"}
+WKV = {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
+       "replaces": "src/repro/kernels/rwkv/kernel.py:73"}
 
 # name, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype
-MAIN_CASE = ("main_p1", 8, 12, 12, 1024, 1024, 64, True, 0, None, "float32")
-CASES = [
-    MAIN_CASE,
+ATT_MAIN_CASE = ("main_p1", 8, 12, 12, 1024, 1024, 64, True, 0, None,
+                 "float32")
+ATT_CASES = [
+    ATT_MAIN_CASE,
     ("main_p2", 4, 12, 12, 1024, 1024, 64, True, 0, None, "float32"),
     ("gqa", 2, 8, 2, 512, 512, 64, True, 0, None, "float32"),
     ("window", 2, 4, 4, 1024, 1024, 64, True, 200, None, "float32"),
@@ -59,14 +83,40 @@ CASES = [
     ("d16_window_gqa", 1, 8, 2, 200, 200, 16, True, 32, None, "float32"),
     ("bf16", 2, 12, 12, 1024, 1024, 64, True, 0, None, "bfloat16"),
 ]
-TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4}, "bfloat16": {"fwd": 2e-2,
-                                                         "bwd": 2e-2}}
+ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
+           "bfloat16": {"fwd": 2e-2, "bwd": 2e-2}}
+
+# name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
+# range the model's clip allows; a number sets every logw to it
+WKV_MAIN_CASE = ("main_p1", 8, 1024, 32, 64, "model")
+WKV_CASES = [
+    WKV_MAIN_CASE,
+    ("main_p2", 4, 1024, 32, 64, "model"),
+    ("ragged", 2, 1000, 32, 64, "model"),
+    ("context_4096", 2, 4096, 32, 64, "model"),
+    ("logw_-20", 2, 512, 8, 64, -20.0),
+    ("logw_-1e-4", 2, 512, 8, 64, -1e-4),
+    ("hd16", 2, 300, 8, 16, "model"),
+    ("hd32", 2, 300, 8, 32, "model"),
+]
+# fp32 kernels against fp32 plain versions that sum in another order: each
+# output within WKV_TOL of the plain output's largest entry
+WKV_TOL = 1e-4
+# a held-out batch of 8192 noise tokens: the spread of its mean loss is
+# about 0.01 (per-token spread ~1 over sqrt(8192)), so a loss more than
+# 0.1 below ln(vocab) is no chance
+HOLD_OUT_MARGIN = 0.1
+# remat on and off run the same bf16 math; a remat fault (another input or
+# weight recomputed) moves the gradients by O(1)
+REMAT_RTOL = 1e-2
+
 MAIN_BATCH, MAIN_INIT_P = 8, 1
-MAIN_ARGS = ["--arch", "edl-paper", "--batch", str(MAIN_BATCH), "--seq", "1024",
-             "--devices", "2", "--init-p", str(MAIN_INIT_P),
-             "--schedule", "out:1@3",
+PATH_ARGS = ["--batch", str(MAIN_BATCH), "--seq", "1024", "--devices", "2",
+             "--init-p", str(MAIN_INIT_P), "--schedule", "out:1@3",
              "--steps", "12", "--n-samples", "1024", "--d-partitions", "16",
              "--json", "--device", "cuda"]
+EDL_ARGS = ["--arch", "edl-paper", *PATH_ARGS]
+RWKV_ARGS = ["--arch", "rwkv6-1.6b", *PATH_ARGS]
 
 
 def fail(msg: str):
@@ -119,13 +169,13 @@ def excess(a, b, tol: float) -> tuple[float, bool]:
     return float(err.max()), bool((err <= tol * (1 + b.abs())).all())
 
 
-def check_kernels(torch, ops):
+def check_attention(torch, ops):
     """Phase 3. Returns per-kernel records at the main case's shape."""
     F = torch.nn.functional
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (name, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len,
-         dname) in CASES:
+         dname) in ATT_CASES:
         dtype = getattr(torch, dname)
         kv_len = Lk if kv_len is None else kv_len
 
@@ -146,7 +196,7 @@ def check_kernels(torch, ops):
                                                     **opts)
         dk_p, dv_p = ops.flash_attn_bwd_dkdv_plain(q, k, v, lse, delta, do,
                                                    **opts)
-        tol = TOL[dname]
+        tol = ATT_TOL[dname]
         errs = {
             "flash_attn_fwd": [excess(o, o_p, tol["fwd"]),
                                excess(lse, lse_p, tol["fwd"])],
@@ -169,10 +219,10 @@ def check_kernels(torch, ops):
             if not ok:
                 fail(f"{kname} disagrees with its plain version in case "
                      f"{name}: max_abs_err {err:.3e}")
-            if name == MAIN_CASE[0]:
+            if name == ATT_MAIN_CASE[0]:
                 records[kname] = {"max_abs_err": err, "tolerance": t}
 
-        if name != MAIN_CASE[0]:
+        if name != ATT_MAIN_CASE[0]:
             continue
         # time kernel, plain version and the library call at the main shape
         esz = q.element_size()
@@ -232,6 +282,125 @@ def check_kernels(torch, ops):
     return records
 
 
+def wkv_inputs(torch, B, L, H, hd, logw_kind, seed):
+    """r, k, v, logw, u, s0, dy, dsT on the card, drawn on the CPU from a
+    seeded generator."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).cuda()
+
+    r, k, v = rnd(B, L, H, hd), rnd(B, L, H, hd), rnd(B, L, H, hd)
+    if logw_kind == "model":
+        logw = -torch.exp(torch.clamp(rnd(B, L, H, hd, scale=2.0), -8.0, 4.0))
+    else:
+        logw = torch.full((B, L, H, hd), float(logw_kind), device="cuda")
+    u, s0 = rnd(H, hd, scale=0.5), rnd(B, H, hd, hd, scale=0.1)
+    dy, dsT = rnd(B, L, H, hd), rnd(B, H, hd, hd, scale=0.1)
+    return r, k, v, logw, u, s0, dy, dsT
+
+
+def wkv_work(B, L, H, hd) -> dict:
+    """(bytes: inputs read once + outputs written once, flops) of each WKV6
+    kernel. Per (b, t, h) each scan does 5 hd^2 flops: a matrix-vector
+    product with the hd x hd state (2 hd^2) and its update diag(w) S + x y^T
+    (3 hd^2)."""
+    seq = B * L * H * hd * 4            # one [B,L,H,hd] fp32 tensor
+    st = B * H * hd * hd * 4            # one [B,H,hd,hd] state
+    vec = B * H * hd * 4                # one [B,H,hd] per-(b, h) vector
+    u = H * hd * 4
+    scan = 5 * B * L * H * hd * hd
+    return {
+        # r, k, v, logw, u, s0 -> y, sT
+        "wkv6_fwd": (5 * seq + 2 * st + u, scan),
+        # r, k, v, logw, dy, u, s0, dsT -> dr, a, du_part
+        "wkv6_bwd_dr": (7 * seq + 2 * st + u + vec, scan),
+        # r, k, v, logw, dy, a, u, dsT -> dk, dlogw, ds0
+        "wkv6_bwd_dk": (8 * seq + 2 * st + u, scan),
+        # r, k, logw, dy, u, dsT -> dv
+        "wkv6_bwd_dv": (5 * seq + st + u, scan),
+        # du_part -> du: B - 1 adds per (h, i)
+        "wkv6_bwd_du": (vec + u, (B - 1) * H * hd),
+    }
+
+
+def check_wkv(torch, wops):
+    """Phase 5. Returns per-kernel records at the main case's shape."""
+    records = {}
+    for seed, (name, B, L, H, hd, logw_kind) in enumerate(WKV_CASES):
+        r, k, v, logw, u, s0, dy, dsT = wkv_inputs(torch, B, L, H, hd,
+                                                   logw_kind, seed)
+        y, sT = wops.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+        dr, a, du_part = wops.wkv6_bwd_dr_cuda(r, k, v, logw, u, s0, dy, dsT)
+        dk, dlogw, ds0 = wops.wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a)
+        dv = wops.wkv6_bwd_dv_cuda(r, k, logw, u, dy, dsT)
+        du = wops.wkv6_bwd_du_cuda(du_part)
+        torch.cuda.synchronize()
+        # each kernel against its plain version on the same inputs
+        pairs = {
+            "wkv6_fwd": ((y, sT), wops.wkv6_fwd_plain(r, k, v, logw, u, s0)),
+            "wkv6_bwd_dr": ((dr, a, du_part), wops.wkv6_bwd_dr_plain(
+                r, k, v, logw, u, s0, dy, dsT)),
+            "wkv6_bwd_dk": ((dk, dlogw, ds0), wops.wkv6_bwd_dk_plain(
+                r, k, v, logw, u, dy, dsT, a)),
+            "wkv6_bwd_dv": ((dv,), (wops.wkv6_bwd_dv_plain(
+                r, k, logw, u, dy, dsT),)),
+            "wkv6_bwd_du": ((du,), (wops.wkv6_bwd_du_plain(du_part),)),
+        }
+        for kname, (got, want) in pairs.items():
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            mags = [float(w.abs().max()) for w in want]
+            ok = finite and all(e <= WKV_TOL * m for e, m in zip(errs, mags))
+            err = max(errs)
+            rel = max(e / max(m, 1e-30) for e, m in zip(errs, mags))
+            print(f"  case {name:13s} {kname:12s} max_abs_err {err:.3e} "
+                  f"max err/max|plain| {rel:.2e} tol {WKV_TOL:g} "
+                  f"{'ok' if ok else 'FAIL'} max|plain| {max(mags):.3g}",
+                  flush=True)
+            if not ok:
+                fail(f"{kname} disagrees with its plain version in case "
+                     f"{name} (finite {finite}): errors {errs}, largest "
+                     f"plain entries {mags}")
+            if name == WKV_MAIN_CASE[0]:
+                records[kname] = {"max_abs_err": err, "tolerance": WKV_TOL}
+
+        if name != WKV_MAIN_CASE[0]:
+            continue
+        kern = {
+            "wkv6_fwd": lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0),
+            "wkv6_bwd_dr": lambda: wops.wkv6_bwd_dr_cuda(r, k, v, logw, u,
+                                                         s0, dy, dsT),
+            "wkv6_bwd_dk": lambda: wops.wkv6_bwd_dk_cuda(r, k, v, logw, u,
+                                                         dy, dsT, a),
+            "wkv6_bwd_dv": lambda: wops.wkv6_bwd_dv_cuda(r, k, logw, u, dy,
+                                                         dsT),
+            "wkv6_bwd_du": lambda: wops.wkv6_bwd_du_cuda(du_part),
+        }
+        plain = {
+            "wkv6_fwd": lambda: wops.wkv6_fwd_plain(r, k, v, logw, u, s0),
+            "wkv6_bwd_dr": lambda: wops.wkv6_bwd_dr_plain(r, k, v, logw, u,
+                                                          s0, dy, dsT),
+            "wkv6_bwd_dk": lambda: wops.wkv6_bwd_dk_plain(r, k, v, logw, u,
+                                                          dy, dsT, a),
+            "wkv6_bwd_dv": lambda: wops.wkv6_bwd_dv_plain(r, k, logw, u, dy,
+                                                          dsT),
+            "wkv6_bwd_du": lambda: wops.wkv6_bwd_du_plain(du_part),
+        }
+        for kname, (nbytes, flops) in wkv_work(B, L, H, hd).items():
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = flops / FP32_FLOPS * 1e3
+            records[kname].update(
+                ms=cuda_ms(torch, kern[kname]),
+                plain_ms=cuda_ms(torch, plain[kname], reps=2, warm=1),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                bytes=nbytes, flops=flops, library_ms=None,
+                shape=dict(B=B, L=L, H=H, hd=hd, logw=logw_kind,
+                           dtype="float32"))
+    return records
+
+
 def slot_steps(summary: dict, init_p: int) -> int:
     """Slot shards that the run's training steps ran: a step at p runs p. A
     switch commits after step ``switch_step``, so that step ran at the old
@@ -243,25 +412,55 @@ def slot_steps(summary: dict, init_p: int) -> int:
     return total + (summary["steps"] - prev) * p
 
 
-def run_main_path(torch, ops, train):
-    """Phase 4: the port's trainer through its entry point. Returns (summary,
-    launches, warm-up launches, seconds)."""
-    ops.LAUNCHES.reset()
+@contextlib.contextmanager
+def timed_state_init(torch, seconds: list):
+    """Time the trainer's draw and placement of its initial train state
+    (``init_train_state``, on the host's generator) while the entry point
+    runs."""
+    from repro_torch.core import elastic_runtime
+    inner = elastic_runtime.init_train_state
+
+    def timed(*args, **kw):
+        t0 = time.monotonic()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.monotonic() - t0)
+        return out
+
+    elastic_runtime.init_train_state = timed
+    try:
+        yield
+    finally:
+        elastic_runtime.init_train_state = inner
+
+
+def run_path(torch, launches_of, train, args, kernels, per_shard: dict, *,
+             loss_must_fall: bool = True):
+    """Phases 4 and 6: the port's trainer through its entry point, with the
+    launch counts reset just before and read just after. ``per_shard``
+    predicts each kernel's launches per slot shard of a step (and of a
+    warm-up); with ``loss_must_fall`` the last loss must be below the first.
+    Returns a record of the run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_s: list = []
     buf = io.StringIO()
+    launches_of.reset()
     t0 = time.monotonic()
-    with contextlib.redirect_stdout(buf):
-        rc = train.main(MAIN_ARGS)
+    with contextlib.redirect_stdout(buf), timed_state_init(torch, init_s):
+        rc = train.main(args)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = ops.LAUNCHES.snapshot()
-    warm = ops.LAUNCHES.snapshot(warm=True)
+    launches = launches_of.snapshot()
+    warm = launches_of.snapshot(warm=True)
     if rc != 0:
         fail(f"repro_torch.launch.train.main returned {rc}")
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])
     losses = summary["losses"]
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss: {losses}")
-    if not summary["final_loss"] < summary["first_loss"]:
+    if loss_must_fall and not summary["final_loss"] < summary["first_loss"]:
         fail(f"loss did not fall: {losses}")
     outs = [e for e in summary["scaling_events"] if e["op"] == "scale_out"]
     if len(outs) != 1 or summary["final_p"] != 2:
@@ -271,82 +470,215 @@ def run_main_path(torch, ops, train):
         fail(f"scale_out was not stop-free: {outs[0]}")
     if summary["unique_sample_frac"] != 1.0:
         fail(f"unique_sample_frac {summary['unique_sample_frac']}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
-    return summary, launches, warm, seconds
+    missing = [k for k in kernels if launches[k] <= 0]
+    strays = {k: n for k, n in launches.items() if k not in kernels and n}
+    if missing or strays:
+        fail(f"kernels of the path not launched: {missing}; kernels off "
+             f"the path launched: {strays}")
+    n_slot_steps = slot_steps(summary, MAIN_INIT_P)
+    # the launch prep and each cold scaling prep warm one shard each (all
+    # slots share the one card)
+    n_preps = 1 + sum(not e["cache_hit"] for e in summary["scaling_events"])
+    per_slot_step = {k: (launches[k] - warm[k]) / n_slot_steps
+                     for k in kernels}
+    want_warm = {k: n_preps * per_shard[k] for k in kernels}
+    if per_slot_step != per_shard or {k: warm[k] for k in kernels} != \
+            want_warm:
+        fail(f"launches differ from the prediction: warm-ups "
+             f"{ {k: warm[k] for k in kernels} } (predicted {want_warm}), "
+             f"per slot shard of a step {per_slot_step} (predicted "
+             f"{per_shard})")
+    steps = summary["steps"]
+    step_ms = 1e3 * MAIN_BATCH / summary["throughput"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  losses {['%.4f' % x for x in losses]}")
+    print(f"  scaling_events {json.dumps(summary['scaling_events'])}")
+    print(f"  {steps} steps in {seconds:.2f} s (train state drawn and placed "
+          f"in {sum(init_s):.2f} s); mean step {step_ms:.1f} ms, "
+          f"{summary['throughput']:.2f} samples/s over the last "
+          f"{min(steps, 20)} steps; peak {peak_gib:.2f} GiB allocated; "
+          f"launches { {k: launches[k] for k in kernels} }, of which "
+          f"context-prep warm-ups { {k: warm[k] for k in kernels} } "
+          f"({n_preps} preps); {n_slot_steps} slot shards stepped, so per "
+          f"slot shard of a step {per_slot_step}, as predicted", flush=True)
+    return {"arch": summary["arch"], "steps": steps, "seconds": seconds,
+            "init_state_s": sum(init_s), "mean_step_ms": step_ms,
+            "samples_per_s": summary["throughput"], "peak_gib": peak_gib,
+            "first_loss": summary["first_loss"],
+            "final_loss": summary["final_loss"],
+            "scaling_events": summary["scaling_events"],
+            "launches": launches, "warmup_launches": warm,
+            "launches_per_slot_step": per_slot_step}
+
+
+def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
+    """Phase 6's learning checks, on the trainer that ``launch/train.py``
+    builds (same seed and data, AdamW at its default lr 1e-3, one slot).
+
+    The synthetic tokens are uniform noise, and from the reference's init
+    the loss of a fresh batch of them rises under AdamW at lr 1e-3, in the
+    JAX trainer as in the port (PERF.md §7,
+    ``tests/test_torch_rwkv_witness.py``), so the last loss of the path is
+    not required to be below its first. Instead:
+
+    - refit: ``steps`` updates on the first batch must lower its loss at
+      every step (the gradient carries the labels through the stack);
+    - held out: the loss of a batch that no step saw, after the refit, must
+      not fall below the tokens' entropy ln(vocab) by more than
+      ``HOLD_OUT_MARGIN``: a fresh noise token cannot be predicted, so a
+      lower loss means the labels leaked into the inputs;
+    - remat: on one slot shard of that batch at the refitted weights, the
+      loss and gradients with remat off equal those with remat on within
+      ``REMAT_RTOL`` (norm-wise per leaf), so remat recomputes what the
+      forward computed at full width in bf16.
+    """
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import ElasticTrainer
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.training.step import loss_and_grads, shard_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    with ElasticTrainer(cfg, global_batch=MAIN_BATCH, seq_len=1024,
+                        init_parallelism=1, optimizer=adamw(1e-3),
+                        n_samples=1024, d_partitions=16, devices=["cuda:0"],
+                        use_aot=False) as t:
+        batch, held = (t.dataset.read(s, MAIN_BATCH)
+                       for s in (0, MAIN_BATCH))
+        for b in (batch, held):
+            b.pop("sample_ids")
+        held_dev = shard_batch(held, 1, ["cuda:0"])[0]
+
+        def held_loss():
+            with torch.no_grad():
+                return float(M.loss_fn(cfg, t.state["params"], held_dev)[0])
+
+        held_before = held_loss()
+        losses = []
+        for _ in range(steps):
+            t.state, m = t.exec.step_fn(t.state, batch)
+            losses.append(float(m["loss"]))
+        held_after = held_loss()
+        shard = {k: v[:MAIN_BATCH // 2] for k, v in held_dev.items()}
+        outs = [loss_and_grads(dataclasses.replace(cfg, remat=remat),
+                               t.state["params"], shard)
+                for remat in (True, False)]
+        remat_err = max(
+            float((b.float() - a.float()).norm() / a.float().norm())
+            for (_, a), (_, b) in zip(tree_leaves(outs[0][2]),
+                                      tree_leaves(outs[1][2])))
+        remat_losses = [float(o[0]) for o in outs]
+        del outs
+    entropy = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in losses) or \
+            any(b >= a for a, b in zip(losses, losses[1:])):
+        fail(f"refitting one batch did not lower its loss: {losses}")
+    print(f"  one batch refit {steps} times: losses "
+          f"{['%.4f' % x for x in losses]}, each below the one before",
+          flush=True)
+    if not (math.isfinite(held_after)
+            and held_after >= entropy - HOLD_OUT_MARGIN):
+        fail(f"held-out loss {held_after} after the refit is below "
+             f"ln(vocab) {entropy:.4f} - {HOLD_OUT_MARGIN}: the labels leak")
+    print(f"  held-out batch: loss {held_before:.4f} before the refit, "
+          f"{held_after:.4f} after; ln(vocab) = {entropy:.4f}, floor "
+          f"{entropy - HOLD_OUT_MARGIN:.4f}", flush=True)
+    loss_err = abs(remat_losses[1] - remat_losses[0]) / abs(remat_losses[0])
+    if not (loss_err <= REMAT_RTOL and remat_err <= REMAT_RTOL):
+        fail(f"remat off differs from remat on: loss {remat_losses}, "
+             f"largest norm-wise gradient difference {remat_err}")
+    print(f"  remat on/off, one slot shard: losses {remat_losses[0]:.6f} / "
+          f"{remat_losses[1]:.6f}, largest norm-wise gradient difference "
+          f"{remat_err:.3e} (tolerance {REMAT_RTOL})", flush=True)
+    return {"refit_losses": losses, "held_out_loss_before": held_before,
+            "held_out_loss_after": held_after, "ln_vocab": entropy,
+            "remat_losses": remat_losses, "remat_grad_err": remat_err}
 
 
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.kernels.launches import LAUNCHES
+    from repro_torch.kernels.rwkv import ops as wops
     from repro_torch.launch import train
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/5] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/7] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/5] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/7] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
+    if sorted(built) != sorted(build.SOURCES):
+        fail(f"built {sorted(built)}, sources {sorted(build.SOURCES)}")
     for name, info in built.items():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/5] kernels against their plain versions", flush=True)
-    records = check_kernels(torch, ops)
+    print("[3/7] attention kernels against their plain versions", flush=True)
+    records = check_attention(torch, aops)
 
-    print("[4/5] main path: python -m repro_torch.launch.train "
-          + " ".join(MAIN_ARGS), flush=True)
-    summary, launches, warm, seconds = run_main_path(torch, ops, train)
-    steps = summary["steps"]
-    step_ms = 1e3 * MAIN_BATCH / summary["throughput"]
-    n_slot_steps = slot_steps(summary, MAIN_INIT_P)
-    # launches of the training steps alone, per slot shard of a step
-    per_slot_step = {k: (launches[k] - warm[k]) / n_slot_steps
-                     for k in launches}
-    # a forward and its two backward kernels run once per layer each
-    if len(set(per_slot_step.values())) != 1 or len(set(warm.values())) != 1:
-        fail(f"the kernels' launches do not pair up: warm-ups {warm}, per "
-             f"slot shard of a step {per_slot_step}")
-    print(f"  losses {['%.4f' % x for x in summary['losses']]}")
-    print(f"  scaling_events {json.dumps(summary['scaling_events'])}")
-    print(f"  {steps} steps in {seconds:.2f} s; mean step {step_ms:.1f} ms, "
-          f"{summary['throughput']:.2f} samples/s over the last "
-          f"{min(steps, 20)} steps; launches {launches}, of which context-prep "
-          f"warm-ups {warm}; {n_slot_steps} slot shards stepped, so per slot "
-          f"shard of a step {per_slot_step} [{kind}; {card}]", flush=True)
+    edl = get_config("edl-paper")
+    print("[4/7] edl_paper path: python -m repro_torch.launch.train "
+          + " ".join(EDL_ARGS), flush=True)
+    # forward, dq and dkdv once per layer and shard
+    paths = {"edl-paper": run_path(
+        torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS,
+        dict.fromkeys(aops.KERNELS, edl.n_layers))}
+
+    print("[5/7] WKV6 kernels against their plain versions", flush=True)
+    records.update(check_wkv(torch, wops))
+
+    rwkv = get_config("rwkv6-1.6b")
+    print("[6/7] rwkv6 path: python -m repro_torch.launch.train "
+          + " ".join(RWKV_ARGS), flush=True)
+    # each kernel once per layer and shard; remat runs the forward again
+    rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
+    rwkv_shard["wkv6_fwd"] = rwkv.n_layers * (2 if rwkv.remat else 1)
+    # on fresh batches of noise tokens the loss rises from this init, in
+    # the JAX trainer too: learning is checked by refit_and_hold_out
+    paths["rwkv6-1.6b"] = run_path(torch, LAUNCHES, train, RWKV_ARGS,
+                                   wops.KERNELS, rwkv_shard,
+                                   loss_must_fall=False)
+    paths["rwkv6-1.6b"].update(refit_and_hold_out(torch, "rwkv6-1.6b"))
 
     kernels = []
-    for kname in ops.KERNELS:
-        r = records[kname]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches[kname],
-            "warmup_launches": warm[kname],
-            "launches_per_slot_step": per_slot_step[kname],
-            "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "bytes": r["bytes"], "flops": r["flops"],
-            "library_ms": r["library_ms"], "shape": r["shape"], "card": card})
-    print("[5/5] results; library_ms is F.scaled_dot_product_attention: its "
-          "forward for flash_attn_fwd, its whole backward (dq, dk and dv in "
-          "one call) for both backward kernels", flush=True)
+    for kernel_names, family, path in ((aops.KERNELS, ATT, "edl-paper"),
+                                       (wops.KERNELS, WKV, "rwkv6-1.6b")):
+        run = paths[path]
+        for kname in kernel_names:
+            r = records[kname]
+            kernels.append({
+                "name": kname, "route": "cuda", **family,
+                "launches": run["launches"][kname],
+                "warmup_launches": run["warmup_launches"][kname],
+                "launches_per_slot_step": run["launches_per_slot_step"][kname],
+                "path": path, "max_abs_err": r["max_abs_err"],
+                "tolerance": r["tolerance"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bytes": r["bytes"],
+                "flops": r["flops"], "library_ms": r["library_ms"],
+                "shape": r["shape"], "card": card})
+    print("[7/7] results; library_ms is F.scaled_dot_product_attention for "
+          "the attention kernels (its forward for flash_attn_fwd, its whole "
+          "backward for both backward kernels) and null for WKV6, which no "
+          "single PyTorch call computes", flush=True)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"main_path": {
-        "steps": steps, "seconds": seconds, "mean_step_ms": step_ms,
-        "samples_per_s": summary["throughput"],
-        "first_loss": summary["first_loss"],
-        "final_loss": summary["final_loss"],
-        "scaling_events": summary["scaling_events"], "card": card}}))
+    print(json.dumps({"main_paths": {
+        name: {k: v for k, v in run.items()
+               if k not in ("launches", "warmup_launches")}
+        for name, run in paths.items()}, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

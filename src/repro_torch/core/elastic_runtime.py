@@ -41,7 +41,7 @@ from repro_torch.data.pipeline import DynamicDataPipeline
 from repro_torch.data.synthetic import SyntheticTokenDataset
 from repro_torch.data.worker import WorkerDataIterator
 from repro_torch.devices import default_pool, resolve_device
-from repro_torch.kernels.attention.ops import LAUNCHES
+from repro_torch.kernels.launches import LAUNCHES
 from repro_torch.models.model import param_spec_tree
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import Optimizer, adamw

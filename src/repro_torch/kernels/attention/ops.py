@@ -8,72 +8,24 @@ to the plain versions in this module, which follow the reference's
 formulas. A CUDA tensor never reaches a plain version: it launches the
 kernel, or the call raises.
 
-Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches, so a
-run can show that its path went through the kernels.
+Each kernel wrapper adds one to the port's launch count
+(``kernels/launches.py``) where it launches, so a run can show that its
+path went through the kernels.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launches import FAMILIES, LAUNCHES
 
 NEG_INF = -1e30
-KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv")
+KERNELS = FAMILIES["attention"]
 CUDA_HEAD_DIMS = (16, 32, 64, 128)
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
-
-
-class LaunchCounter:
-    """Launches per kernel name; thread-safe, since the trainer's prep
-    thread launches kernels while the main thread steps. Launches that a
-    thread makes inside ``warming()`` (the trainer's context preps) are also
-    tallied apart, so a run can tell its training steps' launches from its
-    warm-ups'. The flag is the calling thread's; ``FlashAttnFn`` carries it
-    from its forward to its backward, which autograd may run on a thread of
-    its own."""
-
-    def __init__(self, names):
-        self._lock = threading.Lock()
-        self._local = threading.local()
-        self._n = dict.fromkeys(names, 0)
-        self._warm = dict.fromkeys(names, 0)
-
-    def add(self, name: str):
-        with self._lock:
-            self._n[name] += 1
-            if self.is_warming():
-                self._warm[name] += 1
-
-    def is_warming(self) -> bool:
-        return getattr(self._local, "warming", False)
-
-    @contextlib.contextmanager
-    def warming(self, on: bool = True):
-        prev = self.is_warming()
-        self._local.warming = on
-        try:
-            yield
-        finally:
-            self._local.warming = prev
-
-    def reset(self):
-        with self._lock:
-            self._n = dict.fromkeys(self._n, 0)
-            self._warm = dict.fromkeys(self._n, 0)
-
-    def snapshot(self, *, warm: bool = False) -> dict[str, int]:
-        """All launches since the last reset, or with ``warm`` only those
-        made inside ``warming()``."""
-        with self._lock:
-            return dict(self._warm if warm else self._n)
-
-
-LAUNCHES = LaunchCounter(KERNELS)
 
 
 # ------------------------------------------------------------ plain versions

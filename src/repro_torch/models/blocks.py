@@ -4,13 +4,14 @@ A block = pre-norm mixer (+residual) then pre-norm FFN (+residual).
 ``layer_plan(cfg)`` expands the architecture into a per-layer (mixer, ffn)
 list; ``scan_plan`` folds it into the smallest repeating period, whose
 stacked ``[n_periods, ...]`` parameter leaves are the reference's layout.
-Only the dense ``attn`` + ``mlp`` block is ported yet.
+Ported mixers: ``attn`` (GQA) and ``rwkv_tm``; ffns: ``mlp`` and
+``rwkv_cm``. Any other block raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.layers import apply_mlp, apply_rmsnorm, dt, \
     mlp_specs, rmsnorm_specs
 
@@ -46,27 +47,37 @@ def scan_plan(cfg) -> tuple[list[tuple[str, str]], int]:
     return plan, 1
 
 
-def _require_dense(mixer: str, ffn: str):
-    if (mixer, ffn) != ("attn", "mlp"):
+MIXERS = {
+    "attn": (attention.attention_specs, attention.attention_forward),
+    "rwkv_tm": (ssm.rwkv_tm_specs, ssm.rwkv_tm_forward),
+}
+FFNS = {
+    "mlp": (lambda cfg: mlp_specs(cfg.d_model, cfg.d_ff),
+            lambda cfg, p, h: (apply_mlp(p, h, dt(cfg, "compute")), None)),
+    "rwkv_cm": (ssm.rwkv_cm_specs, ssm.rwkv_cm_forward),
+}
+
+
+def _require_ported(mixer: str, ffn: str):
+    if mixer not in MIXERS or ffn not in FFNS:
         raise NotImplementedError(f"block ({mixer}, {ffn}) is not yet ported")
 
 
 def block_specs(cfg, mixer: str, ffn: str) -> dict:
-    _require_dense(mixer, ffn)
+    _require_ported(mixer, ffn)
     return {"norm1": rmsnorm_specs(cfg.d_model),
-            "mixer": attention.attention_specs(cfg),
+            "mixer": MIXERS[mixer][0](cfg),
             "norm2": rmsnorm_specs(cfg.d_model),
-            "ffn": mlp_specs(cfg.d_model, cfg.d_ff)}
+            "ffn": FFNS[ffn][0](cfg)}
 
 
 def block_forward(cfg, p, x: torch.Tensor, *, mixer: str, ffn: str,
                   positions: torch.Tensor):
     """Returns (x, aux_loss)."""
-    _require_dense(mixer, ffn)
+    _require_ported(mixer, ffn)
     h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mix_out, _ = attention.attention_forward(cfg, p["mixer"], h,
-                                             positions=positions)
+    mix_out, _ = MIXERS[mixer][1](cfg, p["mixer"], h, positions=positions)
     x = x + mix_out
     h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
-    f = apply_mlp(p["ffn"], h, dt(cfg, "compute"))
+    f, _ = FFNS[ffn][1](cfg, p["ffn"], h)
     return x + f, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -3,13 +3,18 @@ the stacked block periods, and the chunked cross-entropy loss.
 
 The reference scans the periods with ``lax.scan``; here the forward is a
 Python loop over them, reading period i of each stacked ``[n_periods, ...]``
-leaf. The reference's ``_barrier`` and ``jax.checkpoint`` steer XLA and have
-no counterpart: the trainer's shapes fit the card without recomputation.
+leaf. With ``cfg.remat`` each period is rematerialized in the backward, as
+the reference's ``jax.checkpoint(..., nothing_saveable)`` does in train
+mode: only the period's input is kept. The reference's ``_barrier`` steers
+XLA and has no counterpart; grouped remat (``remat_group > 1``) is not
+ported yet.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.launches import recompute_context
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import apply_embed, apply_rmsnorm, dt, \
     embed_specs, rmsnorm_specs, unembed_specs
@@ -56,22 +61,34 @@ def forward(cfg, params, batch, *, mode: str = "train"):
     """mode 'train' -> (hidden [B,L,D], aux)."""
     if mode != "train":
         raise NotImplementedError(f"mode {mode!r} is not yet ported")
+    if cfg.remat and cfg.remat_group > 1:
+        raise NotImplementedError("grouped remat is not yet ported")
     x = embed_inputs(cfg, params, batch)
     Bsz, L, _ = x.shape
     positions = torch.arange(L, device=x.device).expand(Bsz, L)
     slots, n_periods = B.scan_plan(cfg)
+
+    def period(x, p_slots):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, (mixer, ffn) in enumerate(slots):
+            x, aux = B.block_forward(cfg, p_slots[f"slot{j}"], x, mixer=mixer,
+                                     ffn=ffn, positions=positions)
+            aux_total = aux_total + aux
+        return x, aux_total
+
     # one unbind per stacked leaf: its backward is a single stack, where
     # indexing each period would scatter into a full-size zero tensor
     periods = tree_map(lambda a: a.unbind(0), params["layers"])
     auxes = []
     for i in range(n_periods):
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for j, (mixer, ffn) in enumerate(slots):
-            p_ij = tree_map(lambda t: t[i], periods[f"slot{j}"])
-            x, aux = B.block_forward(cfg, p_ij, x, mixer=mixer, ffn=ffn,
-                                     positions=positions)
-            aux_total = aux_total + aux
-        auxes.append(aux_total)
+        p_i = tree_map(lambda t: t[i], periods)
+        if cfg.remat:
+            x, aux = checkpoint(period, x, p_i, use_reentrant=False,
+                                preserve_rng_state=False,
+                                context_fn=recompute_context)
+        else:
+            x, aux = period(x, p_i)
+        auxes.append(aux)
     x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.stack(auxes).mean()
 

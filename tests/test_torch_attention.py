@@ -19,6 +19,7 @@ from repro.kernels.attention.ops import flash_attention as jax_flash
 from repro.kernels.attention.ref import attention_ref
 from repro.models.attention import chunked_attention
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.launches import LAUNCHES, LaunchCounter
 
 # the shapes of tests/test_kernels.py: SWEEP, and FUZZ_FALLBACK as
 # (B, Hq, Hkv, Lq, Lk, D, causal, window) with its (lq, lk, g, hkv, win)
@@ -148,11 +149,11 @@ def test_autograd_function_gradcheck(causal, window, kv_len):
 
 
 def test_cpu_path_launches_no_kernel():
-    before = ops.LAUNCHES.snapshot()
+    before = LAUNCHES.snapshot()
     q, k, v, do = (_t(a) for a in _inputs(1, 2, 1, 16, 16, 16))
     q.requires_grad_(True)
     ops.flash_attention_bhld(q, k, v).backward(do)
-    assert ops.LAUNCHES.snapshot() == before
+    assert LAUNCHES.snapshot() == before
     assert q.grad is not None and torch.isfinite(q.grad).all()
 
 
@@ -160,7 +161,7 @@ def test_launch_counter_tallies_warm_ups_per_thread():
     """A launch inside ``warming()`` counts in the total and among the
     warm-ups; one made meanwhile on another thread counts only in the
     total."""
-    c = ops.LaunchCounter(ops.KERNELS)
+    c = LaunchCounter(ops.KERNELS)
     with c.warming():
         c.add("flash_attn_fwd")
         t = threading.Thread(target=c.add, args=("flash_attn_bwd_dq",))

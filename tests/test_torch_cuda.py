@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.launches import LAUNCHES
 
 pytestmark = pytest.mark.cuda
 
@@ -37,13 +38,13 @@ def test_autograd_function_matches_plain(card, B, Hq, Hkv, Lq, Lk, D, causal,
     q, k, v = (torch.randn(s, generator=gen, device=card).to(dtype)
                for s in ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
     do = torch.randn((B, Hq, Lq, D), generator=gen, device=card).to(dtype)
-    before = ops.LAUNCHES.snapshot()
+    before = LAUNCHES.snapshot()
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = ops.flash_attention_bhld(*leaves, causal=causal, window=window,
                                    kv_len=kv_len)
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    after = ops.LAUNCHES.snapshot()
+    after = LAUNCHES.snapshot()
     assert all(after[n] == before[n] + 1 for n in ops.KERNELS)
 
     opts = dict(causal=causal, window=window, kv_len=kv_len)
@@ -60,10 +61,50 @@ def test_warm_up_launches_are_tallied_through_autograd(card):
     q, k, v = (torch.randn((1, 2, 128, 64), device=card).requires_grad_(True)
                for _ in range(3))
     for warm in (True, False):
-        before = ops.LAUNCHES.snapshot(warm=True)
-        with ops.LAUNCHES.warming(warm):
+        before = LAUNCHES.snapshot(warm=True)
+        with LAUNCHES.warming(warm):
             out = ops.flash_attention_bhld(q, k, v)
         out.sum().backward()
         torch.cuda.synchronize()
-        after = ops.LAUNCHES.snapshot(warm=True)
+        after = LAUNCHES.snapshot(warm=True)
         assert all(after[n] == before[n] + warm for n in ops.KERNELS)
+
+
+WKV_CASES = [
+    # B, L, H, hd, logw spread
+    (2, 64, 4, 64, 0.5),
+    (1, 100, 2, 32, 2.0),       # ragged L, a wide spread of decays
+    (2, 37, 3, 16, 0.05),
+]
+# fp32 throughout; the kernels and the plain versions sum in other orders
+WKV_TOL = 1e-4
+
+
+@pytest.mark.parametrize("B,L,H,hd,spread", WKV_CASES)
+def test_wkv6_function_matches_plain(card, B, L, H, hd, spread):
+    """WKV6Fn on the card, forward and backward, against the plain versions
+    on the same inputs; each of the five kernels launches once."""
+    from repro_torch.kernels.rwkv import ops as wkv_ops
+
+    gen = torch.Generator(device=card).manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=card) * scale
+
+    r, k, v = rnd(B, L, H, hd), rnd(B, L, H, hd), rnd(B, L, H, hd)
+    logw = -torch.exp(rnd(B, L, H, hd, scale=spread))
+    u, s0 = rnd(H, hd, scale=0.3), rnd(B, H, hd, hd, scale=0.1)
+    dy, dsT = rnd(B, L, H, hd), rnd(B, H, hd, hd)
+    before = LAUNCHES.snapshot()
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, logw, u, s0)]
+    y, sT = wkv_ops.wkv6(*leaves)
+    grads = torch.autograd.grad((y, sT), leaves, (dy, dsT))
+    torch.cuda.synchronize()
+    after = LAUNCHES.snapshot()
+    assert all(after[n] == before[n] + 1 for n in wkv_ops.KERNELS)
+
+    y_p, sT_p = wkv_ops.wkv6_fwd_plain(r, k, v, logw, u, s0)
+    want = wkv_ops.wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dsT)
+    for got, w in zip((y, sT, *grads), (y_p, sT_p, *want)):
+        torch.testing.assert_close(got, w, atol=WKV_TOL * float(w.abs().max()),
+                                   rtol=WKV_TOL)

@@ -12,7 +12,7 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 MODULES = [
     "repro_torch", "repro_torch.bridge", "repro_torch.devices",
     "repro_torch.configs", "repro_torch.configs.base",
-    "repro_torch.configs.edl_paper",
+    "repro_torch.configs.edl_paper", "repro_torch.configs.rwkv6_1p6b",
     "repro_torch.core", "repro_torch.core.coordination",
     "repro_torch.core.elastic_runtime", "repro_torch.core.election",
     "repro_torch.core.membership", "repro_torch.core.scaling",
@@ -21,10 +21,13 @@ MODULES = [
     "repro_torch.data.worker",
     "repro_torch.kernels", "repro_torch.kernels.build",
     "repro_torch.kernels.attention", "repro_torch.kernels.attention.ops",
+    "repro_torch.kernels.launches", "repro_torch.kernels.rwkv",
+    "repro_torch.kernels.rwkv.ops",
     "repro_torch.launch", "repro_torch.launch.train",
     "repro_torch.models", "repro_torch.models.attention",
     "repro_torch.models.blocks", "repro_torch.models.layers",
     "repro_torch.models.model", "repro_torch.models.params",
+    "repro_torch.models.ssm",
     "repro_torch.optim", "repro_torch.optim.optimizers",
     "repro_torch.training", "repro_torch.training.step",
 ]

@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port goes on the card.
 
-Builds the port's ``ElasticTrainer`` on the full-width ``edl_paper`` decoder
-(batch 8, sequence 1024, AdamW), then at p = 1 and again after a blocking
-scale-out to p = 2 (both slots on one card):
+Builds the port's ``ElasticTrainer`` on a full-width architecture
+(``--arch``: ``edl-paper`` or ``rwkv6-1.6b``; batch 8, sequence 1024,
+AdamW), then at p = 1 and again after a blocking scale-out to p = 2 (both
+slots on one card):
 
 * times ``--steps`` steps with a host clock around work that ends in
   ``torch.cuda.synchronize()`` (the trainer's own step time);
 * traces two more steps with ``torch.profiler`` and sums the device time of
-  every kernel by group: the port's flash-attention kernels, matrix
-  products, and the rest; the device's idle share is one minus the union
-  of kernel intervals over the traced window.
+  every kernel by group: each of the port's kernels, matrix products, and
+  the rest; the device's idle share is one minus the union of kernel
+  intervals over the traced window; the peak of allocated device memory
+  is taken over the traced steps.
 
 Prints one JSON line per parallelism and writes the traces under
 ``build/profile/``. Run from the repo root on a machine with a card:
 
-    python3 tools/torch_step_profile.py [--steps 6]
+    python3 tools/torch_step_profile.py [--arch rwkv6-1.6b] [--steps 6]
 """
 import argparse
 import json
@@ -28,10 +30,15 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-GROUPS = (("flash_attn_fwd", "fwd_kernel"), ("flash_attn_bwd_dq",
+# first match wins: the WKV6 kernels' names contain "fwd_kernel" too
+GROUPS = (("wkv6_fwd", "wkv6_fwd_kernel"), ("wkv6_bwd_dr", "wkv6_bwd_dr_kernel"),
+          ("wkv6_bwd_dk", "wkv6_bwd_dk_kernel"),
+          ("wkv6_bwd_dv", "wkv6_bwd_dv_kernel"),
+          ("wkv6_bwd_du", "wkv6_bwd_du_kernel"),
+          ("flash_attn_fwd", "fwd_kernel"), ("flash_attn_bwd_dq",
                                              "bwd_dq_kernel"),
           ("flash_attn_bwd_dkdv", "bwd_dkdv_kernel"))
-MATMUL_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "cublas")
+MATMUL_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "cublas", "nvjet")
 
 
 def group_of(name: str) -> str:
@@ -85,6 +92,7 @@ def timed_steps(torch, trainer, n: int) -> list[float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="edl-paper")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024)
@@ -103,7 +111,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    cfg = get_config("edl-paper")
+    cfg = get_config(args.arch)
     with ElasticTrainer(cfg, global_batch=args.batch, seq_len=args.seq,
                         init_parallelism=1, n_samples=4096,
                         d_partitions=16, devices=["cuda:0"] * 2,
@@ -117,9 +125,10 @@ def main() -> int:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 timed_steps(torch, trainer, 2)
-            path = os.path.join(args.out, f"trace_p{p}.json")
+            path = os.path.join(args.out, f"trace_{args.arch}_p{p}.json")
             prof.export_chrome_trace(path)
-            rec = {"p": trainer.p, "batch": args.batch, "seq": args.seq,
+            rec = {"arch": cfg.name, "p": trainer.p, "batch": args.batch,
+                   "seq": args.seq,
                    "step_ms_median": 1e3 * statistics.median(times),
                    "step_ms": [1e3 * t for t in times],
                    "samples_per_s": args.batch / statistics.median(times),
