@@ -15,9 +15,13 @@ Phases, in order; any failure exits non-zero:
 3. attention kernels: call each flash-attention kernel's wrapper on CUDA
    tensors at the edl_paper path's shape and at GQA, window, ragged,
    non-causal, head-dim and bf16 cases, and hold it against its plain
-   PyTorch version on the same inputs; time kernel, plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it);
+   PyTorch version on the same inputs; run the backward pair twice on the
+   main and GQA cases and require the same bits; time kernel, plain
+   version and ``F.scaled_dot_product_attention`` (a yardstick only: the
+   port never calls it), and the backward pair against SDPA's backward
+   under its default and under each backend that takes fp32
+   (``EFFICIENT_ATTENTION``, ``MATH``; the others are recorded as
+   refusing), naming the default's backend by its time;
 4. edl_paper path: ``repro_torch.launch.train.main`` trains the full-width
    ``edl_paper`` decoder through a stop-free scale-out;
 5. WKV6 kernels: call each WKV6 kernel's wrapper at the rwkv6 path's shape
@@ -44,7 +48,9 @@ made by the context preps' warm-ups are counted apart, the rest is divided
 by the slot shards stepped, and both must equal what the code predicts: one
 launch of each kernel per layer for each shard's forward and backward, with
 remat's recomputation a second forward launch. Then print
-``{"kernels": [...]}``, the paths' step times, the card line, and last
+``{"backward_pair": {...}}`` (the two backward kernels together against
+SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the card
+line, and last
 ``{"ok": true, "device": {...}}``.
 
 Peaks for the bounds are NVIDIA's published H100 SXM figures at 700 W.
@@ -85,6 +91,8 @@ ATT_CASES = [
 ]
 ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
            "bfloat16": {"fwd": 2e-2, "bwd": 2e-2}}
+# the backward pair runs twice on these cases and must give the same bits
+DETERMINISM_CASES = ("main_p1", "gqa")
 
 # name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
 # range the model's clip allows; a number sets every logw to it
@@ -169,8 +177,70 @@ def excess(a, b, tol: float) -> tuple[float, bool]:
     return float(err.max()), bool((err <= tol * (1 + b.abs())).all())
 
 
+# SDPA's default backward must take within this share of the time of one
+# backend, the one it picks; on fp32 inputs at the main shape the backends
+# that take them differ by ~70 % (PERF.md §7)
+SDPA_MATCH = 0.15
+
+
+def sdpa_backends(torch, q, k, v, do, causal) -> dict:
+    """``F.scaled_dot_product_attention``'s backward on these inputs (the
+    yardstick; the port never calls it): the time under the default and
+    under each backend, timed in turns (A B C C B A) so that they share the
+    card's state, or why the backend refused the inputs; and the backend
+    the default picks, read from the times: the one whose time is nearest
+    the default's, which must be within ``SDPA_MATCH`` of it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    out = {"ms": {}, "refused": {}}
+    graphs = {}   # name: (output, leaves), the backward kept for timing
+    for backend in (None, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        name = "default" if backend is None else backend.name
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        try:
+            with (contextlib.nullcontext() if backend is None
+                  else sdpa_kernel(backend)):
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            torch.autograd.grad(o, leaves, do, retain_graph=True)
+            graphs[name] = (o, leaves)
+        except RuntimeError as e:
+            out["refused"][name] = str(e).strip().splitlines()[0][:160]
+    turns = {name: [] for name in graphs}
+    for name in list(graphs) + list(graphs)[::-1]:
+        o, leaves = graphs[name]
+        turns[name].append(cuda_ms(torch, lambda: torch.autograd.grad(
+            o, leaves, do, retain_graph=True)))
+    del graphs
+    out["ms"] = {name: sum(t) / len(t) for name, t in turns.items()}
+    ms = dict(out["ms"])
+    default = ms.pop("default", None)
+    if default is None or not ms:
+        fail(f"SDPA's backward did not run on these inputs: {out['refused']}")
+    nearest = min(ms, key=lambda n: abs(ms[n] - default))
+    gap = abs(ms[nearest] - default) / default
+    if gap > SDPA_MATCH:
+        fail(f"SDPA's default backward ({default:.3f} ms) matches no "
+             f"backend's time: {ms}")
+    out.update(default_backend=nearest, default_gap=gap)
+    return out
+
+
+def backward_is_deterministic(torch, ops, q, k, v, o, lse, do, opts) -> bool:
+    """Two runs of the backward pair on the same inputs give the same bits
+    in dq, dk, dv and delta."""
+    runs = []
+    for _ in range(2):
+        dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
+        dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def check_attention(torch, ops):
-    """Phase 3. Returns per-kernel records at the main case's shape."""
+    """Phase 3. Returns per-kernel records at the main case's shape, and the
+    record of the backward pair."""
     F = torch.nn.functional
     records = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -221,6 +291,13 @@ def check_attention(torch, ops):
                      f"{name}: max_abs_err {err:.3e}")
             if name == ATT_MAIN_CASE[0]:
                 records[kname] = {"max_abs_err": err, "tolerance": t}
+        if name in DETERMINISM_CASES:
+            same = backward_is_deterministic(torch, ops, q, k, v, o, lse, do,
+                                             opts)
+            print(f"  case {name:15s} backward pair run twice: dq, dk, dv and "
+                  f"delta {'bit-identical' if same else 'DIFFER'}", flush=True)
+            if not same:
+                fail(f"the backward pair is not deterministic in case {name}")
 
         if name != ATT_MAIN_CASE[0]:
             continue
@@ -264,6 +341,7 @@ def check_attention(torch, ops):
             q, k, v, is_causal=causal))
         lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
             sdpa_out, (ql, kl, vl), do, retain_graph=True))
+        del sdpa_out, ql, kl, vl
         library = {"flash_attn_fwd": lib_fwd, "flash_attn_bwd_dq": lib_bwd,
                    "flash_attn_bwd_dkdv": lib_bwd}
         for kname in kern:
@@ -279,7 +357,38 @@ def check_attention(torch, ops):
                 library_ms=library[kname],
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, L=Lq, D=D, causal=causal,
                            window=window, dtype=dname))
-    return records
+        # the backward pair against SDPA's backward, which computes dq, dk
+        # and dv in one call
+        dq_name, kv_name = "flash_attn_bwd_dq", "flash_attn_bwd_dkdv"
+        sdpa = sdpa_backends(torch, q, k, v, do, causal)
+        pair_ms = cuda_ms(torch, lambda: ops.flash_attn_bwd_cuda(q, k, v, o,
+                                                                 lse, do,
+                                                                 **opts))
+        # the pair's own function: q, k, v, o, dO, lse -> dq, dk, dv,
+        # delta; S, dP, dV, dK and dQ once each (the two kernels form S and
+        # dP twice, a choice of the design that the bound does not count)
+        nbytes, flops = 4 * n_qo + 4 * n_kv + 2 * n_row, 10 * D * pairs
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        pair = {"ms": pair_ms,
+                "dq_ms_plus_dkdv_ms": records[dq_name]["ms"]
+                + records[kv_name]["ms"],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "bytes": nbytes, "flops": flops,
+                # the two kernels' own bounds added: S and dP counted twice
+                "sum_of_kernel_bounds_ms": records[dq_name]["bound_ms"]
+                + records[kv_name]["bound_ms"],
+                "share_of_bound": max(t_bytes, t_ops) / pair_ms,
+                "sdpa_backward_ms": lib_bwd,
+                "sdpa_share_of_bound": max(t_bytes, t_ops) / lib_bwd,
+                "ratio_to_sdpa": pair_ms / lib_bwd,
+                "sdpa_default_backend": sdpa["default_backend"],
+                "sdpa_default_gap": sdpa["default_gap"],
+                "sdpa_backward_ms_by_backend": sdpa["ms"],
+                "sdpa_refused": sdpa["refused"],
+                "shape": records[dq_name]["shape"]}
+    return records, pair
 
 
 def wkv_inputs(torch, B, L, H, hd, logw_kind, seed):
@@ -627,7 +736,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     print("[3/7] attention kernels against their plain versions", flush=True)
-    records = check_attention(torch, aops)
+    records, pair = check_attention(torch, aops)
 
     edl = get_config("edl-paper")
     print("[4/7] edl_paper path: python -m repro_torch.launch.train "
@@ -674,6 +783,7 @@ def main() -> int:
           "the attention kernels (its forward for flash_attn_fwd, its whole "
           "backward for both backward kernels) and null for WKV6, which no "
           "single PyTorch call computes", flush=True)
+    print(json.dumps({"backward_pair": {**pair, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_paths": {
         name: {k: v for k, v in run.items()

@@ -5,6 +5,8 @@ Run them on a machine with a card from the repo root:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,6 +22,16 @@ CASES = [
     (1, 8, 2, 200, 200, 16, True, 32, None, torch.float32, 1e-4),
     (1, 4, 2, 130, 160, 32, False, 0, 150, torch.float32, 1e-4),
     (1, 4, 4, 128, 128, 128, True, 0, None, torch.bfloat16, 2e-2),
+    # the backward's tiles: 64 q rows (dQ), 128 keys (dK/dV) at D <= 64;
+    # lengths at a 128-key tile's edge, one short of it and one past it
+    (1, 2, 2, 127, 127, 64, True, 0, None, torch.float32, 1e-4),
+    (1, 2, 2, 128, 128, 64, True, 0, None, torch.float32, 1e-4),
+    (1, 2, 2, 129, 129, 64, True, 0, None, torch.float32, 1e-4),
+    (1, 2, 2, 65, 127, 64, False, 0, None, torch.float32, 1e-4),
+    (1, 2, 2, 300, 300, 64, True, 100, None, torch.float32, 1e-4),  # window ends inside a tile
+    (2, 8, 2, 256, 256, 64, True, 0, None, torch.float32, 1e-4),    # GQA, G = 4
+    (1, 4, 4, 200, 200, 128, True, 0, None, torch.float32, 1e-4),   # D = 128 fp32
+    (2, 4, 4, 256, 256, 64, True, 0, None, torch.bfloat16, 2e-2),   # bf16 at D = 64
 ]
 
 
@@ -53,6 +65,59 @@ def test_autograd_function_matches_plain(card, B, Hq, Hkv, Lq, Lk, D, causal,
     torch.testing.assert_close(out.float(), o_p.float(), atol=tol, rtol=tol)
     for got, w in zip(grads, want):
         torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
+def test_backward_kernels_are_deterministic(card, Hq, Hkv):
+    """Two runs of the backward pair on the same inputs give the same bits:
+    every element of dq, delta, dk and dv has one owning thread, and no
+    kernel uses atomics."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    B, L, D = 2, 384, 64
+    q, do = (torch.randn((B, Hq, L, D), generator=gen, device=card)
+             for _ in range(2))
+    k, v = (torch.randn((B, Hkv, L, D), generator=gen, device=card)
+            for _ in range(2))
+    opts = dict(causal=True, window=0, scale=D ** -0.5, kv_len=L)
+    o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
+    runs = []
+    for _ in range(2):
+        dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
+        dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
+def test_backward_pair_on_unaligned_inputs(card, Hq, Hkv):
+    """fp32 inputs one element into their storage are contiguous but do not
+    start on a 16-byte boundary: the backward kernels stage them through
+    the threads instead of cp.async, and must agree with the plain versions
+    all the same."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    B, L, D = 1, 200, 64
+
+    def unaligned(*shape):
+        buf = torch.empty(math.prod(shape) + 1, device=card)
+        x = buf[1:].view(shape)
+        x.copy_(torch.randn(shape, generator=gen, device=card))
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        return x
+
+    q, do = unaligned(B, Hq, L, D), unaligned(B, Hq, L, D)
+    k, v = unaligned(B, Hkv, L, D), unaligned(B, Hkv, L, D)
+    opts = dict(causal=True, window=0, scale=D ** -0.5, kv_len=L)
+    o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
+    dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
+    dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
+    torch.cuda.synchronize()
+    dq_p, delta_p = ops.flash_attn_bwd_dq_plain(q, k, v, o, lse, do, **opts)
+    dk_p, dv_p = ops.flash_attn_bwd_dkdv_plain(q, k, v, lse, delta, do,
+                                               **opts)
+    for got, want in ((dq, dq_p), (delta, delta_p), (dk, dk_p), (dv, dv_p)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_warm_up_launches_are_tallied_through_autograd(card):
