@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero:
 3. attention kernels: call each flash-attention kernel's wrapper on CUDA
    tensors at the edl_paper path's shape and at GQA, window, ragged,
    non-causal, head-dim and bf16 cases, and hold it against its plain
-   PyTorch version on the same inputs; run the backward pair twice on the
-   main and GQA cases and require the same bits; time kernel, plain
+   PyTorch version on the same inputs; run the forward and the backward
+   pair twice on the main and GQA cases and require the same bits; time
+   kernel, plain
    version and ``F.scaled_dot_product_attention`` (a yardstick only: the
    port never calls it), and the backward pair against SDPA's backward
    under its default and under each backend that takes fp32
@@ -28,8 +29,9 @@ Phases, in order; any failure exits non-zero:
    (one slot shard at p = 1 and at p = 2), at ragged L, at RWKV6's training
    context, at extreme decays and at head dims 16, 32 and 64, with nonzero
    s0 and dsT, inputs drawn from a seeded CPU generator, and hold it against
-   its plain PyTorch version on the same inputs; time kernel and plain
-   version (no single PyTorch call computes WKV6);
+   its plain PyTorch version on the same inputs; run the forward twice on
+   the main case and require the same bits; time kernel and plain version
+   (no single PyTorch call computes WKV6);
 6. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
    ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, timing the
    host-side init of its parameters; then the same trainer refits one batch
@@ -91,7 +93,8 @@ ATT_CASES = [
 ]
 ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
            "bfloat16": {"fwd": 2e-2, "bwd": 2e-2}}
-# the backward pair runs twice on these cases and must give the same bits
+# the forward and the backward pair run twice on these cases and must give
+# the same bits
 DETERMINISM_CASES = ("main_p1", "gqa")
 
 # name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
@@ -226,16 +229,19 @@ def sdpa_backends(torch, q, k, v, do, causal) -> dict:
     return out
 
 
-def backward_is_deterministic(torch, ops, q, k, v, o, lse, do, opts) -> bool:
-    """Two runs of the backward pair on the same inputs give the same bits
-    in dq, dk, dv and delta."""
-    runs = []
-    for _ in range(2):
-        dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
-        dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
-        runs.append((dq, delta, dk, dv))
+def same_bits_twice(torch, fn) -> bool:
+    """Two calls of ``fn`` (kernel launches returning a tuple of tensors) on
+    the same inputs give the same bits in every output."""
+    runs = [fn() for _ in range(2)]
     torch.cuda.synchronize()
     return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def backward_pair(ops, q, k, v, o, lse, do, opts):
+    """dq, delta, dk and dv from the two backward kernels."""
+    dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
+    dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
+    return dq, delta, dk, dv
 
 
 def check_attention(torch, ops):
@@ -292,12 +298,17 @@ def check_attention(torch, ops):
             if name == ATT_MAIN_CASE[0]:
                 records[kname] = {"max_abs_err": err, "tolerance": t}
         if name in DETERMINISM_CASES:
-            same = backward_is_deterministic(torch, ops, q, k, v, o, lse, do,
-                                             opts)
-            print(f"  case {name:15s} backward pair run twice: dq, dk, dv and "
-                  f"delta {'bit-identical' if same else 'DIFFER'}", flush=True)
-            if not same:
-                fail(f"the backward pair is not deterministic in case {name}")
+            fwd_same = same_bits_twice(
+                torch, lambda: ops.flash_attn_fwd_cuda(q, k, v, **opts))
+            bwd_same = same_bits_twice(torch, lambda: backward_pair(
+                ops, q, k, v, o, lse, do, opts))
+            print(f"  case {name:15s} run twice: forward o and lse "
+                  f"{'bit-identical' if fwd_same else 'DIFFER'}; backward "
+                  f"pair dq, dk, dv and delta "
+                  f"{'bit-identical' if bwd_same else 'DIFFER'}", flush=True)
+            if not (fwd_same and bwd_same):
+                fail(f"the {'forward' if not fwd_same else 'backward pair'} "
+                     f"is not deterministic in case {name}")
 
         if name != ATT_MAIN_CASE[0]:
             continue
@@ -476,6 +487,12 @@ def check_wkv(torch, wops):
 
         if name != WKV_MAIN_CASE[0]:
             continue
+        same = same_bits_twice(
+            torch, lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0))
+        print(f"  case {name:13s} wkv6_fwd run twice: y and sT "
+              f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+        if not same:
+            fail("wkv6_fwd is not deterministic in the main case")
         kern = {
             "wkv6_fwd": lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0),
             "wkv6_bwd_dr": lambda: wops.wkv6_bwd_dr_cuda(r, k, v, logw, u,
@@ -776,7 +793,8 @@ def main() -> int:
                 "path": path, "max_abs_err": r["max_abs_err"],
                 "tolerance": r["tolerance"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "bytes": r["bytes"],
+                "bound_by": r["bound_by"],
+                "share_of_bound": r["bound_ms"] / r["ms"], "bytes": r["bytes"],
                 "flops": r["flops"], "library_ms": r["library_ms"],
                 "shape": r["shape"], "card": card})
     print("[7/7] results; library_ms is F.scaled_dot_product_attention for "

@@ -19,15 +19,23 @@
 // What bounds the forward on an H100: at the trainer's shapes (D = 64,
 // L = 1024, causal, fp32) attention does ~130 (forward, dQ) to ~170 (dK/dV)
 // flops per byte it must move, far above the fp32 ridge of 67 TFLOP/s over
-// 3.35 TB/s = 20, so the bound is the fp32 CUDA-core rate, not HBM. The
-// forward does not reach it: each thread owns a 4 x 4 micro-tile of the
-// 64 x 64 score tile and reads its operands from shared memory, which costs
-// one shared load per two FMAs, so shared-memory bandwidth, not the FMA
-// units, is its limit. It keeps every byte of a tile on chip (one read of q
-// per q tile, one read of k/v per (q tile, kv tile) pair, nothing of the
-// L x L matrix in HBM), pads shared rows to odd strides so the score loop
-// has no bank conflicts, and does the reductions across the 16 threads of a
-// row group with warp shuffles.
+// 3.35 TB/s = 20, so the bound is the fp32 CUDA-core rate, not HBM (TF32 is
+// off). The forward is built from the backward's parts below: a block of 4
+// warps owns a 64-row q tile and streams K and V through the two-stage
+// cp.async ring (threads' own staging for bf16 and unaligned fp32), one
+// block barrier a kv tile, heaviest q tiles first. A warp owns 16 whole q
+// rows (lanes 4 x 8, a 4 x 8 score micro-tile a thread), so the online
+// softmax's row max and row sum are three xor-shuffles over the 8 lanes of
+// a row, P goes to shared memory and back within the warp (__syncwarp), and
+// each thread sums its part of l, closed once at the end. S = Q K^T over d
+// and O += P V over the tile's columns both read float4 operands, 12 LDS.128
+// per 128 FMAs, from tiles swizzled so that a warp's loads hit different
+// banks. ptxas (sm_90a, fp32, D = 64): 250 registers, no spills; 96 KB of
+// shared memory, 2 blocks an SM. It takes 0.47 ms at B = 8, H = 12 (NVIDIA
+// H100 80GB HBM3, 700 W; tools/torch_kernel_bench.py), 41 % of its bound, a
+// little under SDPA's forward: the two products run below the FMA rate for
+// the reason the backward's do (below), and the causal diagonal tiles
+// compute 6 % masked pairs.
 //
 // The backward is bound by the same fp32 FMA rate (6 D flops a visible
 // (query, key) pair for dQ, 8 D for dK/dV; TF32 is off, so no tensor core
@@ -74,7 +82,7 @@
 // LDS.128 per 128 FMAs keep the shared memory busy for most of the cycles
 // the FMAs need, and two warps a scheduler do not hide the loads' latency.
 // ptxas (sm_90a, fp32, D = 64): bwd_dq 240 registers, bwd_dkdv 230, no
-// spills; 2 and 1 blocks an SM (flash_attn_bwd_blocks_per_sm).
+// spills; 2 and 1 blocks an SM (flash_attn_blocks_per_sm).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,12 +93,11 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int BQ = 64;     // q rows per tile
 constexpr int BK = 64;     // kv rows per tile
-constexpr int NT = 256;    // threads per block: a 16 x 16 grid of 4 x 4 micro-tiles
-constexpr int LDS = BK + 4;  // score-tile stride: the two row groups of a warp land 16 banks apart
 
-static_assert(BQ == BK, "the backward's score tiles are 64 columns wide in both kernels");
+static_assert(BQ == BK, "the score tiles are 64 columns wide in every kernel");
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -103,33 +110,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-// Rows [r0, r0 + ROWS) of a row-major [L, D] matrix into shared memory with
-// row stride LD, times mul; rows at or past L are zero.
-template <typename T, int D, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int L, float mul) {
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
-    const int r = idx / D, c = idx % D;
-    float x = 0.f;
-    if (r0 + r < L) x = to_f<T>(src[(size_t)(r0 + r) * D + c]) * mul;
-    dst[r * LD + c] = x;
-  }
-}
-
 __device__ __forceinline__ bool visible(int qp, int kp, int kv_len, int causal, int window) {
   bool ok = kp < kv_len;
   if (causal) ok = ok && qp >= kp;
   if (window > 0) ok = ok && (qp - kp) < window;
   return ok;
-}
-
-// Reductions over the 16 threads (a half warp) that share a row group.
-__device__ __forceinline__ float group_max(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 __device__ __forceinline__ int ceil_div_pos(int n, int d) { return n <= 0 ? 0 : (n + d - 1) / d; }
@@ -142,118 +127,7 @@ __device__ __forceinline__ void kv_tiles(int q0, int kv_len, int causal, int win
   lo = window > 0 ? ceil_div_pos(q0 - window + 2 - BK, BK) : 0;
 }
 
-// ------------------------------------------------------------------ forward
-// grid (q tiles, B * Hq). Thread (ty, tx) owns q rows ty*4 + i, score
-// columns tx + 16*j and output columns tx + 16*j.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                                 const T* __restrict__ v, T* __restrict__ o,
-                                                 float* __restrict__ lse, int Hq, int Hkv, int Lq,
-                                                 int Lk, int kv_len, int causal, int window,
-                                                 float scale) {
-  constexpr int LDQ = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][LDQ], pre-scaled
-  float* Ks = Qs + BQ * LDQ;     // [BK][LDQ]
-  float* Vs = Ks + BK * LDQ;     // [BK][D]
-  float* Ps = Vs + BK * D;       // [BQ][LDS]
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * BQ, bh = blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq, G = Hq / Hkv;
-  const size_t q_off = (size_t)bh * Lq * D;
-  const size_t kv_off = ((size_t)b * Hkv + h / G) * Lk * D;
-
-  load_tile<T, D, BQ, LDQ>(Qs, q + q_off, q0, Lq, scale);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  }
-
-  int lo, hi;
-  kv_tiles(q0, kv_len, causal, window, lo, hi);
-  for (int t = lo; t < hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's reads of Ks/Vs/Ps are done
-    load_tile<T, D, BK, LDQ>(Ks, k + kv_off, k0, Lk, 1.f);
-    load_tile<T, D, BK, D>(Vs, v + kv_off, k0, Lk, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * LDQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * LDQ + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kb[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      float mt = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!visible(qp, k0 + tx + 16 * j, kv_len, causal, window)) s[i][j] = NEG_INF;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      mt = group_max(mt);
-      const float mn = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - mn);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mn);
-        Ps[(ty * 4 + i) * LDS + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + group_sum(rs);
-      m[i] = mn;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4], vb[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * LDS + c];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) vb[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p[i], vb[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= Lq) continue;
-    const float lm = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      o[q_off + (size_t)qp * D + tx + 16 * j] = from_f<T>(acc[i][j] / lm);
-    if (tx == 0) lse[(size_t)bh * Lq + qp] = m[i] + logf(l[i]);
-  }
-}
-
-// ----------------------------------------------------------------- backward
+// -------------------------------------------------------------------- tiles
 // Tiles in shared memory are fp32, row-major with rows of D floats, and
 // chunk c4 (floats 4 c4 .. 4 c4 + 3) of row r stored at chunk
 // c4 ^ ((r >> SH) & M): M = 7 where a row holds 8 chunks or more, else
@@ -434,11 +308,11 @@ __device__ __forceinline__ void tile_product(const float* P, const float* X, con
 // slow axis, walked from the heaviest end (``reverse`` when the work grows
 // with the index), so the heaviest tile of every head is dispatched before
 // any lighter one.
-__device__ __forceinline__ void bwd_block(int n_tiles, bool reverse, int& tile, int& bh) {
+__device__ __forceinline__ void tile_block(int n_tiles, bool reverse, int& tile, int& bh) {
   bh = blockIdx.x;
   tile = reverse ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
 }
-inline dim3 bwd_grid(int n_tiles, int n_heads) { return dim3(n_heads, n_tiles); }
+inline dim3 tile_grid(int n_tiles, int n_heads) { return dim3(n_heads, n_tiles); }
 
 // q tiles [lo, hi) that visit the KR keys starting at k0 (the pairs the
 // forward visits).
@@ -449,6 +323,206 @@ __device__ __forceinline__ void q_tiles(int k0, int Lq, int kv_len, int causal, 
   lo = causal ? ceil_div_pos(k0 - BQ + 1, BQ) : 0;
   if (window > 0) hi = min(hi, (k0 + KR + window - 2) / BQ + 1);
   if (k0 >= kv_len) hi = lo;
+}
+
+// ------------------------------------------------------------------ forward
+// One block per (b, q head, 64-row q tile) of FWD_NT = 128 threads; Q stays
+// and K, V stream through the ring. Warp w owns q rows 16 w .. 16 w + 15
+// whole, so the online softmax's row max and row sum stay inside a warp and
+// P is written and read by the same warp. Lane (ty, tx) = (lane / 8,
+// lane % 8) owns q rows r0 + i, r0 = 16 w + 4 ty, the score columns of
+// chunks tx and tx + 8 (fwd_kcol) and the output columns fwd_col(tx, e).
+// Every tile is swizzled with SH = 2: the 4 rows of Q and P and the 8 rows
+// of K that a warp reads at once get different keys.
+constexpr int FWD_MR = 4;                        // q rows of a thread
+constexpr int FWD_NT = 32 * BQ / (4 * FWD_MR);   // 128: 4 warps of 16 rows
+
+// Score column j (of 8) of the thread in lane column tx.
+__device__ __forceinline__ int fwd_kcol(int tx, int j) { return 4 * (tx + 8 * (j >> 2)) + (j & 3); }
+
+// Output column e of the thread in lane column tx: whole chunks tx + 8 g
+// where a thread owns 4 columns or more, else columns tx * NO + e.
+template <int D>
+__device__ __forceinline__ int fwd_col(int tx, int e) {
+  constexpr int NO = D / 8;
+  if constexpr (NO >= 4) return ((tx + 8 * (e >> 2)) << 2) + (e & 3);
+  else return tx * NO + e;
+}
+
+// s[i][j] = sum_d Q[r0 + i][d] K[fwd_kcol(tx, j)][d]: 12 LDS.128 per 128
+// FMAs.
+template <int D>
+__device__ __forceinline__ void fwd_dots(const float* Qs, const float* Ks, int r0, int tx,
+                                         float (&s)[FWD_MR][8]) {
+#pragma unroll
+  for (int i = 0; i < FWD_MR; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    float4 a[FWD_MR], b[8];
+#pragma unroll
+    for (int i = 0; i < FWD_MR; ++i) a[i] = chunk<D, 2>(Qs, r0 + i, d4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = chunk<D, 2>(Ks, fwd_kcol(tx, j), d4);
+#pragma unroll
+    for (int i = 0; i < FWD_MR; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+      }
+  }
+}
+
+// acc[i][e] += sum_c P[r0 + i][c] V[c][fwd_col(tx, e)] over the 64 columns
+// of P: 12 LDS.128 per 128 FMAs at D = 64.
+template <int D>
+__device__ __forceinline__ void fwd_product(const float* Ps, const float* Vs, int r0, int tx,
+                                            float (&acc)[FWD_MR][D / 8]) {
+  constexpr int NO = D / 8;
+#pragma unroll 4
+  for (int c4 = 0; c4 < BK / 4; ++c4) {
+    float4 a[FWD_MR];
+#pragma unroll
+    for (int i = 0; i < FWD_MR; ++i) a[i] = chunk<BK, 2>(Ps, r0 + i, c4);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int c = c4 * 4 + cc;
+      float x[NO];
+      if constexpr (NO >= 4) {
+#pragma unroll
+        for (int g = 0; g < NO / 4; ++g) {
+          const float4 v = chunk<D, 2>(Vs, c, tx + 8 * g);
+          x[4 * g] = v.x;
+          x[4 * g + 1] = v.y;
+          x[4 * g + 2] = v.z;
+          x[4 * g + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < NO; ++e) {
+          const int col = fwd_col<D>(tx, e);
+          x[e] = Vs[sw<D, 2>(c, col >> 2) + (col & 3)];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < FWD_MR; ++i) {
+        const float p = lane(a[i], cc);
+#pragma unroll
+        for (int e = 0; e < NO; ++e) acc[i][e] = fmaf(p, x[e], acc[i][e]);
+      }
+    }
+  }
+}
+
+// The scores are kept in log2 units, s * scale * log2(e), with masked ones
+// at NEG_INF as they are (so a row that has seen no visible key yet weighs
+// its masked keys alike, as the plain version does), and lse is written in
+// natural units.
+template <typename T, int D>
+__global__ void __launch_bounds__(FWD_NT, 2) fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+    float* __restrict__ lse, int Hq, int Hkv, int Lq, int Lk, int kv_len, int causal, int window,
+    float scale, int async_ok) {
+  constexpr int MR = FWD_MR, NO = D / 8, NTH = FWD_NT, TILE = BQ * D;
+  extern __shared__ float4 fwd_tiles[];
+  float* Qs = reinterpret_cast<float*>(fwd_tiles);  // [BQ][D]
+  float* KVs = Qs + TILE;                           // 2 stages of [BK][D] K, [BK][D] V
+  float* Ps = KVs + 4 * TILE;                       // [BQ][BK]
+  const int lane_id = threadIdx.x & 31, tx = lane_id & 7;
+  const int r0 = 16 * (threadIdx.x >> 5) + 4 * (lane_id >> 3);
+  const float scale_log2 = scale * LOG2E;
+  int u, bh;
+  tile_block((Lq + BQ - 1) / BQ, causal != 0, u, bh);
+  const int q0 = u * BQ;
+  const int b = bh / Hq, h = bh % Hq, G = Hq / Hkv;
+  const size_t q_off = (size_t)bh * Lq * D;
+  const size_t kv_off = ((size_t)b * Hkv + h / G) * Lk * D;
+
+  int lo, hi;
+  kv_tiles(q0, kv_len, causal, window, lo, hi);
+  stage_tile<T, D, BQ, NTH, 2>(Qs, q + q_off, q0, Lq, async_ok);
+  if (lo < hi) {
+    stage_tile<T, D, BK, NTH, 2>(KVs, k + kv_off, lo * BK, Lk, async_ok);
+    stage_tile<T, D, BK, NTH, 2>(KVs + TILE, v + kv_off, lo * BK, Lk, async_ok);
+  }
+  cp_async_commit();
+
+  float m[MR], l[MR], acc[MR][NO];
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NO; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * BK;
+    const float* Ks = KVs + ((t - lo) & 1) * 2 * TILE;
+    const float* Vs = Ks + TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1
+    if (t + 1 < hi) {
+      float* nxt = KVs + ((t + 1 - lo) & 1) * 2 * TILE;
+      stage_tile<T, D, BK, NTH, 2>(nxt, k + kv_off, k0 + BK, Lk, async_ok);
+      stage_tile<T, D, BK, NTH, 2>(nxt + TILE, v + kv_off, k0 + BK, Lk, async_ok);
+    }
+    cp_async_commit();
+
+    // no mask inside the tile: every key before every query, none past kv_len
+    const bool full = (!causal || k0 + BK - 1 <= q0) && window <= 0 && k0 + BK <= kv_len;
+    float s[MR][8];
+    fwd_dots<D>(Qs, Ks, r0, tx, s);
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      const int qp = q0 + r0 + i;
+      float mt = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool vis = full || visible(qp, k0 + fwd_kcol(tx, j), kv_len, causal, window);
+        s[i][j] = vis ? s[i][j] * scale_log2 : NEG_INF;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      // over the row's 8 lanes
+#pragma unroll
+      for (int x = 1; x < 8; x <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, x));
+      const float mn = fmaxf(m[i], mt);
+      const float corr = exp2f(m[i] - mn);
+      float p[8], rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        p[j] = exp2f(s[i][j] - mn);
+        rs += p[j];
+      }
+      l[i] = fmaf(l[i], corr, rs);  // this thread's columns only; summed at the end
+      m[i] = mn;
+      chunk_ref<BK, 2>(Ps, r0 + i, tx) = make_float4(p[0], p[1], p[2], p[3]);
+      chunk_ref<BK, 2>(Ps, r0 + i, tx + 8) = make_float4(p[4], p[5], p[6], p[7]);
+#pragma unroll
+      for (int e = 0; e < NO; ++e) acc[i][e] *= corr;
+    }
+    __syncwarp();  // the warp's rows of P are written
+    fwd_product<D>(Ps, Vs, r0, tx, acc);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int x = 1; x < 8; x <<= 1) li += __shfl_xor_sync(0xffffffffu, li, x);
+    const int qp = q0 + r0 + i;
+    if (qp >= Lq) continue;
+    const float lm = fmaxf(li, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < NO; ++e)
+      o[q_off + (size_t)qp * D + fwd_col<D>(tx, e)] = from_f<T>(acc[i][e] / lm);
+    if (tx == 0) lse[(size_t)bh * Lq + qp] = (m[i] == NEG_INF ? NEG_INF : m[i] * LN2) + logf(li);
+  }
 }
 
 // ------------------------------------------------------------ backward: dQ
@@ -474,7 +548,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::DQ_NT, 1) bwd_dq_kernel(
   const Place pl = place<D>();
   const float scale_log2 = scale * LOG2E;
   int u, bh;
-  bwd_block((Lq + BQ - 1) / BQ, causal != 0, u, bh);
+  tile_block((Lq + BQ - 1) / BQ, causal != 0, u, bh);
   const int q0 = u * BQ;
   const int b = bh / Hq, h = bh % Hq, G = Hq / Hkv;
   const size_t q_off = (size_t)bh * Lq * D;
@@ -598,7 +672,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::KV_NT, 1) bwd_dkdv_kernel(
   const Place pl = place<D>();
   const float scale_log2 = scale * LOG2E;
   int kt, bhk;
-  bwd_block((Lk + KR - 1) / KR, false, kt, bhk);
+  tile_block((Lk + KR - 1) / KR, false, kt, bhk);
   const int k0 = kt * KR;
   const int b = bhk / Hkv, hk = bhk % Hkv, G = Hq / Hkv;
   const size_t kv_off = (size_t)bhk * Lk * D;
@@ -692,27 +766,6 @@ __global__ void __launch_bounds__(BwdCfg<D>::KV_NT, 1) bwd_dkdv_kernel(
   }
 }
 
-constexpr size_t fwd_smem(int D) { return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * LDS); }
-
-template <typename K>
-cudaError_t prepare(K kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
-                int Hkv, int Lq, int Lk, int kv_len, int causal, int window, float scale,
-                cudaStream_t st) {
-  const size_t smem = fwd_smem(D);
-  cudaError_t e = prepare(fwd_kernel<T, D>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Lq + BQ - 1) / BQ, B * Hq);
-  fwd_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Hq,
-                                           Hkv, Lq, Lk, kv_len, causal, window, scale);
-  return cudaGetLastError();
-}
-
-
 template <int D>
 constexpr size_t bwd_dq_smem() { return sizeof(float) * (6 * BQ * D + BQ * BK + 4 * BQ); }
 template <int D>
@@ -724,11 +777,12 @@ static_assert(bwd_dq_smem<128>() <= 232448 && bwd_dkdv_smem<128>() <= 232448 &&
                   bwd_dkdv_smem<64>() <= 232448,
               "a backward block fits in the 227 KB of shared memory a block can use");
 
-// The backward kernels ask for the largest shared-memory carveout, so that
-// two dQ blocks of 112 KB share an SM.
+// The kernels ask for the largest shared-memory carveout, so that two
+// forward blocks of 96 KB, or two dQ blocks of 112 KB, share an SM.
 template <typename K>
-cudaError_t prepare_bwd(K kern, size_t smem) {
-  cudaError_t e = prepare(kern, smem);
+cudaError_t prepare_max_shared(K kern, size_t smem) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
@@ -742,14 +796,33 @@ int can_copy_async(const void* a, const void* b, const void* c, const void* d) {
   return is_f32<T>::value && (any & 15) == 0;
 }
 
+template <int D>
+constexpr size_t fwd_smem() { return sizeof(float) * (5 * BQ * D + BQ * BK); }
+static_assert(fwd_smem<128>() <= 232448,
+              "a forward block fits in the 227 KB of shared memory a block can use");
+
+template <typename T, int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+                int Hkv, int Lq, int Lk, int kv_len, int causal, int window, float scale,
+                cudaStream_t st) {
+  const size_t smem = fwd_smem<D>();
+  cudaError_t e = prepare_max_shared(fwd_kernel<T, D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid = tile_grid((Lq + BQ - 1) / BQ, B * Hq);
+  fwd_kernel<T, D><<<grid, FWD_NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
+                                               lse, Hq, Hkv, Lq, Lk, kv_len, causal, window,
+                                               scale, can_copy_async<T>(q, k, v, q));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, void* dq, float* delta, int B, int Hq, int Hkv, int Lq,
                    int Lk, int kv_len, int causal, int window, float scale, cudaStream_t st) {
   const size_t smem = bwd_dq_smem<D>();
-  cudaError_t e = prepare_bwd(bwd_dq_kernel<T, D>, smem);
+  cudaError_t e = prepare_max_shared(bwd_dq_kernel<T, D>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid = bwd_grid((Lq + BQ - 1) / BQ, B * Hq);
+  const dim3 grid = tile_grid((Lq + BQ - 1) / BQ, B * Hq);
   bwd_dq_kernel<T, D><<<grid, BwdCfg<D>::DQ_NT, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, (T*)dq, delta, Hq,
       Hkv, Lq, Lk, kv_len, causal, window, scale, can_copy_async<T>(q, k, v, dout));
@@ -762,9 +835,9 @@ cudaError_t bwd_dkdv(const void* q, const void* k, const void* v, const void* do
                      int Hkv, int Lq, int Lk, int kv_len, int causal, int window, float scale,
                      cudaStream_t st) {
   const size_t smem = bwd_dkdv_smem<D>();
-  cudaError_t e = prepare_bwd(bwd_dkdv_kernel<T, D>, smem);
+  cudaError_t e = prepare_max_shared(bwd_dkdv_kernel<T, D>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid = bwd_grid((Lk + BwdCfg<D>::KR - 1) / BwdCfg<D>::KR, B * Hkv);
+  const dim3 grid = tile_grid((Lk + BwdCfg<D>::KR - 1) / BwdCfg<D>::KR, B * Hkv);
   bwd_dkdv_kernel<T, D><<<grid, BwdCfg<D>::KV_NT, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, Hq, Hkv,
       Lq, Lk, kv_len, causal, window, scale, can_copy_async<T>(q, k, v, dout));
@@ -818,11 +891,15 @@ int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void*
 
 const char* flash_attn_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Blocks of each backward kernel that fit on one SM at once, fp32 at
-// head_dim 64 (the edl_paper path): the occupancy the design counts on.
-int flash_attn_bwd_blocks_per_sm(int* dq_blocks, int* dkdv_blocks) {
-  cudaError_t e = prepare_bwd(bwd_dq_kernel<float, 64>, bwd_dq_smem<64>());
-  if (e == cudaSuccess) e = prepare_bwd(bwd_dkdv_kernel<float, 64>, bwd_dkdv_smem<64>());
+// Blocks of each kernel that fit on one SM at once, fp32 at head_dim 64 (the
+// edl_paper path): the occupancy the design counts on.
+int flash_attn_blocks_per_sm(int* fwd_blocks, int* dq_blocks, int* dkdv_blocks) {
+  cudaError_t e = prepare_max_shared(fwd_kernel<float, 64>, fwd_smem<64>());
+  if (e == cudaSuccess) e = prepare_max_shared(bwd_dq_kernel<float, 64>, bwd_dq_smem<64>());
+  if (e == cudaSuccess) e = prepare_max_shared(bwd_dkdv_kernel<float, 64>, bwd_dkdv_smem<64>());
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(fwd_blocks, fwd_kernel<float, 64>, FWD_NT,
+                                                      fwd_smem<64>());
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dq_blocks, bwd_dq_kernel<float, 64>,
                                                       BwdCfg<64>::DQ_NT, bwd_dq_smem<64>());
@@ -831,6 +908,5 @@ int flash_attn_bwd_blocks_per_sm(int* dq_blocks, int* dkdv_blocks) {
         dkdv_blocks, bwd_dkdv_kernel<float, 64>, BwdCfg<64>::KV_NT, bwd_dkdv_smem<64>());
   return (int)e;
 }
-
 
 }  // extern "C"

@@ -89,6 +89,15 @@ def test_backward_kernels_are_deterministic(card, Hq, Hkv):
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
+def unaligned_randn(gen, card, *shape, scale=1.0):
+    """Seeded values in a contiguous view one element into its storage: it
+    does not start on a 16-byte boundary."""
+    buf = torch.empty(math.prod(shape) + 1, device=card)
+    x = buf[1:].view(shape)
+    x.copy_(torch.randn(shape, generator=gen, device=card) * scale)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    return x
+
 
 @pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
 def test_backward_pair_on_unaligned_inputs(card, Hq, Hkv):
@@ -98,16 +107,8 @@ def test_backward_pair_on_unaligned_inputs(card, Hq, Hkv):
     all the same."""
     gen = torch.Generator(device=card).manual_seed(4)
     B, L, D = 1, 200, 64
-
-    def unaligned(*shape):
-        buf = torch.empty(math.prod(shape) + 1, device=card)
-        x = buf[1:].view(shape)
-        x.copy_(torch.randn(shape, generator=gen, device=card))
-        assert x.is_contiguous() and x.data_ptr() % 16 != 0
-        return x
-
-    q, do = unaligned(B, Hq, L, D), unaligned(B, Hq, L, D)
-    k, v = unaligned(B, Hkv, L, D), unaligned(B, Hkv, L, D)
+    q, do = (unaligned_randn(gen, card, B, Hq, L, D) for _ in range(2))
+    k, v = (unaligned_randn(gen, card, B, Hkv, L, D) for _ in range(2))
     opts = dict(causal=True, window=0, scale=D ** -0.5, kv_len=L)
     o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
     dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
@@ -173,3 +174,39 @@ def test_wkv6_function_matches_plain(card, B, L, H, hd, spread):
     for got, w in zip((y, sT, *grads), (y_p, sT_p, *want)):
         torch.testing.assert_close(got, w, atol=WKV_TOL * float(w.abs().max()),
                                    rtol=WKV_TOL)
+
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_forward_kernels_are_deterministic_and_match_plain(card, aligned):
+    """flash_attn_fwd (GQA, G = 4) and wkv6_fwd give the same bits on two
+    runs and agree with their plain versions, on 16-byte aligned inputs
+    (cp.async staging) and on inputs that are not (the threads' own
+    staging)."""
+    from repro_torch.kernels.rwkv import ops as wkv_ops
+
+    gen = torch.Generator(device=card).manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        if aligned:
+            return torch.randn(shape, generator=gen, device=card) * scale
+        return unaligned_randn(gen, card, *shape, scale=scale)
+
+    B, L, D = 2, 300, 64
+    q, k, v = rnd(B, 8, L, D), rnd(B, 2, L, D), rnd(B, 2, L, D)
+    opts = dict(causal=True, window=0, scale=D ** -0.5, kv_len=L)
+    runs = [ops.flash_attn_fwd_cuda(q, k, v, **opts) for _ in range(2)]
+    o_p, lse_p = ops.flash_attn_fwd_plain(q, k, v, **opts)
+    r, kk, vv = rnd(B, 77, 4, 64), rnd(B, 77, 4, 64), rnd(B, 77, 4, 64)
+    logw = -torch.exp(rnd(B, 77, 4, 64))
+    u, s0 = rnd(4, 64, scale=0.3), rnd(B, 4, 64, 64, scale=0.1)
+    wruns = [wkv_ops.wkv6_fwd_cuda(r, kk, vv, logw, u, s0) for _ in range(2)]
+    y_p, sT_p = wkv_ops.wkv6_fwd_plain(r, kk, vv, logw, u, s0)
+    torch.cuda.synchronize()
+    for a, b in (*zip(*runs), *zip(*wruns)):
+        assert torch.equal(a, b)
+    for got, want in zip(runs[0], (o_p, lse_p)):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    for got, want in zip(wruns[0], (y_p, sT_p)):
+        torch.testing.assert_close(got, want, rtol=WKV_TOL,
+                                   atol=WKV_TOL * float(want.abs().max()))

@@ -1,16 +1,19 @@
-"""The flash-attention backward kernels' CUDA source, run on the CPU.
+"""The hand-written CUDA kernels' sources, run on the CPU.
 
-``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv`` of
-``src/repro_torch/kernels/csrc/flash_attn.cu`` are translated into C++
+``flash_attn_fwd``, ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv`` of
+``src/repro_torch/kernels/csrc/flash_attn.cu`` and ``wkv6_fwd`` of
+``src/repro_torch/kernels/csrc/wkv6.cu`` are translated into C++
 (each CUDA thread a ``std::thread``; ``__syncthreads``, the 64-thread
 ``bar.sync`` and warp shuffles as barriers; ``cp.async`` as copies done at
 the wait, or at the issue, so that a ring stage read too early or
 overwritten too soon shows), built with g++, and held against the plain
-PyTorch versions at small shapes: tile edges, GQA, windows, ``kv_len``,
-head dims 16 to 128, bf16, rows that are not 16-byte aligned, and two runs
-that must give the same bits. It checks the kernels' indexing and
-synchronisation, not their speed, and knows only the CUDA features that
-source uses: a new asm construct there needs a stand-in in ``REWRITES``.
+PyTorch versions at small shapes: for attention tile edges, GQA, windows,
+``kv_len``, head dims 16 to 128 and bf16; for WKV6 ragged L, head dims 16
+to 64, extreme decays and a nonzero s0; for both rows that are not 16-byte
+aligned, and two runs that must give the same bits. It checks the kernels'
+indexing and synchronisation, not their speed, and knows only the CUDA
+features those sources use: a new asm construct there needs a stand-in in
+``REWRITES``.
 Run from the repo root:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_emulate.py
@@ -26,9 +29,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.rwkv import ops as wops
 
-SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-          / "kernels" / "csrc" / "flash_attn.cu")
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 
 CUDA_RUNTIME_H = r"""// CPU emulation of the CUDA features the kernels use: one std::thread per
 // CUDA thread, barriers for __syncthreads and warp shuffles, cp.async as
@@ -146,9 +149,10 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fff + ((u >> 16) & 1); return {(uint16_t)(u >> 16)}; }
 """
 
-# CUDA constructs of flash_attn.cu and their C++ stand-ins
+# CUDA constructs of the sources and their C++ stand-ins. A static
+# __shared__ array becomes a static one: blocks run one at a time.
 REWRITES = [
-    (r"(\w+<T, D>)<<<(.*?)>>>\(", r"emu_launch(\2, \1, "),
+    (r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", r"emu_launch(\2, \1, "),
     (r'asm volatile\("bar\.sync.*?"r"\((.*?)\), "r"\((.*?)\).*?"memory"\);',
      r"emu_bar_sync(\1, \2);"),
     (r'asm volatile\("cp\.async\.cg.*?"memory"\);', "emu_cp(dst, src, 16);"),
@@ -156,20 +160,22 @@ REWRITES = [
     (r'asm volatile\("cp\.async\.commit_group.*?"memory"\);', "emu_commit();"),
     (r'asm volatile\("cp\.async\.wait_group.*?"memory"\);', "emu_wait();"),
     (r"extern __shared__ (float4?) (\w+)\[\];", r"\1* \2 = (\1*)emu_smem();"),
+    (r"__shared__ float ", "static float "),
 ]
 
 
-def build(out: Path, flags: list[str]) -> Path:
-    """The translated source as a shared library, built into ``out``."""
+def build(source: str, out: Path, flags: list[str]) -> Path:
+    """The translated ``csrc/<source>.cu`` as a shared library, built into
+    ``out``."""
     out.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
-    src = SOURCE.read_text()
+    src = (CSRC / f"{source}.cu").read_text()
     for pat, rep in REWRITES:
         src = re.sub(pat, rep, src, flags=re.S)
-    left = [m for m in ("asm", "<<<") if m in src]
-    assert not left, f"no CPU stand-in for {left} in {SOURCE.name}"
-    cpp, lib = out / "flash_attn_emu.cpp", out / "libflash_attn_emu.so"
+    left = [m for m in ("asm", "<<<", "__shared__") if m in src]
+    assert not left, f"no CPU stand-in for {left} in {source}.cu"
+    cpp, lib = out / f"{source}_emu.cpp", out / f"lib{source}_emu.so"
     cpp.write_text(src)
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     f"-I{out}", "-Wno-unknown-pragmas", *flags, "-o", str(lib),
@@ -177,17 +183,52 @@ def build(out: Path, flags: list[str]) -> Path:
     return lib
 
 
-@pytest.fixture(scope="module", params=["copy_at_wait", "copy_at_issue"])
-def emu(request, tmp_path_factory):
+def load(request, tmp_path_factory, source: str, signatures: dict):
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the translated kernels")
     flags = ["-DEMU_COPY_AT_ISSUE"] if request.param == "copy_at_issue" else []
-    lib = ctypes.CDLL(str(build(tmp_path_factory.mktemp(request.param),
-                                flags)))
-    for name, argtypes in ops._SIGNATURES.items():
+    lib = ctypes.CDLL(str(build(source, tmp_path_factory.mktemp(
+        f"{source}-{request.param}"), flags)))
+    for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module", params=["copy_at_wait", "copy_at_issue"])
+def emu(request, tmp_path_factory):
+    return load(request, tmp_path_factory, "flash_attn", ops._SIGNATURES)
+
+
+@pytest.fixture(scope="module", params=["copy_at_wait", "copy_at_issue"])
+def wkv_emu(request, tmp_path_factory):
+    return load(request, tmp_path_factory, "wkv6", wops._SIGNATURES)
+
+
+def unaligned(x):
+    """A copy of x as a view one element into its storage, so that its rows
+    do not start on a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+def randn(gen, shape, dtype=torch.float32, offset=False, scale=1.0):
+    """Seeded normal values, ``unaligned`` with ``offset``."""
+    x = (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return unaligned(x) if offset else x
+
+
+def within(pairs, tol) -> tuple[float, bool]:
+    """(worst |a - b|, whether every a is finite and within tol (1 + |b|))
+    over (kernel, plain) output pairs."""
+    worst, ok = 0.0, True
+    for a, b in pairs:
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()))
+        ok &= bool((err <= tol * (1 + b.abs())).all()) and bool(a.isfinite().all())
+    return worst, ok
 
 
 def run(lib, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype, tol,
@@ -197,12 +238,7 @@ def run(lib, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype, tol,
     gen = torch.Generator().manual_seed(seed)
 
     def rnd(*shape):
-        x = torch.randn(shape, generator=gen).to(dtype)
-        if offset:   # one element into its storage: rows not 16-byte aligned
-            buf = torch.empty(x.numel() + 1, dtype=dtype)
-            buf[1:] = x.reshape(-1)
-            x = buf[1:].view(shape)
-        return x
+        return randn(gen, shape, dtype, offset)
 
     q, do = rnd(B, Hq, Lq, D), rnd(B, Hq, Lq, D)
     k, v = rnd(B, Hkv, Lk, D), rnd(B, Hkv, Lk, D)
@@ -220,13 +256,34 @@ def run(lib, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype, tol,
         assert err == 0, f"{fn} returned {err}"
     dq_p, delta_p = ops.flash_attn_bwd_dq_plain(q, k, v, o, lse, do, **opts)
     dk_p, dv_p = ops.flash_attn_bwd_dkdv_plain(q, k, v, lse, delta, do, **opts)
-    worst, ok = 0.0, True
-    for a, b in ((dq, dq_p), (delta, delta_p), (dk, dk_p), (dv, dv_p)):
-        a, b = a.float(), b.float()
-        err = (a - b).abs()
-        worst = max(worst, float(err.max()))
-        ok &= bool((err <= tol * (1 + b.abs())).all()) and bool(a.isfinite().all())
+    worst, ok = within(((dq, dq_p), (delta, delta_p), (dk, dk_p), (dv, dv_p)),
+                       tol)
     return worst, ok, (dq, delta, dk, dv)
+
+
+# chip_smoke.py's forward tolerances
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def run_fwd(lib, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype,
+            offset=False, seed=0):
+    """The forward kernel on seeded inputs, against the plain version: o
+    and lse. Returns (worst |error|, whether within tolerance, outputs)."""
+    gen = torch.Generator().manual_seed(seed)
+    q = randn(gen, (B, Hq, Lq, D), dtype, offset)
+    k, v = (randn(gen, (B, Hkv, Lk, D), dtype, offset) for _ in range(2))
+    kv_len = Lk if kv_len is None else kv_len
+    scale = D ** -0.5
+    o, lse = torch.empty_like(q), torch.empty(B, Hq, Lq)
+    err = lib.flash_attn_fwd(*[t.data_ptr() for t in (q, k, v, o, lse)], B, Hq,
+                             Hkv, Lq, Lk, D, kv_len, int(causal), window,
+                             scale, DTYPES[dtype], None)
+    assert err == 0, f"flash_attn_fwd returned {err}"
+    o_p, lse_p = ops.flash_attn_fwd_plain(q, k, v, causal=causal,
+                                          window=window, scale=scale,
+                                          kv_len=kv_len)
+    worst, ok = within(((o, o_p), (lse, lse_p)), FWD_TOL[dtype])
+    return worst, ok, (o, lse)
 
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -267,4 +324,85 @@ def test_backward_kernels_on_unaligned_rows(emu):
 def test_backward_kernels_give_the_same_bits_twice(emu):
     runs = [run(emu, 1, 4, 2, 192, 192, 64, True, 0, None, F32, 1e-4,
                 seed=3)[2] for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c[:10]))
+def test_forward_kernel_matches_plain(emu, case):
+    worst, ok, _ = run_fwd(emu, *case[:10])
+    assert ok, f"max_abs_err {worst:.2e} over tolerance {FWD_TOL[case[9]]}"
+
+
+def test_forward_kernel_on_unaligned_rows(emu):
+    """The threads' own staging instead of cp.async, as for the backward."""
+    worst, ok, _ = run_fwd(emu, 1, 4, 2, 130, 130, 64, True, 0, None, F32,
+                           offset=True)
+    assert ok, f"max_abs_err {worst:.2e} over tolerance 2e-5"
+
+
+def test_forward_kernel_gives_the_same_bits_twice(emu):
+    runs = [run_fwd(emu, 1, 4, 2, 192, 192, 64, True, 0, None, F32,
+                    seed=3)[2] for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# chip_smoke.py's WKV6 tolerance: each output within this share of the plain
+# output's largest entry
+WKV_TOL = 1e-4
+
+
+def run_wkv(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
+    """``wkv6_fwd`` on seeded inputs with a nonzero s0, against the plain
+    version: y and sT. Returns (worst error over the plain output's largest
+    entry, outputs)."""
+    gen = torch.Generator().manual_seed(seed)
+    r, k, v = (randn(gen, (B, L, H, hd), offset=offset) for _ in range(3))
+    if logw_kind == "model":   # the range the model's clip allows
+        logw = -torch.exp(torch.clamp(randn(gen, (B, L, H, hd), scale=2.0),
+                                      -8.0, 4.0))
+    else:
+        logw = torch.full((B, L, H, hd), float(logw_kind))
+    if offset:
+        logw = unaligned(logw)
+    u = randn(gen, (H, hd), scale=0.5)
+    s0 = randn(gen, (B, H, hd, hd), scale=0.1)
+    y, sT = torch.empty(B, L, H, hd), torch.empty(B, H, hd, hd)
+    err = lib.wkv6_fwd(*[t.data_ptr() for t in (r, k, v, logw, u, s0, y, sT)],
+                       B, L, H, hd, None)
+    assert err == 0, f"wkv6_fwd returned {err}"
+    y_p, sT_p = wops.wkv6_fwd_plain(r, k, v, logw, u, s0)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in ((y, y_p), (sT, sT_p)))
+    finite = bool(y.isfinite().all()) and bool(sT.isfinite().all())
+    return (rel if finite else float("inf")), (y, sT)
+
+
+WKV_CASES = [  # B, L, H, hd, logw
+    (1, 37, 2, 64, "model"),      # two stages and a ragged third
+    (2, 16, 1, 64, "model"),      # one whole stage
+    (1, 1, 2, 64, "model"),
+    (1, 17, 1, 64, -20.0),
+    (1, 33, 1, 64, -1e-4),
+    (2, 41, 2, 32, "model"),
+    (2, 50, 3, 16, "model"),
+    (1, 20, 2, 16, -20.0),
+]
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_wkv6_forward_kernel_matches_plain(wkv_emu, case):
+    rel, _ = run_wkv(wkv_emu, *case)
+    assert rel <= WKV_TOL, f"error {rel:.2e} of the largest plain entry"
+
+
+def test_wkv6_forward_kernel_on_unaligned_rows(wkv_emu):
+    """Tensors that do not start on a 16-byte boundary: the threads' own
+    staging instead of cp.async."""
+    rel, _ = run_wkv(wkv_emu, 1, 37, 2, 64, "model", offset=True)
+    assert rel <= WKV_TOL, f"error {rel:.2e} of the largest plain entry"
+
+
+def test_wkv6_forward_kernel_gives_the_same_bits_twice(wkv_emu):
+    runs = [run_wkv(wkv_emu, 2, 35, 2, 64, "model", seed=5)[1] for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Time the port's hand-written kernels on the card against an earlier source.
+
+Builds ``src/repro_torch/kernels/csrc/{flash_attn,wkv6}.cu`` with the flags
+of ``kernels/build.py`` and, with ``--baseline-rev REV``, the same files at
+git revision REV (read with ``git show``, and kept under
+``build/kernel_bench/src-REV/`` so that a copy of the checkout without its
+git history finds them there), plus any ``--variant NAME=FILE`` (a
+``flash_attn*.cu`` or ``wkv6*.cu`` to try), one nvcc per source, all
+started together. Prints each kernel's registers and spills from
+``-Xptxas -v`` and the blocks per SM that each build reports. Each build is
+checked against the plain versions (and for the same bits on two runs) at
+the main shapes, then ``flash_attn_fwd``, the backward pair (dq then dkdv)
+and ``wkv6_fwd`` are timed with CUDA events, the builds in turns (A B B A)
+so that they share the card's state, beside
+``F.scaled_dot_product_attention``'s forward and backward on the same
+inputs (a yardstick; the port never calls it). Shapes: one slot shard of
+the edl_paper path (B 8 at p = 1, 4 at p = 2; H 12, L 1024, D 64, fp32,
+causal) and of the rwkv6 path (B 8 / 4, L 1024, H 32, hd 64, fp32). Prints
+one JSON line per shape, then the whole record, which it also writes to
+``--out``. Run from the repo root on a machine with a card:
+
+    python3 tools/torch_kernel_bench.py [--baseline-rev REV] [--variant NAME=FILE] [--reps 20]
+"""
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+FAMILIES = {"flash_attn": "flash_attn.cu", "wkv6": "wkv6.cu"}
+ATT_SHAPES = {"edl_p1": (8, 12, 1024, 64), "edl_p2": (4, 12, 1024, 64)}
+WKV_SHAPES = {"rwkv_p1": (8, 1024, 32, 64), "rwkv_p2": (4, 1024, 32, 64)}
+ATT_TOL = {"fwd": 2e-5, "bwd": 1e-4}   # chip_smoke.py's fp32 tolerances
+WKV_TOL = 1e-4                        # of the plain output's largest entry
+# the kernels whose registers are reported: fp32 at head dim 64
+PTXAS_KERNELS = {"flash_attn": ("fwd_kernelIfLi64E", "bwd_dq_kernelIfLi64E",
+                                "bwd_dkdv_kernelIfLi64E"),
+                 "wkv6": ("wkv6_fwd_kernelILi64E",)}
+
+
+def baseline_sources(rev: str) -> dict:
+    """{family: path} of the sources at ``rev``, from git or from the copy
+    an earlier run kept."""
+    keep = ROOT / "build" / "kernel_bench" / f"src-{rev}"
+    out = {}
+    for fam, fname in FAMILIES.items():
+        path = keep / fname
+        got = subprocess.run(["git", "-C", str(ROOT), "show",
+                              f"{rev}:src/repro_torch/kernels/csrc/{fname}"],
+                             capture_output=True, text=True)
+        if got.returncode == 0:
+            keep.mkdir(parents=True, exist_ok=True)
+            path.write_text(got.stdout)
+        elif not path.exists():
+            raise SystemExit(f"no {fname} at {rev}: no git history here and "
+                             f"no copy in {keep} (run once with git to keep it)")
+        out[fam] = path
+    return out
+
+
+def ptxas_summary(log: str, marks) -> dict:
+    """{kernel mark: {"registers", "spill_stores", "spill_loads"}} from
+    nvcc's ``-Xptxas -v`` log."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = next((k for k in marks if k in m.group(1)), None)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(entry, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def build_all(builds: dict) -> dict:
+    """Compile {build: {family: source}}; returns {build: {family: (CDLL,
+    ptxas summary)}}."""
+    from repro_torch.kernels import build as kbuild
+    nvcc = kbuild.nvcc_path()
+    out_dir = ROOT / "build" / "kernel_bench"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, fams in builds.items():
+        for fam, src in fams.items():
+            lib = out_dir / f"lib{fam}-{name}.so"
+            cmd = [nvcc, *kbuild.NVCC_FLAGS, "-o", str(lib), str(src)]
+            procs[name, fam] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), lib)
+    libs = {name: {} for name in builds}
+    for (name, fam), (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name} {fam}:\n{log[-4000:]}")
+        libs[name][fam] = (ctypes.CDLL(str(lib)),
+                           ptxas_summary(log, PTXAS_KERNELS[fam]))
+    return libs
+
+
+def typed(lib, fam):
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.kernels.rwkv import ops as wops
+    sigs = aops._SIGNATURES if fam == "flash_attn" else wops._SIGNATURES
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def blocks_per_sm(lib, fam) -> dict | None:
+    """What the build's occupancy entry point reports, where it has one."""
+    if fam == "flash_attn" and hasattr(lib, "flash_attn_blocks_per_sm"):
+        n = [ctypes.c_int() for _ in range(3)]
+        err = lib.flash_attn_blocks_per_sm(*(ctypes.byref(x) for x in n))
+        keys = ("fwd", "dq", "dkdv")
+    elif fam == "flash_attn" and hasattr(lib, "flash_attn_bwd_blocks_per_sm"):
+        n = [ctypes.c_int() for _ in range(2)]
+        err = lib.flash_attn_bwd_blocks_per_sm(*(ctypes.byref(x) for x in n))
+        keys = ("dq", "dkdv")
+    elif fam == "wkv6" and hasattr(lib, "wkv6_fwd_blocks_per_sm"):
+        n = [ctypes.c_int()]
+        err = lib.wkv6_fwd_blocks_per_sm(ctypes.byref(n[0]))
+        keys = ("wkv6_fwd",)
+    else:
+        return None
+    if err:
+        raise RuntimeError(f"{fam} blocks-per-SM query: cudaError {err}")
+    return {k: x.value for k, x in zip(keys, n)}
+
+
+def call(lib, fn, *args):
+    err = getattr(lib, fn)(*args)
+    if err:
+        raise RuntimeError(f"{fn}: cudaError {err}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline-rev", help="git revision whose sources to time")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=FILE: another flash_attn*.cu or wkv6*.cu")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default=str(ROOT / "build" / "kernel_bench.json"))
+    args = ap.parse_args(argv)
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    builds = {"new": {f: csrc / n for f, n in FAMILIES.items()}}
+    if args.baseline_rev:
+        builds["base"] = baseline_sources(args.baseline_rev)
+    for v in args.variant:
+        name, path = v.split("=", 1)
+        fam = next(f for f in FAMILIES if Path(path).name.startswith(f))
+        builds[name] = {fam: Path(path).resolve()}
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.kernels.rwkv import ops as wops
+    F = torch.nn.functional
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+    t0 = time.monotonic()
+    libs = build_all(builds)
+    print(f"built {sorted(libs)} in {time.monotonic() - t0:.1f} s; {card}",
+          flush=True)
+    result = {"card": card, "reps": args.reps, "baseline_rev": args.baseline_rev,
+              "sources": {n: {f: str(p) for f, p in b.items()}
+                          for n, b in builds.items()},
+              "ptxas": {}, "blocks_per_sm": {}, "max_err": {}, "shapes": {}}
+    for name, fams in libs.items():
+        for fam, (lib, ptx) in fams.items():
+            typed(lib, fam)
+            result["ptxas"].setdefault(name, {}).update(ptx)
+            result["blocks_per_sm"].setdefault(name, {})[fam] = blocks_per_sm(lib, fam)
+        print(f"  {name}: ptxas {result['ptxas'][name]}; blocks per SM "
+              f"{result['blocks_per_sm'][name]}", flush=True)
+
+    def timed(fn) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(args.reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / args.reps
+
+    stream = torch.cuda.current_stream().cuda_stream
+    order = list(libs) + list(libs)[::-1]
+    for sname, (B, H, L, D) in ATT_SHAPES.items():
+        att = [n for n in libs if "flash_attn" in libs[n]]
+        if not att:
+            break
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, do = (torch.randn((B, H, L, D), generator=gen, device="cuda")
+                       for _ in range(4))
+        scale = D ** -0.5
+        opts = dict(causal=True, window=0, scale=scale, kv_len=L)
+        dims = [B, H, H, L, L, D, L, 1, 0]
+        o, lse = torch.empty_like(q), torch.empty((B, H, L), device="cuda")
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        delta = torch.empty((B, H, L), device="cuda")
+        o_p, lse_p = aops.flash_attn_fwd_plain(q, k, v, **opts)
+
+        def fwd(lib):
+            call(lib, "flash_attn_fwd", *[t.data_ptr() for t in (q, k, v, o, lse)],
+                 *dims, scale, 0, stream)
+
+        def pair(lib):
+            call(lib, "flash_attn_bwd_dq", *[t.data_ptr() for t in (
+                q, k, v, o_p, do, lse_p, dq, delta)], *dims, scale, 0, stream)
+            call(lib, "flash_attn_bwd_dkdv", *[t.data_ptr() for t in (
+                q, k, v, do, lse_p, delta, dk, dv)], *dims, scale, 0, stream)
+
+        if sname == "edl_p1":   # each build against the plain versions
+            dq_p, delta_p = aops.flash_attn_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                                         **opts)
+            dk_p, dv_p = aops.flash_attn_bwd_dkdv_plain(q, k, v, lse_p, delta_p,
+                                                        do, **opts)
+            for name in att:
+                lib = libs[name]["flash_attn"][0]
+                runs = []
+                for _ in range(2):
+                    fwd(lib)
+                    pair(lib)
+                    torch.cuda.synchronize()
+                    runs.append([t.clone() for t in (o, lse, dq, delta, dk, dv)])
+                errs = {}
+                for kname, got, want, tol in (
+                        ("fwd", runs[0][:2], (o_p, lse_p), ATT_TOL["fwd"]),
+                        ("pair", runs[0][2:], (dq_p, delta_p, dk_p, dv_p),
+                         ATT_TOL["bwd"])):
+                    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                    ok = all(bool(((a - b).abs() <= tol * (1 + b.abs())).all())
+                             for a, b in zip(got, want))
+                    if not ok:
+                        print(f"{name} {kname} disagrees with its plain version: "
+                              f"max_abs_err {err:.3e}", file=sys.stderr)
+                        return 1
+                    errs[kname] = err
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    print(f"{name}: two runs differ", file=sys.stderr)
+                    return 1
+                result["max_err"].setdefault(name, {}).update(errs)
+            del dq_p, delta_p, dk_p, dv_p, runs
+
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        times = {n: {"fwd": [], "pair": []} for n in att}
+        sdpa = {"fwd": [], "bwd": []}
+        for name in order:
+            if name not in att:
+                continue
+            lib = libs[name]["flash_attn"][0]
+            times[name]["fwd"].append(timed(lambda: fwd(lib)))
+            times[name]["pair"].append(timed(lambda: pair(lib)))
+            sdpa["fwd"].append(timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)))
+            sdpa["bwd"].append(timed(lambda: torch.autograd.grad(
+                out, (ql, kl, vl), do, retain_graph=True)))
+        del out, ql, kl, vl
+        result["shapes"][sname] = {
+            "B": B, "H": H, "L": L, "D": D,
+            "ms": {n: {w: sum(x) / len(x) for w, x in t.items()}
+                   for n, t in times.items()},
+            "ms_each_turn": times,
+            "sdpa_ms": {w: sum(x) / len(x) for w, x in sdpa.items()},
+            "sdpa_ms_each_turn": sdpa}
+        print(json.dumps({sname: result["shapes"][sname]["ms"],
+                          "sdpa_ms": result["shapes"][sname]["sdpa_ms"]}),
+              flush=True)
+
+    for sname, (B, L, H, hd) in WKV_SHAPES.items():
+        wkv = [n for n in libs if "wkv6" in libs[n]]
+        if not wkv:
+            break
+        gen = torch.Generator().manual_seed(0)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen) * scale).cuda()
+
+        r, k, v = rnd(B, L, H, hd), rnd(B, L, H, hd), rnd(B, L, H, hd)
+        logw = -torch.exp(torch.clamp(rnd(B, L, H, hd, scale=2.0), -8.0, 4.0))
+        u, s0 = rnd(H, hd, scale=0.5), rnd(B, H, hd, hd, scale=0.1)
+        y, sT = torch.empty_like(r), torch.empty_like(s0)
+
+        def wfwd(lib):
+            call(lib, "wkv6_fwd", *[t.data_ptr() for t in (r, k, v, logw, u, s0, y, sT)],
+                 B, L, H, hd, stream)
+
+        if sname == "rwkv_p1":
+            want = wops.wkv6_fwd_plain(r, k, v, logw, u, s0)
+            for name in wkv:
+                lib = libs[name]["wkv6"][0]
+                runs = []
+                for _ in range(2):
+                    wfwd(lib)
+                    torch.cuda.synchronize()
+                    runs.append((y.clone(), sT.clone()))
+                rel = max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(runs[0], want))
+                if not rel <= WKV_TOL:
+                    print(f"{name} wkv6_fwd disagrees with its plain version: "
+                          f"{rel:.3e} of the largest entry", file=sys.stderr)
+                    return 1
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    print(f"{name}: two wkv6_fwd runs differ", file=sys.stderr)
+                    return 1
+                result["max_err"].setdefault(name, {})["wkv6_fwd_rel"] = rel
+            del want, runs
+        times = {n: [] for n in wkv}
+        for name in order:
+            if name in wkv:
+                lib = libs[name]["wkv6"][0]
+                times[name].append(timed(lambda: wfwd(lib)))
+        result["shapes"][sname] = {
+            "B": B, "L": L, "H": H, "hd": hd,
+            "ms": {n: {"wkv6_fwd": sum(x) / len(x)} for n, x in times.items()},
+            "ms_each_turn": times}
+        print(json.dumps({sname: result["shapes"][sname]["ms"]}), flush=True)
+
+    print(f"max errors against the plain versions: {json.dumps(result['max_err'])}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
