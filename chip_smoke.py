@@ -29,8 +29,9 @@ Phases, in order; any failure exits non-zero:
    (one slot shard at p = 1 and at p = 2), at ragged L, at RWKV6's training
    context, at extreme decays and at head dims 16, 32 and 64, with nonzero
    s0 and dsT, inputs drawn from a seeded CPU generator, and hold it against
-   its plain PyTorch version on the same inputs; run the forward twice on
-   the main case and require the same bits; time kernel and plain version
+   its plain PyTorch version on the same inputs; run the forward and the
+   dr and dk scans twice on the main case and require the same bits; time
+   kernel and plain version
    (no single PyTorch call computes WKV6);
 6. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
    ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, timing the
@@ -487,12 +488,20 @@ def check_wkv(torch, wops):
 
         if name != WKV_MAIN_CASE[0]:
             continue
-        same = same_bits_twice(
-            torch, lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0))
-        print(f"  case {name:13s} wkv6_fwd run twice: y and sT "
-              f"{'bit-identical' if same else 'DIFFER'}", flush=True)
-        if not same:
-            fail("wkv6_fwd is not deterministic in the main case")
+        for kname, outs, run in (
+                ("wkv6_fwd", "y and sT",
+                 lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0)),
+                ("wkv6_bwd_dr", "dr, a and du_part",
+                 lambda: wops.wkv6_bwd_dr_cuda(r, k, v, logw, u, s0, dy,
+                                               dsT)),
+                ("wkv6_bwd_dk", "dk, dlogw and ds0",
+                 lambda: wops.wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT,
+                                               a))):
+            same = same_bits_twice(torch, run)
+            print(f"  case {name:13s} {kname} run twice: {outs} "
+                  f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+            if not same:
+                fail(f"{kname} is not deterministic in the main case")
         kern = {
             "wkv6_fwd": lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0),
             "wkv6_bwd_dr": lambda: wops.wkv6_bwd_dr_cuda(r, k, v, logw, u,

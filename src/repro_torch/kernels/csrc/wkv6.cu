@@ -58,27 +58,47 @@
 // ptxas (sm_90a, hd = 64): 96 registers, no spills; 33 KB of shared memory,
 // 128 threads a block.
 //
-// The backward kernels keep the first design: hd threads a block, each
-// thread one column (wkv6_bwd_dv) or one row (wkv6_bwd_dr, wkv6_bwd_dk) of
-// the state or its gradient, CH steps staged by the threads between two
-// barriers, and the step loop reading them as scalar broadcasts. du sums
-// per-(b, h) partials that wkv6_bwd_dr writes, over b in a fixed order, in
-// wkv6_bwd_du.
+// The two backward scans (wkv6_bwd_dr_kernel, wkv6_bwd_dk_kernel) use the
+// forward's plan transposed: row i of S (or G) evolves alone, S_t[i, :] =
+// w_ti S_{t-1}[i, :] + k_ti v_t, so R lanes share a group of R / 2 rows
+// (R = 4 in dr, 2 in dk; 128 threads at hd = 64), each keeping hd / R
+// columns of them in the interleaved chunks q R + g. A step forms two
+// hd-term sums per row, dr S_{t-1} dy_t and S_{t-1} dy_{t+1} (dsT after the
+// last step), dk G_t v_t and G_t v_{t-1}, closed by one reduce-scatter of
+// R - 1 shuffles that leaves each lane one sum, which it stores; v_t . dy_t
+// is formed once while staging (each stager's share closed by a shuffle
+// tree), so a step costs 4 operations per (i, j). The neighbour step's row
+// is staged beside each stage (dr's dy and r one step ahead, dk's v one
+// step behind), so no step reads the stage still loading. Stages of CH = 16
+// steps are double-buffered with cp.async (42 and 49 KB of dynamic shared
+// memory), the step loop is unrolled 8 times, and its body has no branch:
+// every lane forms both outputs and stores one through a selected pointer
+// (with dk's dlogw sum in a branch on half the lanes, dk took 0.362 ms
+// against 0.306 at B = 8 with R = 4). ptxas
+// (sm_90a, hd = 64): dr 128 and dk 112 registers, no spills, 4 blocks an
+// SM fit.
 //
-// What bounds it on an H100: the work is ~5 hd^2 flops per (token, head), so
-// at hd = 64 one [B, L, H, hd] fp32 tensor (4 bytes a value) carries 80
+// wkv6_bwd_dv_kernel keeps the first design: hd threads a block, thread j
+// keeping column j of G, CH steps staged by the threads between two
+// barriers, read as scalar broadcasts. du sums per-(b, h) partials that
+// wkv6_bwd_dr writes, over b in a fixed order, in wkv6_bwd_du.
+//
+// What bounds them on an H100: the work is ~5 hd^2 flops per (token, head),
+// so at hd = 64 one [B, L, H, hd] fp32 tensor (4 bytes a value) carries 80
 // flops per value, 20 per byte: about the fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20). Both bounds are near 0.1 ms at B = 8, H = 32, L = 1024.
-// The forward takes 0.29 ms there and 0.17 ms at B = 4 (NVIDIA H100 80GB
-// HBM3, 700 W; tools/torch_kernel_bench.py): it is bound by instruction
-// issue and latency, not bytes. At B = 4 (128 blocks, 4 warps an SM) the
-// step loop's in-order chain of loads, FMAs and two shuffles a step leaves
-// most issue slots empty; twice the blocks (B = 8, 8 warps an SM) take 1.7
-// times as long. Closing the y sums once per stage instead of every step
-// (more registers, a longer body), stages of 32 steps, and 64-thread blocks
-// (4 columns a thread, or R = 2) were measured and are slower at B = 4. The
-// backward
-// kernels (one thread, hd-term sums) are the next to redesign.
+// 3.35 TB/s = 20). At B = 8, H = 32, L = 1024 the operations take 0.080 ms
+// and the bytes 0.103 (forward: 5 tensors), 0.143 (dr: 7) and 0.163 ms
+// (dk: 8), so bytes bound all three. They take 0.29, 0.28 and 0.30 ms there
+// and 0.17, 0.18 and 0.20 ms at B = 4 (NVIDIA H100 80GB HBM3, 700 W;
+// tools/torch_kernel_bench.py): bound by instruction issue and latency, not
+// bytes. At B = 4 (128 blocks, 4 warps an SM) each step's in-order chain of
+// loads, FMAs and shuffles leaves most issue slots empty; twice the blocks
+// (B = 8, 8 warps an SM) take 1.5-1.75 times as long. Closing the forward's
+// y sums once per stage instead of every step (more registers, a longer
+// body), stages of 32 steps, and 64-thread blocks (4 columns a thread, or
+// R = 2) were measured and are slower at B = 4; for the backward scans,
+// R = 8 and 4 chains per sum are slower, and 32-step stages or unrolling 4
+// within 3 %.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -86,7 +106,7 @@
 
 namespace {
 
-constexpr int CH = 16;     // time steps the backward kernels stage at once
+constexpr int CH = 16;     // time steps wkv6_bwd_dv stages at once
 
 struct Dims {
   size_t row;    // H * hd: the stride of t in [B, L, H, hd]
@@ -147,6 +167,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
+// One 16-byte chunk into shared memory: cp.async, or the thread's own loads
+// where the tensor does not start on a 16-byte boundary.
+__device__ __forceinline__ void stage16(float* dst, const float* src, int async_ok) {
+  if (async_ok) cp_async16(dst, src);
+  else *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+}
+
 // Forward. Steps of chunk n + 1 load (cp.async, or the threads' own loads
 // where a tensor does not start on a 16-byte boundary) while chunk n
 // computes; after the wait each thread turns the logw it staged into w and
@@ -180,12 +207,7 @@ __global__ void __launch_bounds__(FwdCfg<HD>::NT)
       float* dst = sg + c * HD + x;
       const float* src[4] = {r + off, k + off, v + off, logw + off};
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        if (async_ok) cp_async16(dst + p * PLANE, src[p]);
-        else
-          *reinterpret_cast<float4*>(dst + p * PLANE) =
-              make_float4(src[p][0], src[p][1], src[p][2], src[p][3]);
-      }
+      for (int p = 0; p < 4; ++p) stage16(dst + p * PLANE, src[p], async_ok);
     }
   };
   // on the chunks this thread staged: w = exp(logw), and the ruk sums over
@@ -275,119 +297,391 @@ __global__ void __launch_bounds__(FwdCfg<HD>::NT)
     for (int cc = 0; cc < NC; ++cc) sT[st + (size_t)row(a) * HD + j0 + cc] = S[a][cc];
 }
 
-// dr, the a terms of dlogw and the (b, h) partial of du: the forward scan
-// again, thread i keeping row i of S. Rows of r and dy are staged one step
-// ahead, for a.
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+// Layout of the backward scans (wkv6_bwd_dr, wkv6_bwd_dk): the forward's,
+// transposed. Row i of S (or of G) evolves alone, so R threads share a
+// group of NR = R / 2 rows: lane g = t % R keeps columns 4 (q R + g) .. + 3
+// (q < NQ) of rows NR (t / R) .. + NR - 1, and the R lanes of a row read
+// neighbouring chunks of a staged row, in different banks. A step forms two
+// hd-term sums per row, 2 NR = R partial sums a thread; one reduce-scatter
+// over the R lanes (R - 1 shuffles) leaves lane g with the whole of sum
+// g / NR of row g % NR, and that lane writes its output. A stage holds CH
+// steps of each tensor, the step-ahead (dr) or step-behind (dk) row of the
+// tensors read one step away, and v_t . dy_t of each step.
+template <int HD, int LANES>
+struct BwdCfg {
+  static constexpr int R = LANES;              // threads per row group
+  static constexpr int NR = R / 2;             // rows of a thread
+  static constexpr int NCH = 2;                // FMA chains of each sum
+  static constexpr int NQ = HD / 4 / R;        // 16-byte chunks of a row a thread keeps
+  static constexpr int NT = HD / NR * R;       // threads of a block
+  static constexpr int C4 = HD / 4;            // 16-byte chunks in a row of hd floats
+  static constexpr int CH = 16;                // steps a stage holds
+  static constexpr int NCP = CH * C4 / NT;     // chunks of each tensor a thread stages
+  static constexpr int PLANE = CH * HD;        // floats of one tensor in a stage
+  static constexpr int PLANE1 = PLANE + HD;    // the same with a neighbour step's row
+  // dr's stage: r and dy with the step-ahead row CH, k, v, w, v . dy
+  static constexpr int DR_R = 0, DR_DY = PLANE1, DR_K = 2 * PLANE1, DR_V = DR_K + PLANE,
+                       DR_W = DR_V + PLANE, DR_VDY = DR_W + PLANE, DR_STAGE = DR_VDY + CH;
+  // dk's stage: r, k, w, dy, a, v with the step-behind row first, v . dy
+  static constexpr int DK_R = 0, DK_K = PLANE, DK_W = 2 * PLANE, DK_DY = 3 * PLANE,
+                       DK_A = 4 * PLANE, DK_V = 5 * PLANE, DK_VDY = DK_V + PLANE1,
+                       DK_STAGE = DK_VDY + CH;
+  static_assert(R == 2 * NR && NQ >= 1 && 4 * NQ % NCH == 0 && NT >= 32 && NCP >= 1 &&
+                    CH * C4 % NT == 0 && NT % C4 == 0 && C4 <= 32 && CH % 4 == 0,
+                "a lane closes one of the 2 NR sums; whole warps; every thread stages "
+                "whole chunks at one offset; stages stay 16-byte aligned");
+};
+
+// lanes per row group of each scan: R = 2 was 1-6 % slower in dr, R = 4 2-4 %
+// slower in dk (tools/torch_kernel_bench.py)
+constexpr int DR_LANES = 4, DK_LANES = 2;
 template <int HD>
-__global__ void __launch_bounds__(HD)
+using DrCfg = BwdCfg<HD, DR_LANES>;
+template <int HD>
+using DkCfg = BwdCfg<HD, DK_LANES>;
+template <int HD>
+constexpr size_t dr_smem() { return sizeof(float) * 2 * DrCfg<HD>::DR_STAGE; }
+template <int HD>
+constexpr size_t dk_smem() { return sizeof(float) * 2 * DkCfg<HD>::DK_STAGE; }
+
+// The N lanes g = t % N of a row group each hold partial sums x[0 .. N).
+// Returns to lane g the whole of x[g]: at each level a lane keeps the half
+// of its sums whose index has the lane's bit and hands over the other half,
+// so N - 1 shuffles in all, summed in the same order on every run.
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&x)[N], int g) {
+#pragma unroll
+  for (int n = N, o = 1; n > 1; n >>= 1, o <<= 1) {
+    const bool hi = g & o;
+#pragma unroll
+    for (int m = 0; m < n / 2; ++m)
+      x[m] = (hi ? x[2 * m + 1] : x[2 * m]) +
+             __shfl_xor_sync(0xffffffffu, hi ? x[2 * m] : x[2 * m + 1], o);
+  }
+  return x[0];
+}
+
+// One row x of the state in one step: x . a and x . b, each in NCH chains
+// added in a fixed order, and the update x = w x + s c.
+template <int NJ, int NCH>
+__device__ __forceinline__ void row_step(float (&x)[NJ], const float (&a)[NJ],
+                                         const float (&b)[NJ], const float (&c)[NJ], float w,
+                                         float s, float& xa, float& xb) {
+  float pa[NCH], pb[NCH];
+#pragma unroll
+  for (int e = 0; e < NCH; ++e) pa[e] = pb[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; j += NCH)
+#pragma unroll
+    for (int e = 0; e < NCH; ++e) {
+      pa[e] = fmaf(x[j + e], a[j + e], pa[e]);
+      pb[e] = fmaf(x[j + e], b[j + e], pb[e]);
+      x[j + e] = fmaf(w, x[j + e], s * c[j + e]);
+    }
+#pragma unroll
+  for (int n = NCH; n > 1; n >>= 1)
+#pragma unroll
+    for (int e = 0; e < n / 2; ++e) pa[e] += pa[e + n / 2], pb[e] += pb[e + n / 2];
+  xa = pa[0], xb = pb[0];
+}
+
+// Shared loads of the row-group scalars and column chunks a lane reads.
+template <class C>
+struct BwdLane {
+  static constexpr int HD = C::C4 * 4;
+  int g, i0;
+  // rows i0 .. i0 + NR - 1 of staged row c
+  __device__ __forceinline__ void rows(float (&out)[C::NR], const float* plane, int c) const {
+    const float* p = plane + c * HD + i0;
+    if constexpr (C::NR % 2 == 0) {
+#pragma unroll
+      for (int q = 0; q < C::NR / 2; ++q) {
+        const float2 f = ld2(p + 2 * q);
+        out[2 * q] = f.x, out[2 * q + 1] = f.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < C::NR; ++i) out[i] = p[i];
+    }
+  }
+  // of one value per row of the group, the one of the row this lane closes
+  __device__ __forceinline__ float mine(const float (&x)[C::NR]) const {
+    float m = x[0];
+#pragma unroll
+    for (int i = 1; i < C::NR; ++i) m = g % C::NR == i ? x[i] : m;
+    return m;
+  }
+  // columns 4 (q R + g) .. + 3 of staged row c, q < NQ
+  __device__ __forceinline__ void cols(float (&out)[4 * C::NQ], const float* plane,
+                                       int c) const {
+#pragma unroll
+    for (int q = 0; q < C::NQ; ++q) {
+      const float4 f = ld4(plane + c * HD + 4 * (q * C::R + g));
+      out[4 * q] = f.x, out[4 * q + 1] = f.y, out[4 * q + 2] = f.z, out[4 * q + 3] = f.w;
+    }
+  }
+  __device__ __forceinline__ int col(int j) const {
+    return 4 * ((j >> 2) * C::R + g) + (j & 3);
+  }
+};
+
+// dr, the a terms of dlogw and the (b, h) partial of du: the forward scan of
+// S again, by rows. Per row i and step t it forms sdot = S_{t-1}[i,:] . dy_t
+// and snext = S_{t-1}[i,:] . dy_{t+1} (. dsT[i,:] at the last step); with
+// v_t . dy_t staged that leaves 4 operations per (i, j) a step. r and dy are
+// staged with the first row of the next stage as row CH, so that a step
+// never reads the stage that is still loading.
+template <int HD>
+__global__ void __launch_bounds__(DrCfg<HD>::NT)
     wkv6_bwd_dr_kernel(const float* __restrict__ r, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ logw,
                        const float* __restrict__ u, const float* __restrict__ s0,
                        const float* __restrict__ dy, const float* __restrict__ dsT,
                        float* __restrict__ dr, float* __restrict__ a,
-                       float* __restrict__ du_part, int L, int H) {
-  __shared__ float sr[CH + 1][HD], sk[CH][HD], sv[CH][HD], sw[CH][HD], sdy[CH + 1][HD];
+                       float* __restrict__ du_part, int L, int H, int async_ok) {
+  using C = DrCfg<HD>;
+  constexpr int NR = C::NR, NQ = C::NQ, NT = C::NT, C4 = C::C4, CH = C::CH;
+  constexpr int NJ = 4 * NQ, STAGE = C::DR_STAGE;
+  extern __shared__ float4 wkv_stages[];
+  float* stages = reinterpret_cast<float*>(wkv_stages);
   const Dims d = dims_of<HD>(L, H);
-  const int i = threadIdx.x;
+  const int tid = threadIdx.x, x = 4 * (tid % C4);
+  const BwdLane<C> ln{tid % C::R, NR * (tid / C::R)};
+  const bool second = ln.g >= NR;  // this lane closes sum g / NR of row g % NR
+  const int row = ln.i0 + ln.g % NR;
   const size_t st = (size_t)blockIdx.x * HD * HD;
-  float S[HD];
+  const float u_row = u[(size_t)(blockIdx.x % H) * HD + row];
+
+  auto issue = [&](int t0, float* sg) {
 #pragma unroll
-  for (int j = 0; j < HD; ++j) S[j] = s0[st + i * HD + j];
-  const float ui = u[(blockIdx.x % H) * HD + i];
-  float dui = 0.f;
-  for (int t0 = 0; t0 < L; t0 += CH) {
-    const int n = min(CH, L - t0), n1 = min(CH + 1, L - t0);
-    __syncthreads();
-    stage<HD>(sr, r, d, t0, n1);
-    stage<HD>(sk, k, d, t0, n);
-    stage<HD>(sv, v, d, t0, n);
-    stage<HD, true>(sw, logw, d, t0, n);
-    stage<HD>(sdy, dy, d, t0, n1);
-    __syncthreads();
-    for (int c = 0; c < n; ++c) {
-      const float ri = sr[c][i], ki = sk[c][i], wi = sw[c][i];
-      const bool last = t0 + c == L - 1;
-      // S_{t-1} against the next step's dy, or against dsT after the last
-      float snext = 0.f, anext = 1.f;
-      if (!last) {
-        anext = sr[c + 1][i];
-#pragma unroll
-        for (int j = 0; j < HD; ++j) snext = fmaf(S[j], sdy[c + 1][j], snext);
-      } else {
-#pragma unroll
-        for (int j = 0; j < HD; ++j) snext = fmaf(S[j], dsT[st + i * HD + j], snext);
-      }
-      float sdot = 0.f, vdy = 0.f;
-#pragma unroll
-      for (int j = 0; j < HD; ++j) {
-        const float vj = sv[c][j], dyj = sdy[c][j];
-        sdot = fmaf(S[j], dyj, sdot);
-        vdy = fmaf(vj, dyj, vdy);
-        S[j] = fmaf(wi, S[j], ki * vj);
-      }
-      const size_t o = d.base + (size_t)(t0 + c) * d.row + i;
-      dr[o] = fmaf(ui * ki, vdy, sdot);
-      a[o] = anext * wi * snext;
-      dui = fmaf(ri * ki, vdy, dui);
+    for (int m = 0; m < C::NCP; ++m) {
+      const int c = (tid + NT * m) / C4;
+      if (t0 + c >= L) continue;
+      const size_t off = d.base + (size_t)(t0 + c) * d.row + x;
+      stage16(sg + C::DR_R + c * HD + x, r + off, async_ok);
+      stage16(sg + C::DR_DY + c * HD + x, dy + off, async_ok);
+      stage16(sg + C::DR_K + c * HD + x, k + off, async_ok);
+      stage16(sg + C::DR_V + c * HD + x, v + off, async_ok);
+      stage16(sg + C::DR_W + c * HD + x, logw + off, async_ok);
     }
+    if (tid < C4 && t0 + CH < L) {  // the step-ahead row
+      const size_t off = d.base + (size_t)(t0 + CH) * d.row + x;
+      stage16(sg + C::DR_R + CH * HD + x, r + off, async_ok);
+      stage16(sg + C::DR_DY + CH * HD + x, dy + off, async_ok);
+    }
+  };
+  // on the chunks this thread staged: w = exp(logw), and v . dy summed over
+  // the C4 lanes that staged one step
+  auto prepare = [&](int t0, float* sg) {
+#pragma unroll
+    for (int m = 0; m < C::NCP; ++m) {
+      const int c = (tid + NT * m) / C4;
+      float part = 0.f;
+      if (t0 + c < L) {
+        const float4 v4 = ld4(sg + C::DR_V + c * HD + x), y4 = ld4(sg + C::DR_DY + c * HD + x);
+        float4& w4 = *reinterpret_cast<float4*>(sg + C::DR_W + c * HD + x);
+        w4 = make_float4(expf(w4.x), expf(w4.y), expf(w4.z), expf(w4.w));
+        part = fmaf(v4.x, y4.x, fmaf(v4.y, y4.y, fmaf(v4.z, y4.z, v4.w * y4.w)));
+      }
+#pragma unroll
+      for (int o = 1; o < C4; o <<= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (x == 0) sg[C::DR_VDY + c] = part;
+    }
+  };
+
+  float S[NR][NJ];
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) S[i][j] = s0[st + (size_t)(ln.i0 + i) * HD + ln.col(j)];
+  float dui = 0.f;
+
+  // step t = t0 + c of the stage at sg; the last step of the scan takes dsT
+  // for the step-ahead dy
+  auto step = [&](const float* sg, int c, int t, bool last) {
+    float dyc[NJ], vc[NJ], nx[NR][NJ];
+    ln.cols(dyc, sg + C::DR_DY, c);
+    ln.cols(vc, sg + C::DR_V, c);
+    if (!last) {
+      ln.cols(nx[0], sg + C::DR_DY, c + 1);
+#pragma unroll
+      for (int i = 1; i < NR; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) nx[i][j] = nx[0][j];
+    } else {
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) nx[i][j] = dsT[st + (size_t)(ln.i0 + i) * HD + ln.col(j)];
+    }
+    float kk[NR], ww[NR];
+    ln.rows(kk, sg + C::DR_K, c);
+    ln.rows(ww, sg + C::DR_W, c);
+    float sum[2 * NR];  // sdot of each row, then snext
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+      row_step<NJ, C::NCH>(S[i], dyc, nx[i], vc, ww[i], kk[i], sum[i], sum[NR + i]);
+    const float y = reduce_scatter<2 * NR>(sum, ln.g);
+    float rr[NR];
+    ln.rows(rr, sg + C::DR_R, c);
+    const float vdy = sg[C::DR_VDY + c];
+    const float k_row = ln.mine(kk), w_row = ln.mine(ww), r_row = ln.mine(rr);
+    float anext = 1.f;
+    if (!last) {
+      float rn[NR];
+      ln.rows(rn, sg + C::DR_R, c + 1);
+      anext = ln.mine(rn);
+    }
+    // one store a lane, no branch: the step loop stays one block of code
+    (second ? a : dr)[d.base + (size_t)t * d.row + row] =
+        second ? anext * w_row * y : fmaf(u_row * k_row, vdy, y);
+    dui = fmaf(r_row * k_row, vdy, dui);
+  };
+
+  const int n_chunks = (L + CH - 1) / CH;
+  issue(0, stages);
+  cp_async_commit();
+  for (int n = 0; n < n_chunks; ++n) {
+    const int t0 = n * CH, nc = min(CH, L - t0);
+    float* sg = stages + (n & 1) * STAGE;
+    cp_async_wait_all();
+    prepare(t0, sg);
+    __syncthreads();  // chunk n is staged for all; every thread is done with chunk n - 1
+    if (n + 1 < n_chunks) issue(t0 + CH, stages + ((n + 1) & 1) * STAGE);
+    cp_async_commit();
+    const bool tail = n + 1 == n_chunks;
+    const int nmain = tail ? nc - 1 : nc;
+#pragma unroll 8
+    for (int c = 0; c < nmain; ++c) step(sg, c, t0 + c, false);
+    if (tail) step(sg, nc - 1, L - 1, true);
   }
-  du_part[(size_t)blockIdx.x * HD + i] = dui;
+  cp_async_wait_all();
+  if (!second) du_part[(size_t)blockIdx.x * HD + row] = dui;
 }
 
-// dk, dlogw and ds0: the reverse scan of G, thread i keeping row i of G.
-// Rows of v are staged one step behind, for b.
+// dk, dlogw and ds0: the reverse scan of G, by rows. Per row i and step t it
+// forms gv = G_t[i,:] . v_t and gv_prev = G_t[i,:] . v_{t-1}, the b term of
+// step t - 1; with v_t . dy_t staged that leaves 4 operations per (i, j) a
+// step. v is staged with the last row of the previous stage (zeros before
+// step 0) as row 0, so that a step never reads the stage that is still
+// loading. The lane that closes gv_prev keeps dlogw's running sum.
 template <int HD>
-__global__ void __launch_bounds__(HD)
+__global__ void __launch_bounds__(DkCfg<HD>::NT)
     wkv6_bwd_dk_kernel(const float* __restrict__ r, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ logw,
                        const float* __restrict__ u, const float* __restrict__ dy,
                        const float* __restrict__ dsT, const float* __restrict__ a,
                        float* __restrict__ dk, float* __restrict__ dlogw,
-                       float* __restrict__ ds0, int L, int H) {
-  // sv[c + 1] holds step t0 + c and sv[0] step t0 - 1 (zeros before step 0)
-  __shared__ float sr[CH][HD], sk[CH][HD], sv[CH + 1][HD], sw[CH][HD], sdy[CH][HD], sa[CH][HD];
+                       float* __restrict__ ds0, int L, int H, int async_ok) {
+  using C = DkCfg<HD>;
+  constexpr int NR = C::NR, NQ = C::NQ, NT = C::NT, C4 = C::C4, CH = C::CH;
+  constexpr int NJ = 4 * NQ, STAGE = C::DK_STAGE;
+  extern __shared__ float4 wkv_stages[];
+  float* stages = reinterpret_cast<float*>(wkv_stages);
   const Dims d = dims_of<HD>(L, H);
-  const int i = threadIdx.x;
+  const int tid = threadIdx.x, x = 4 * (tid % C4);
+  const BwdLane<C> ln{tid % C::R, NR * (tid / C::R)};
+  const bool second = ln.g >= NR;  // this lane closes sum g / NR of row g % NR
+  const int row = ln.i0 + ln.g % NR;
   const size_t st = (size_t)blockIdx.x * HD * HD;
-  float G[HD];
+  const float u_row = u[(size_t)(blockIdx.x % H) * HD + row];
+
+  auto issue = [&](int t0, float* sg) {
 #pragma unroll
-  for (int j = 0; j < HD; ++j) G[j] = dsT[st + i * HD + j];
-  const float ui = u[(blockIdx.x % H) * HD + i];
-  float acc = 0.f;     // dlogw_{t+1}
-  float gv_next = 0.f; // G_{t+1} v_t, formed at step t + 1
-  float w_next = 0.f;  // w_{t+1}
-  for (int t0 = ((L - 1) / CH) * CH; t0 >= 0; t0 -= CH) {
-    const int n = min(CH, L - t0);
-    __syncthreads();
-    stage<HD>(sr, r, d, t0, n);
-    stage<HD>(sk, k, d, t0, n);
-    stage<HD>(sv + 1, v, d, t0, n);
-    sv[0][i] = t0 > 0 ? v[d.base + (size_t)(t0 - 1) * d.row + i] : 0.f;
-    stage<HD, true>(sw, logw, d, t0, n);
-    stage<HD>(sdy, dy, d, t0, n);
-    stage<HD>(sa, a, d, t0, n);
-    __syncthreads();
-    for (int c = n - 1; c >= 0; --c) {
-      const float ri = sr[c][i], ki = sk[c][i], wi = sw[c][i];
-      float gv = 0.f, gv_prev = 0.f, vdy = 0.f;
-#pragma unroll
-      for (int j = 0; j < HD; ++j) {
-        const float vj = sv[c + 1][j], dyj = sdy[c][j];
-        gv = fmaf(G[j], vj, gv);
-        gv_prev = fmaf(G[j], sv[c][j], gv_prev);
-        vdy = fmaf(vj, dyj, vdy);
-        G[j] = fmaf(wi, G[j], ri * dyj);
-      }
-      const size_t o = d.base + (size_t)(t0 + c) * d.row + i;
-      dk[o] = fmaf(ui * ri, vdy, gv);
-      acc = t0 + c == L - 1 ? sa[c][i] : acc + (sa[c][i] - ki * w_next * gv_next);
-      dlogw[o] = acc;
-      gv_next = gv_prev;
-      w_next = wi;
+    for (int m = 0; m < C::NCP; ++m) {
+      const int c = (tid + NT * m) / C4;
+      if (t0 + c >= L) continue;
+      const size_t off = d.base + (size_t)(t0 + c) * d.row + x;
+      stage16(sg + C::DK_R + c * HD + x, r + off, async_ok);
+      stage16(sg + C::DK_K + c * HD + x, k + off, async_ok);
+      stage16(sg + C::DK_W + c * HD + x, logw + off, async_ok);
+      stage16(sg + C::DK_DY + c * HD + x, dy + off, async_ok);
+      stage16(sg + C::DK_A + c * HD + x, a + off, async_ok);
+      stage16(sg + C::DK_V + (c + 1) * HD + x, v + off, async_ok);
     }
-  }
+    if (tid < C4) {  // the step-behind row of v
+      if (t0 > 0)
+        stage16(sg + C::DK_V + x, v + d.base + (size_t)(t0 - 1) * d.row + x, async_ok);
+      else
+        *reinterpret_cast<float4*>(sg + C::DK_V + x) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto prepare = [&](int t0, float* sg) {
 #pragma unroll
-  for (int j = 0; j < HD; ++j) ds0[st + i * HD + j] = G[j];
+    for (int m = 0; m < C::NCP; ++m) {
+      const int c = (tid + NT * m) / C4;
+      float part = 0.f;
+      if (t0 + c < L) {
+        const float4 v4 = ld4(sg + C::DK_V + (c + 1) * HD + x);
+        const float4 y4 = ld4(sg + C::DK_DY + c * HD + x);
+        float4& w4 = *reinterpret_cast<float4*>(sg + C::DK_W + c * HD + x);
+        w4 = make_float4(expf(w4.x), expf(w4.y), expf(w4.z), expf(w4.w));
+        part = fmaf(v4.x, y4.x, fmaf(v4.y, y4.y, fmaf(v4.z, y4.z, v4.w * y4.w)));
+      }
+#pragma unroll
+      for (int o = 1; o < C4; o <<= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (x == 0) sg[C::DK_VDY + c] = part;
+    }
+  };
+
+  float G[NR][NJ];
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) G[i][j] = dsT[st + (size_t)(ln.i0 + i) * HD + ln.col(j)];
+  // dlogw_{t+1}, G_{t+1} v_t (formed at step t + 1) and w_{t+1}, of use on
+  // the lanes that close gv_prev
+  float acc = 0.f, gv_next = 0.f, w_next = 0.f;
+
+  auto step = [&](const float* sg, int c, int t) {
+    float vc[NJ], vp[NJ], dyc[NJ];
+    ln.cols(vc, sg + C::DK_V, c + 1);
+    ln.cols(vp, sg + C::DK_V, c);
+    ln.cols(dyc, sg + C::DK_DY, c);
+    float rr[NR], ww[NR];
+    ln.rows(rr, sg + C::DK_R, c);
+    ln.rows(ww, sg + C::DK_W, c);
+    float sum[2 * NR];  // gv of each row, then gv_prev
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+      row_step<NJ, C::NCH>(G[i], vc, vp, dyc, ww[i], rr[i], sum[i], sum[NR + i]);
+    const float y = reduce_scatter<2 * NR>(sum, ln.g);
+    float kk[NR], aa[NR];
+    ln.rows(kk, sg + C::DK_K, c);
+    ln.rows(aa, sg + C::DK_A, c);
+    const float r_row = ln.mine(rr), w_row = ln.mine(ww), k_row = ln.mine(kk), a_row = ln.mine(aa);
+    const float vdy = sg[C::DK_VDY + c];
+    // every lane keeps the running sum, and the lanes that close gv_prev
+    // store it: one store a lane, no branch
+    acc = t == L - 1 ? a_row : acc + (a_row - k_row * w_next * gv_next);
+    gv_next = y;
+    w_next = w_row;
+    (second ? dlogw : dk)[d.base + (size_t)t * d.row + row] =
+        second ? acc : fmaf(u_row * r_row, vdy, y);
+  };
+
+  const int n_chunks = (L + CH - 1) / CH;
+  issue((n_chunks - 1) * CH, stages);
+  cp_async_commit();
+  for (int it = 0; it < n_chunks; ++it) {
+    const int t0 = (n_chunks - 1 - it) * CH, nc = min(CH, L - t0);
+    float* sg = stages + (it & 1) * STAGE;
+    cp_async_wait_all();
+    prepare(t0, sg);
+    __syncthreads();  // this chunk is staged for all; every thread is done with the last
+    if (t0 > 0) issue(t0 - CH, stages + ((it + 1) & 1) * STAGE);
+    cp_async_commit();
+#pragma unroll 8
+    for (int c = nc - 1; c >= 0; --c) step(sg, c, t0 + c);
+  }
+  cp_async_wait_all();
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) ds0[st + (size_t)(ln.i0 + i) * HD + ln.col(j)] = G[i][j];
 }
 
 // dv: the reverse scan of G, thread j keeping column j of G.
@@ -437,18 +731,46 @@ __global__ void wkv6_bwd_du_kernel(const float* __restrict__ du_part, float* __r
   du[(size_t)h * hd + i] = s;
 }
 
+// Launches a kernel that stages through cp.async: allows its dynamic shared
+// memory and passes, as its last argument, whether every staged tensor
+// starts on a 16-byte boundary (rows of hd floats then do too), the
+// condition for cp.async's 16-byte chunks.
+template <typename... P, typename... A>
+int launch_staged(void (*kernel)(P...), int blocks, int threads, size_t smem, cudaStream_t st,
+                  uintptr_t staged, A... args) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, threads, smem, st>>>(args..., (int)((staged & 15) == 0));
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int fwd(const float* r, const float* k, const float* v, const float* logw, const float* u,
         const float* s0, float* y, float* sT, int B, int L, int H, cudaStream_t st) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      wkv6_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fwd_smem<HD>());
-  if (e != cudaSuccess) return (int)e;
-  // cp.async copies 16-byte chunks: the staged tensors must start on a
-  // 16-byte boundary (rows of hd floats then do too)
-  const uintptr_t any = (uintptr_t)r | (uintptr_t)k | (uintptr_t)v | (uintptr_t)logw;
-  wkv6_fwd_kernel<HD><<<B * H, FwdCfg<HD>::NT, fwd_smem<HD>(), st>>>(
-      r, k, v, logw, u, s0, y, sT, L, H, (any & 15) == 0);
-  return (int)cudaGetLastError();
+  return launch_staged(wkv6_fwd_kernel<HD>, B * H, FwdCfg<HD>::NT, fwd_smem<HD>(), st,
+                       (uintptr_t)r | (uintptr_t)k | (uintptr_t)v | (uintptr_t)logw, r, k, v,
+                       logw, u, s0, y, sT, L, H);
+}
+
+template <int HD>
+int bwd_dr(const float* r, const float* k, const float* v, const float* logw, const float* u,
+           const float* s0, const float* dy, const float* dsT, float* dr, float* a,
+           float* du_part, int B, int L, int H, cudaStream_t st) {
+  return launch_staged(
+      wkv6_bwd_dr_kernel<HD>, B * H, DrCfg<HD>::NT, dr_smem<HD>(), st,
+      (uintptr_t)r | (uintptr_t)k | (uintptr_t)v | (uintptr_t)logw | (uintptr_t)dy, r, k, v,
+      logw, u, s0, dy, dsT, dr, a, du_part, L, H);
+}
+
+template <int HD>
+int bwd_dk(const float* r, const float* k, const float* v, const float* logw, const float* u,
+           const float* dy, const float* dsT, const float* a, float* dk, float* dlogw,
+           float* ds0, int B, int L, int H, cudaStream_t st) {
+  return launch_staged(wkv6_bwd_dk_kernel<HD>, B * H, DkCfg<HD>::NT, dk_smem<HD>(), st,
+                       (uintptr_t)r | (uintptr_t)k | (uintptr_t)v | (uintptr_t)logw |
+                           (uintptr_t)dy | (uintptr_t)a,
+                       r, k, v, logw, u, dy, dsT, a, dk, dlogw, ds0, L, H);
 }
 
 }  // namespace
@@ -472,32 +794,34 @@ int fwd(const float* r, const float* k, const float* v, const float* logw, const
 
 extern "C" {
 
+// F<head_dim>(...) for head_dim 16, 32 or 64
+#define WKV_BY_HEAD_DIM(F, ...)                 \
+  switch (head_dim) {                           \
+    case 16: return F<16>(__VA_ARGS__);         \
+    case 32: return F<32>(__VA_ARGS__);         \
+    case 64: return F<64>(__VA_ARGS__);         \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
 int wkv6_fwd(const void* r, const void* k, const void* v, const void* logw, const void* u,
              const void* s0, void* y, void* sT, int B, int L, int H, int head_dim,
              void* stream) {
-#define WKV_FWD(HD) \
-  fwd<HD>(RD(r), RD(k), RD(v), RD(logw), RD(u), RD(s0), WR(y), WR(sT), B, L, H, (cudaStream_t)stream)
-  switch (head_dim) {
-    case 16: return WKV_FWD(16);
-    case 32: return WKV_FWD(32);
-    case 64: return WKV_FWD(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef WKV_FWD
+  WKV_BY_HEAD_DIM(fwd, RD(r), RD(k), RD(v), RD(logw), RD(u), RD(s0), WR(y), WR(sT), B, L, H,
+                  (cudaStream_t)stream)
 }
 
 int wkv6_bwd_dr(const void* r, const void* k, const void* v, const void* logw, const void* u,
                 const void* s0, const void* dy, const void* dsT, void* dr, void* a,
                 void* du_part, int B, int L, int H, int head_dim, void* stream) {
-  WKV_DISPATCH(wkv6_bwd_dr_kernel, RD(r), RD(k), RD(v), RD(logw), RD(u), RD(s0), RD(dy), RD(dsT),
-               WR(dr), WR(a), WR(du_part), L, H);
+  WKV_BY_HEAD_DIM(bwd_dr, RD(r), RD(k), RD(v), RD(logw), RD(u), RD(s0), RD(dy), RD(dsT), WR(dr),
+                  WR(a), WR(du_part), B, L, H, (cudaStream_t)stream)
 }
 
 int wkv6_bwd_dk(const void* r, const void* k, const void* v, const void* logw, const void* u,
                 const void* dy, const void* dsT, const void* a, void* dk, void* dlogw, void* ds0,
                 int B, int L, int H, int head_dim, void* stream) {
-  WKV_DISPATCH(wkv6_bwd_dk_kernel, RD(r), RD(k), RD(v), RD(logw), RD(u), RD(dy), RD(dsT), RD(a),
-               WR(dk), WR(dlogw), WR(ds0), L, H);
+  WKV_BY_HEAD_DIM(bwd_dk, RD(r), RD(k), RD(v), RD(logw), RD(u), RD(dy), RD(dsT), RD(a), WR(dk),
+                  WR(dlogw), WR(ds0), B, L, H, (cudaStream_t)stream)
 }
 
 int wkv6_bwd_dv(const void* r, const void* k, const void* logw, const void* u, const void* dy,
@@ -523,6 +847,24 @@ int wkv6_fwd_blocks_per_sm(int* blocks) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wkv6_fwd_kernel<64>,
                                                       FwdCfg<64>::NT, fwd_smem<64>());
+  return (int)e;
+}
+
+// Blocks of wkv6_bwd_dr_kernel and wkv6_bwd_dk_kernel that fit on one SM at
+// once at head_dim 64.
+int wkv6_bwd_blocks_per_sm(int* dr_blocks, int* dk_blocks) {
+  cudaError_t e = cudaFuncSetAttribute(wkv6_bwd_dr_kernel<64>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)dr_smem<64>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(wkv6_bwd_dk_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dk_smem<64>());
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dr_blocks, wkv6_bwd_dr_kernel<64>,
+                                                      DrCfg<64>::NT, dr_smem<64>());
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dk_blocks, wkv6_bwd_dk_kernel<64>,
+                                                      DkCfg<64>::NT, dk_smem<64>());
   return (int)e;
 }
 

@@ -210,3 +210,38 @@ def test_forward_kernels_are_deterministic_and_match_plain(card, aligned):
     for got, want in zip(wruns[0], (y_p, sT_p)):
         torch.testing.assert_close(got, want, rtol=WKV_TOL,
                                    atol=WKV_TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_backward_scans_are_deterministic_and_match_plain(card, aligned):
+    """wkv6_bwd_dr and wkv6_bwd_dk give the same bits on two runs and agree
+    with their plain versions (dk on dr's a terms), on 16-byte aligned
+    inputs (cp.async staging) and on inputs that are not (the threads' own
+    staging); L = 77 ends inside a stage."""
+    from repro_torch.kernels.rwkv import ops as wkv_ops
+
+    gen = torch.Generator(device=card).manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        if aligned:
+            return torch.randn(shape, generator=gen, device=card) * scale
+        return unaligned_randn(gen, card, *shape, scale=scale)
+
+    B, L, H, hd = 2, 77, 4, 64
+    r, k, v, dy = (rnd(B, L, H, hd) for _ in range(4))
+    logw = -torch.exp(rnd(B, L, H, hd))
+    u, s0 = rnd(H, hd, scale=0.3), rnd(B, H, hd, hd, scale=0.1)
+    dsT = rnd(B, H, hd, hd, scale=0.1)
+    druns = [wkv_ops.wkv6_bwd_dr_cuda(r, k, v, logw, u, s0, dy, dsT)
+             for _ in range(2)]
+    a = druns[0][1]
+    kruns = [wkv_ops.wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a)
+             for _ in range(2)]
+    want = (*wkv_ops.wkv6_bwd_dr_plain(r, k, v, logw, u, s0, dy, dsT),
+            *wkv_ops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a))
+    torch.cuda.synchronize()
+    for x, y in (*zip(*druns), *zip(*kruns)):
+        assert torch.equal(x, y)
+    for got, w in zip((*druns[0], *kruns[0]), want):
+        torch.testing.assert_close(got, w, rtol=WKV_TOL,
+                                   atol=WKV_TOL * float(w.abs().max()))

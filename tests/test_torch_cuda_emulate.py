@@ -1,15 +1,16 @@
 """The hand-written CUDA kernels' sources, run on the CPU.
 
 ``flash_attn_fwd``, ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv`` of
-``src/repro_torch/kernels/csrc/flash_attn.cu`` and ``wkv6_fwd`` of
-``src/repro_torch/kernels/csrc/wkv6.cu`` are translated into C++
+``src/repro_torch/kernels/csrc/flash_attn.cu`` and the WKV6 forward and
+backward kernels of ``src/repro_torch/kernels/csrc/wkv6.cu`` are
+translated into C++
 (each CUDA thread a ``std::thread``; ``__syncthreads``, the 64-thread
 ``bar.sync`` and warp shuffles as barriers; ``cp.async`` as copies done at
 the wait, or at the issue, so that a ring stage read too early or
 overwritten too soon shows), built with g++, and held against the plain
 PyTorch versions at small shapes: for attention tile edges, GQA, windows,
 ``kv_len``, head dims 16 to 128 and bf16; for WKV6 ragged L, head dims 16
-to 64, extreme decays and a nonzero s0; for both rows that are not 16-byte
+to 64, extreme decays and a nonzero s0 and dsT; for both rows that are not 16-byte
 aligned, and two runs that must give the same bits. It checks the kernels'
 indexing and synchronisation, not their speed, and knows only the CUDA
 features those sources use: a new asm construct there needs a stand-in in
@@ -57,6 +58,7 @@ using std::min; using std::max;
 #define __restrict__
 #define __launch_bounds__(...)
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
@@ -352,10 +354,9 @@ def test_forward_kernel_gives_the_same_bits_twice(emu):
 WKV_TOL = 1e-4
 
 
-def run_wkv(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
-    """``wkv6_fwd`` on seeded inputs with a nonzero s0, against the plain
-    version: y and sT. Returns (worst error over the plain output's largest
-    entry, outputs)."""
+def wkv_inputs(B, L, H, hd, logw_kind, offset=False, seed=0):
+    """r, k, v, logw, u, s0, dy and dsT from a seeded generator; every
+    [B, L, H, hd] tensor ``unaligned`` with ``offset``."""
     gen = torch.Generator().manual_seed(seed)
     r, k, v = (randn(gen, (B, L, H, hd), offset=offset) for _ in range(3))
     if logw_kind == "model":   # the range the model's clip allows
@@ -367,15 +368,63 @@ def run_wkv(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
         logw = unaligned(logw)
     u = randn(gen, (H, hd), scale=0.5)
     s0 = randn(gen, (B, H, hd, hd), scale=0.1)
+    dy = randn(gen, (B, L, H, hd), offset=offset)
+    dsT = randn(gen, (B, H, hd, hd), scale=0.1)
+    return r, k, v, logw, u, s0, dy, dsT
+
+
+def rel_error(pairs) -> float:
+    """The worst error over the plain output's largest entry, across
+    (kernel, plain) output pairs; inf where a kernel output is not
+    finite."""
+    if not all(bool(a.isfinite().all()) for a, _ in pairs):
+        return float("inf")
+    return max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+
+
+def run_wkv(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
+    """``wkv6_fwd`` on seeded inputs with a nonzero s0, against the plain
+    version: y and sT. Returns (worst error over the plain output's largest
+    entry, outputs)."""
+    r, k, v, logw, u, s0, _, _ = wkv_inputs(B, L, H, hd, logw_kind, offset,
+                                            seed)
     y, sT = torch.empty(B, L, H, hd), torch.empty(B, H, hd, hd)
     err = lib.wkv6_fwd(*[t.data_ptr() for t in (r, k, v, logw, u, s0, y, sT)],
                        B, L, H, hd, None)
     assert err == 0, f"wkv6_fwd returned {err}"
     y_p, sT_p = wops.wkv6_fwd_plain(r, k, v, logw, u, s0)
-    rel = max(float((a - b).abs().max() / b.abs().max())
-              for a, b in ((y, y_p), (sT, sT_p)))
-    finite = bool(y.isfinite().all()) and bool(sT.isfinite().all())
-    return (rel if finite else float("inf")), (y, sT)
+    return rel_error(((y, y_p), (sT, sT_p))), (y, sT)
+
+
+def run_wkv_bwd(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
+    """The backward kernels on seeded inputs with a nonzero s0 and dsT, in
+    the order the port launches them: ``wkv6_bwd_dr``, ``wkv6_bwd_dk`` on
+    dr's a terms, ``wkv6_bwd_dv`` and ``wkv6_bwd_du`` on dr's partials;
+    each against its plain version on the same inputs. Returns (worst error
+    over the plain output's largest entry, outputs)."""
+    r, k, v, logw, u, s0, dy, dsT = wkv_inputs(B, L, H, hd, logw_kind,
+                                               offset, seed)
+    if offset:
+        s0, dsT = unaligned(s0), unaligned(dsT)
+    seq = lambda: torch.empty(B, L, H, hd)  # noqa: E731
+    dr, a, dk, dlogw, dv = seq(), seq(), seq(), seq(), seq()
+    du_part, du, ds0 = (torch.empty(B, H, hd), torch.empty(H, hd),
+                        torch.empty(B, H, hd, hd))
+    for fn, ts, ints in (
+            ("wkv6_bwd_dr", (r, k, v, logw, u, s0, dy, dsT, dr, a, du_part),
+             (B, L, H, hd)),
+            ("wkv6_bwd_dk", (r, k, v, logw, u, dy, dsT, a, dk, dlogw, ds0),
+             (B, L, H, hd)),
+            ("wkv6_bwd_dv", (r, k, logw, u, dy, dsT, dv), (B, L, H, hd)),
+            ("wkv6_bwd_du", (du_part, du), (B, H, hd))):
+        err = getattr(lib, fn)(*[t.data_ptr() for t in ts], *ints, None)
+        assert err == 0, f"{fn} returned {err}"
+    want = (*wops.wkv6_bwd_dr_plain(r, k, v, logw, u, s0, dy, dsT),
+            *wops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a),
+            wops.wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT),
+            wops.wkv6_bwd_du_plain(du_part))
+    got = (dr, a, du_part, dk, dlogw, ds0, dv, du)
+    return rel_error(tuple(zip(got, want))), got
 
 
 WKV_CASES = [  # B, L, H, hd, logw
@@ -405,4 +454,25 @@ def test_wkv6_forward_kernel_on_unaligned_rows(wkv_emu):
 
 def test_wkv6_forward_kernel_gives_the_same_bits_twice(wkv_emu):
     runs = [run_wkv(wkv_emu, 2, 35, 2, 64, "model", seed=5)[1] for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_wkv6_backward_kernels_match_plain(wkv_emu, case):
+    """dr (with the a terms and du partials), dk (with dlogw and ds0), dv
+    and du."""
+    rel, _ = run_wkv_bwd(wkv_emu, *case)
+    assert rel <= WKV_TOL, f"error {rel:.2e} of the largest plain entry"
+
+
+def test_wkv6_backward_kernels_on_unaligned_rows(wkv_emu):
+    """Tensors that do not start on a 16-byte boundary: the threads' own
+    staging instead of cp.async."""
+    rel, _ = run_wkv_bwd(wkv_emu, 1, 37, 2, 64, "model", offset=True)
+    assert rel <= WKV_TOL, f"error {rel:.2e} of the largest plain entry"
+
+
+def test_wkv6_backward_kernels_give_the_same_bits_twice(wkv_emu):
+    runs = [run_wkv_bwd(wkv_emu, 2, 35, 2, 64, "model", seed=5)[1]
+            for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))

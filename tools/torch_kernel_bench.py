@@ -10,13 +10,15 @@ git history finds them there), plus any ``--variant NAME=FILE`` (a
 started together. Prints each kernel's registers and spills from
 ``-Xptxas -v`` and the blocks per SM that each build reports. Each build is
 checked against the plain versions (and for the same bits on two runs) at
-the main shapes, then ``flash_attn_fwd``, the backward pair (dq then dkdv)
-and ``wkv6_fwd`` are timed with CUDA events, the builds in turns (A B B A)
+the main shapes, then ``flash_attn_fwd``, the backward pair (dq then dkdv),
+``wkv6_fwd``, ``wkv6_bwd_dr`` and ``wkv6_bwd_dk`` are timed with CUDA
+events, the builds in turns (A B B A)
 so that they share the card's state, beside
 ``F.scaled_dot_product_attention``'s forward and backward on the same
 inputs (a yardstick; the port never calls it). Shapes: one slot shard of
 the edl_paper path (B 8 at p = 1, 4 at p = 2; H 12, L 1024, D 64, fp32,
-causal) and of the rwkv6 path (B 8 / 4, L 1024, H 32, hd 64, fp32). Prints
+causal) and of the rwkv6 path (B 8 / 4, L 1024, H 32, hd 64, fp32), where
+each WKV6 kernel's bound by bytes is printed beside its times. Prints
 one JSON line per shape, then the whole record, which it also writes to
 ``--out``. Run from the repo root on a machine with a card:
 
@@ -39,10 +41,13 @@ ATT_SHAPES = {"edl_p1": (8, 12, 1024, 64), "edl_p2": (4, 12, 1024, 64)}
 WKV_SHAPES = {"rwkv_p1": (8, 1024, 32, 64), "rwkv_p2": (4, 1024, 32, 64)}
 ATT_TOL = {"fwd": 2e-5, "bwd": 1e-4}   # chip_smoke.py's fp32 tolerances
 WKV_TOL = 1e-4                        # of the plain output's largest entry
+HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3, as in chip_smoke.py
+WKV_KERNELS = ("wkv6_fwd", "wkv6_bwd_dr", "wkv6_bwd_dk")
 # the kernels whose registers are reported: fp32 at head dim 64
 PTXAS_KERNELS = {"flash_attn": ("fwd_kernelIfLi64E", "bwd_dq_kernelIfLi64E",
                                 "bwd_dkdv_kernelIfLi64E"),
-                 "wkv6": ("wkv6_fwd_kernelILi64E",)}
+                 "wkv6": ("wkv6_fwd_kernelILi64E", "wkv6_bwd_dr_kernelILi64E",
+                          "wkv6_bwd_dk_kernelILi64E")}
 
 
 def baseline_sources(rev: str) -> dict:
@@ -121,25 +126,26 @@ def typed(lib, fam):
     return lib
 
 
+# the occupancy entry points a build may have, and the kernels each reports
+OCCUPANCY = {"flash_attn": (("flash_attn_blocks_per_sm", ("fwd", "dq", "dkdv")),
+                            ("flash_attn_bwd_blocks_per_sm", ("dq", "dkdv"))),
+             "wkv6": (("wkv6_fwd_blocks_per_sm", ("wkv6_fwd",)),
+                      ("wkv6_bwd_blocks_per_sm", ("wkv6_bwd_dr", "wkv6_bwd_dk")))}
+
+
 def blocks_per_sm(lib, fam) -> dict | None:
-    """What the build's occupancy entry point reports, where it has one."""
-    if fam == "flash_attn" and hasattr(lib, "flash_attn_blocks_per_sm"):
-        n = [ctypes.c_int() for _ in range(3)]
-        err = lib.flash_attn_blocks_per_sm(*(ctypes.byref(x) for x in n))
-        keys = ("fwd", "dq", "dkdv")
-    elif fam == "flash_attn" and hasattr(lib, "flash_attn_bwd_blocks_per_sm"):
-        n = [ctypes.c_int() for _ in range(2)]
-        err = lib.flash_attn_bwd_blocks_per_sm(*(ctypes.byref(x) for x in n))
-        keys = ("dq", "dkdv")
-    elif fam == "wkv6" and hasattr(lib, "wkv6_fwd_blocks_per_sm"):
-        n = [ctypes.c_int()]
-        err = lib.wkv6_fwd_blocks_per_sm(ctypes.byref(n[0]))
-        keys = ("wkv6_fwd",)
-    else:
-        return None
-    if err:
-        raise RuntimeError(f"{fam} blocks-per-SM query: cudaError {err}")
-    return {k: x.value for k, x in zip(keys, n)}
+    """What the build's occupancy entry points report: the first of the
+    attention family's that it has, every one of the WKV6 family's."""
+    out = {}
+    for fn, keys in OCCUPANCY[fam]:
+        if not hasattr(lib, fn) or (fam == "flash_attn" and out):
+            continue
+        n = [ctypes.c_int() for _ in keys]
+        err = getattr(lib, fn)(*(ctypes.byref(x) for x in n))
+        if err:
+            raise RuntimeError(f"{fn}: cudaError {err}")
+        out.update({k: x.value for k, x in zip(keys, n)})
+    return out or None
 
 
 def call(lib, fn, *args):
@@ -301,42 +307,74 @@ def main(argv=None) -> int:
         r, k, v = rnd(B, L, H, hd), rnd(B, L, H, hd), rnd(B, L, H, hd)
         logw = -torch.exp(torch.clamp(rnd(B, L, H, hd, scale=2.0), -8.0, 4.0))
         u, s0 = rnd(H, hd, scale=0.5), rnd(B, H, hd, hd, scale=0.1)
-        y, sT = torch.empty_like(r), torch.empty_like(s0)
+        dy, dsT = rnd(B, L, H, hd), rnd(B, H, hd, hd, scale=0.1)
+        y, dr, a, dk, dlogw = (torch.empty_like(r) for _ in range(5))
+        sT, ds0 = torch.empty_like(s0), torch.empty_like(s0)
+        du_part = torch.empty((B, H, hd), device="cuda")
+        wkv_args = {"wkv6_fwd": (r, k, v, logw, u, s0, y, sT),
+                    "wkv6_bwd_dr": (r, k, v, logw, u, s0, dy, dsT, dr, a,
+                                    du_part),
+                    "wkv6_bwd_dk": (r, k, v, logw, u, dy, dsT, a, dk, dlogw,
+                                    ds0)}
 
-        def wfwd(lib):
-            call(lib, "wkv6_fwd", *[t.data_ptr() for t in (r, k, v, logw, u, s0, y, sT)],
-                 B, L, H, hd, stream)
+        def wkv_call(lib, fn):
+            call(lib, fn, *[t.data_ptr() for t in wkv_args[fn]], B, L, H, hd,
+                 stream)
 
         if sname == "rwkv_p1":
-            want = wops.wkv6_fwd_plain(r, k, v, logw, u, s0)
+            want = {"wkv6_fwd": wops.wkv6_fwd_plain(r, k, v, logw, u, s0),
+                    "wkv6_bwd_dr": wops.wkv6_bwd_dr_plain(r, k, v, logw, u, s0,
+                                                          dy, dsT)}
             for name in wkv:
                 lib = libs[name]["wkv6"][0]
                 runs = []
                 for _ in range(2):
-                    wfwd(lib)
+                    for fn in WKV_KERNELS:
+                        wkv_call(lib, fn)
                     torch.cuda.synchronize()
-                    runs.append((y.clone(), sT.clone()))
-                rel = max(float((a - b).abs().max() / b.abs().max())
-                          for a, b in zip(runs[0], want))
-                if not rel <= WKV_TOL:
-                    print(f"{name} wkv6_fwd disagrees with its plain version: "
-                          f"{rel:.3e} of the largest entry", file=sys.stderr)
-                    return 1
-                if not all(torch.equal(a, b) for a, b in zip(*runs)):
-                    print(f"{name}: two wkv6_fwd runs differ", file=sys.stderr)
-                    return 1
-                result["max_err"].setdefault(name, {})["wkv6_fwd_rel"] = rel
+                    runs.append({"wkv6_fwd": (y.clone(), sT.clone()),
+                                 "wkv6_bwd_dr": (dr.clone(), a.clone(),
+                                                 du_part.clone()),
+                                 "wkv6_bwd_dk": (dk.clone(), dlogw.clone(),
+                                                 ds0.clone())})
+                # dk on the inputs it was given: this build's a terms
+                want["wkv6_bwd_dk"] = wops.wkv6_bwd_dk_plain(
+                    r, k, v, logw, u, dy, dsT, runs[0]["wkv6_bwd_dr"][1])
+                for fn in WKV_KERNELS:
+                    rel = max(float((g - w).abs().max() / w.abs().max())
+                              for g, w in zip(runs[0][fn], want[fn]))
+                    if not rel <= WKV_TOL:
+                        print(f"{name} {fn} disagrees with its plain version: "
+                              f"{rel:.3e} of the largest entry", file=sys.stderr)
+                        return 1
+                    if not all(torch.equal(g, h) for g, h in
+                               zip(runs[0][fn], runs[1][fn])):
+                        print(f"{name}: two {fn} runs differ", file=sys.stderr)
+                        return 1
+                    result["max_err"].setdefault(name, {})[f"{fn}_rel"] = rel
             del want, runs
-        times = {n: [] for n in wkv}
+        times = {n: {fn: [] for fn in WKV_KERNELS} for n in wkv}
         for name in order:
             if name in wkv:
                 lib = libs[name]["wkv6"][0]
-                times[name].append(timed(lambda: wfwd(lib)))
+                for fn in WKV_KERNELS:
+                    times[name][fn].append(timed(lambda: wkv_call(lib, fn)))
+        # bytes each kernel must move (chip_smoke.py's wkv_work): fwd 5, dr
+        # 7, dk 8 [B,L,H,hd] tensors, two states, u, and du's partials
+        seq, st, vec = B * L * H * hd * 4, B * H * hd * hd * 4, B * H * hd * 4
+        nbytes = {"wkv6_fwd": 5 * seq + 2 * st + H * hd * 4,
+                  "wkv6_bwd_dr": 7 * seq + 2 * st + H * hd * 4 + vec,
+                  "wkv6_bwd_dk": 8 * seq + 2 * st + H * hd * 4}
         result["shapes"][sname] = {
             "B": B, "L": L, "H": H, "hd": hd,
-            "ms": {n: {"wkv6_fwd": sum(x) / len(x)} for n, x in times.items()},
-            "ms_each_turn": times}
-        print(json.dumps({sname: result["shapes"][sname]["ms"]}), flush=True)
+            "ms": {n: {fn: sum(x) / len(x) for fn, x in t.items()}
+                   for n, t in times.items()},
+            "ms_each_turn": times,
+            "bytes_bound_ms": {fn: b / HBM_BYTES_S * 1e3
+                               for fn, b in nbytes.items()}}
+        print(json.dumps({sname: result["shapes"][sname]["ms"],
+                          "bytes_bound_ms": result["shapes"][sname][
+                              "bytes_bound_ms"]}), flush=True)
 
     print(f"max errors against the plain versions: {json.dumps(result['max_err'])}")
     out = Path(args.out)
