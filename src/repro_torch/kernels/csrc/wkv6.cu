@@ -1,5 +1,5 @@
 // RWKV6 WKV recurrence for Hopper (sm_90a): the forward and its backward as
-// four kernels (dr, dk with dlogw and ds0, dv, du). fp32 on the CUDA cores.
+// three kernels (dr; dk with dlogw, ds0 and du; dv). fp32 on the CUDA cores.
 //
 // Replaces: src/repro/kernels/rwkv/kernel.py, wkv6_bhld (pallas_call body
 // _wkv6_kernel), the TPU WKV6 forward, wrapped by rwkv/ops.py: wkv6. The
@@ -7,30 +7,27 @@
 // of the same recurrence (held against jax.vjp of
 // src/repro/models/ssm.py: wkv6_scan in the tests).
 //
-// What it computes, per (b, h), with w_t = exp(logw_t):
-//   y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T),  S_t = diag(w_t) S_{t-1} + k_t v_t^T,
-// S_0 = s0, and the final state sT = S_L. Every tensor is fp32 and
-// contiguous, in the model's layout: r, k, v, logw, y [B, L, H, hd]; u
-// [H, hd]; states [B, H, hd, hd] with S[i][j] at i * hd + j (i indexes k, j
-// indexes v). Any L >= 1 works: nothing is padded.
+// What it computes, per (b, h), with w_t = exp(logw_t):   y_t = r_t^T (S_{t-1}
+// + diag(u) k_t v_t^T),  S_t = diag(w_t) S_{t-1} + k_t v_t^T, S_0 = s0, and the
+// final state sT = S_L. Every tensor is fp32 and contiguous, in the model's
+// layout: r, k, v, logw, y [B, L, H, hd]; u [H, hd]; states [B, H, hd, hd] with
+// S[i][j] at i * hd + j (i indexes k, j indexes v). Any L >= 1 works: nothing
+// is padded.
 //
 // The backward, with G_t the gradient with respect to S_t (G_L = dsT) and
-// G_{t-1} = diag(w_t) G_t + r_t dy_t^T:
-//   dr_t = S_{t-1} dy_t + u . k_t (v_t . dy_t)
-//   dk_t = G_t v_t + u . r_t (v_t . dy_t)
-//   dv_t = G_t^T k_t + (sum_i r_ti u_i k_ti) dy_t
-//   du   = sum_{b,t} r_t . k_t (v_t . dy_t),   ds0 = G_0
-//   dlogw_t = w_t . rowsum(G_t . S_{t-1}) = sum_{m >= t} a_m - sum_{t <= m < L} b_m
-// with a_m = r_{m+1} . w_m . (S_{m-1} dy_{m+1}) for m < L, a_L = w_L .
+// G_{t-1} = diag(w_t) G_t + r_t dy_t^T:   dr_t = S_{t-1} dy_t + u . k_t (v_t .
+// dy_t)   dk_t = G_t v_t + u . r_t (v_t . dy_t)   dv_t = G_t^T k_t + (sum_i
+// r_ti u_i k_ti) dy_t   du   = sum_{b,t} r_t . k_t (v_t . dy_t),   ds0 = G_0
+// dlogw_t = w_t . rowsum(G_t . S_{t-1}) = sum_{m >= t} a_m - sum_{t <= m < L}
+// b_m with a_m = r_{m+1} . w_m . (S_{m-1} dy_{m+1}) for m < L, a_L = w_L .
 // rowsum(dsT . S_{L-1}), and b_m = k_m . w_{m+1} . (G_{m+1} v_m). This holds
-// because dlogw_t - dlogw_{t+1} = a_t - b_t: expanding S_t and G_t by one
-// step, the two products of S_t with r_{t+1} dy_{t+1}^T and of G_t with
-// k_t v_t^T share the term r_{t+1} k_t (v_t . dy_{t+1}), which cancels. It is
-// left out of a and b, not subtracted: it carries no decay, so where w is
-// small it is far larger than dlogw, and subtracting it in fp32 would leave
-// its rounding error in dlogw. So dlogw is a reverse cumulative sum of terms
-// that the dr and dk scans form beside their own sums, and no kernel stores
-// a state per step.
+// because dlogw_t - dlogw_{t+1} = a_t - b_t: expanding S_t and G_t by one step,
+// the two products of S_t with r_{t+1} dy_{t+1}^T and of G_t with k_t v_t^T
+// share the term r_{t+1} k_t (v_t . dy_{t+1}), which cancels. It is left out of
+// a and b, not subtracted: it carries no decay, so where w is small it is far
+// larger than dlogw, and subtracting it in fp32 would leave its rounding error
+// in dlogw. So dlogw is a reverse cumulative sum of terms that the dr and dk
+// scans form beside their own sums, and no kernel stores a state per step.
 //
 // Design. The recurrence is serial in t, so each block owns one (b, h) and
 // loops over t itself (the TPU's sequential chunk axis becomes that loop), as
@@ -38,25 +35,26 @@
 // registers and nothing stored per step. Each output has one owning thread,
 // so no kernel needs atomics and two runs give the same bits.
 //
-// The forward (wkv6_fwd_kernel) spreads the state over 128 threads at
-// hd = 64: column j of S evolves alone, S_t[:, j] = w_t . S_{t-1}[:, j] +
-// k_t v_tj, and y_tj = sum_i r_ti S_{t-1}[i, j] + (sum_i r_ti u_i k_ti) v_tj,
-// so R = 4 threads share a column pair (NC = 2), each keeping 16 of its rows
-// (32 registers), and close y_tj with two xor-shuffles. The per-step sum
-// sum_i r_i u_i k_i is formed once, while staging, which leaves 3 operations
-// per (i, j) a step. A thread reads its rows of r, k and w as float4
-// broadcasts (12 LDS.128 and 3 LDS a step for 96 FP operations); its rows
-// are the chunks q R + g, so the R lanes of a column read neighbouring
-// chunks in different banks (16 contiguous rows a thread put lanes g and
-// g + 2 in the same banks, and ran 1.8 times slower). Stages of CH = 16 steps are
+// The forward (wkv6_fwd_kernel) and dv (wkv6_bwd_dv_kernel) run one column scan
+// (col_scan), forward in t and in reverse. The forward spreads the state over
+// 128 threads at hd = 64: column j of S evolves alone, S_t[:, j] = w_t .
+// S_{t-1}[:, j] + k_t v_tj, and y_tj = sum_i r_ti S_{t-1}[i, j] + (sum_i r_ti
+// u_i k_ti) v_tj, so R = 4 threads share a column pair (NC = 2), each keeping
+// 16 of its rows (32 registers), and close y_tj with two xor-shuffles. The
+// per-step sum sum_i r_i u_i k_i is formed once, while staging, which leaves 3
+// operations per (i, j) a step. A thread reads its rows of r, k and w as float4
+// broadcasts (12 LDS.128 and 3 LDS a step for 96 FP operations); its rows are
+// the chunks q R + g, so the R lanes of a column read neighbouring chunks in
+// different banks (16 contiguous rows a thread put lanes g and g + 2 in the
+// same banks, and ran 1.8 times slower). Stages of CH = 16 steps are
 // double-buffered with cp.async (16-byte chunks), or stored by the threads
 // where a tensor does not start on a 16-byte boundary; after the wait each
 // thread takes exp of the logw it staged and adds its share of the u sum, so
 // one block barrier a chunk suffices. The step loop is unrolled 8 times, so
 // that later steps' loads and FMAs can issue while a step's shuffles are in
-// flight (unrolled 2, 4, 8 times: 0.223, 0.175, 0.167 ms at B = 4).
-// ptxas (sm_90a, hd = 64): 96 registers, no spills; 33 KB of shared memory,
-// 128 threads a block.
+// flight (unrolled 2, 4, 8 times: 0.223, 0.175, 0.167 ms at B = 4). ptxas
+// (sm_90a, hd = 64): 96 registers, no spills; 33 KB of shared memory, 128
+// threads a block.
 //
 // The two backward scans (wkv6_bwd_dr_kernel, wkv6_bwd_dk_kernel) use the
 // forward's plan transposed: row i of S (or G) evolves alone, S_t[i, :] =
@@ -74,39 +72,45 @@
 // memory), the step loop is unrolled 8 times, and its body has no branch:
 // every lane forms both outputs and stores one through a selected pointer
 // (with dk's dlogw sum in a branch on half the lanes, dk took 0.362 ms
-// against 0.306 at B = 8 with R = 4). ptxas
-// (sm_90a, hd = 64): dr 128 and dk 112 registers, no spills, 4 blocks an
-// SM fit.
+// against 0.306 at B = 8 with R = 4). ptxas (sm_90a, hd = 64): dr 128 and
+// dk 140 registers, no spills, 4 and 3 blocks an SM fit.
 //
-// wkv6_bwd_dv_kernel keeps the first design: hd threads a block, thread j
-// keeping column j of G, CH steps staged by the threads between two
-// barriers, read as scalar broadcasts. du sums per-(b, h) partials that
-// wkv6_bwd_dr writes, over b in a fixed order, in wkv6_bwd_du.
+// dv has the forward's shape with column j of G in place of column j of S:
+// G_{t-1}[:, j] = w_t . G_t[:, j] + r_t dy_tj and dv_tj = k_t . G_t[:, j] +
+// (sum_i r_ti u_i k_ti) dy_tj, so wkv6_bwd_dv_kernel is col_scan with the
+// roles renamed (k read, r written, dy the column values, dsT the start)
+// and run from t = L - 1 down: stages are issued from the last chunk back,
+// the ragged chunk first, and each stage's steps run backwards. It stores
+// no final state (G_0 is ds0, which dk writes). du needs no kernel of its
+// own: wkv6_bwd_dr writes a partial per (b, h), and the blocks of b = 0 of
+// wkv6_bwd_dk, which runs after dr on the same stream, sum them over b in
+// a fixed order after their scan. ptxas (sm_90a, hd = 64): dv 113
+// registers, no spills, 4 blocks an SM fit.
 //
-// What bounds them on an H100: the work is ~5 hd^2 flops per (token, head),
-// so at hd = 64 one [B, L, H, hd] fp32 tensor (4 bytes a value) carries 80
-// flops per value, 20 per byte: about the fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20). At B = 8, H = 32, L = 1024 the operations take 0.080 ms
-// and the bytes 0.103 (forward: 5 tensors), 0.143 (dr: 7) and 0.163 ms
-// (dk: 8), so bytes bound all three. They take 0.29, 0.28 and 0.30 ms there
-// and 0.17, 0.18 and 0.20 ms at B = 4 (NVIDIA H100 80GB HBM3, 700 W;
+// What bounds them on an H100: the work is ~5 hd^2 flops per (token, head), so
+// at hd = 64 one [B, L, H, hd] fp32 tensor (4 bytes a value) carries 80 flops
+// per value, 20 per byte: about the fp32 ridge (67 TFLOP/s over 3.35 TB/s =
+// 20). At B = 8, H = 32, L = 1024 the operations take 0.080 ms and the bytes
+// 0.103 (forward: 5 tensors), 0.143 (dr: 7), 0.163 (dk: 8) and 0.101 ms (dv:
+// 5), so bytes bound all four. They take 0.29, 0.28, 0.29 and 0.29 ms there and
+// 0.17, 0.18, 0.19 and 0.18 ms at B = 4 (NVIDIA H100 80GB HBM3, 700 W;
 // tools/torch_kernel_bench.py): bound by instruction issue and latency, not
 // bytes. At B = 4 (128 blocks, 4 warps an SM) each step's in-order chain of
-// loads, FMAs and shuffles leaves most issue slots empty; twice the blocks
-// (B = 8, 8 warps an SM) take 1.5-1.75 times as long. Closing the forward's
-// y sums once per stage instead of every step (more registers, a longer
-// body), stages of 32 steps, and 64-thread blocks (4 columns a thread, or
-// R = 2) were measured and are slower at B = 4; for the backward scans,
-// R = 8 and 4 chains per sum are slower, and 32-step stages or unrolling 4
-// within 3 %.
+// loads, FMAs and shuffles leaves most issue slots empty; twice the blocks (B =
+// 8, 8 warps an SM) take 1.5-1.75 times as long. Closing the forward's y sums
+// once per stage instead of every step (more registers, a longer body), stages
+// of 32 steps, and 64-thread blocks (4 columns a thread, or R = 2) were
+// measured and are slower at B = 4; for the backward scans, R = 8 and 4 chains
+// per sum are slower, and 32-step stages or unrolling 4 within 3 %. For
+// col_scan on today's body, R = 2 takes 0.35 ms at both B for the forward and
+// dv, and 32-step stages are within 3 % (dv 0.290 and 0.173 ms against 0.289
+// and 0.177) at twice the shared memory.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int CH = 16;     // time steps wkv6_bwd_dv stages at once
 
 struct Dims {
   size_t row;    // H * hd: the stride of t in [B, L, H, hd]
@@ -120,18 +124,6 @@ __device__ __forceinline__ Dims dims_of(int L, int H) {
   d.row = (size_t)H * HD;
   d.base = (size_t)b * L * d.row + (size_t)h * HD;
   return d;
-}
-
-// Steps [t0, t0 + n) of a [B, L, H, hd] tensor into dst[CH][HD], element x of
-// each row by thread x, optionally through expf.
-template <int HD, bool EXP = false>
-__device__ __forceinline__ void stage(float (*dst)[HD], const float* __restrict__ src,
-                                      const Dims& d, int t0, int n) {
-  const int x = threadIdx.x;
-  for (int c = 0; c < n; ++c) {
-    const float val = src[d.base + (size_t)(t0 + c) * d.row + x];
-    dst[c][x] = EXP ? expf(val) : val;
-  }
 }
 
 // Forward layout: R threads share each column of S. Thread t keeps columns
@@ -174,17 +166,26 @@ __device__ __forceinline__ void stage16(float* dst, const float* src, int async_
   else *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
 }
 
-// Forward. Steps of chunk n + 1 load (cp.async, or the threads' own loads
-// where a tensor does not start on a 16-byte boundary) while chunk n
-// computes; after the wait each thread turns the logw it staged into w and
-// adds its share of sum_i r_i u_i k_i, so that y_j = sum_i r_i S_ij +
-// (sum_i r_i u_i k_i) v_j costs 3 operations per (i, j) in the step loop.
-template <int HD>
-__global__ void __launch_bounds__(FwdCfg<HD>::NT)
-    wkv6_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ logw,
-                    const float* __restrict__ u, const float* __restrict__ s0,
-                    float* __restrict__ y, float* __restrict__ sT, int L, int H, int async_ok) {
+// The column scan of the forward's plan, shared by wkv6_fwd_kernel and
+// wkv6_bwd_dv_kernel. In the forward's roles, per column j and step t:
+// y_tj = sum_i r_ti S[i, j] + (sum_i r_ti u_i k_ti) v_tj, read before the
+// update S[:, j] = w_t . S[:, j] + k_t v_tj; S starts at s0, and the state
+// after the last step is stored in sT. The forward runs t = 0 .. L - 1.
+// With REV it runs t = L - 1 .. 0 and stores no final state: that is dv's
+// scan of G with k in r's place, r in k's place, dy in v's place and dsT in
+// s0's (the u sum is symmetric in r and k). Chunks load (cp.async, or the
+// threads' own loads where a tensor does not start on a 16-byte boundary)
+// one ahead in the order of the scan, so in reverse the ragged last chunk
+// is staged and scanned first; after the wait each thread turns the logw it
+// staged into w and adds its share of the u sum, so that a step costs 3
+// operations per (i, j).
+template <int HD, bool REV>
+__device__ __forceinline__ void col_scan(const float* __restrict__ r, const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         const float* __restrict__ logw,
+                                         const float* __restrict__ u,
+                                         const float* __restrict__ s0, float* __restrict__ y,
+                                         float* __restrict__ sT, int L, int H, int async_ok) {
   using C = FwdCfg<HD>;
   constexpr int R = C::R, NC = C::NC, NR = C::NR, NT = C::NT, C4 = C::C4, CH = C::CH;
   constexpr int PLANE = C::PLANE, STAGE = C::STAGE;
@@ -241,15 +242,17 @@ __global__ void __launch_bounds__(FwdCfg<HD>::NT)
     for (int cc = 0; cc < NC; ++cc) S[a][cc] = s0[st + (size_t)row(a) * HD + j0 + cc];
 
   const int n_chunks = (L + CH - 1) / CH;
-  issue(0, stages);
+  // the chunk that the it-th stage holds, in the order of the scan
+  auto chunk = [&](int it) { return REV ? n_chunks - 1 - it : it; };
+  issue(chunk(0) * CH, stages);
   cp_async_commit();
-  for (int n = 0; n < n_chunks; ++n) {
-    const int t0 = n * CH, nc = min(CH, L - t0);
-    float* sg = stages + (n & 1) * STAGE;
+  for (int it = 0; it < n_chunks; ++it) {
+    const int t0 = chunk(it) * CH, nc = min(CH, L - t0);
+    float* sg = stages + (it & 1) * STAGE;
     cp_async_wait_all();
     prepare(t0, sg);
-    __syncthreads();  // chunk n is staged for all; every thread is done with chunk n - 1
-    if (n + 1 < n_chunks) issue(t0 + CH, stages + ((n + 1) & 1) * STAGE);
+    __syncthreads();  // this chunk is staged for all; every thread is done with the last
+    if (it + 1 < n_chunks) issue(chunk(it + 1) * CH, stages + ((it + 1) & 1) * STAGE);
     cp_async_commit();
     const float* sr = sg;
     const float* sk = sg + PLANE;
@@ -257,7 +260,8 @@ __global__ void __launch_bounds__(FwdCfg<HD>::NT)
     const float* sw = sg + 3 * PLANE;
     const float* ruk = sg + 4 * PLANE;
 #pragma unroll 8
-    for (int c = 0; c < nc; ++c) {
+    for (int s = 0; s < nc; ++s) {
+      const int c = REV ? nc - 1 - s : s;
       float rr[NR], kk[NR], ww[NR], vv[NC];
 #pragma unroll
       for (int q = 0; q < NR / 4; ++q) {
@@ -291,10 +295,35 @@ __global__ void __launch_bounds__(FwdCfg<HD>::NT)
     }
   }
   cp_async_wait_all();
+  if constexpr (!REV) {
 #pragma unroll
-  for (int a = 0; a < NR; ++a)
+    for (int a = 0; a < NR; ++a)
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) sT[st + (size_t)row(a) * HD + j0 + cc] = S[a][cc];
+      for (int cc = 0; cc < NC; ++cc) sT[st + (size_t)row(a) * HD + j0 + cc] = S[a][cc];
+  }
+}
+
+// Forward: y and the final state sT from s0.
+template <int HD>
+__global__ void __launch_bounds__(FwdCfg<HD>::NT)
+    wkv6_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ logw,
+                    const float* __restrict__ u, const float* __restrict__ s0,
+                    float* __restrict__ y, float* __restrict__ sT, int L, int H, int async_ok) {
+  col_scan<HD, false>(r, k, v, logw, u, s0, y, sT, L, H, async_ok);
+}
+
+// dv: the forward's scan in reverse from G_L = dsT, with k read against the
+// state, r written into it and dy as its column values:
+// dv_tj = sum_i k_ti G_t[i, j] + (sum_i r_ti u_i k_ti) dy_tj, then
+// G_{t-1}[:, j] = w_t . G_t[:, j] + r_t dy_tj. G_0 is ds0, which dk writes.
+template <int HD>
+__global__ void __launch_bounds__(FwdCfg<HD>::NT)
+    wkv6_bwd_dv_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                       const float* __restrict__ logw, const float* __restrict__ u,
+                       const float* __restrict__ dy, const float* __restrict__ dsT,
+                       float* __restrict__ dv, int L, int H, int async_ok) {
+  col_scan<HD, true>(k, r, dy, logw, u, dsT, dv, nullptr, L, H, async_ok);
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -567,15 +596,19 @@ __global__ void __launch_bounds__(DrCfg<HD>::NT)
 // step t - 1; with v_t . dy_t staged that leaves 4 operations per (i, j) a
 // step. v is staged with the last row of the previous stage (zeros before
 // step 0) as row 0, so that a step never reads the stage that is still
-// loading. The lane that closes gv_prev keeps dlogw's running sum.
+// loading. The lane that closes gv_prev keeps dlogw's running sum. After
+// the scan the blocks of b = 0 also write du[h, :], the sum of dr's
+// partials du_part[b, h, :] over b = 0 .. B - 1 in that order: one thread
+// an entry, its B loads issued together.
 template <int HD>
 __global__ void __launch_bounds__(DkCfg<HD>::NT)
     wkv6_bwd_dk_kernel(const float* __restrict__ r, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ logw,
                        const float* __restrict__ u, const float* __restrict__ dy,
                        const float* __restrict__ dsT, const float* __restrict__ a,
-                       float* __restrict__ dk, float* __restrict__ dlogw,
-                       float* __restrict__ ds0, int L, int H, int async_ok) {
+                       const float* __restrict__ du_part, float* __restrict__ dk,
+                       float* __restrict__ dlogw, float* __restrict__ ds0,
+                       float* __restrict__ du, int L, int H, int async_ok) {
   using C = DkCfg<HD>;
   constexpr int NR = C::NR, NQ = C::NQ, NT = C::NT, C4 = C::C4, CH = C::CH;
   constexpr int NJ = 4 * NQ, STAGE = C::DK_STAGE;
@@ -682,53 +715,22 @@ __global__ void __launch_bounds__(DkCfg<HD>::NT)
   for (int i = 0; i < NR; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) ds0[st + (size_t)(ln.i0 + i) * HD + ln.col(j)] = G[i][j];
-}
-
-// dv: the reverse scan of G, thread j keeping column j of G.
-template <int HD>
-__global__ void __launch_bounds__(HD)
-    wkv6_bwd_dv_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                       const float* __restrict__ logw, const float* __restrict__ u,
-                       const float* __restrict__ dy, const float* __restrict__ dsT,
-                       float* __restrict__ dv, int L, int H) {
-  __shared__ float sr[CH][HD], sk[CH][HD], sw[CH][HD], sdy[CH][HD], su[HD];
-  const Dims d = dims_of<HD>(L, H);
-  const int j = threadIdx.x;
-  const size_t st = (size_t)blockIdx.x * HD * HD;
-  float G[HD];
+  static_assert(NT >= HD, "a thread for each entry of du's row");
+  if (blockIdx.x < H && tid < HD) {
+    constexpr int NB = 8;  // loads in flight
+    const int B = gridDim.x / H;
+    const float* p = du_part + (size_t)blockIdx.x * HD + tid;
+    const size_t bstride = (size_t)H * HD;
+    float sum = 0.f;
+    for (int b0 = 0; b0 < B; b0 += NB) {
+      float part[NB];
 #pragma unroll
-  for (int i = 0; i < HD; ++i) G[i] = dsT[st + i * HD + j];
-  su[j] = u[(blockIdx.x % H) * HD + j];
-  for (int t0 = ((L - 1) / CH) * CH; t0 >= 0; t0 -= CH) {
-    const int n = min(CH, L - t0);
-    __syncthreads();
-    stage<HD>(sr, r, d, t0, n);
-    stage<HD>(sk, k, d, t0, n);
-    stage<HD, true>(sw, logw, d, t0, n);
-    stage<HD>(sdy, dy, d, t0, n);
-    __syncthreads();
-    for (int c = n - 1; c >= 0; --c) {
-      const float dyj = sdy[c][j];
-      float gk = 0.f, ruk = 0.f;
+      for (int e = 0; e < NB; ++e) part[e] = b0 + e < B ? p[(b0 + e) * bstride] : 0.f;
 #pragma unroll
-      for (int i = 0; i < HD; ++i) {
-        const float ri = sr[c][i], ki = sk[c][i];
-        gk = fmaf(G[i], ki, gk);
-        ruk = fmaf(ri * su[i], ki, ruk);
-        G[i] = fmaf(sw[c][i], G[i], ri * dyj);
-      }
-      dv[d.base + (size_t)(t0 + c) * d.row + j] = fmaf(ruk, dyj, gk);
+      for (int e = 0; e < NB; ++e) sum += part[e];
     }
+    du[(size_t)blockIdx.x * HD + tid] = sum;
   }
-}
-
-// du[h, i] = sum over b, in order, of du_part[b, h, i]. One block per head.
-__global__ void wkv6_bwd_du_kernel(const float* __restrict__ du_part, float* __restrict__ du,
-                                   int B, int H, int hd) {
-  const int h = blockIdx.x, i = threadIdx.x;
-  float s = 0.f;
-  for (int b = 0; b < B; ++b) s += du_part[((size_t)b * H + h) * hd + i];
-  du[(size_t)h * hd + i] = s;
 }
 
 // Launches a kernel that stages through cp.async: allows its dynamic shared
@@ -765,35 +767,31 @@ int bwd_dr(const float* r, const float* k, const float* v, const float* logw, co
 
 template <int HD>
 int bwd_dk(const float* r, const float* k, const float* v, const float* logw, const float* u,
-           const float* dy, const float* dsT, const float* a, float* dk, float* dlogw,
-           float* ds0, int B, int L, int H, cudaStream_t st) {
+           const float* dy, const float* dsT, const float* a, const float* du_part, float* dk,
+           float* dlogw, float* ds0, float* du, int B, int L, int H, cudaStream_t st) {
   return launch_staged(wkv6_bwd_dk_kernel<HD>, B * H, DkCfg<HD>::NT, dk_smem<HD>(), st,
                        (uintptr_t)r | (uintptr_t)k | (uintptr_t)v | (uintptr_t)logw |
                            (uintptr_t)dy | (uintptr_t)a,
-                       r, k, v, logw, u, dy, dsT, a, dk, dlogw, ds0, L, H);
+                       r, k, v, logw, u, dy, dsT, a, du_part, dk, dlogw, ds0, du, L, H);
+}
+
+template <int HD>
+int bwd_dv(const float* r, const float* k, const float* logw, const float* u, const float* dy,
+           const float* dsT, float* dv, int B, int L, int H, cudaStream_t st) {
+  return launch_staged(wkv6_bwd_dv_kernel<HD>, B * H, FwdCfg<HD>::NT, fwd_smem<HD>(), st,
+                       (uintptr_t)r | (uintptr_t)k | (uintptr_t)logw | (uintptr_t)dy, r, k,
+                       logw, u, dy, dsT, dv, L, H);
 }
 
 }  // namespace
-
-// head_dim: 16, 32 or 64. Every tensor is fp32 and contiguous; the caller
-// checks shapes. Each launch goes on the given stream; returns a cudaError_t.
-#define WKV_DISPATCH(KERNEL, ...)                                            \
-  do {                                                                       \
-    const dim3 grid(B * H);                                                  \
-    switch (head_dim) {                                                      \
-      case 16: KERNEL<16><<<grid, 16, 0, (cudaStream_t)stream>>>(__VA_ARGS__); break; \
-      case 32: KERNEL<32><<<grid, 32, 0, (cudaStream_t)stream>>>(__VA_ARGS__); break; \
-      case 64: KERNEL<64><<<grid, 64, 0, (cudaStream_t)stream>>>(__VA_ARGS__); break; \
-      default: return (int)cudaErrorInvalidValue;                            \
-    }                                                                        \
-    return (int)cudaGetLastError();                                          \
-  } while (0)
 
 #define RD(p) ((const float*)(p))
 #define WR(p) ((float*)(p))
 
 extern "C" {
 
+// head_dim: 16, 32 or 64. Every tensor is fp32 and contiguous; the caller
+// checks shapes. Each launch goes on the given stream; returns a cudaError_t.
 // F<head_dim>(...) for head_dim 16, 32 or 64
 #define WKV_BY_HEAD_DIM(F, ...)                 \
   switch (head_dim) {                           \
@@ -818,22 +816,18 @@ int wkv6_bwd_dr(const void* r, const void* k, const void* v, const void* logw, c
 }
 
 int wkv6_bwd_dk(const void* r, const void* k, const void* v, const void* logw, const void* u,
-                const void* dy, const void* dsT, const void* a, void* dk, void* dlogw, void* ds0,
-                int B, int L, int H, int head_dim, void* stream) {
-  WKV_BY_HEAD_DIM(bwd_dk, RD(r), RD(k), RD(v), RD(logw), RD(u), RD(dy), RD(dsT), RD(a), WR(dk),
-                  WR(dlogw), WR(ds0), B, L, H, (cudaStream_t)stream)
+                const void* dy, const void* dsT, const void* a, const void* du_part, void* dk,
+                void* dlogw, void* ds0, void* du, int B, int L, int H, int head_dim,
+                void* stream) {
+  WKV_BY_HEAD_DIM(bwd_dk, RD(r), RD(k), RD(v), RD(logw), RD(u), RD(dy), RD(dsT), RD(a),
+                  RD(du_part), WR(dk), WR(dlogw), WR(ds0), WR(du), B, L, H,
+                  (cudaStream_t)stream)
 }
 
 int wkv6_bwd_dv(const void* r, const void* k, const void* logw, const void* u, const void* dy,
                 const void* dsT, void* dv, int B, int L, int H, int head_dim, void* stream) {
-  WKV_DISPATCH(wkv6_bwd_dv_kernel, RD(r), RD(k), RD(logw), RD(u), RD(dy), RD(dsT), WR(dv), L, H);
-}
-
-int wkv6_bwd_du(const void* du_part, void* du, int B, int H, int head_dim, void* stream) {
-  if (head_dim < 1 || head_dim > 1024) return (int)cudaErrorInvalidValue;
-  wkv6_bwd_du_kernel<<<H, head_dim, 0, (cudaStream_t)stream>>>(RD(du_part), WR(du), B, H,
-                                                               head_dim);
-  return (int)cudaGetLastError();
+  WKV_BY_HEAD_DIM(bwd_dv, RD(r), RD(k), RD(logw), RD(u), RD(dy), RD(dsT), WR(dv), B, L, H,
+                  (cudaStream_t)stream)
 }
 
 const char* wkv6_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -865,6 +859,17 @@ int wkv6_bwd_blocks_per_sm(int* dr_blocks, int* dk_blocks) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dk_blocks, wkv6_bwd_dk_kernel<64>,
                                                       DkCfg<64>::NT, dk_smem<64>());
+  return (int)e;
+}
+
+// Blocks of wkv6_bwd_dv_kernel that fit on one SM at once at head_dim 64.
+int wkv6_bwd_dv_blocks_per_sm(int* blocks) {
+  cudaError_t e = cudaFuncSetAttribute(wkv6_bwd_dv_kernel<64>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)fwd_smem<64>());
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wkv6_bwd_dv_kernel<64>,
+                                                      FwdCfg<64>::NT, fwd_smem<64>());
   return (int)e;
 }
 

@@ -15,8 +15,7 @@ FAMILIES = {
     "attention": ("flash_attn_fwd", "flash_attn_bwd_dq",
                   "flash_attn_bwd_dkdv"),
     # csrc/wkv6.cu (kernels/rwkv/ops.py)
-    "rwkv": ("wkv6_fwd", "wkv6_bwd_dr", "wkv6_bwd_dk", "wkv6_bwd_dv",
-             "wkv6_bwd_du"),
+    "rwkv": ("wkv6_fwd", "wkv6_bwd_dr", "wkv6_bwd_dk", "wkv6_bwd_dv"),
 }
 KERNELS = tuple(n for names in FAMILIES.values() for n in names)
 

@@ -17,13 +17,14 @@ step t (G_L = dsT, G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ), the backward is
     dk_t = G_t v_t + u ⊙ r_t (v_t·dy_t)             (wkv6_bwd_dk)
     dlogw_t = Σ_{m≥t} a_m − Σ_{t≤m<L} b_m
     ds0 = G_0
+    du = Σ_{b,t} r_t ⊙ k_t (v_t·dy_t)
     dv_t = G_tᵀ k_t + (Σ_i r_ti u_i k_ti) dy_t      (wkv6_bwd_dv)
-    du = Σ_{b,t} r_t ⊙ k_t (v_t·dy_t)               (wkv6_bwd_du)
 
 with a_m = r_{m+1} ⊙ w_m ⊙ (S_{m-1} dy_{m+1}) for m < L and
 a_L = w_L ⊙ rowsum(dsT ⊙ S_{L-1}), which ``wkv6_bwd_dr`` writes, and
 b_m = k_m ⊙ w_{m+1} ⊙ (G_{m+1} v_m); ``wkv6.cu`` derives the dlogw
-identity, which equals w_t ⊙ rowsum(G_t ⊙ S_{t-1}).
+identity, which equals w_t ⊙ rowsum(G_t ⊙ S_{t-1}). du is summed over t
+per (b, h) by ``wkv6_bwd_dr`` and over b by ``wkv6_bwd_dk``.
 
 Each kernel wrapper adds one to the port's launch count
 (``kernels/launches.py``) where it launches.
@@ -98,12 +99,12 @@ def wkv6_bwd_dr_plain(r, k, v, logw, u, s0, dy, dsT):
     return torch.stack(drs, 1), torch.stack(as_, 1), du_part
 
 
-def wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a):
+def wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a, du_part):
     """What ``wkv6_bwd_dk`` computes, scanning G backward from dsT: dk, dlogw
-    (the a terms less the b terms, summed from the end) and ds0 = G_0.
-    Returns (dk, dlogw, ds0)."""
-    r, k, v, logw, u, dy, dsT, a = _prep(r.dtype, r, k, v, logw, u, dy, dsT,
-                                         a)
+    (the a terms less the b terms, summed from the end), ds0 = G_0, and du
+    from dr's partials. Returns (dk, dlogw, ds0, du)."""
+    r, k, v, logw, u, dy, dsT, a, du_part = _prep(r.dtype, r, k, v, logw, u,
+                                                  dy, dsT, a, du_part)
     w = torch.exp(logw)
     L = r.shape[1]
     G, dks, dlogws = dsT, [], []
@@ -118,7 +119,8 @@ def wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a):
         if t > 0:
             gv_next = torch.einsum("bhij,bhj->bhi", G, v[:, t - 1])
         G = w[:, t, ..., None] * G + _outer(r[:, t], dy[:, t])
-    return torch.stack(dks[::-1], 1), torch.stack(dlogws[::-1], 1), G
+    return (torch.stack(dks[::-1], 1), torch.stack(dlogws[::-1], 1), G,
+            wkv6_bwd_du_plain(du_part))
 
 
 def wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT):
@@ -135,7 +137,8 @@ def wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT):
 
 
 def wkv6_bwd_du_plain(du_part):
-    """What ``wkv6_bwd_du`` computes: du [H,hd], the partials summed over b."""
+    """du [H,hd]: dr's partials [B,H,hd] summed over b, as ``wkv6_bwd_dk``
+    sums them."""
     return du_part.sum(0)
 
 
@@ -143,9 +146,10 @@ def wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dsT):
     """The whole backward from its plain parts. Returns (dr, dk, dv, dlogw,
     du, ds0)."""
     dr, a, du_part = wkv6_bwd_dr_plain(r, k, v, logw, u, s0, dy, dsT)
-    dk, dlogw, ds0 = wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a)
+    dk, dlogw, ds0, du = wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a,
+                                           du_part)
     dv = wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT)
-    return dr, dk, dv, dlogw, wkv6_bwd_du_plain(du_part), ds0
+    return dr, dk, dv, dlogw, du, ds0
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -154,10 +158,8 @@ _SIGNATURES = {
     # pointers..., B, L, H, head_dim, stream
     "wkv6_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "wkv6_bwd_dr": [_P] * 11 + [_I] * 4 + [_P],
-    "wkv6_bwd_dk": [_P] * 11 + [_I] * 4 + [_P],
+    "wkv6_bwd_dk": [_P] * 13 + [_I] * 4 + [_P],
     "wkv6_bwd_dv": [_P] * 7 + [_I] * 4 + [_P],
-    # du_part, du; B, H, head_dim; stream
-    "wkv6_bwd_du": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 
@@ -204,13 +206,15 @@ def wkv6_bwd_dr_cuda(r, k, v, logw, u, s0, dy, dsT):
     return dr, a, du_part
 
 
-def wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a):
-    """Launch ``wkv6_bwd_dk``. Returns (dk, dlogw, ds0)."""
+def wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a, du_part):
+    """Launch ``wkv6_bwd_dk``. Returns (dk, dlogw, ds0, du)."""
     dk, dlogw, ds0 = (torch.empty_like(r), torch.empty_like(r),
                       torch.empty_like(dsT))
+    du = torch.empty_like(u)
     _launch("wkv6_bwd_dk", r.device,
-            (r, k, v, logw, u, dy, dsT, a, dk, dlogw, ds0), list(r.shape))
-    return dk, dlogw, ds0
+            (r, k, v, logw, u, dy, dsT, a, du_part, dk, dlogw, ds0, du),
+            list(r.shape))
+    return dk, dlogw, ds0, du
 
 
 def wkv6_bwd_dv_cuda(r, k, logw, u, dy, dsT):
@@ -221,22 +225,15 @@ def wkv6_bwd_dv_cuda(r, k, logw, u, dy, dsT):
     return dv
 
 
-def wkv6_bwd_du_cuda(du_part):
-    """Launch ``wkv6_bwd_du``. Returns du [H, hd]."""
-    B, H, hd = du_part.shape
-    du = torch.empty((H, hd), dtype=du_part.dtype, device=du_part.device)
-    _launch("wkv6_bwd_du", du_part.device, (du_part, du), [B, H, hd])
-    return du
-
-
 def wkv6_bwd_cuda(r, k, v, logw, u, s0, dy, dsT):
-    """The four backward kernels on one stream: dr (which also writes the
-    a terms of dlogw and the du partials), then dk with dlogw and ds0, dv
-    and du. Returns (dr, dk, dv, dlogw, du, ds0)."""
+    """The three backward kernels on one stream: dr (which also writes the
+    a terms of dlogw and the du partials), then dk with dlogw, ds0 and du,
+    and dv. Returns (dr, dk, dv, dlogw, du, ds0)."""
     dr, a, du_part = wkv6_bwd_dr_cuda(r, k, v, logw, u, s0, dy, dsT)
-    dk, dlogw, ds0 = wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a)
+    dk, dlogw, ds0, du = wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a,
+                                          du_part)
     dv = wkv6_bwd_dv_cuda(r, k, logw, u, dy, dsT)
-    return dr, dk, dv, dlogw, wkv6_bwd_du_cuda(du_part), ds0
+    return dr, dk, dv, dlogw, du, ds0
 
 
 # ---------------------------------------------------------------- wrapper

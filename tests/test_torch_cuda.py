@@ -149,7 +149,7 @@ WKV_TOL = 1e-4
 @pytest.mark.parametrize("B,L,H,hd,spread", WKV_CASES)
 def test_wkv6_function_matches_plain(card, B, L, H, hd, spread):
     """WKV6Fn on the card, forward and backward, against the plain versions
-    on the same inputs; each of the five kernels launches once."""
+    on the same inputs; each of the four kernels launches once."""
     from repro_torch.kernels.rwkv import ops as wkv_ops
 
     gen = torch.Generator(device=card).manual_seed(1)
@@ -214,10 +214,11 @@ def test_forward_kernels_are_deterministic_and_match_plain(card, aligned):
 
 @pytest.mark.parametrize("aligned", [True, False])
 def test_backward_scans_are_deterministic_and_match_plain(card, aligned):
-    """wkv6_bwd_dr and wkv6_bwd_dk give the same bits on two runs and agree
-    with their plain versions (dk on dr's a terms), on 16-byte aligned
-    inputs (cp.async staging) and on inputs that are not (the threads' own
-    staging); L = 77 ends inside a stage."""
+    """wkv6_bwd_dr, wkv6_bwd_dk (with du) and wkv6_bwd_dv give the same bits
+    on two runs and agree with their plain versions (dk on dr's a terms and
+    du partials), on 16-byte aligned inputs (cp.async staging) and on inputs
+    that are not (the threads' own staging); L = 77 ends inside a stage, the
+    one dv scans first."""
     from repro_torch.kernels.rwkv import ops as wkv_ops
 
     gen = torch.Generator(device=card).manual_seed(7)
@@ -234,14 +235,17 @@ def test_backward_scans_are_deterministic_and_match_plain(card, aligned):
     dsT = rnd(B, H, hd, hd, scale=0.1)
     druns = [wkv_ops.wkv6_bwd_dr_cuda(r, k, v, logw, u, s0, dy, dsT)
              for _ in range(2)]
-    a = druns[0][1]
-    kruns = [wkv_ops.wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a)
+    a, du_part = druns[0][1], druns[0][2]
+    kruns = [wkv_ops.wkv6_bwd_dk_cuda(r, k, v, logw, u, dy, dsT, a, du_part)
+             for _ in range(2)]
+    vruns = [(wkv_ops.wkv6_bwd_dv_cuda(r, k, logw, u, dy, dsT),)
              for _ in range(2)]
     want = (*wkv_ops.wkv6_bwd_dr_plain(r, k, v, logw, u, s0, dy, dsT),
-            *wkv_ops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a))
+            *wkv_ops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a, du_part),
+            wkv_ops.wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT))
     torch.cuda.synchronize()
-    for x, y in (*zip(*druns), *zip(*kruns)):
+    for x, y in (*zip(*druns), *zip(*kruns), *zip(*vruns)):
         assert torch.equal(x, y)
-    for got, w in zip((*druns[0], *kruns[0]), want):
+    for got, w in zip((*druns[0], *kruns[0], *vruns[0]), want):
         torch.testing.assert_close(got, w, rtol=WKV_TOL,
                                    atol=WKV_TOL * float(w.abs().max()))

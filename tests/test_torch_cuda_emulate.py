@@ -63,6 +63,7 @@ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c,
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local uint3 threadIdx, blockIdx;
+inline thread_local dim3 gridDim;
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
@@ -133,6 +134,7 @@ void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F f, A... args) {
         ths.emplace_back([&, t] {
           threadIdx = {(unsigned)t, 0, 0};
           blockIdx = {bx, by, 0};
+          gridDim = grid;
           emu_blk = &blk;
           f(args...);
           emu_wait();
@@ -399,7 +401,7 @@ def run_wkv(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
 def run_wkv_bwd(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
     """The backward kernels on seeded inputs with a nonzero s0 and dsT, in
     the order the port launches them: ``wkv6_bwd_dr``, ``wkv6_bwd_dk`` on
-    dr's a terms, ``wkv6_bwd_dv`` and ``wkv6_bwd_du`` on dr's partials;
+    dr's a terms and du partials (writing du too), and ``wkv6_bwd_dv``;
     each against its plain version on the same inputs. Returns (worst error
     over the plain output's largest entry, outputs)."""
     r, k, v, logw, u, s0, dy, dsT = wkv_inputs(B, L, H, hd, logw_kind,
@@ -410,25 +412,25 @@ def run_wkv_bwd(lib, B, L, H, hd, logw_kind, offset=False, seed=0):
     dr, a, dk, dlogw, dv = seq(), seq(), seq(), seq(), seq()
     du_part, du, ds0 = (torch.empty(B, H, hd), torch.empty(H, hd),
                         torch.empty(B, H, hd, hd))
-    for fn, ts, ints in (
-            ("wkv6_bwd_dr", (r, k, v, logw, u, s0, dy, dsT, dr, a, du_part),
-             (B, L, H, hd)),
-            ("wkv6_bwd_dk", (r, k, v, logw, u, dy, dsT, a, dk, dlogw, ds0),
-             (B, L, H, hd)),
-            ("wkv6_bwd_dv", (r, k, logw, u, dy, dsT, dv), (B, L, H, hd)),
-            ("wkv6_bwd_du", (du_part, du), (B, H, hd))):
-        err = getattr(lib, fn)(*[t.data_ptr() for t in ts], *ints, None)
+    for fn, ts in (
+            ("wkv6_bwd_dr", (r, k, v, logw, u, s0, dy, dsT, dr, a, du_part)),
+            ("wkv6_bwd_dk", (r, k, v, logw, u, dy, dsT, a, du_part, dk, dlogw,
+                             ds0, du)),
+            ("wkv6_bwd_dv", (r, k, logw, u, dy, dsT, dv))):
+        err = getattr(lib, fn)(*[t.data_ptr() for t in ts], B, L, H, hd, None)
         assert err == 0, f"{fn} returned {err}"
     want = (*wops.wkv6_bwd_dr_plain(r, k, v, logw, u, s0, dy, dsT),
-            *wops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a),
-            wops.wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT),
-            wops.wkv6_bwd_du_plain(du_part))
-    got = (dr, a, du_part, dk, dlogw, ds0, dv, du)
+            *wops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a, du_part),
+            wops.wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT))
+    got = (dr, a, du_part, dk, dlogw, ds0, du, dv)
     return rel_error(tuple(zip(got, want))), got
 
 
 WKV_CASES = [  # B, L, H, hd, logw
     (1, 37, 2, 64, "model"),      # two stages and a ragged third
+    # three b for du's order; four stages, the one scanned first in reverse
+    # a single step
+    (3, 49, 2, 64, "model"),
     (2, 16, 1, 64, "model"),      # one whole stage
     (1, 1, 2, 64, "model"),
     (1, 17, 1, 64, -20.0),
@@ -459,8 +461,8 @@ def test_wkv6_forward_kernel_gives_the_same_bits_twice(wkv_emu):
 
 @pytest.mark.parametrize("case", WKV_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_wkv6_backward_kernels_match_plain(wkv_emu, case):
-    """dr (with the a terms and du partials), dk (with dlogw and ds0), dv
-    and du."""
+    """dr (with the a terms and du partials), dk (with dlogw, ds0 and du)
+    and dv."""
     rel, _ = run_wkv_bwd(wkv_emu, *case)
     assert rel <= WKV_TOL, f"error {rel:.2e} of the largest plain entry"
 

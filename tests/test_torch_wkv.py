@@ -144,7 +144,7 @@ def test_dlogw_is_accurate_where_the_decay_is_tiny(lw_val):
 
 
 def test_backward_kernels_plain_parts_compose():
-    """The four backward kernels' plain versions, chained as the CUDA
+    """The three backward kernels' plain versions, chained as the CUDA
     backward chains the kernels, give the gradient that autograd takes of
     the plain serial scan (float64, where both are exact to rounding)."""
     arrays = [a.astype(np.float64) for a in _inputs(2, 13, 3, 16, seed=2)]
@@ -154,9 +154,9 @@ def test_backward_kernels_plain_parts_compose():
                                 *leaves[4:])
     want = torch.autograd.grad((y, sT), leaves, (dy, dsT))
     dr, a, du_part = ops.wkv6_bwd_dr_plain(r, k, v, logw, u, s0, dy, dsT)
-    dk, dlogw, ds0 = ops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a)
+    dk, dlogw, ds0, du = ops.wkv6_bwd_dk_plain(r, k, v, logw, u, dy, dsT, a,
+                                               du_part)
     dv = ops.wkv6_bwd_dv_plain(r, k, logw, u, dy, dsT)
-    du = ops.wkv6_bwd_du_plain(du_part)
     assert du_part.shape == (2, 3, 16) and du.shape == (3, 16)
     for name, g, w in zip(NAMES, (dr, dk, dv, dlogw, du, ds0), want):
         torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10, msg=name)

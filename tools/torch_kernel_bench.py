@@ -11,16 +11,20 @@ started together. Prints each kernel's registers and spills from
 ``-Xptxas -v`` and the blocks per SM that each build reports. Each build is
 checked against the plain versions (and for the same bits on two runs) at
 the main shapes, then ``flash_attn_fwd``, the backward pair (dq then dkdv),
-``wkv6_fwd``, ``wkv6_bwd_dr`` and ``wkv6_bwd_dk`` are timed with CUDA
-events, the builds in turns (A B B A)
+``wkv6_fwd``, ``wkv6_bwd_dr``, ``wkv6_bwd_dk`` and ``wkv6_bwd_dv`` are
+timed with CUDA events, the builds in turns (A B B A)
 so that they share the card's state, beside
 ``F.scaled_dot_product_attention``'s forward and backward on the same
 inputs (a yardstick; the port never calls it). Shapes: one slot shard of
 the edl_paper path (B 8 at p = 1, 4 at p = 2; H 12, L 1024, D 64, fp32,
 causal) and of the rwkv6 path (B 8 / 4, L 1024, H 32, hd 64, fp32), where
-each WKV6 kernel's bound by bytes is printed beside its times. Prints
-one JSON line per shape, then the whole record, which it also writes to
-``--out``. Run from the repo root on a machine with a card:
+each WKV6 kernel's bound by bytes is printed beside its times. A build
+from before du was folded into dk (it has a ``wkv6_bwd_du`` kernel, as at
+ec2815a) is driven through its own interface: its dk is timed alone and,
+as ``wkv6_bwd_dk+du``, followed by its du kernel, the work that the folded
+dk does in one launch. Prints one JSON line per shape, then the whole
+record, which it also writes to ``--out``. Run from the repo root on a
+machine with a card:
 
     python3 tools/torch_kernel_bench.py [--baseline-rev REV] [--variant NAME=FILE] [--reps 20]
 """
@@ -42,12 +46,17 @@ WKV_SHAPES = {"rwkv_p1": (8, 1024, 32, 64), "rwkv_p2": (4, 1024, 32, 64)}
 ATT_TOL = {"fwd": 2e-5, "bwd": 1e-4}   # chip_smoke.py's fp32 tolerances
 WKV_TOL = 1e-4                        # of the plain output's largest entry
 HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3, as in chip_smoke.py
-WKV_KERNELS = ("wkv6_fwd", "wkv6_bwd_dr", "wkv6_bwd_dk")
+WKV_KERNELS = ("wkv6_fwd", "wkv6_bwd_dr", "wkv6_bwd_dk", "wkv6_bwd_dv")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the interface of a build whose du is a kernel of its own: dk without
+# du_part and du; du_part, du; B, H, head_dim
+SPLIT_DU_SIGNATURES = {"wkv6_bwd_dk": [_P] * 11 + [_I] * 4 + [_P],
+                       "wkv6_bwd_du": [_P] * 2 + [_I] * 3 + [_P]}
 # the kernels whose registers are reported: fp32 at head dim 64
 PTXAS_KERNELS = {"flash_attn": ("fwd_kernelIfLi64E", "bwd_dq_kernelIfLi64E",
                                 "bwd_dkdv_kernelIfLi64E"),
                  "wkv6": ("wkv6_fwd_kernelILi64E", "wkv6_bwd_dr_kernelILi64E",
-                          "wkv6_bwd_dk_kernelILi64E")}
+                          "wkv6_bwd_dk_kernelILi64E", "wkv6_bwd_dv_kernelILi64E")}
 
 
 def baseline_sources(rev: str) -> dict:
@@ -116,10 +125,19 @@ def build_all(builds: dict) -> dict:
     return libs
 
 
+def split_du(lib) -> bool:
+    """Whether a WKV6 build has du as a kernel of its own."""
+    return hasattr(lib, "wkv6_bwd_du")
+
+
 def typed(lib, fam):
     from repro_torch.kernels.attention import ops as aops
     from repro_torch.kernels.rwkv import ops as wops
-    sigs = aops._SIGNATURES if fam == "flash_attn" else wops._SIGNATURES
+    if fam == "flash_attn":
+        sigs = aops._SIGNATURES
+    else:
+        sigs = {**wops._SIGNATURES,
+                **(SPLIT_DU_SIGNATURES if split_du(lib) else {})}
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -130,7 +148,8 @@ def typed(lib, fam):
 OCCUPANCY = {"flash_attn": (("flash_attn_blocks_per_sm", ("fwd", "dq", "dkdv")),
                             ("flash_attn_bwd_blocks_per_sm", ("dq", "dkdv"))),
              "wkv6": (("wkv6_fwd_blocks_per_sm", ("wkv6_fwd",)),
-                      ("wkv6_bwd_blocks_per_sm", ("wkv6_bwd_dr", "wkv6_bwd_dk")))}
+                      ("wkv6_bwd_blocks_per_sm", ("wkv6_bwd_dr", "wkv6_bwd_dk")),
+                      ("wkv6_bwd_dv_blocks_per_sm", ("wkv6_bwd_dv",)))}
 
 
 def blocks_per_sm(lib, fam) -> dict | None:
@@ -308,38 +327,66 @@ def main(argv=None) -> int:
         logw = -torch.exp(torch.clamp(rnd(B, L, H, hd, scale=2.0), -8.0, 4.0))
         u, s0 = rnd(H, hd, scale=0.5), rnd(B, H, hd, hd, scale=0.1)
         dy, dsT = rnd(B, L, H, hd), rnd(B, H, hd, hd, scale=0.1)
-        y, dr, a, dk, dlogw = (torch.empty_like(r) for _ in range(5))
+        y, dr, a, dk, dlogw, dv = (torch.empty_like(r) for _ in range(6))
         sT, ds0 = torch.empty_like(s0), torch.empty_like(s0)
-        du_part = torch.empty((B, H, hd), device="cuda")
-        wkv_args = {"wkv6_fwd": (r, k, v, logw, u, s0, y, sT),
-                    "wkv6_bwd_dr": (r, k, v, logw, u, s0, dy, dsT, dr, a,
-                                    du_part),
-                    "wkv6_bwd_dk": (r, k, v, logw, u, dy, dsT, a, dk, dlogw,
-                                    ds0)}
+        du_part = torch.empty((B, H, hd), device=r.device)
+        du = torch.empty_like(u)
 
-        def wkv_call(lib, fn):
-            call(lib, fn, *[t.data_ptr() for t in wkv_args[fn]], B, L, H, hd,
-                 stream)
+        def ptrs(*ts):
+            return [t.data_ptr() for t in ts]
+
+        def wkv_calls(lib) -> dict:
+            """{entry: launch(es)} of one build, through its interface."""
+            dims = (B, L, H, hd, stream)
+            calls = {
+                "wkv6_fwd": lambda: call(lib, "wkv6_fwd", *ptrs(
+                    r, k, v, logw, u, s0, y, sT), *dims),
+                "wkv6_bwd_dr": lambda: call(lib, "wkv6_bwd_dr", *ptrs(
+                    r, k, v, logw, u, s0, dy, dsT, dr, a, du_part), *dims),
+                "wkv6_bwd_dk": lambda: call(lib, "wkv6_bwd_dk", *ptrs(
+                    r, k, v, logw, u, dy, dsT, a, du_part, dk, dlogw, ds0,
+                    du), *dims),
+                "wkv6_bwd_dv": lambda: call(lib, "wkv6_bwd_dv", *ptrs(
+                    r, k, logw, u, dy, dsT, dv), *dims)}
+            if split_du(lib):
+                def dk_alone():
+                    call(lib, "wkv6_bwd_dk", *ptrs(r, k, v, logw, u, dy, dsT,
+                                                   a, dk, dlogw, ds0), *dims)
+
+                def dk_then_du():
+                    dk_alone()
+                    call(lib, "wkv6_bwd_du", *ptrs(du_part, du), B, H, hd,
+                         stream)
+                calls.update({"wkv6_bwd_dk": dk_alone,
+                              "wkv6_bwd_dk+du": dk_then_du})
+            return calls
 
         if sname == "rwkv_p1":
             want = {"wkv6_fwd": wops.wkv6_fwd_plain(r, k, v, logw, u, s0),
                     "wkv6_bwd_dr": wops.wkv6_bwd_dr_plain(r, k, v, logw, u, s0,
-                                                          dy, dsT)}
+                                                          dy, dsT),
+                    "wkv6_bwd_dv": (wops.wkv6_bwd_dv_plain(r, k, logw, u, dy,
+                                                           dsT),)}
             for name in wkv:
-                lib = libs[name]["wkv6"][0]
+                calls = wkv_calls(libs[name]["wkv6"][0])
+                dk_entry = ("wkv6_bwd_dk+du" if "wkv6_bwd_dk+du" in calls
+                            else "wkv6_bwd_dk")
                 runs = []
                 for _ in range(2):
-                    for fn in WKV_KERNELS:
-                        wkv_call(lib, fn)
+                    for fn in ("wkv6_fwd", "wkv6_bwd_dr", dk_entry,
+                               "wkv6_bwd_dv"):
+                        calls[fn]()
                     torch.cuda.synchronize()
                     runs.append({"wkv6_fwd": (y.clone(), sT.clone()),
                                  "wkv6_bwd_dr": (dr.clone(), a.clone(),
                                                  du_part.clone()),
                                  "wkv6_bwd_dk": (dk.clone(), dlogw.clone(),
-                                                 ds0.clone())})
-                # dk on the inputs it was given: this build's a terms
+                                                 ds0.clone(), du.clone()),
+                                 "wkv6_bwd_dv": (dv.clone(),)})
+                # dk on the inputs it was given: this build's a terms and du
+                # partials
                 want["wkv6_bwd_dk"] = wops.wkv6_bwd_dk_plain(
-                    r, k, v, logw, u, dy, dsT, runs[0]["wkv6_bwd_dr"][1])
+                    r, k, v, logw, u, dy, dsT, *runs[0]["wkv6_bwd_dr"][1:])
                 for fn in WKV_KERNELS:
                     rel = max(float((g - w).abs().max() / w.abs().max())
                               for g, w in zip(runs[0][fn], want[fn]))
@@ -353,18 +400,20 @@ def main(argv=None) -> int:
                         return 1
                     result["max_err"].setdefault(name, {})[f"{fn}_rel"] = rel
             del want, runs
-        times = {n: {fn: [] for fn in WKV_KERNELS} for n in wkv}
+        times = {n: {} for n in wkv}
         for name in order:
             if name in wkv:
-                lib = libs[name]["wkv6"][0]
-                for fn in WKV_KERNELS:
-                    times[name][fn].append(timed(lambda: wkv_call(lib, fn)))
+                for fn, run in wkv_calls(libs[name]["wkv6"][0]).items():
+                    times[name].setdefault(fn, []).append(timed(run))
         # bytes each kernel must move (chip_smoke.py's wkv_work): fwd 5, dr
-        # 7, dk 8 [B,L,H,hd] tensors, two states, u, and du's partials
+        # 7, dk 8, dv 5 [B,L,H,hd] tensors, the states, u, du's partials and
+        # du (dk reads the partials and writes du)
         seq, st, vec = B * L * H * hd * 4, B * H * hd * hd * 4, B * H * hd * 4
-        nbytes = {"wkv6_fwd": 5 * seq + 2 * st + H * hd * 4,
-                  "wkv6_bwd_dr": 7 * seq + 2 * st + H * hd * 4 + vec,
-                  "wkv6_bwd_dk": 8 * seq + 2 * st + H * hd * 4}
+        uu = H * hd * 4
+        nbytes = {"wkv6_fwd": 5 * seq + 2 * st + uu,
+                  "wkv6_bwd_dr": 7 * seq + 2 * st + uu + vec,
+                  "wkv6_bwd_dk": 8 * seq + 2 * st + 2 * uu + vec,
+                  "wkv6_bwd_dv": 5 * seq + st + uu}
         result["shapes"][sname] = {
             "B": B, "L": L, "H": H, "hd": hd,
             "ms": {n: {fn: sum(x) / len(x) for fn, x in t.items()}

@@ -34,7 +34,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 GROUPS = (("wkv6_fwd", "wkv6_fwd_kernel"), ("wkv6_bwd_dr", "wkv6_bwd_dr_kernel"),
           ("wkv6_bwd_dk", "wkv6_bwd_dk_kernel"),
           ("wkv6_bwd_dv", "wkv6_bwd_dv_kernel"),
-          ("wkv6_bwd_du", "wkv6_bwd_du_kernel"),
           ("flash_attn_fwd", "fwd_kernel"), ("flash_attn_bwd_dq",
                                              "bwd_dq_kernel"),
           ("flash_attn_bwd_dkdv", "bwd_dkdv_kernel"))
