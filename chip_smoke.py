@@ -13,19 +13,25 @@ Phases, in order; any failure exits non-zero:
 2. build: compile every kernel source under ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together;
 3. attention kernels: call each flash-attention kernel's wrapper on CUDA
-   tensors at the edl_paper path's shape and at GQA, window, ragged,
-   non-causal, head-dim and bf16 cases, and hold it against its plain
-   PyTorch version on the same inputs; run the forward and the backward
-   pair twice on the main and GQA cases and require the same bits; time
-   kernel, plain
-   version and ``F.scaled_dot_product_attention`` (a yardstick only: the
-   port never calls it), and the backward pair against SDPA's backward
-   under its default and under each backend that takes fp32
-   (``EFFICIENT_ATTENTION``, ``MATH``; the others are recorded as
-   refusing), naming the default's backend by its time;
+   tensors at the edl_paper path's shape, at one virtual worker's shard of
+   it (B 1), and at GQA, window, ragged, non-causal, head-dim and bf16
+   cases, and hold it against its plain PyTorch version on the same
+   inputs; run the forward and the backward pair twice on the main and GQA
+   cases and require the same bits; time kernel, plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it) at the main and the virtual-worker shapes, and the backward
+   pair against SDPA's backward under its default and under each backend
+   that takes fp32 (``EFFICIENT_ATTENTION``, ``MATH``; the others are
+   recorded as refusing), naming the default's backend by its time;
 4. edl_paper path: ``repro_torch.launch.train.main`` trains the full-width
    ``edl_paper`` decoder through a stop-free scale-out;
-5. WKV6 kernels: call each WKV6 kernel's wrapper at the rwkv6 path's shape
+5. edl_paper virtual-worker path: ``repro_torch.launch.train.main`` with
+   ``--virtual-workers 8`` on four slots of the card runs (a) static at
+   p = 1, (b) 1 -> 4 -> 2, (c) p = 4 with a worker killed (detection
+   scales in to 2) and (d) a stop-resume 2 -> 1; the losses of (b), (c)
+   and (d) must equal (a)'s bit for bit, step for step; (b)'s switches
+   must be stop-free and (d)'s stop more than 10x (b)'s scale-out's;
+6. WKV6 kernels: call each WKV6 kernel's wrapper at the rwkv6 path's shape
    (one slot shard at p = 1 and at p = 2), at ragged L, at RWKV6's training
    context, at extreme decays and at head dims 16, 32 and 64, with nonzero
    s0 and dsT, inputs drawn from a seeded CPU generator, and hold it against
@@ -34,7 +40,7 @@ Phases, in order; any failure exits non-zero:
    time kernel and plain version (no single PyTorch call computes a WKV6
    kernel's outputs; ``du_part.sum(0)``, the one call that computes dk's
    du, is timed beside dk);
-6. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
+7. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
    ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, timing the
    host-side init of its parameters; then the same trainer refits one batch
    four times, and its loss must fall at every step; a held-out batch's
@@ -51,7 +57,9 @@ place. The launches
 made by the context preps' warm-ups are counted apart, the rest is divided
 by the slot shards stepped, and both must equal what the code predicts: one
 launch of each kernel per layer for each shard's forward and backward, with
-remat's recomputation a second forward launch. Then print
+remat's recomputation a second forward launch; in virtual-worker mode a
+step runs K shards at every p, so each kernel launches layers x K times a
+step. Then print
 ``{"backward_pair": {...}}`` (the two backward kernels together against
 SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the card
 line, and last
@@ -82,9 +90,12 @@ WKV = {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
 # name, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype
 ATT_MAIN_CASE = ("main_p1", 8, 12, 12, 1024, 1024, 64, True, 0, None,
                  "float32")
+# one virtual worker's shard of the main case (batch 8, K = 8)
+ATT_VW_CASE = ("vw_b1", 1, 12, 12, 1024, 1024, 64, True, 0, None, "float32")
 ATT_CASES = [
     ATT_MAIN_CASE,
     ("main_p2", 4, 12, 12, 1024, 1024, 64, True, 0, None, "float32"),
+    ATT_VW_CASE,
     ("gqa", 2, 8, 2, 512, 512, 64, True, 0, None, "float32"),
     ("window", 2, 4, 4, 1024, 1024, 64, True, 200, None, "float32"),
     ("ragged", 2, 4, 2, 1000, 1000, 64, True, 0, None, "float32"),
@@ -130,6 +141,20 @@ PATH_ARGS = ["--batch", str(MAIN_BATCH), "--seq", "1024", "--devices", "2",
              "--json", "--device", "cuda"]
 EDL_ARGS = ["--arch", "edl-paper", *PATH_ARGS]
 RWKV_ARGS = ["--arch", "rwkv6-1.6b", *PATH_ARGS]
+VW_K, VW_STEPS = 8, 12
+VW_ARGS = ["--arch", "edl-paper", "--batch", str(MAIN_BATCH), "--seq", "1024",
+           "--devices", "4", "--virtual-workers", str(VW_K), "--steps",
+           str(VW_STEPS), "--n-samples", "1024", "--d-partitions", "16",
+           "--json", "--device", "cuda"]
+VW_RUNS = {"static": ["--init-p", "1"],
+           "elastic": ["--init-p", "1", "--schedule", "out:3@3,in:2@6"],
+           "kill": ["--init-p", "4", "--schedule", "kill:1@4"],
+           "stop_resume": ["--init-p", "2", "--schedule",
+                           "stop_resume_in:1@5"]}
+# a stop-resume must stop training for more than this many stop-free
+# scale-outs (the reference's test_stop_resume_is_much_slower)
+STOP_RESUME_RATIO = 10
+STOP_RESOLUTION_S = 1e-4        # ScalingRecord.summary rounds stop_s to it
 
 
 def fail(msg: str):
@@ -247,10 +272,11 @@ def backward_pair(ops, q, k, v, o, lse, do, opts):
 
 
 def check_attention(torch, ops):
-    """Phase 3. Returns per-kernel records at the main case's shape, and the
-    record of the backward pair."""
+    """Phase 3. Returns per-kernel records at the main case's shape, the
+    record of the backward pair, and per-kernel records at the
+    virtual-worker case's shape."""
     F = torch.nn.functional
-    records = {}
+    timed = {ATT_MAIN_CASE[0]: {}, ATT_VW_CASE[0]: {}}    # case: records
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (name, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len,
          dname) in ATT_CASES:
@@ -297,8 +323,8 @@ def check_attention(torch, ops):
             if not ok:
                 fail(f"{kname} disagrees with its plain version in case "
                      f"{name}: max_abs_err {err:.3e}")
-            if name == ATT_MAIN_CASE[0]:
-                records[kname] = {"max_abs_err": err, "tolerance": t,
+            if name in timed:
+                timed[name][kname] = {"max_abs_err": err, "tolerance": t,
                                   "tolerance_scale": "1 + |plain| per element"}
         if name in DETERMINISM_CASES:
             fwd_same = same_bits_twice(
@@ -313,9 +339,11 @@ def check_attention(torch, ops):
                 fail(f"the {'forward' if not fwd_same else 'backward pair'} "
                      f"is not deterministic in case {name}")
 
-        if name != ATT_MAIN_CASE[0]:
+        if name not in timed:
             continue
-        # time kernel, plain version and the library call at the main shape
+        # time kernel, plain version and the library call at the main and
+        # the virtual-worker shapes
+        records = timed[name]
         esz = q.element_size()
         n_qo = B * Hq * Lq * D * esz        # one [B,Hq,Lq,D] tensor
         n_kv = B * Hkv * Lk * D * esz       # one [B,Hkv,Lk,D] tensor
@@ -371,6 +399,8 @@ def check_attention(torch, ops):
                 library_ms=library[kname],
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, L=Lq, D=D, causal=causal,
                            window=window, dtype=dname))
+        if name != ATT_MAIN_CASE[0]:
+            continue
         # the backward pair against SDPA's backward, which computes dq, dk
         # and dv in one call
         dq_name, kv_name = "flash_attn_bwd_dq", "flash_attn_bwd_dkdv"
@@ -402,7 +432,7 @@ def check_attention(torch, ops):
                 "sdpa_backward_ms_by_backend": sdpa["ms"],
                 "sdpa_refused": sdpa["refused"],
                 "shape": records[dq_name]["shape"]}
-    return records, pair
+    return timed[ATT_MAIN_CASE[0]], pair, timed[ATT_VW_CASE[0]]
 
 
 def wkv_inputs(torch, B, L, H, hd, logw_kind, seed):
@@ -653,6 +683,105 @@ def run_path(torch, launches_of, train, args, kernels, per_shard: dict, *,
             "launches_per_slot_step": per_slot_step}
 
 
+def run_vw_path(torch, launches_of, train, kernels, per_shard: dict) -> dict:
+    """Phase 5: the four virtual-worker runs of ``VW_RUNS`` through the
+    entry point, each with the launch counts reset just before and read
+    just after. A step runs ``VW_K`` shards at every p, so each kernel
+    launches ``per_shard x VW_K`` times a step; each context prep warms one
+    shard (all slots share the card). Returns a record of the runs."""
+    runs = {}
+    for name, extra in VW_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        launches_of.reset()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(VW_ARGS + extra)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = launches_of.snapshot()
+        warm = launches_of.snapshot(warm=True)
+        if rc != 0:
+            fail(f"virtual-worker run {name}: main returned {rc}")
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        losses = summary["losses"]
+        if len(losses) < VW_STEPS or \
+                not all(math.isfinite(x) for x in losses):
+            fail(f"virtual-worker run {name}: losses {losses}")
+        if summary["unique_sample_frac"] != 1.0:
+            fail(f"virtual-worker run {name}: unique_sample_frac "
+                 f"{summary['unique_sample_frac']}")
+        missing = [k for k in kernels if launches[k] <= 0]
+        strays = {k: n for k, n in launches.items() if k not in kernels and n}
+        if missing or strays:
+            fail(f"virtual-worker run {name}: kernels of the path not "
+                 f"launched: {missing}; kernels off the path launched: "
+                 f"{strays}")
+        events = summary["scaling_events"]
+        n_preps = 1 + sum(not e["cache_hit"] for e in events)
+        per_step = {k: (launches[k] - warm[k]) / summary["steps"]
+                    for k in kernels}
+        want_step = {k: per_shard[k] * VW_K for k in kernels}
+        want_warm = {k: n_preps * per_shard[k] for k in kernels}
+        if per_step != want_step or \
+                {k: warm[k] for k in kernels} != want_warm:
+            fail(f"virtual-worker run {name}: launches differ from the "
+                 f"prediction: warm-ups { {k: warm[k] for k in kernels} } "
+                 f"(predicted {want_warm}), per step {per_step} "
+                 f"(predicted {want_step})")
+        step_ms = 1e3 * MAIN_BATCH / summary["throughput"]
+        runs[name] = {"args": extra, "steps": summary["steps"],
+                      "seconds": seconds, "mean_step_ms": step_ms,
+                      "final_p": summary["final_p"], "losses": losses,
+                      "scaling_events": events, "n_preps": n_preps,
+                      "launches_per_step": per_step,
+                      "warmup_launches": {k: warm[k] for k in kernels}}
+        print(f"  ({name}) {' '.join(extra)}: {summary['steps']} steps in "
+              f"{seconds:.2f} s, mean step {step_ms:.1f} ms, final p "
+              f"{summary['final_p']}", flush=True)
+        print(f"    losses {losses}", flush=True)
+        print(f"    scaling_events {json.dumps(events)}", flush=True)
+        print(f"    launches per step {per_step} (predicted {VW_K} x "
+              f"layers), warm-ups {runs[name]['warmup_launches']} "
+              f"({n_preps} preps)", flush=True)
+    want = runs["static"]["losses"][:VW_STEPS]
+    for name in ("elastic", "kill", "stop_resume"):
+        if runs[name]["losses"][:VW_STEPS] != want:
+            fail(f"virtual-worker run {name}'s losses differ from the static "
+                 f"run's: {runs[name]['losses']} vs {want}")
+    elastic = runs["elastic"]["scaling_events"]
+    if [(e["op"], e["to_p"]) for e in elastic] != [("scale_out", 4),
+                                                   ("scale_in", 2)]:
+        fail(f"elastic run: expected 1 -> 4 -> 2, got {elastic}")
+    if not all(e["stop_s"] < e["prep_s"] for e in elastic):
+        fail(f"elastic run: a switch was not stop-free: {elastic}")
+    kill = [e for e in runs["kill"]["scaling_events"] if e["op"] == "scale_in"]
+    if runs["kill"]["final_p"] != 2 or not kill or \
+            (kill[0]["from_p"], kill[0]["to_p"]) != (4, 2):
+        fail(f"kill run: expected detection's scale-in 4 -> 2, got "
+             f"{runs['kill']['scaling_events']}")
+    sr = [e for e in runs["stop_resume"]["scaling_events"]
+          if e["op"] == "stop_resume"]
+    # the records round stop_s to STOP_RESOLUTION_S: compare the least the
+    # stop-resume's stop can have been with the most the scale-out's can
+    # have been, so a rounded 0.0 cannot pass any stop-resume
+    out_stop = elastic[0]["stop_s"]
+    out_most = out_stop + STOP_RESOLUTION_S / 2
+    if len(sr) != 1 or not (sr[0]["stop_s"] - STOP_RESOLUTION_S / 2
+                            > STOP_RESUME_RATIO * out_most):
+        fail(f"stop-resume run: its stop must exceed {STOP_RESUME_RATIO}x "
+             f"the scale-out's (at most {out_most} s): "
+             f"{runs['stop_resume']['scaling_events']}")
+    print(f"  losses of (elastic), (kill) and (stop_resume) == (static), "
+          f"step for step; stop-resume's stop {sr[0]['stop_s']} s against "
+          f"the stop-free scale-out's {out_stop} s (rounded; at most "
+          f"{out_most} s)", flush=True)
+    return {"virtual_workers": VW_K, "runs": runs, "losses_equal": True,
+            "stop_resume_stop_s": sr[0]["stop_s"],
+            "scale_out_stop_s": out_stop}
+
+
 def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
     """Phase 6's learning checks, on the trainer that ``launch/train.py``
     builds (same seed and data, AdamW at its default lr 1e-3, one slot).
@@ -753,12 +882,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/7] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/8] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/7] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/8] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     if sorted(built) != sorted(build.SOURCES):
@@ -768,22 +897,28 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/7] attention kernels against their plain versions", flush=True)
-    records, pair = check_attention(torch, aops)
+    print("[3/8] attention kernels against their plain versions", flush=True)
+    records, pair, vw_records = check_attention(torch, aops)
 
     edl = get_config("edl-paper")
-    print("[4/7] edl_paper path: python -m repro_torch.launch.train "
+    print("[4/8] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # forward, dq and dkdv once per layer and shard
+    edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
     paths = {"edl-paper": run_path(
-        torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS,
-        dict.fromkeys(aops.KERNELS, edl.n_layers))}
+        torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
 
-    print("[5/7] WKV6 kernels against their plain versions", flush=True)
+    print("[5/8] edl_paper virtual-worker path: python -m "
+          "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
+          + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
+          flush=True)
+    vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
+
+    print("[6/8] WKV6 kernels against their plain versions", flush=True)
     records.update(check_wkv(torch, wops))
 
     rwkv = get_config("rwkv6-1.6b")
-    print("[6/7] rwkv6 path: python -m repro_torch.launch.train "
+    print("[7/8] rwkv6 path: python -m repro_torch.launch.train "
           + " ".join(RWKV_ARGS), flush=True)
     # each kernel once per layer and shard; remat runs the forward again
     rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
@@ -816,7 +951,19 @@ def main() -> int:
                 # the WKV6 kernels' compared error, dk's du yardstick
                 **{k: r[k] for k in ("max_rel_err", "du_library_ms") if k in r},
                 "shape": r["shape"], "card": card})
-    print("[7/7] results; library_ms is F.scaled_dot_product_attention for "
+            if kname in vw_records:
+                v = vw_records[kname]
+                kernels[-1]["virtual_worker_shape"] = {
+                    **{k: v[k] for k in ("max_abs_err", "tolerance", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "bytes", "flops", "library_ms",
+                                         "shape")},
+                    "share_of_bound": v["bound_ms"] / v["ms"],
+                    "launches_per_step": vw["runs"]["static"][
+                        "launches_per_step"][kname],
+                    "launches_static_run": vw["runs"]["static"]["steps"]
+                    * vw["runs"]["static"]["launches_per_step"][kname]}
+    print("[8/8] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd, its whole "
           "backward for both backward kernels) and null for the WKV6 "
           "kernels, whose outputs no single PyTorch call computes; "
@@ -825,9 +972,10 @@ def main() -> int:
     print(json.dumps({"backward_pair": {**pair, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_paths": {
-        name: {k: v for k, v in run.items()
-               if k not in ("launches", "warmup_launches")}
-        for name, run in paths.items()}, "card": card}))
+        **{name: {k: v for k, v in run.items()
+                  if k not in ("launches", "warmup_launches")}
+           for name, run in paths.items()},
+        "virtual_workers": vw}, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

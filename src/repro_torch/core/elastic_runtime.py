@@ -12,14 +12,14 @@ new card, allocator growth for the shape), in a background thread while the
 current handle keeps stepping. When it lands, the leader schedules the
 switch at mini-batch ``t_cur + k`` (k = ceil(T_allowance / T_batch),
 T_allowance = 500 ms — paper default); at that boundary the handle is
-swapped. The train state stays on slot 0's device, which a switch does not
-change, so the stop is the swap and the bookkeeping. Scale-in (graceful
-exit) returns the exiting slots' partition remainders to the dynamic data
-pipeline.
+swapped. The train state lives on slot 0's device. A switch moves it only
+when slot 0's device changes (a failure hand-off that reorders the pool);
+that copy is staged during the draining mini-batch on the destination's
+side stream, so the stop is the swap and the bookkeeping. Scale-in
+(graceful exit) returns the exiting slots' partition remainders to the
+dynamic data pipeline.
 
-Not ported yet: virtual workers, ``reshape``, failure handling and dead
-workers, device grant/release, the compile service, and staging the
-switch's state move during the draining mini-batch.
+Not ported yet: ``reshape`` and model-parallel degrees above 1.
 """
 from __future__ import annotations
 
@@ -32,12 +32,15 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.cluster.job import feasible_parallelism
+from repro_torch.core.compile_service import DONE, PRIO_COMMITTED
 from repro_torch.core.coordination import CoordinationStore
 from repro_torch.core.election import LeaderElection
 from repro_torch.core.membership import Membership, StragglerDetector
 from repro_torch.core.scaling import Busy, Phase, ScalingController, \
     ScalingRecord
-from repro_torch.data.pipeline import DynamicDataPipeline
+from repro_torch.data.pipeline import DynamicDataPipeline, \
+    VirtualWorkerPipeline
 from repro_torch.data.synthetic import SyntheticTokenDataset
 from repro_torch.data.worker import WorkerDataIterator
 from repro_torch.devices import default_pool, resolve_device
@@ -77,15 +80,37 @@ class ElasticTrainer:
                                data-partition remainders).
       migrate()              — fused scale-in + scale-out at constant p,
                                one topology switch (straggler mitigation).
+      grant_devices(devs)    — a scheduler HANDS the job extra slots; the
+                               job owns them immediately and scales out onto
+                               them stop-free.
+      release_devices(n)     — graceful scale-in that RETURNS slot
+                               ownership: the freed slots leave
+                               ``self.devices`` when the switch commits and
+                               are handed to ``on_devices_released``.
+      inject_worker_failure / dead_workers / handle_failure
+                             — a crashed worker stops syncing; liveness
+                               detection flags it and a stop-free scale-in
+                               with the dead as victims recovers.
+
+    Full preemption (checkpoint-stop to disk and later resume) is layered on
+    top by ``core.stop_resume``.
 
     ``devices`` is the job's slot pool, one torch device per logical slot
     (several slots may share a card); by default one slot per visible card,
     or per CPU core when ``device`` is the CPU, as the reference's default
     pool is every device, and at least ``init_parallelism`` slots.
     ``use_aot`` warms each new shape during its prep, the counterpart of
-    the reference's ahead-of-time compile. Call ``close()``
-    (or use the trainer as a context manager) to join a prep still in
-    flight before the interpreter exits.
+    the reference's ahead-of-time compile. With a ``compile_service`` the
+    preps run as committed tickets in its bounded pool instead of a thread
+    of their own. Call ``close()`` (or use the trainer as a
+    context manager) to join a prep still in flight before the interpreter
+    exits.
+
+    ``virtual_workers=K`` (or ``"auto"``) turns on DETERMINISTIC
+    elasticity: data and reduction order are keyed to K fixed virtual
+    workers instead of the physical slots, so any elastic trajectory —
+    resizes, kills, checkpoint round trips — gives bitwise-identical losses
+    to the fixed-shape run. Every p the job runs at must divide K.
     """
 
     def __init__(self, cfg, *, global_batch: int, seq_len: int,
@@ -101,10 +126,6 @@ class ElasticTrainer:
                  compile_service=None, device: str = "cuda"):
         if model_parallel != 1:
             raise NotImplementedError("model_parallel > 1 is not yet ported")
-        if virtual_workers:
-            raise NotImplementedError("virtual workers are not yet ported")
-        if compile_service is not None:
-            raise NotImplementedError("the compile service is not yet ported")
         self.cfg = cfg
         self.global_batch = global_batch
         self.seq_len = seq_len
@@ -118,23 +139,36 @@ class ElasticTrainer:
         self.use_aot = use_aot
         self.seed = seed
         self.time_allowance_s = time_allowance_s
-        self.n_virtual = 0
+        self.compile_service = compile_service
+        self.n_virtual = self._resolve_virtual(virtual_workers,
+                                               init_parallelism)
 
+        # virtual mode assembles batches leader-side from per-virtual-worker
+        # cursors, so slots carry no data state
         self.dataset = dataset or SyntheticTokenDataset(
             n_samples, seq_len, cfg.vocab, seed=seed,
             d_model=cfg.d_model, embeds=(cfg.frontend == "embeds"))
-        self.pipeline = DynamicDataPipeline(self.dataset.n_samples,
-                                            d_partitions, seed=seed)
+        if self.n_virtual:
+            self.pipeline = VirtualWorkerPipeline(
+                self.dataset.n_samples, self.n_virtual, seed=seed)
+        else:
+            self.pipeline = DynamicDataPipeline(self.dataset.n_samples,
+                                                d_partitions, seed=seed)
 
         # control plane
         self.membership = Membership()
         self.controller = ScalingController()
         self.straggler_detector = StragglerDetector()
         self.injected_delay: dict[str, float] = {}
+        # a worker in this set has crashed: it sends no more gradient-sync
+        # requests, so the leader's liveness view goes stale until
+        # dead-worker detection fires
+        self.failed_workers: set[str] = set()
 
         # bring up the initial topology (this is job launch, not scaling)
         self._exec_cache: dict[tuple, ExecHandle] = {}
         self._exec_lock = threading.Lock()
+        self._building: dict[tuple, threading.Event] = {}
         self._side_streams: dict[torch.device, torch.cuda.Stream] = {}
         self.p = init_parallelism
         self._worker_seq = 0
@@ -158,13 +192,18 @@ class ElasticTrainer:
         self.throughput_log: list[tuple[float, int, float]] = []
         self._flagged_stragglers: list[str] = []
         self._prep_thread: threading.Thread | None = None
+        self._prep_ticket = None        # CompileTicket when service-backed
         self._prep_error: BaseException | None = None
+        # called with (trainer, freed_devices) when a release commits
+        self.on_devices_released: Callable | None = None
 
     def close(self):
         """Join the in-flight context prep, if any."""
         t = self._prep_thread
         if t is not None:
             t.join()
+        if self._prep_ticket is not None:
+            self._prep_ticket.wait()
 
     def __enter__(self):
         return self
@@ -173,18 +212,49 @@ class ElasticTrainer:
         self.close()
 
     # ------------------------------------------------------------- workers
+    def _resolve_virtual(self, virtual_workers, init_p: int) -> int:
+        """0 = dynamic-pipeline mode. "auto" picks the max feasible p on
+        the job's slot pool; an int is validated against the batch and
+        launch shape (every p the job ever runs at must divide it — later
+        resize targets are checked in ``_request``)."""
+        if not virtual_workers:
+            return 0
+        if virtual_workers == "auto":
+            nv = feasible_parallelism(
+                self.global_batch,
+                max(1, len(self.devices) // self.model_parallel))
+        else:
+            nv = int(virtual_workers)
+        if nv < 1:
+            raise ValueError(f"virtual_workers must be >= 1, got {nv}")
+        if self.global_batch % nv:
+            raise ValueError(f"global batch {self.global_batch} not "
+                             f"divisible by virtual_workers={nv}")
+        if nv % init_p:
+            raise ValueError(f"init parallelism {init_p} must divide "
+                             f"virtual_workers={nv}")
+        return nv
+
     def _add_worker(self) -> str:
         wid = f"w{self._worker_seq}"
         self._worker_seq += 1
         self.worker_ids.append(wid)
-        self.iters[wid] = WorkerDataIterator(
-            wid, self.pipeline, self.dataset, prefetch=False)
+        if not self.n_virtual:
+            self.iters[wid] = WorkerDataIterator(
+                wid, self.pipeline, self.dataset, prefetch=False)
         self.membership.register(wid, len(self.worker_ids) - 1,
                                  at_step=getattr(self, "step_idx", 0))
         return wid
 
-    def _remove_worker(self, wid: str):
-        self.iters.pop(wid).graceful_exit()     # return data remainder
+    def _remove_worker(self, wid: str, *, dead: bool = False):
+        self.failed_workers.discard(wid)
+        it = self.iters.pop(wid, None)
+        if it is None:              # virtual mode: no per-slot data state
+            self.pipeline.release(wid, dead=dead)
+        elif dead:
+            self.pipeline.release(wid, dead=True)
+        else:
+            it.graceful_exit()      # return data remainder
         self.worker_ids.remove(wid)
         self.membership.remove(wid)
         self.straggler_detector.reset(wid)
@@ -195,21 +265,29 @@ class ElasticTrainer:
         reference's ``(p, mp, devices)`` form."""
         return (p, self.model_parallel, tuple(str(d) for d in self.devices[:p]))
 
+    def _side_stream(self, dev: torch.device) -> "torch.cuda.Stream":
+        """This trainer's side stream on ``dev`` (preps and staged state
+        moves run there, off the stream that steps)."""
+        with self._exec_lock:
+            side = self._side_streams.get(dev)
+            if side is None:
+                side = self._side_streams[dev] = torch.cuda.Stream(dev)
+            return side
+
     def _warm(self, devices: tuple[torch.device, ...]):
-        """Run one forward and backward at the per-slot shape on each
+        """Run one forward and backward at the step's shard shape (one
+        virtual worker's in virtual mode, one slot's otherwise) on each
         distinct device, with zero params and tokens, on a side stream.
         Touches no trainer state; its kernel launches are tallied as
         warm-ups."""
-        per = self.global_batch // len(devices)
+        per = self.global_batch // (self.n_virtual or len(devices))
         for dev in dict.fromkeys(devices):
             if dev.type != "cuda":
                 with LAUNCHES.warming():
                     self._warm_once(dev, per)
                 continue
+            side = self._side_stream(dev)
             with torch.cuda.device(dev):
-                side = self._side_streams.get(dev)
-                if side is None:
-                    side = self._side_streams[dev] = torch.cuda.Stream()
                 with torch.cuda.stream(side), LAUNCHES.warming():
                     self._warm_once(dev, per)
                 side.synchronize()
@@ -230,23 +308,39 @@ class ElasticTrainer:
         the first p slots of the pool, warmed at its shape. This is the cost
         stop-free scaling hides. Handles are cached per (p, mp, slot
         devices), LRU-bounded; a shape the job ran at before (migrate at
-        constant p, a compact/expand cycle) skips the warm-up. The expensive
-        part runs outside the cache lock."""
+        constant p, a compact/expand cycle) skips the warm-up. A shape
+        cached or in flight is never built again: a second caller waits for
+        the build in flight and takes its handle. The expensive part runs
+        outside the cache lock."""
         devs = tuple(self.devices[:p])
         key = self._exec_key(p)
-        with self._exec_lock:
-            cached = self._exec_cache.get(key)
-            if cached is not None:
-                self._exec_cache[key] = self._exec_cache.pop(key)  # LRU
-                return cached
-        fn = make_train_step(self.cfg, self.optimizer, devs)
-        if self.use_aot:
-            self._warm(devs)
-        handle = ExecHandle(p, devs, fn)
-        with self._exec_lock:
-            handle = self._exec_cache.setdefault(key, handle)
-            while len(self._exec_cache) > EXEC_CACHE_MAX:
-                self._exec_cache.pop(next(iter(self._exec_cache)))
+        while True:
+            with self._exec_lock:
+                cached = self._exec_cache.get(key)
+                if cached is not None:
+                    self._exec_cache[key] = self._exec_cache.pop(key)  # LRU
+                    return cached
+                inflight = self._building.get(key)
+                if inflight is None:
+                    done = self._building[key] = threading.Event()
+                    break
+            inflight.wait()
+        try:
+            fn = make_train_step(self.cfg, self.optimizer, devs,
+                                 n_virtual=self.n_virtual,
+                                 global_batch=self.global_batch,
+                                 seed=self.seed)
+            if self.use_aot:
+                self._warm(devs)
+            handle = ExecHandle(p, devs, fn)
+            with self._exec_lock:
+                handle = self._exec_cache.setdefault(key, handle)
+                while len(self._exec_cache) > EXEC_CACHE_MAX:
+                    self._exec_cache.pop(next(iter(self._exec_cache)))
+        finally:
+            with self._exec_lock:
+                del self._building[key]
+            done.set()
         return handle
 
     # -------------------------------------------------------------- stepping
@@ -258,7 +352,25 @@ class ElasticTrainer:
         of an epoch may come up short — it is padded by cycling the drawn
         samples (recorded sample_ids stay un-padded, preserving the
         exactly-once accounting; only the SGD step sees a few duplicates at
-        the boundary, the paper-accepted consistency semantics)."""
+        the boundary, the paper-accepted consistency semantics).
+
+        Virtual mode instead assembles the batch leader-side from the
+        per-virtual-worker cursors, in fixed virtual order: identical
+        sample sequence at every p, always full (per-vw epoch wrap), no
+        padding — the data half of the bitwise-determinism contract."""
+        if self.n_virtual:
+            if self.pipeline.exhausted:
+                return None
+            per_vw = self.global_batch // self.n_virtual
+            ids = np.concatenate([
+                self.pipeline.draw_block(w, self.p, per_vw)
+                for w in range(self.p)])
+            batch = self.dataset.read_ids(ids)
+            self._last_sample_ids = batch.pop("sample_ids")
+            if self.cfg.frontend == "embeds":
+                batch = {"embeds": batch["embeds"],
+                         "labels": batch["labels"]}
+            return batch
         per = self.global_batch // self.p
         parts = []
         for wid in self.worker_ids:
@@ -289,7 +401,13 @@ class ElasticTrainer:
         if batch is None:
             return None
         self.state, metrics = self.exec.step_fn(self.state, batch)
+        # first chance: the switch is already due at this step's boundary
+        # (the DRAINING mini-batch); CUDA launches are asynchronous, so a
+        # state move staged now overlaps the step's device work
+        self._maybe_stage_switch()
         metrics = {k: float(v) for k, v in metrics.items()}  # waits for it
+        # second chance: the prep landed DURING this step
+        self._maybe_stage_switch()
         # simulated per-worker sync times (straggler injection adds delay)
         base = time.monotonic() - t0
         sync_times = {wid: base + self.injected_delay.get(wid, 0.0)
@@ -303,6 +421,10 @@ class ElasticTrainer:
         self.step_time_ema = (t_step if self.step_time_ema is None
                               else 0.7 * self.step_time_ema + 0.3 * t_step)
         for wid in self.worker_ids:
+            if wid in self.failed_workers:
+                continue    # a crashed worker sends no gradient-sync: its
+                # membership record ages out and dead_workers() flags it
+                # after miss_threshold steps (EDL §4.1 liveness)
             self.membership.sync(wid, self.step_idx, sync_times[wid])
         self.throughput_log.append(
             (time.monotonic(), self.p, self.global_batch / t_step))
@@ -332,7 +454,8 @@ class ElasticTrainer:
         return self._request("scale_out", self.p + n_new, block=block)
 
     def scale_in(self, n_remove: int = 1, *, victims: list[str] | None = None,
-                 block: bool = False) -> ScalingRecord | None:
+                 block: bool = False, release: bool = False
+                 ) -> ScalingRecord | None:
         """scale_in(): remove slots via graceful exit. Raises Busy (the
         paper's RETRY) if another scaling op is in flight."""
         if self.controller.phase is not Phase.IDLE:
@@ -340,7 +463,7 @@ class ElasticTrainer:
         if self.p - n_remove < 1:
             raise ValueError(f"cannot scale below 1 (p={self.p})")
         return self._request("scale_in", self.p - n_remove, block=block,
-                             victims=victims)
+                             victims=victims, release=release)
 
     def migrate(self, n: int = 1, *, victims: list[str] | None = None,
                 block: bool = True):
@@ -352,17 +475,90 @@ class ElasticTrainer:
         return self._request("migrate", self.p, block=block,
                              victims=victims, n_join=len(victims))
 
+    # ------------------------------------------------------ failure surface
+    def inject_worker_failure(self, worker_id: str | None = None) -> str:
+        """Chaos entry point: crash a worker. From now on it sends no
+        gradient-sync requests, so ``membership.dead_workers`` flags it
+        after ``miss_threshold`` missed steps — DETECTION, not injection,
+        is what triggers recovery (the injector only breaks things)."""
+        wid = worker_id if worker_id is not None else self.worker_ids[-1]
+        if wid not in self.worker_ids:
+            raise ValueError(f"unknown worker {wid!r}")
+        self.failed_workers.add(wid)
+        return wid
+
+    def dead_workers(self) -> list[str]:
+        """Workers the leader's liveness view currently believes dead."""
+        return [w for w in self.membership.dead_workers(self.step_idx)
+                if w in self.worker_ids]
+
+    def handle_failure(self, dead: list[str], *, release: bool = True,
+                       block: bool = False) -> ScalingRecord | None:
+        """Automatic stop-free recovery (EDL §4.2: forced exit is a
+        special case of scale-in). The dead workers' slots move to the tail
+        of the pool so the survivor topology is built from live slots only,
+        then a scale-in is requested with the dead workers as victims —
+        plus, when the feasibility clamp (batch / ``n_virtual``
+        divisibility) skips the shape right below, extra graceful victims.
+        Training keeps stepping through the background context prep; at
+        commit the dead workers' data partitions return via
+        ``pipeline.release(dead=True)`` (replay from the original offset)
+        and the freed slots go to ``on_devices_released`` when ``release``
+        is set. A dead slot 0 moves the train state to the new slot 0's
+        device at the commit (the leader-kill path).
+
+        Raises ``Busy`` while another operation is in flight (caller
+        retries) and ``ValueError`` when no feasible survivor shape
+        exists — the caller's fallback is a checkpoint-stop."""
+        dead = [w for w in dead if w in self.worker_ids]
+        if not dead:
+            return None
+        if self.controller.phase is not Phase.IDLE:
+            raise Busy("scaling in flight; retry later")
+        target = self.p - len(dead)
+        while target >= 1 and (self.global_batch % target or
+                               (self.n_virtual and
+                                self.n_virtual % target)):
+            target -= 1
+        if target < 1:
+            raise ValueError(
+                f"no feasible parallelism below p={self.p} without the "
+                f"{len(dead)} dead worker(s) (batch={self.global_batch}, "
+                f"virtual_workers={self.n_virtual})")
+        survivors = [w for w in self.worker_ids if w not in dead]
+        victims = survivors[target:] + dead     # clamp-forced extras exit
+        # re-order the pool: victims' slots to the tail, so the survivor
+        # topology uses devices[:target] (all live) and the commit frees
+        # exactly the victims' (and any parked surplus) slots. Safe
+        # pre-prep: the running handle holds its own device tuple.
+        slot = dict(zip(self.worker_ids, self.devices))
+        surplus = self.devices[len(self.worker_ids):]
+        keep = [w for w in self.worker_ids if w not in victims]
+        self.devices = ([slot[w] for w in keep] +
+                        [slot[w] for w in victims] + surplus)
+        return self._request("scale_in", target, block=block,
+                             victims=victims, release=release,
+                             dead=tuple(dead))
+
     def _request(self, op: str, target_p: int, *, block: bool,
-                 victims=None, n_join: int | None = None):
+                 victims=None, n_join: int | None = None,
+                 release: bool = False, dead: tuple = ()):
         if target_p > len(self.devices):
             raise ValueError(f"need {target_p} slots, have "
                              f"{len(self.devices)}")
         if self.global_batch % target_p:
             raise ValueError(f"global batch {self.global_batch} not "
                              f"divisible by p={target_p}")
+        if self.n_virtual and self.n_virtual % target_p:
+            raise ValueError(
+                f"p={target_p} must divide virtual_workers="
+                f"{self.n_virtual} (virtual blocks stay contiguous and "
+                f"equal-sized at every shape)")
         plan = self.controller.admit(op, self.p, target_p)  # raises Busy
         plan.exiting = tuple(victims or ())
+        plan.dead_exiting = tuple(dead)
         plan.joining = ("new",) * (n_join or max(0, target_p - self.p))
+        plan.release_devices = release
         steps_before = self.step_idx
         key = self._exec_key(target_p)
         plan.record.exec_cache_key = key
@@ -390,6 +586,22 @@ class ElasticTrainer:
             # warm shape: prep IS the cache lookup — schedule inline
             prepare()
             return None
+        svc = self.compile_service
+        if svc is not None:
+            def on_ticket(t):
+                if t.state != DONE:     # re-raised by the next step()
+                    self._prep_error = t.error or RuntimeError(
+                        f"prep of {t.key} was {t.state}")
+                    return
+                finish(t.value)
+
+            # dedup/escalation: a prefetch of this shape already pending or
+            # running is JOINED as committed
+            self._prep_ticket = svc.submit(
+                key, lambda: self._build_exec(target_p),
+                priority=PRIO_COMMITTED, owner=self.job_handle)
+            self._prep_ticket.add_done_callback(on_ticket)
+            return None
 
         def run():
             try:
@@ -403,8 +615,58 @@ class ElasticTrainer:
         self._prep_thread.start()
         return None
 
+    def _home(self) -> torch.device:
+        """The device that holds the train state."""
+        return tree_leaves(self.state)[0][1].device
+
+    def _maybe_stage_switch(self):
+        """Stage the state move when a ready switch commits at the current
+        step's boundary."""
+        plan = self.controller.plan
+        if (plan is not None and plan.ready
+                and self.step_idx + 1 >= plan.switch_step):
+            self._stage_switch(plan)
+
+    def _stage_switch(self, plan):
+        """Overlapped state move. The only move a switch at mp = 1 makes is
+        to a new slot 0's device: the copy is issued on the destination's
+        side stream behind the step that produces the current state, into
+        fresh buffers. The staged tensors are the double buffer: the live
+        state keeps its own until the commit's pointer swap, so training is
+        untouched if the commit never consumes the staging (it falls back
+        to the in-stop move). When slot 0's device stays, nothing is copied
+        and the staged state is the live state."""
+        if plan.staged_state is not None:
+            return
+        plan.record.t_stage_start = self.controller.clock()
+        src, home = self._home(), plan.exec_handle.devices[0]
+        staged = self.state
+        if src != home:
+            leaves = [t for _, t in tree_leaves(self.state)]
+            plan.record.bytes_moved_overlapped = sum(
+                t.numel() * t.element_size() for t in leaves)
+            if home.type == "cuda":
+                side = self._side_stream(home)
+                if src.type == "cuda":
+                    side.wait_stream(torch.cuda.current_stream(src))
+                with torch.cuda.stream(side):
+                    staged = tree_map(lambda t: t.to(home, non_blocking=True),
+                                      self.state)
+                main = torch.cuda.current_stream(home)
+                for t in leaves:
+                    if t.is_cuda:       # read on the side stream
+                        t.record_stream(side)
+                for _, t in tree_leaves(staged):
+                    t.record_stream(main)   # used on the stepping stream
+            else:
+                staged = tree_map(lambda t: t.to(home), self.state)
+        plan.staged_state = staged
+        plan.staged_from = self.state
+        plan.record.t_stage_end = self.controller.clock()
+
     def _commit_switch(self):
-        """The brief stop: graceful exits, joins and the handle swap."""
+        """The brief stop: graceful exits, joins, the state move (staged,
+        or in the stop) and the handle swap."""
         plan = self.controller.plan
         self.controller.begin_switch()
         handle: ExecHandle = plan.exec_handle
@@ -412,7 +674,7 @@ class ElasticTrainer:
             victims = list(plan.exiting) or self.worker_ids[handle.p:]
             leader_leaving = self.leader_id in victims
             for wid in victims:
-                self._remove_worker(wid)
+                self._remove_worker(wid, dead=wid in plan.dead_exiting)
             if leader_leaving:
                 self.election.resign()
                 self.election = LeaderElection(self.store, self.job_handle,
@@ -420,16 +682,60 @@ class ElasticTrainer:
                 self.leader_id = self.election.elect().leader_id
         while len(self.worker_ids) < handle.p:
             self._add_worker()
-        # model broadcast: the state lives on slot 0's device; only a new
-        # slot-0 device would move it
+        # model broadcast: the state lives on slot 0's device
         home = handle.devices[0]
-        if tree_leaves(self.state)[0][1].device != home:
+        if plan.staged_state is not None and plan.staged_from is self.state:
+            if plan.staged_state is not self.state and home.type == "cuda":
+                # the staged copy: wait on its stream only
+                side = self._side_stream(home)
+                torch.cuda.current_stream(home).wait_stream(side)
+                side.synchronize()
+            self.state = plan.staged_state
+        elif self._home() != home:
             self.state = tree_map(lambda t: t.to(home), self.state)
-        if home.type == "cuda":
-            torch.cuda.synchronize(home)
+            if home.type == "cuda":
+                torch.cuda.synchronize(home)
         self.exec = handle
         self.p = handle.p
-        return self.controller.complete()
+        freed = []
+        if plan.release_devices:
+            # hand every slot beyond the new topology back to the caller:
+            # the job stops owning it
+            freed, self.devices = self.devices[handle.p:], \
+                self.devices[:handle.p]
+        rec = self.controller.complete()
+        if freed and self.on_devices_released is not None:
+            self.on_devices_released(self, freed)
+        return rec
+
+    # ------------------------------------------------ device pool hand-off
+    def grant_devices(self, new_devices, *, block: bool = False
+                      ) -> ScalingRecord | None:
+        """Non-blocking hand-off path: a scheduler grants this job extra
+        slots and the job scales out onto them, stop-free. The slots join
+        the job's pool immediately; the topology switch commits at a
+        mini-batch boundary."""
+        if self.controller.phase is not Phase.IDLE:
+            raise Busy("scaling in flight; retry later")
+        new = [resolve_device(d) for d in new_devices]
+        if not new:
+            raise ValueError("a grant needs at least one device")
+        self.devices = self.devices + new
+        try:
+            return self._request("scale_out", self.p + len(new), block=block)
+        except Exception:
+            self.devices = self.devices[:len(self.devices) - len(new)]
+            raise
+
+    def release_devices(self, n_slices: int = 1, *,
+                        victims: list[str] | None = None,
+                        block: bool = False) -> ScalingRecord | None:
+        """Graceful scale-in that RETURNS the freed slots: once the switch
+        commits, they leave ``self.devices`` and are handed to the
+        ``on_devices_released`` hook (the reclaim side of a transient loan).
+        Stop-free like any scale-in; raises Busy under a conflicting op."""
+        return self.scale_in(n_slices, victims=victims, block=block,
+                             release=True)
 
     # ------------------------------------------------------------- helpers
     def run(self, n_steps: int, *, on_step=None):
@@ -446,8 +752,15 @@ class ElasticTrainer:
         return done
 
     def join_prep(self, timeout: float | None = None) -> bool:
-        """Wait (bounded) for the in-flight context prep. Returns True when
-        no prep remains in flight."""
+        """Wait (bounded) for the in-flight context prep, whichever engine
+        carries it — the private thread or a compile-service ticket.
+        Returns True when no prep remains in flight."""
+        ticket = self._prep_ticket
+        if ticket is not None:
+            done = ticket.wait(timeout)
+            if done:
+                self._prep_ticket = None
+            return done
         t = self._prep_thread
         if t is not None and t.is_alive():
             t.join(timeout)

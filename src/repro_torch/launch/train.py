@@ -13,10 +13,24 @@ onto the visible cards (several slots on one card when there is one).
 run that asks for CUDA without a card fails.
 
 Schedule grammar: ``<op>:<n>@<step>`` with op in {out, in, migrate,
-straggler}. The reference's stop_resume_out, stop_resume_in,
-stop_resume_mp, fail, kill and kill_leader ops, ``--virtual-workers`` and
-``--model-parallel > 1`` are not yet ported and are refused when the
-arguments are parsed.
+stop_resume_out, stop_resume_in, straggler, fail, kill, kill_leader}.
+``kill:n`` crashes the last n workers WITHOUT an explicit recovery call:
+they stop sending gradient-syncs, the leader's liveness view flags them
+dead after ``miss_threshold`` missed steps, and the driver's detection loop
+triggers an automatic stop-free ``handle_failure`` scale-in
+(``kill_leader`` crashes the current leader instead, forcing a re-election
+at the commit). ``fail`` is the blocking path (immediate ``recover``,
+approximate under USE_APPX_RECOVERY=1). ``stop_resume_out:n`` and
+``stop_resume_in:n`` checkpoint the job to disk, tear it down and resume it
+at p ± n (the paper's stop-resume baseline).
+
+``--virtual-workers K`` (or ``auto``) turns on deterministic elasticity:
+the loss trajectory (the JSON ``losses`` field) is bitwise-identical
+across every parallelism and every elastic schedule above, kills and
+stop-resumes included.
+
+The reference's stop_resume_mp op and ``--model-parallel > 1`` are not yet
+ported and are refused when the arguments are parsed.
 """
 import argparse
 import json
@@ -24,9 +38,9 @@ import os
 import sys
 import time
 
-PORTED_OPS = ("out", "in", "migrate", "straggler")
-NOT_PORTED_OPS = ("stop_resume_out", "stop_resume_in", "stop_resume_mp",
-                  "fail", "kill", "kill_leader")
+PORTED_OPS = ("out", "in", "migrate", "stop_resume_out", "stop_resume_in",
+              "straggler", "fail", "kill", "kill_leader")
+NOT_PORTED_OPS = ("stop_resume_mp",)
 
 
 def parse_schedule(ap: argparse.ArgumentParser, text: str
@@ -69,17 +83,24 @@ def main(argv=None):
     ap.add_argument("--json", action="store_true", help="machine output")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--virtual-workers", default=None, metavar="K",
-                    help="not yet ported")
+                    help="fixed virtual-worker count (int or 'auto') — "
+                         "deterministic elasticity: bitwise-identical "
+                         "trajectories at every p")
     args = ap.parse_args(argv)
-    if args.virtual_workers is not None:
-        ap.error("--virtual-workers is not yet ported")
+    vw = args.virtual_workers
+    if vw is not None and vw != "auto":
+        try:
+            vw = int(vw)
+        except ValueError:
+            ap.error(f"--virtual-workers takes an int or 'auto', not {vw!r}")
     if args.model_parallel != 1:
         ap.error("--model-parallel > 1 is not yet ported")
     schedule = parse_schedule(ap, args.schedule)
 
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.core import ElasticTrainer
+    from repro_torch.core import ElasticTrainer, stop_resume_rescale
+    from repro_torch.core.failure import fail_worker, recover
     from repro_torch.core.scaling import Busy, Phase
     from repro_torch.devices import slot_devices
     from repro_torch.optim import adamw
@@ -91,15 +112,29 @@ def main(argv=None):
             trainer.scale_in(n)
         elif opn == "migrate":
             trainer.migrate(n)
+        elif opn == "stop_resume_out":
+            stop_resume_rescale(trainer, trainer.p + n)
+        elif opn == "stop_resume_in":
+            stop_resume_rescale(trainer, trainer.p - n)
         elif opn == "straggler":
             trainer.injected_delay[trainer.worker_ids[-1]] = 0.05
+        elif opn == "fail":
+            fail_worker(trainer, trainer.worker_ids[-1])
+            recover(trainer)
+        elif opn == "kill":
+            # no recovery call here: detection (below) must find them
+            for wid in list(reversed(trainer.worker_ids))[:n]:
+                trainer.inject_worker_failure(wid)
+        elif opn == "kill_leader":
+            trainer.inject_worker_failure(trainer.leader_id)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     trainer = ElasticTrainer(
         cfg, global_batch=args.batch, seq_len=args.seq,
         init_parallelism=args.init_p, optimizer=adamw(args.lr),
         n_samples=args.n_samples, d_partitions=args.d_partitions,
-        seed=args.seed, devices=slot_devices(args.devices, args.device))
+        seed=args.seed, devices=slot_devices(args.devices, args.device),
+        virtual_workers=vw)
 
     consumed_ids: list = []
     log = print if not args.json else (lambda *a, **k: None)
@@ -123,6 +158,16 @@ def main(argv=None):
                     schedule.setdefault(trainer.step_idx + 5, []).append(
                         (opn, n))
             m = trainer.step()
+            # automatic dead-worker recovery: the leader's liveness view
+            # (missed gradient-syncs) drives a stop-free scale-in; training
+            # continues through the background prep and the trajectory is
+            # bitwise-preserved under --virtual-workers
+            dead = trainer.dead_workers()
+            if dead and trainer.controller.phase is Phase.IDLE:
+                try:
+                    trainer.handle_failure(dead)
+                except (Busy, ValueError):
+                    pass    # retried next step / no feasible survivor shape
             if m is None:
                 if trainer.controller.phase is Phase.SCHEDULED:
                     trainer._commit_switch()

@@ -249,3 +249,47 @@ def test_backward_scans_are_deterministic_and_match_plain(card, aligned):
     for got, w in zip((*druns[0], *kruns[0], *vruns[0]), want):
         torch.testing.assert_close(got, w, rtol=WKV_TOL,
                                    atol=WKV_TOL * float(w.abs().max()))
+
+
+def test_leader_kill_across_two_cards_stages_the_state_and_keeps_bits():
+    """The leader's death on a two-card pool makes the other card slot 0:
+    the train state is copied there on that card's side stream during the
+    draining step (the staged move, not the in-stop one), and under
+    virtual workers the losses equal the one-card static run's, step for
+    step."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the state moves only when slot 0's "
+                    "card changes")
+    from repro_torch.configs import get_config
+    from repro_torch.core import ElasticTrainer
+    from repro_torch.core.scaling import Phase
+    from repro_torch.models.params import tree_leaves
+
+    steps = 12
+
+    def trainer(devices):
+        return ElasticTrainer(get_config("edl-paper", smoke=True),
+                              global_batch=4, seq_len=64,
+                              init_parallelism=len(devices), n_samples=256,
+                              d_partitions=16, seed=0, devices=devices,
+                              virtual_workers=4, time_allowance_s=0)
+
+    with trainer(["cuda:0"]) as t:
+        static = [t.step()["loss"] for _ in range(steps)]
+    with trainer(["cuda:0", "cuda:1"]) as t:
+        losses = [t.step()["loss"]]
+        dead = t.inject_worker_failure(t.worker_ids[0])
+        while len(losses) < steps:
+            losses.append(t.step()["loss"])
+            if t.dead_workers() and t.controller.phase is Phase.IDLE:
+                t.handle_failure(t.dead_workers())
+                assert t.join_prep(timeout=120)
+        assert [r.op for r in t.controller.history] == ["scale_in"]
+        rec = t.controller.history[0]
+        assert (rec.from_p, rec.to_p, t.p) == (2, 1, 1)
+        assert rec.bytes_moved_overlapped > 0, "the state move was not staged"
+        assert t._home() == torch.device("cuda:1")
+        assert all(x.device == torch.device("cuda:1")
+                   for _, x in tree_leaves(t.state))
+        assert t.leader_id != dead and dead not in t.worker_ids
+    assert losses == static

@@ -11,11 +11,16 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 MODULES = [
     "repro_torch", "repro_torch.bridge", "repro_torch.devices",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+    "repro_torch.cluster", "repro_torch.cluster.job",
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.edl_paper", "repro_torch.configs.rwkv6_1p6b",
-    "repro_torch.core", "repro_torch.core.coordination",
+    "repro_torch.core", "repro_torch.core.api",
+    "repro_torch.core.compile_service", "repro_torch.core.coordination",
     "repro_torch.core.elastic_runtime", "repro_torch.core.election",
-    "repro_torch.core.membership", "repro_torch.core.scaling",
+    "repro_torch.core.failure", "repro_torch.core.membership",
+    "repro_torch.core.profiling", "repro_torch.core.scaling",
+    "repro_torch.core.stop_resume",
     "repro_torch.data", "repro_torch.data.partition",
     "repro_torch.data.pipeline", "repro_torch.data.synthetic",
     "repro_torch.data.worker",
@@ -29,6 +34,7 @@ MODULES = [
     "repro_torch.models.model", "repro_torch.models.params",
     "repro_torch.models.ssm",
     "repro_torch.optim", "repro_torch.optim.optimizers",
+    "repro_torch.reshape", "repro_torch.reshape.spec",
     "repro_torch.training", "repro_torch.training.step",
 ]
 

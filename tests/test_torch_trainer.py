@@ -188,14 +188,35 @@ def test_exactly_once_across_scaling():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--schedule", "fail:1@3"], ["--schedule", "stop_resume_in:1@3"],
-    ["--schedule", "kill_leader:1@3"], ["--virtual-workers", "8"],
-    ["--model-parallel", "2"], ["--schedule", "bogus:1@3"]])
+    ["--schedule", "stop_resume_mp:1@3"], ["--model-parallel", "2"],
+    ["--schedule", "bogus:1@3"]])
 def test_unported_options_are_refused_when_parsed(argv, capsys):
     with pytest.raises(SystemExit) as e:
         port_train.main(["--device", "cpu", "--smoke", *argv])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err or "bogus" in argv[1]
+
+
+@pytest.mark.parametrize("argv, op", [
+    (["--init-p", "2", "--schedule", "fail:1@1"], "approx_recovery"),
+    (["--init-p", "2", "--schedule", "stop_resume_in:1@1"], "stop_resume"),
+    (["--init-p", "2", "--schedule", "kill_leader:1@1", "--steps", "8"],
+     "scale_in"),
+    (["--init-p", "1", "--virtual-workers", "4"], None)])
+def test_ported_options_are_accepted(argv, op, monkeypatch):
+    """The options the port used to refuse: a 3-step CPU run exits 0 and
+    reports the op (``kill_leader`` runs 8 steps: detection needs more than
+    ``miss_threshold`` = 3 missed syncs, then its scale-in commits)."""
+    monkeypatch.setenv("USE_APPX_RECOVERY", "1")
+    s = _main("--batch", "4", "--seq", "32", "--devices", "2",
+              "--n-samples", "64", "--d-partitions", "8", "--steps", "3",
+              *argv)
+    assert s["steps"] >= 3 and all(math.isfinite(x) for x in s["losses"])
+    if op is None:
+        assert s["virtual_workers"] == 4 and s["unique_sample_frac"] == 1.0
+    else:
+        assert [e["op"] for e in s["scaling_events"]] == [op]
+        assert s["final_p"] == 1
 
 
 def test_cuda_request_without_a_card_raises():

@@ -14,10 +14,15 @@ slots on one card):
   intervals over the traced window; the peak of allocated device memory
   is taken over the traced steps.
 
+With ``--virtual-workers K`` the trainer runs the deterministic
+virtual-worker step (K shards of batch / K at every p) instead of the
+default step.
+
 Prints one JSON line per parallelism and writes the traces under
 ``build/profile/``. Run from the repo root on a machine with a card:
 
-    python3 tools/torch_step_profile.py [--arch rwkv6-1.6b] [--steps 6]
+    python3 tools/torch_step_profile.py [--arch rwkv6-1.6b] [--steps 6] \
+        [--virtual-workers 8]
 """
 import argparse
 import json
@@ -95,6 +100,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--virtual-workers", type=int, default=0, metavar="K")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
 
@@ -114,7 +120,8 @@ def main() -> int:
     with ElasticTrainer(cfg, global_batch=args.batch, seq_len=args.seq,
                         init_parallelism=1, n_samples=4096,
                         d_partitions=16, devices=["cuda:0"] * 2,
-                        time_allowance_s=0) as trainer:
+                        time_allowance_s=0,
+                        virtual_workers=args.virtual_workers) as trainer:
         for p in (1, 2):
             if p == 2:
                 trainer.scale_out(1, block=True)
@@ -124,10 +131,11 @@ def main() -> int:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 timed_steps(torch, trainer, 2)
-            path = os.path.join(args.out, f"trace_{args.arch}_p{p}.json")
+            path = os.path.join(args.out, f"trace_{args.arch}_p{p}"
+                                f"_vw{args.virtual_workers}.json")
             prof.export_chrome_trace(path)
             rec = {"arch": cfg.name, "p": trainer.p, "batch": args.batch,
-                   "seq": args.seq,
+                   "seq": args.seq, "virtual_workers": trainer.n_virtual,
                    "step_ms_median": 1e3 * statistics.median(times),
                    "step_ms": [1e3 * t for t in times],
                    "samples_per_s": args.batch / statistics.median(times),
