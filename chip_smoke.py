@@ -14,12 +14,14 @@ Phases, in order; any failure exits non-zero:
    with nvcc for sm_90a, one nvcc per source, all started together;
 3. attention kernels: call each flash-attention kernel's wrapper on CUDA
    tensors at the edl_paper path's shape, at one virtual worker's shard of
-   it (B 1), and at GQA, window, ragged, non-causal, head-dim and bf16
+   it (B 1), at the tensor-parallel shard shapes (H 6 at mp = 2, H 3 at
+   mp = 4), and at GQA, window, ragged, non-causal, head-dim and bf16
    cases, and hold it against its plain PyTorch version on the same
-   inputs; run the forward and the backward pair twice on the main and GQA
-   cases and require the same bits; time kernel, plain version and
+   inputs; run the forward and the backward pair twice on the main, mp = 2
+   and GQA cases and require the same bits; time kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it) at the main and the virtual-worker shapes, and the backward
+   calls it) at the main, virtual-worker and tensor-parallel shapes, and
+   the backward
    pair against SDPA's backward under its default and under each backend
    that takes fp32 (``EFFICIENT_ATTENTION``, ``MATH``; the others are
    recorded as refusing), naming the default's backend by its time;
@@ -31,7 +33,22 @@ Phases, in order; any failure exits non-zero:
    scales in to 2) and (d) a stop-resume 2 -> 1; the losses of (b), (c)
    and (d) must equal (a)'s bit for bit, step for step; (b)'s switches
    must be stop-free and (d)'s stop more than 10x (b)'s scale-out's;
-6. WKV6 kernels: call each WKV6 kernel's wrapper at the rwkv6 path's shape
+6. edl_paper model-parallel path, on four slots of the card: (a)
+   ``repro_torch.launch.train.main`` at (p, mp) = (1, 2) through a
+   stop-free scale-out to (2, 2); (b) an ``ElasticTrainer`` built directly
+   and driven through ``reshape`` (the API the reference's cluster
+   executor calls): (4, 1) -> (2, 2) -> (1, 4), each switch stop-free, the
+   planner's bytes moved and kept recorded; (c) the same with
+   ``virtual_workers=8``, whose losses must equal phase 5's static run's
+   bit for bit, step for step; (d) ``main`` with ``--virtual-workers 8
+   --init-p 4 --schedule stop_resume_mp:2@5`` (checkpoint, tear down,
+   resume at (2, 2)), whose losses must equal the static run's too;
+   (a)'s first loss must hold phase 4's at (1, 1) within
+   ``TP_LOSS_RTOL``, and (e) one step's loss and gradients of the
+   full-width model at (1, 2) and (1, 4) must hold (1, 1)'s within
+   ``TP_LOSS_RTOL`` and ``TP_GRAD_RTOL``, which the same step at bf16
+   compute (the control) must miss;
+7. WKV6 kernels: call each WKV6 kernel's wrapper at the rwkv6 path's shape
    (one slot shard at p = 1 and at p = 2), at ragged L, at RWKV6's training
    context, at extreme decays and at head dims 16, 32 and 64, with nonzero
    s0 and dsT, inputs drawn from a seeded CPU generator, and hold it against
@@ -40,7 +57,7 @@ Phases, in order; any failure exits non-zero:
    time kernel and plain version (no single PyTorch call computes a WKV6
    kernel's outputs; ``du_part.sum(0)``, the one call that computes dk's
    du, is timed beside dk);
-7. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
+8. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
    ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, timing the
    host-side init of its parameters; then the same trainer refits one batch
    four times, and its loss must fall at every step; a held-out batch's
@@ -55,11 +72,13 @@ where from the reference's init the loss of fresh noise tokens rises in
 the JAX trainer as in the port, the refit and held-out checks take its
 place. The launches
 made by the context preps' warm-ups are counted apart, the rest is divided
-by the slot shards stepped, and both must equal what the code predicts: one
-launch of each kernel per layer for each shard's forward and backward, with
-remat's recomputation a second forward launch; in virtual-worker mode a
-step runs K shards at every p, so each kernel launches layers x K times a
-step. Then print
+by the slot shards stepped (p x mp a step), and both must equal what the
+code predicts: one launch of each kernel per layer for each slot shard's
+forward and backward, with remat's recomputation a second forward launch;
+a prep warms one data group, mp slot shards (all groups share the card);
+in virtual-worker mode a step runs K shards at every (p, mp), so each
+kernel launches layers x K times a step, and a prep warms one shard. Then
+print
 ``{"backward_pair": {...}}`` (the two backward kernels together against
 SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the card
 line, and last
@@ -92,10 +111,16 @@ ATT_MAIN_CASE = ("main_p1", 8, 12, 12, 1024, 1024, 64, True, 0, None,
                  "float32")
 # one virtual worker's shard of the main case (batch 8, K = 8)
 ATT_VW_CASE = ("vw_b1", 1, 12, 12, 1024, 1024, 64, True, 0, None, "float32")
+# one model shard of the main case at mp = 2 and mp = 4 (H / mp heads)
+ATT_MP_CASES = [("main_mp2", 8, 6, 6, 1024, 1024, 64, True, 0, None,
+                 "float32"),
+                ("main_mp4", 8, 3, 3, 1024, 1024, 64, True, 0, None,
+                 "float32")]
 ATT_CASES = [
     ATT_MAIN_CASE,
     ("main_p2", 4, 12, 12, 1024, 1024, 64, True, 0, None, "float32"),
     ATT_VW_CASE,
+    *ATT_MP_CASES,
     ("gqa", 2, 8, 2, 512, 512, 64, True, 0, None, "float32"),
     ("window", 2, 4, 4, 1024, 1024, 64, True, 200, None, "float32"),
     ("ragged", 2, 4, 2, 1000, 1000, 64, True, 0, None, "float32"),
@@ -108,7 +133,10 @@ ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
            "bfloat16": {"fwd": 2e-2, "bwd": 2e-2}}
 # the forward and the backward pair run twice on these cases and must give
 # the same bits
-DETERMINISM_CASES = ("main_p1", "gqa")
+DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa")
+# the cases whose kernels are timed beside their bounds and SDPA
+TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0]) + tuple(
+    c[0] for c in ATT_MP_CASES)
 
 # name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
 # range the model's clip allows; a number sets every logw to it
@@ -151,6 +179,29 @@ VW_RUNS = {"static": ["--init-p", "1"],
            "kill": ["--init-p", "4", "--schedule", "kill:1@4"],
            "stop_resume": ["--init-p", "2", "--schedule",
                            "stop_resume_in:1@5"]}
+# phase 6: (a) through the entry point at mp = 2, (b) and (c) through
+# reshape, (d) a stop-resume onto mp = 2
+MP_ARGS = ["--arch", "edl-paper", "--batch", str(MAIN_BATCH), "--seq", "1024",
+           "--devices", "4", "--init-p", "1", "--model-parallel", "2",
+           "--schedule", "out:1@3", "--steps", "12", "--n-samples", "1024",
+           "--d-partitions", "16", "--json", "--device", "cuda"]
+MP_INIT = (1, 2)
+RESHAPES = ((2, 2), (1, 4))     # from (4, 1)
+MP_STOP_RESUME = ["--init-p", "4", "--schedule", "stop_resume_mp:2@5"]
+# phase 6 (e): one step of the full-width fp32 model on one batch at
+# (1, mp) against (1, 1). The two sum the same fp32 terms in another order
+# (the row-parallel partial sums, the vocab shards' log-sum-exp): the loss
+# within TP_LOSS_RTOL of (1, 1)'s, each gradient leaf within TP_GRAD_RTOL
+# of it, norm-wise. The same step at bf16 compute, the control, must
+# miss them, or they could not tell the runs apart. (a)'s first loss holds
+# phase 4's at (1, 1) within TP_LOSS_RTOL too. Its later losses are
+# printed, not held: AdamW's first updates are +-lr on every element
+# whatever its gradient's size, so a gradient near 0 whose sign another
+# summation order flips moves its weight by 2 lr, and any two orders drift
+# apart step by step, data-parallel ones too (PERF.md §6).
+TP_MPS = (2, 4)
+TP_LOSS_RTOL = 1e-5
+TP_GRAD_RTOL = 1e-3
 # a stop-resume must stop training for more than this many stop-free
 # scale-outs (the reference's test_stop_resume_is_much_slower)
 STOP_RESUME_RATIO = 10
@@ -272,11 +323,11 @@ def backward_pair(ops, q, k, v, o, lse, do, opts):
 
 
 def check_attention(torch, ops):
-    """Phase 3. Returns per-kernel records at the main case's shape, the
-    record of the backward pair, and per-kernel records at the
-    virtual-worker case's shape."""
+    """Phase 3. Returns per-kernel records of each case of
+    ``TIMED_CASES`` (case: kernel: record) and the record of the backward
+    pair."""
     F = torch.nn.functional
-    timed = {ATT_MAIN_CASE[0]: {}, ATT_VW_CASE[0]: {}}    # case: records
+    timed = {name: {} for name in TIMED_CASES}    # case: kernel: record
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (name, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len,
          dname) in ATT_CASES:
@@ -341,8 +392,8 @@ def check_attention(torch, ops):
 
         if name not in timed:
             continue
-        # time kernel, plain version and the library call at the main and
-        # the virtual-worker shapes
+        # time kernel, plain version and the library call at the main,
+        # the virtual-worker and the tensor-parallel shapes
         records = timed[name]
         esz = q.element_size()
         n_qo = B * Hq * Lq * D * esz        # one [B,Hq,Lq,D] tensor
@@ -432,7 +483,7 @@ def check_attention(torch, ops):
                 "sdpa_backward_ms_by_backend": sdpa["ms"],
                 "sdpa_refused": sdpa["refused"],
                 "shape": records[dq_name]["shape"]}
-    return timed[ATT_MAIN_CASE[0]], pair, timed[ATT_VW_CASE[0]]
+    return timed, pair
 
 
 def wkv_inputs(torch, B, L, H, hd, logw_kind, seed):
@@ -478,7 +529,7 @@ def wkv_work(B, L, H, hd) -> dict:
 
 
 def check_wkv(torch, wops):
-    """Phase 5. Returns per-kernel records at the main case's shape."""
+    """Phase 7. Returns per-kernel records at the main case's shape."""
     records = {}
     for seed, (name, B, L, H, hd, logw_kind) in enumerate(WKV_CASES):
         r, k, v, logw, u, s0, dy, dsT = wkv_inputs(torch, B, L, H, hd,
@@ -573,15 +624,46 @@ def check_wkv(torch, wops):
     return records
 
 
-def slot_steps(summary: dict, init_p: int) -> int:
-    """Slot shards that the run's training steps ran: a step at p runs p. A
-    switch commits after step ``switch_step``, so that step ran at the old
-    p."""
-    total, p, prev = 0, init_p, 0
-    for e in sorted(summary["scaling_events"], key=lambda e: e["switch_step"]):
-        total += (e["switch_step"] - prev) * p
-        p, prev = e["to_p"], e["switch_step"]
-    return total + (summary["steps"] - prev) * p
+def slot_steps(events: list, steps: int, init: tuple[int, int]) -> int:
+    """Slot shards that a run's ``steps`` training steps ran: a step at
+    (p, mp) runs p x mp. A switch commits after step ``switch_step``, so
+    that step ran at the old shape. A record names its mp only when one
+    side's is not 1."""
+    total, (p, mp), prev = 0, init, 0
+    for e in sorted(events, key=lambda e: e["switch_step"]):
+        total += (e["switch_step"] - prev) * p * mp
+        p, mp, prev = e["to_p"], e.get("to_mp", 1), e["switch_step"]
+    return total + (steps - prev) * p * mp
+
+
+def warm_shards(events: list, init: tuple[int, int], virtual: bool) -> int:
+    """Slot shards that a run's context preps warmed: the launch prep and
+    each cold switch's prep warm one data group (all groups share the
+    card), mp slot shards, or one virtual worker's shard in virtual
+    mode."""
+    mps = [init[1]] + [e.get("to_mp", 1) for e in events
+                       if not e["cache_hit"]]
+    return len(mps) if virtual else sum(mps)
+
+
+def check_launches(name: str, launches: dict, warm: dict, kernels,
+                   per_shard: dict, n_shards: int, n_warm: int) -> dict:
+    """Fail unless every kernel of the path launched and no other did, the
+    context preps' warm-ups launched ``n_warm`` shards' worth and the rest
+    ``per_shard`` a shard over the ``n_shards`` shards stepped. Returns the
+    launches per shard stepped."""
+    missing = [k for k in kernels if launches[k] <= 0]
+    strays = {k: n for k, n in launches.items() if k not in kernels and n}
+    if missing or strays:
+        fail(f"{name}: kernels of the path not launched: {missing}; kernels "
+             f"off the path launched: {strays}")
+    got = {k: (launches[k] - warm[k]) / n_shards for k in kernels}
+    want_warm = {k: n_warm * per_shard[k] for k in kernels}
+    if got != per_shard or {k: warm[k] for k in kernels} != want_warm:
+        fail(f"{name}: launches differ from the prediction: warm-ups "
+             f"{ {k: warm[k] for k in kernels} } (predicted {want_warm}), "
+             f"per shard of a step {got} (predicted {per_shard})")
+    return got
 
 
 @contextlib.contextmanager
@@ -607,12 +689,13 @@ def timed_state_init(torch, seconds: list):
 
 
 def run_path(torch, launches_of, train, args, kernels, per_shard: dict, *,
-             loss_must_fall: bool = True):
-    """Phases 4 and 6: the port's trainer through its entry point, with the
-    launch counts reset just before and read just after. ``per_shard``
-    predicts each kernel's launches per slot shard of a step (and of a
-    warm-up); with ``loss_must_fall`` the last loss must be below the first.
-    Returns a record of the run."""
+             loss_must_fall: bool = True, init=(MAIN_INIT_P, 1)):
+    """Phases 4, 6 (a) and 8: the port's trainer through its entry point,
+    starting at shape ``init`` = (p, mp), with the launch counts reset just
+    before and read just after. ``per_shard`` predicts each kernel's
+    launches per slot shard of a step (and of a warm-up); with
+    ``loss_must_fall`` the last loss must be below the first. Returns a
+    record of the run."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -642,24 +725,12 @@ def run_path(torch, launches_of, train, args, kernels, per_shard: dict, *,
         fail(f"scale_out was not stop-free: {outs[0]}")
     if summary["unique_sample_frac"] != 1.0:
         fail(f"unique_sample_frac {summary['unique_sample_frac']}")
-    missing = [k for k in kernels if launches[k] <= 0]
-    strays = {k: n for k, n in launches.items() if k not in kernels and n}
-    if missing or strays:
-        fail(f"kernels of the path not launched: {missing}; kernels off "
-             f"the path launched: {strays}")
-    n_slot_steps = slot_steps(summary, MAIN_INIT_P)
-    # the launch prep and each cold scaling prep warm one shard each (all
-    # slots share the one card)
-    n_preps = 1 + sum(not e["cache_hit"] for e in summary["scaling_events"])
-    per_slot_step = {k: (launches[k] - warm[k]) / n_slot_steps
-                     for k in kernels}
-    want_warm = {k: n_preps * per_shard[k] for k in kernels}
-    if per_slot_step != per_shard or {k: warm[k] for k in kernels} != \
-            want_warm:
-        fail(f"launches differ from the prediction: warm-ups "
-             f"{ {k: warm[k] for k in kernels} } (predicted {want_warm}), "
-             f"per slot shard of a step {per_slot_step} (predicted "
-             f"{per_shard})")
+    events = summary["scaling_events"]
+    n_slot_steps = slot_steps(events, summary["steps"], init)
+    n_preps = 1 + sum(not e["cache_hit"] for e in events)
+    n_warm = warm_shards(events, init, virtual=False)
+    per_slot_step = check_launches(summary["arch"], launches, warm, kernels,
+                                   per_shard, n_slot_steps, n_warm)
     steps = summary["steps"]
     step_ms = 1e3 * MAIN_BATCH / summary["throughput"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -671,80 +742,76 @@ def run_path(torch, launches_of, train, args, kernels, per_shard: dict, *,
           f"{min(steps, 20)} steps; peak {peak_gib:.2f} GiB allocated; "
           f"launches { {k: launches[k] for k in kernels} }, of which "
           f"context-prep warm-ups { {k: warm[k] for k in kernels} } "
-          f"({n_preps} preps); {n_slot_steps} slot shards stepped, so per "
-          f"slot shard of a step {per_slot_step}, as predicted", flush=True)
+          f"({n_preps} preps, {n_warm} slot shards warmed); {n_slot_steps} "
+          f"slot shards stepped, so per slot shard of a step "
+          f"{per_slot_step}, as predicted", flush=True)
     return {"arch": summary["arch"], "steps": steps, "seconds": seconds,
             "init_state_s": sum(init_s), "mean_step_ms": step_ms,
             "samples_per_s": summary["throughput"], "peak_gib": peak_gib,
-            "first_loss": summary["first_loss"],
+            "losses": losses, "first_loss": summary["first_loss"],
             "final_loss": summary["final_loss"],
             "scaling_events": summary["scaling_events"],
             "launches": launches, "warmup_launches": warm,
             "launches_per_slot_step": per_slot_step}
 
 
+def vw_run(torch, launches_of, train, name: str, extra: list, kernels,
+           per_shard: dict) -> dict:
+    """One virtual-worker run of the entry point (``VW_ARGS + extra``),
+    with the launch counts reset just before and read just after. A step
+    runs ``VW_K`` shards at every (p, mp), so each kernel launches
+    ``per_shard x VW_K`` times a step; each context prep warms one shard
+    (all slots share the card). Returns a record of the run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    launches_of.reset()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(VW_ARGS + extra)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = launches_of.snapshot()
+    warm = launches_of.snapshot(warm=True)
+    if rc != 0:
+        fail(f"virtual-worker run {name}: main returned {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    losses = summary["losses"]
+    if len(losses) < VW_STEPS or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"virtual-worker run {name}: losses {losses}")
+    if summary["unique_sample_frac"] != 1.0:
+        fail(f"virtual-worker run {name}: unique_sample_frac "
+             f"{summary['unique_sample_frac']}")
+    events = summary["scaling_events"]
+    n_preps = 1 + sum(not e["cache_hit"] for e in events)
+    per_step = {k: n * VW_K for k, n in check_launches(
+        f"virtual-worker run {name}", launches, warm, kernels, per_shard,
+        summary["steps"] * VW_K, n_preps).items()}
+    step_ms = 1e3 * MAIN_BATCH / summary["throughput"]
+    run = {"args": extra, "steps": summary["steps"], "seconds": seconds,
+           "mean_step_ms": step_ms, "final_p": summary["final_p"],
+           "losses": losses, "scaling_events": events, "n_preps": n_preps,
+           "launches": {k: launches[k] for k in kernels},
+           "launches_per_step": per_step,
+           "warmup_launches": {k: warm[k] for k in kernels}}
+    print(f"  ({name}) {' '.join(extra)}: {summary['steps']} steps in "
+          f"{seconds:.2f} s, mean step {step_ms:.1f} ms, final p "
+          f"{summary['final_p']}", flush=True)
+    print(f"    losses {losses}", flush=True)
+    print(f"    scaling_events {json.dumps(events)}", flush=True)
+    print(f"    launches per step {per_step} (predicted {VW_K} x "
+          f"layers), warm-ups {run['warmup_launches']} "
+          f"({n_preps} preps)", flush=True)
+    return run
+
+
 def run_vw_path(torch, launches_of, train, kernels, per_shard: dict) -> dict:
     """Phase 5: the four virtual-worker runs of ``VW_RUNS`` through the
-    entry point, each with the launch counts reset just before and read
-    just after. A step runs ``VW_K`` shards at every p, so each kernel
-    launches ``per_shard x VW_K`` times a step; each context prep warms one
-    shard (all slots share the card). Returns a record of the runs."""
-    runs = {}
-    for name, extra in VW_RUNS.items():
-        gc.collect()
-        torch.cuda.empty_cache()
-        buf = io.StringIO()
-        launches_of.reset()
-        t0 = time.monotonic()
-        with contextlib.redirect_stdout(buf):
-            rc = train.main(VW_ARGS + extra)
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        launches = launches_of.snapshot()
-        warm = launches_of.snapshot(warm=True)
-        if rc != 0:
-            fail(f"virtual-worker run {name}: main returned {rc}")
-        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
-        losses = summary["losses"]
-        if len(losses) < VW_STEPS or \
-                not all(math.isfinite(x) for x in losses):
-            fail(f"virtual-worker run {name}: losses {losses}")
-        if summary["unique_sample_frac"] != 1.0:
-            fail(f"virtual-worker run {name}: unique_sample_frac "
-                 f"{summary['unique_sample_frac']}")
-        missing = [k for k in kernels if launches[k] <= 0]
-        strays = {k: n for k, n in launches.items() if k not in kernels and n}
-        if missing or strays:
-            fail(f"virtual-worker run {name}: kernels of the path not "
-                 f"launched: {missing}; kernels off the path launched: "
-                 f"{strays}")
-        events = summary["scaling_events"]
-        n_preps = 1 + sum(not e["cache_hit"] for e in events)
-        per_step = {k: (launches[k] - warm[k]) / summary["steps"]
-                    for k in kernels}
-        want_step = {k: per_shard[k] * VW_K for k in kernels}
-        want_warm = {k: n_preps * per_shard[k] for k in kernels}
-        if per_step != want_step or \
-                {k: warm[k] for k in kernels} != want_warm:
-            fail(f"virtual-worker run {name}: launches differ from the "
-                 f"prediction: warm-ups { {k: warm[k] for k in kernels} } "
-                 f"(predicted {want_warm}), per step {per_step} "
-                 f"(predicted {want_step})")
-        step_ms = 1e3 * MAIN_BATCH / summary["throughput"]
-        runs[name] = {"args": extra, "steps": summary["steps"],
-                      "seconds": seconds, "mean_step_ms": step_ms,
-                      "final_p": summary["final_p"], "losses": losses,
-                      "scaling_events": events, "n_preps": n_preps,
-                      "launches_per_step": per_step,
-                      "warmup_launches": {k: warm[k] for k in kernels}}
-        print(f"  ({name}) {' '.join(extra)}: {summary['steps']} steps in "
-              f"{seconds:.2f} s, mean step {step_ms:.1f} ms, final p "
-              f"{summary['final_p']}", flush=True)
-        print(f"    losses {losses}", flush=True)
-        print(f"    scaling_events {json.dumps(events)}", flush=True)
-        print(f"    launches per step {per_step} (predicted {VW_K} x "
-              f"layers), warm-ups {runs[name]['warmup_launches']} "
-              f"({n_preps} preps)", flush=True)
+    entry point (``vw_run``). Returns a record of the runs."""
+    runs = {name: vw_run(torch, launches_of, train, name, extra, kernels,
+                         per_shard)
+            for name, extra in VW_RUNS.items()}
     want = runs["static"]["losses"][:VW_STEPS]
     for name in ("elastic", "kill", "stop_resume"):
         if runs[name]["losses"][:VW_STEPS] != want:
@@ -782,8 +849,226 @@ def run_vw_path(torch, launches_of, train, kernels, per_shard: dict) -> dict:
             "scale_out_stop_s": out_stop}
 
 
+def run_reshape_path(torch, launches_of, kernels, per_shard: dict, *,
+                     virtual_workers=None) -> dict:
+    """Phase 6 (b) and (c): an ``ElasticTrainer`` on four slots of the card
+    at (4, 1), driven through ``reshape`` to each shape of ``RESHAPES`` in
+    turn while it trains (each prep runs in the background; the switch
+    commits at a later mini-batch boundary), to ``VW_STEPS`` steps, with the
+    launch counts reset just before and read just after. Each switch must
+    commit stop-free as a reshape to its shape. Returns a record of the
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ElasticTrainer
+    from repro_torch.devices import slot_devices
+    from repro_torch.optim import adamw
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches_of.reset()
+    t0 = time.monotonic()
+    init = (4, 1)
+    with ElasticTrainer(get_config("edl-paper"), global_batch=MAIN_BATCH,
+                        seq_len=1024, init_parallelism=init[0],
+                        optimizer=adamw(1e-3), n_samples=1024,
+                        d_partitions=16, seed=0,
+                        devices=slot_devices(4, "cuda"),
+                        virtual_workers=virtual_workers) as t:
+        t.run(3)
+        for p, mp in RESHAPES:
+            if t.reshape(p, mp) is not None:
+                fail(f"reshape({p}, {mp}) committed without a prep")
+            t.wait_for_scaling()
+            t.run(1)
+        t.run(max(0, VW_STEPS - t.step_idx))
+        events = [r.summary() for r in t.controller.history]
+        losses = [m["loss"] for m in t.metrics_log]
+        throughput = t.throughput()
+        steps = t.step_idx
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = launches_of.snapshot()
+    warm = launches_of.snapshot(warm=True)
+    name = "reshape" + ("_vw" if virtual_workers else "")
+    if [(e["op"], e["to_p"], e.get("to_mp", 1)) for e in events] != \
+            [("reshape", p, mp) for p, mp in RESHAPES]:
+        fail(f"{name}: expected reshapes to {RESHAPES}, got {events}")
+    if not all(e["stop_s"] < e["prep_s"] for e in events):
+        fail(f"{name}: a switch was not stop-free: {events}")
+    if len(losses) < VW_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"{name}: losses {losses}")
+    if not virtual_workers and not losses[-1] < losses[0]:
+        fail(f"{name}: loss did not fall: {losses}")
+    if virtual_workers:
+        n_shards = steps * virtual_workers
+    else:
+        n_shards = slot_steps(events, steps, init)
+    n_warm = warm_shards(events, init, virtual=bool(virtual_workers))
+    per_shard_got = check_launches(name, launches, warm, kernels, per_shard,
+                                   n_shards, n_warm)
+    step_ms = 1e3 * MAIN_BATCH / throughput
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    moves = [{k: e[k] for k in ("from_p", "from_mp", "to_p", "to_mp",
+                                "prep_s", "stop_s", "stage_s",
+                                "reshard_bytes_moved", "reshard_bytes_kept",
+                                "bytes_moved_overlapped")}
+             for e in events]
+    print(f"  ({name}) (4, 1) -> " + " -> ".join(map(str, RESHAPES))
+          + f": {steps} steps in {seconds:.2f} s, mean step {step_ms:.1f} ms"
+          f" over the last {min(steps, 20)}, peak {peak_gib:.2f} GiB",
+          flush=True)
+    print(f"    losses {losses}", flush=True)
+    for m in moves:
+        print(f"    reshape {json.dumps(m)}", flush=True)
+    print(f"    launches { {k: launches[k] for k in kernels} }, warm-ups "
+          f"{ {k: warm[k] for k in kernels} } ({n_warm} shards warmed); "
+          f"{n_shards} shards stepped, per shard {per_shard_got}, as "
+          f"predicted", flush=True)
+    return {"steps": steps, "seconds": seconds, "mean_step_ms": step_ms,
+            "samples_per_s": throughput, "peak_gib": peak_gib,
+            "virtual_workers": virtual_workers or 0, "losses": losses,
+            "scaling_events": events, "reshapes": moves,
+            "launches": {k: launches[k] for k in kernels},
+            "warmup_launches": {k: warm[k] for k in kernels},
+            "launches_per_shard_step": per_shard_got}
+
+
+def check_tp_numbers(torch) -> dict:
+    """Phase 6 (e): one step's loss and gradients of the full-width fp32
+    edl_paper model on one batch, at (1, mp) for each mp of ``TP_MPS``
+    (the tensor-parallel default step's ``group_loss_and_grads`` over mp
+    slots of the card) against (1, 1): the loss within ``TP_LOSS_RTOL``,
+    each gradient leaf norm-wise within ``TP_GRAD_RTOL``. The same step at
+    bf16 compute must miss them. Returns the readings."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ShardedParams, model_dims
+    from repro_torch.training.step import group_loss_and_grads, \
+        loss_and_grads, port_layout, shard_batch, split_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("edl-paper")
+    dev = torch.device("cuda:0")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                             (MAIN_BATCH, 1025))
+    batch = shard_batch({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 1,
+                        [dev])[0]
+    loss1, _, grads1 = loss_and_grads(cfg, params, batch)
+    want = dict(tree_leaves(grads1))
+
+    def deviation(loss, grads) -> dict:
+        errs = {k: float((grads[k] - g).norm() / g.norm())
+                for k, g in want.items()}
+        worst = max(errs, key=errs.get)
+        return {"loss": float(loss),
+                "loss_rel_err": abs(float(loss) - float(loss1))
+                / abs(float(loss1)),
+                "worst_leaf": worst, "worst_leaf_rel_err": errs[worst]}
+
+    def within(r: dict) -> bool:
+        return r["loss_rel_err"] <= TP_LOSS_RTOL and \
+            r["worst_leaf_rel_err"] <= TP_GRAD_RTOL
+
+    readings = {}
+    for mp in TP_MPS:
+        devs = [dev] * mp
+        dims = model_dims(port_layout(cfg, adamw(1e-3), 1, mp))
+        loss, _, grads = group_loss_and_grads(
+            cfg, split_tree(params, dims, devs), dims, devs, batch)
+        readings[f"mp{mp}"] = deviation(
+            loss, dict(tree_leaves(ShardedParams(grads, dims,
+                                                 tuple(devs)).whole())))
+        del grads
+    loss, _, grads = loss_and_grads(
+        dataclasses.replace(cfg, compute_dtype="bfloat16"), params, batch)
+    readings["bf16_control"] = deviation(
+        loss, {k: g.float() for k, g in tree_leaves(grads)})
+    del grads, grads1, want, params
+    for name, r in readings.items():
+        print(f"  (e) {name} against (1, 1): loss {r['loss']!r} "
+              f"(rel err {r['loss_rel_err']:.3e}, tolerance {TP_LOSS_RTOL}); "
+              f"worst gradient leaf {r['worst_leaf']}, norm-wise rel err "
+              f"{r['worst_leaf_rel_err']:.3e} (tolerance {TP_GRAD_RTOL})",
+              flush=True)
+    bad = [name for name in readings if name != "bf16_control"
+           and not within(readings[name])]
+    if bad:
+        fail(f"tensor-parallel step differs from (1, 1): {bad}: {readings}")
+    if within(readings["bf16_control"]):
+        fail(f"the bf16 control is within the tolerances, which so cannot "
+             f"tell the runs apart: {readings['bf16_control']}")
+    return {"loss_1_1": float(loss1), "loss_rtol": TP_LOSS_RTOL,
+            "grad_rtol": TP_GRAD_RTOL, **readings}
+
+
+def before_switch(run: dict) -> list:
+    """The losses of a ``run_path`` record's steps before its first switch
+    committed."""
+    return run["losses"][:min(e["switch_step"]
+                              for e in run["scaling_events"])]
+
+
+def run_mp_path(torch, launches_of, train, kernels, per_shard: dict,
+                mp1_run: dict, static_losses: list) -> dict:
+    """Phase 6: (a) the entry point at mp = 2 through a stop-free scale-out,
+    whose losses before the switch must hold ``mp1_run``'s (phase 4's, at
+    (1, 1)) within ``TP_LOSS_RTOL`` at step 0;
+    (b) and (c) ``reshape`` without and with virtual workers; (d) a
+    stop-resume onto mp = 2 under virtual workers; (c)'s and (d)'s losses
+    equal to ``static_losses`` (phase 5's static run) step for step; (e)
+    one step at (1, 2) and (1, 4) against (1, 1) (``check_tp_numbers``).
+    Returns a record of the runs."""
+    print("  (a) python -m repro_torch.launch.train " + " ".join(MP_ARGS),
+          flush=True)
+    runs = {"scale_out_mp2": run_path(torch, launches_of, train, MP_ARGS,
+                                      kernels, per_shard, init=MP_INIT)}
+    got, want = before_switch(runs["scale_out_mp2"]), before_switch(mp1_run)
+    n = min(len(got), len(want))
+    errs = [abs(a - b) / abs(b) for a, b in zip(got[:n], want[:n])]
+    print(f"  (a) its {n} steps before the switch against phase 4's at "
+          f"(1, 1): loss rel errs {['%.3e' % e for e in errs]} (step 0 "
+          f"held to {TP_LOSS_RTOL}; the later steps drift, see (e))",
+          flush=True)
+    if not errs[0] <= TP_LOSS_RTOL:
+        fail(f"(1, 2)'s first loss {got[0]} differs from (1, 1)'s {want[0]}")
+    print("  (b) ElasticTrainer at (4, 1), reshape to " + ", then ".join(
+        map(str, RESHAPES)), flush=True)
+    runs["reshape"] = run_reshape_path(torch, launches_of, kernels,
+                                       per_shard)
+    print(f"  (c) the same with virtual_workers={VW_K}", flush=True)
+    runs["reshape_vw"] = run_reshape_path(torch, launches_of, kernels,
+                                          per_shard, virtual_workers=VW_K)
+    print("  (d) python -m repro_torch.launch.train " + " ".join(
+        VW_ARGS + MP_STOP_RESUME), flush=True)
+    runs["stop_resume_mp"] = vw_run(torch, launches_of, train,
+                                    "stop_resume_mp", MP_STOP_RESUME,
+                                    kernels, per_shard)
+    sr = runs["stop_resume_mp"]["scaling_events"]
+    if [(e["op"], e["to_p"], e.get("to_mp", 1)) for e in sr] != \
+            [("stop_resume", 2, 2)]:
+        fail(f"stop_resume_mp run: expected one stop-resume to (2, 2), got "
+             f"{sr}")
+    for name in ("reshape_vw", "stop_resume_mp"):
+        if runs[name]["losses"][:VW_STEPS] != static_losses:
+            fail(f"{name}'s losses differ from phase 5's static run's: "
+                 f"{runs[name]['losses']} vs {static_losses}")
+    print(f"  losses of (c) and (d) == phase 5's static run, step for step",
+          flush=True)
+    print(f"  (e) one step of the full-width model on one batch at (1, mp), "
+          f"mp in {TP_MPS}, against (1, 1)", flush=True)
+    return {"runs": runs, "losses_equal_static": True,
+            "before_switch_loss_rel_errs": errs,
+            "one_step": check_tp_numbers(torch)}
+
+
 def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
-    """Phase 6's learning checks, on the trainer that ``launch/train.py``
+    """Phase 8's learning checks, on the trainer that ``launch/train.py``
     builds (same seed and data, AdamW at its default lr 1e-3, one slot).
 
     The synthetic tokens are uniform noise, and from the reference's init
@@ -869,6 +1154,14 @@ def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
             "remat_losses": remat_losses, "remat_grad_err": remat_err}
 
 
+def shape_record(r: dict) -> dict:
+    """A kernel's record at one more timed shape, for its kernel entry."""
+    return {**{k: r[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "bytes", "flops",
+                                 "library_ms", "shape")},
+            "share_of_bound": r["bound_ms"] / r["ms"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -882,12 +1175,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/8] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/9] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/8] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/9] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     if sorted(built) != sorted(build.SOURCES):
@@ -897,28 +1190,35 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/8] attention kernels against their plain versions", flush=True)
-    records, pair, vw_records = check_attention(torch, aops)
+    print("[3/9] attention kernels against their plain versions", flush=True)
+    timed, pair = check_attention(torch, aops)
+    records = dict(timed[ATT_MAIN_CASE[0]])
 
     edl = get_config("edl-paper")
-    print("[4/8] edl_paper path: python -m repro_torch.launch.train "
+    print("[4/9] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # forward, dq and dkdv once per layer and shard
     edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
     paths = {"edl-paper": run_path(
         torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
 
-    print("[5/8] edl_paper virtual-worker path: python -m "
+    print("[5/9] edl_paper virtual-worker path: python -m "
           "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
     vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
 
-    print("[6/8] WKV6 kernels against their plain versions", flush=True)
+    print("[6/9] edl_paper model-parallel path on four slots of the card",
+          flush=True)
+    mp = run_mp_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard,
+                     paths["edl-paper"],
+                     vw["runs"]["static"]["losses"][:VW_STEPS])
+
+    print("[7/9] WKV6 kernels against their plain versions", flush=True)
     records.update(check_wkv(torch, wops))
 
     rwkv = get_config("rwkv6-1.6b")
-    print("[7/8] rwkv6 path: python -m repro_torch.launch.train "
+    print("[8/9] rwkv6 path: python -m repro_torch.launch.train "
           + " ".join(RWKV_ARGS), flush=True)
     # each kernel once per layer and shard; remat runs the forward again
     rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
@@ -951,19 +1251,23 @@ def main() -> int:
                 # the WKV6 kernels' compared error, dk's du yardstick
                 **{k: r[k] for k in ("max_rel_err", "du_library_ms") if k in r},
                 "shape": r["shape"], "card": card})
-            if kname in vw_records:
-                v = vw_records[kname]
-                kernels[-1]["virtual_worker_shape"] = {
-                    **{k: v[k] for k in ("max_abs_err", "tolerance", "ms",
-                                         "plain_ms", "bound_ms", "bound_by",
-                                         "bytes", "flops", "library_ms",
-                                         "shape")},
-                    "share_of_bound": v["bound_ms"] / v["ms"],
-                    "launches_per_step": vw["runs"]["static"][
-                        "launches_per_step"][kname],
-                    "launches_static_run": vw["runs"]["static"]["steps"]
-                    * vw["runs"]["static"]["launches_per_step"][kname]}
-    print("[8/8] results; library_ms is F.scaled_dot_product_attention for "
+            if kname not in aops.KERNELS:
+                continue
+            kernels[-1]["virtual_worker_shape"] = {
+                **shape_record(timed[ATT_VW_CASE[0]][kname]),
+                "launches_per_step": vw["runs"]["static"][
+                    "launches_per_step"][kname],
+                "launches_static_run": vw["runs"]["static"]["steps"]
+                * vw["runs"]["static"]["launches_per_step"][kname]}
+            kernels[-1]["model_parallel_shapes"] = {
+                case: shape_record(timed[case][kname])
+                for case, *_ in ATT_MP_CASES}
+            # each phase-6 run's launches, counted from 0 just before it
+            kernels[-1]["model_parallel_path"] = {
+                name: {"launches": run["launches"][kname],
+                       "warmup_launches": run["warmup_launches"][kname]}
+                for name, run in mp["runs"].items()}
+    print("[9/9] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd, its whole "
           "backward for both backward kernels) and null for the WKV6 "
           "kernels, whose outputs no single PyTorch call computes; "
@@ -975,7 +1279,7 @@ def main() -> int:
         **{name: {k: v for k, v in run.items()
                   if k not in ("launches", "warmup_launches")}
            for name, run in paths.items()},
-        "virtual_workers": vw}, "card": card}))
+        "virtual_workers": vw, "model_parallel": mp}, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,10 @@
 """ElasticTrainer — EDL's elasticity over the port's logical device slots.
 
-A *worker* is one data-parallel slot; elasticity changes how many slots
-step. The global batch is constant at every parallelism (per-slot batch =
-global / p), so a training step computes the same math regardless of p.
+A *worker* is one data-parallel group of ``mp`` slots (mp = the
+model-parallel degree; a group is one slot at mp = 1); elasticity changes
+how many groups step. The global batch is constant at every parallelism
+(per-group batch = global / p), so a training step computes the same math
+regardless of p.
 
 Stop-free scale-out: the execution-context preparation for a new p is the
 port's counterpart of the reference's AOT compile. It builds the handle —
@@ -12,17 +14,21 @@ new card, allocator growth for the shape), in a background thread while the
 current handle keeps stepping. When it lands, the leader schedules the
 switch at mini-batch ``t_cur + k`` (k = ceil(T_allowance / T_batch),
 T_allowance = 500 ms — paper default); at that boundary the handle is
-swapped. The train state lives on slot 0's device. A switch moves it only
-when slot 0's device changes (a failure hand-off that reorders the pool);
-that copy is staged during the draining mini-batch on the destination's
-side stream, so the stop is the swap and the bookkeeping. Scale-in
-(graceful exit) returns the exiting slots' partition remainders to the
-dynamic data pipeline.
+swapped. Model shard m of the train state lives on slot m's device (the
+whole state on slot 0's at mp = 1). A data-axis switch moves a shard only
+when its slot's device changes (a failure hand-off that reorders the pool);
+a ``reshape(p, mp)`` moves the state along a ``reshape.plan_reshard`` plan
+(``reshape.apply_plan``). Either move is staged during the draining
+mini-batch on the devices' side streams, so the stop is the swap and the
+bookkeeping. Scale-in (graceful exit) returns the exiting groups'
+partition remainders to the dynamic data pipeline.
 
-Not ported yet: ``reshape`` and model-parallel degrees above 1.
+The RWKV6 mixers have no tensor-parallel form yet: an rwkv6 job at
+mp > 1 raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -48,8 +54,12 @@ from repro_torch.kernels.launches import LAUNCHES
 from repro_torch.models.model import param_spec_tree
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import Optimizer, adamw
-from repro_torch.training.step import init_train_state, loss_and_grads, \
-    make_train_step
+from repro_torch.parallel import model_dims, require_model_parallel
+from repro_torch.reshape import StateSpec, apply_plan, flatten_tree, \
+    place_state, plan_reshard, unflatten_tree
+from repro_torch.training.step import group_loss_and_grads, \
+    init_train_state, join_shards, make_train_step, model_shards, \
+    port_layout, split_tree
 
 TIME_ALLOWANCE_S = 0.5      # paper's T_a
 EXEC_CACHE_MAX = 8          # prepared topologies retained per job (LRU)
@@ -57,11 +67,15 @@ EXEC_CACHE_MAX = 8          # prepared topologies retained per job (LRU)
 
 @dataclasses.dataclass
 class ExecHandle:
-    """Everything tied to one shape: the 'communication topology'. ``p`` is
-    the data-parallel slot count; slot s steps on ``devices[s]``."""
+    """Everything tied to one (data, model) shape: the 'communication
+    topology'. ``p`` is the data-parallel group count, ``mp`` the
+    model-parallel degree; slot ``d * mp + m`` steps on ``devices[d * mp +
+    m]``, and ``layout`` is the train state's ``StateSpec`` at (p, mp)."""
     p: int
+    mp: int
     devices: tuple[torch.device, ...]
     step_fn: Callable
+    layout: StateSpec
 
 
 class ElasticTrainer:
@@ -80,9 +94,14 @@ class ElasticTrainer:
                                data-partition remainders).
       migrate()              — fused scale-in + scale-out at constant p,
                                one topology switch (straggler mitigation).
-      grant_devices(devs)    — a scheduler HANDS the job extra slots; the
-                               job owns them immediately and scales out onto
-                               them stop-free.
+      reshape(p, mp)         — live reparallelization: trade data-parallel
+                               for model-parallel degree in one stop-free
+                               switch; the train state is resharded along
+                               a repro_torch.reshape plan at the boundary.
+      grant_devices(devs)    — a scheduler HANDS the job extra slots, in
+                               whole groups of mp; the job owns them
+                               immediately and scales out onto them
+                               stop-free.
       release_devices(n)     — graceful scale-in that RETURNS slot
                                ownership: the freed slots leave
                                ``self.devices`` when the switch commits and
@@ -96,7 +115,8 @@ class ElasticTrainer:
     top by ``core.stop_resume``.
 
     ``devices`` is the job's slot pool, one torch device per logical slot
-    (several slots may share a card); by default one slot per visible card,
+    (several slots may share a card), read in groups of ``model_parallel``;
+    by default one slot per visible card,
     or per CPU core when ``device`` is the CPU, as the reference's default
     pool is every device, and at least ``init_parallelism`` slots.
     ``use_aot`` warms each new shape during its prep, the counterpart of
@@ -124,8 +144,7 @@ class ElasticTrainer:
                  virtual_workers: int | str | None = None,
                  time_allowance_s: float = TIME_ALLOWANCE_S,
                  compile_service=None, device: str = "cuda"):
-        if model_parallel != 1:
-            raise NotImplementedError("model_parallel > 1 is not yet ported")
+        require_model_parallel(cfg, model_parallel)
         self.cfg = cfg
         self.global_batch = global_batch
         self.seq_len = seq_len
@@ -182,8 +201,9 @@ class ElasticTrainer:
 
         self.exec = self._build_exec(init_parallelism)
         gen = torch.Generator().manual_seed(seed)
-        self.state = init_train_state(cfg, self.optimizer, gen,
-                                      self.devices[0])
+        state = init_train_state(cfg, self.optimizer, gen, self.devices[0])
+        self.state = join_shards(place_state(
+            self.exec.layout, state, self.exec.devices[:model_parallel]))
 
         self.step_idx = 0
         self.samples_seen = 0
@@ -194,8 +214,10 @@ class ElasticTrainer:
         self._prep_thread: threading.Thread | None = None
         self._prep_ticket = None        # CompileTicket when service-backed
         self._prep_error: BaseException | None = None
-        # called with (trainer, freed_devices) when a release commits
+        # called with (trainer, freed_devices) when a release commits;
+        # _releasing_op names the verb that freed them during the call
         self.on_devices_released: Callable | None = None
+        self._releasing_op: str | None = None
 
     def close(self):
         """Join the in-flight context prep, if any."""
@@ -260,10 +282,12 @@ class ElasticTrainer:
         self.straggler_detector.reset(wid)
 
     # ---------------------------------------------------------- exec handles
-    def _exec_key(self, p: int) -> tuple:
-        """The exec-cache identity of shape p on a slot-pool prefix, in the
-        reference's ``(p, mp, devices)`` form."""
-        return (p, self.model_parallel, tuple(str(d) for d in self.devices[:p]))
+    def _exec_key(self, p: int, mp: int | None = None) -> tuple:
+        """The exec-cache identity of shape (p, mp) on a slot-pool prefix,
+        in the reference's ``(p, mp, devices)`` form. Order matters: the
+        same slots in another order are another topology."""
+        mp = mp if mp is not None else self.model_parallel
+        return (p, mp, tuple(str(d) for d in self.devices[:p * mp]))
 
     def _side_stream(self, dev: torch.device) -> "torch.cuda.Stream":
         """This trainer's side stream on ``dev`` (preps and staged state
@@ -274,46 +298,71 @@ class ElasticTrainer:
                 side = self._side_streams[dev] = torch.cuda.Stream(dev)
             return side
 
-    def _warm(self, devices: tuple[torch.device, ...]):
-        """Run one forward and backward at the step's shard shape (one
-        virtual worker's in virtual mode, one slot's otherwise) on each
-        distinct device, with zero params and tokens, on a side stream.
-        Touches no trainer state; its kernel launches are tallied as
-        warm-ups."""
-        per = self.global_batch // (self.n_virtual or len(devices))
-        for dev in dict.fromkeys(devices):
-            if dev.type != "cuda":
-                with LAUNCHES.warming():
-                    self._warm_once(dev, per)
-                continue
-            side = self._side_stream(dev)
-            with torch.cuda.device(dev):
-                with torch.cuda.stream(side), LAUNCHES.warming():
-                    self._warm_once(dev, per)
+    @contextlib.contextmanager
+    def _on_side_streams(self, devices, *, after_main: bool):
+        """Make this trainer's side stream current on every CUDA device of
+        ``devices`` (the first of them current too); with ``after_main``
+        each side stream first waits for the work queued on its device's
+        stream. Yields the side streams."""
+        cuda = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+        with contextlib.ExitStack() as stack:
+            if cuda:
+                stack.enter_context(torch.cuda.device(cuda[0]))
+            sides = []
+            for d in cuda:
+                side = self._side_stream(d)
+                if after_main:
+                    side.wait_stream(torch.cuda.current_stream(d))
+                stack.enter_context(torch.cuda.stream(side))
+                sides.append(side)
+            yield sides
+
+    def _warm(self, groups: tuple[tuple[torch.device, ...], ...]):
+        """Run one forward and backward at the step's shard shape on each
+        distinct data group (``groups``: each group's slot devices), with
+        zero params and tokens, on side streams: one virtual worker's shard
+        on the group's first slot in virtual mode, else one data group's
+        shard over its mp slots. Touches no trainer state; its kernel
+        launches are tallied as warm-ups."""
+        mp = len(groups[0])
+        per = self.global_batch // (self.n_virtual or len(groups))
+        dims = model_dims(port_layout(self.cfg, self.optimizer, len(groups),
+                                      mp))
+        for group in dict.fromkeys(groups):
+            devs = group[:1] if self.n_virtual else group
+            with self._on_side_streams(devs, after_main=False) as sides, \
+                    LAUNCHES.warming():
+                self._warm_once(devs, dims, per)
+            for side in sides:
                 side.synchronize()
 
-    def _warm_once(self, dev: torch.device, per: int):
+    def _warm_once(self, devs, dims: dict, per: int):
         dtype = {"float32": torch.float32,
                  "bfloat16": torch.bfloat16}[self.cfg.param_dtype]
         params = tree_map(lambda s: torch.zeros(s.shape, dtype=dtype,
-                                                device=dev),
+                                                device=devs[0]),
                           param_spec_tree(self.cfg))
-        toks = torch.zeros((per, self.seq_len), dtype=torch.long, device=dev)
-        loss, _, _ = loss_and_grads(self.cfg, params,
-                                    {"tokens": toks, "labels": toks})
+        trees = split_tree(params, dims, devs)
+        toks = torch.zeros((per, self.seq_len), dtype=torch.long,
+                           device=devs[0])
+        loss, _, _ = group_loss_and_grads(self.cfg, trees, dims, devs,
+                                          {"tokens": toks, "labels": toks})
         loss.item()
 
-    def _build_exec(self, p: int) -> ExecHandle:
-        """Execution-context preparation for p slots: the step callable over
-        the first p slots of the pool, warmed at its shape. This is the cost
-        stop-free scaling hides. Handles are cached per (p, mp, slot
-        devices), LRU-bounded; a shape the job ran at before (migrate at
-        constant p, a compact/expand cycle) skips the warm-up. A shape
-        cached or in flight is never built again: a second caller waits for
-        the build in flight and takes its handle. The expensive part runs
-        outside the cache lock."""
-        devs = tuple(self.devices[:p])
-        key = self._exec_key(p)
+    def _build_exec(self, p: int, mp: int | None = None) -> ExecHandle:
+        """Execution-context preparation for shape (p, mp): the step
+        callable over the first p * mp slots of the pool, warmed at its
+        shape. This is the cost stop-free scaling hides. ``mp`` defaults to
+        the job's current model-parallel degree; the RESHAPE verb passes
+        another. Handles are cached per (p, mp, slot devices), LRU-bounded;
+        a shape the job ran at before (migrate at constant p, a
+        compact/expand cycle) skips the warm-up. A shape cached or in
+        flight is never built again: a second caller waits for the build
+        in flight and takes its handle. The expensive part runs outside the
+        cache lock."""
+        mp = mp if mp is not None else self.model_parallel
+        devs = tuple(self.devices[:p * mp])
+        key = self._exec_key(p, mp)
         while True:
             with self._exec_lock:
                 cached = self._exec_cache.get(key)
@@ -326,13 +375,15 @@ class ElasticTrainer:
                     break
             inflight.wait()
         try:
-            fn = make_train_step(self.cfg, self.optimizer, devs,
+            fn = make_train_step(self.cfg, self.optimizer, devs, mp=mp,
                                  n_virtual=self.n_virtual,
                                  global_batch=self.global_batch,
                                  seed=self.seed)
             if self.use_aot:
-                self._warm(devs)
-            handle = ExecHandle(p, devs, fn)
+                self._warm(tuple(devs[d * mp:(d + 1) * mp]
+                                 for d in range(p)))
+            handle = ExecHandle(p, mp, devs, fn,
+                                port_layout(self.cfg, self.optimizer, p, mp))
             with self._exec_lock:
                 handle = self._exec_cache.setdefault(key, handle)
                 while len(self._exec_cache) > EXEC_CACHE_MAX:
@@ -495,8 +546,9 @@ class ElasticTrainer:
     def handle_failure(self, dead: list[str], *, release: bool = True,
                        block: bool = False) -> ScalingRecord | None:
         """Automatic stop-free recovery (EDL §4.2: forced exit is a
-        special case of scale-in). The dead workers' slots move to the tail
-        of the pool so the survivor topology is built from live slots only,
+        special case of scale-in). The dead workers' slot groups move to the
+        tail of the pool so the survivor topology is built from live slots
+        only,
         then a scale-in is requested with the dead workers as victims —
         plus, when the feasibility clamp (batch / ``n_virtual``
         divisibility) skips the shape right below, extra graceful victims.
@@ -504,8 +556,8 @@ class ElasticTrainer:
         commit the dead workers' data partitions return via
         ``pipeline.release(dead=True)`` (replay from the original offset)
         and the freed slots go to ``on_devices_released`` when ``release``
-        is set. A dead slot 0 moves the train state to the new slot 0's
-        device at the commit (the leader-kill path).
+        is set. A dead first group moves the train state's model shards to
+        the new first group's devices at the commit (the leader-kill path).
 
         Raises ``Busy`` while another operation is in flight (caller
         retries) and ``ValueError`` when no feasible survivor shape
@@ -527,25 +579,27 @@ class ElasticTrainer:
                 f"virtual_workers={self.n_virtual})")
         survivors = [w for w in self.worker_ids if w not in dead]
         victims = survivors[target:] + dead     # clamp-forced extras exit
-        # re-order the pool: victims' slots to the tail, so the survivor
-        # topology uses devices[:target] (all live) and the commit frees
-        # exactly the victims' (and any parked surplus) slots. Safe
+        # re-order the pool: victims' groups to the tail, so the survivor
+        # topology uses devices[:target * mp] (all live) and the commit
+        # frees exactly the victims' (and any parked surplus) slots. Safe
         # pre-prep: the running handle holds its own device tuple.
-        slot = dict(zip(self.worker_ids, self.devices))
-        surplus = self.devices[len(self.worker_ids):]
-        keep = [w for w in self.worker_ids if w not in victims]
-        self.devices = ([slot[w] for w in keep] +
-                        [slot[w] for w in victims] + surplus)
+        self.devices = groups_to_tail(self.devices, self.worker_ids, victims,
+                                      self.model_parallel)
         return self._request("scale_in", target, block=block,
                              victims=victims, release=release,
                              dead=tuple(dead))
 
     def _request(self, op: str, target_p: int, *, block: bool,
                  victims=None, n_join: int | None = None,
-                 release: bool = False, dead: tuple = ()):
-        if target_p > len(self.devices):
-            raise ValueError(f"need {target_p} slots, have "
-                             f"{len(self.devices)}")
+                 release: bool = False, target_mp: int | None = None,
+                 dead: tuple = ()):
+        target_mp = (target_mp if target_mp is not None
+                     else self.model_parallel)
+        require_model_parallel(self.cfg, target_mp)
+        avail = len(self.devices) // target_mp
+        if target_p > avail:
+            raise ValueError(f"need {target_p} groups of {target_mp} "
+                             f"slot(s), have {avail}")
         if self.global_batch % target_p:
             raise ValueError(f"global batch {self.global_batch} not "
                              f"divisible by p={target_p}")
@@ -555,12 +609,14 @@ class ElasticTrainer:
                 f"{self.n_virtual} (virtual blocks stay contiguous and "
                 f"equal-sized at every shape)")
         plan = self.controller.admit(op, self.p, target_p)  # raises Busy
+        plan.record.from_mp = self.model_parallel
+        plan.record.to_mp = target_mp
         plan.exiting = tuple(victims or ())
         plan.dead_exiting = tuple(dead)
         plan.joining = ("new",) * (n_join or max(0, target_p - self.p))
         plan.release_devices = release
         steps_before = self.step_idx
-        key = self._exec_key(target_p)
+        key = self._exec_key(target_p, target_mp)
         plan.record.exec_cache_key = key
         with self._exec_lock:
             cache_hit = key in self._exec_cache
@@ -573,7 +629,7 @@ class ElasticTrainer:
             self.controller.prepared(self.step_idx + k, handle)
 
         def prepare():
-            finish(self._build_exec(target_p))
+            finish(self._build_exec(target_p, target_mp))
 
         if block:
             prepare()
@@ -598,7 +654,7 @@ class ElasticTrainer:
             # dedup/escalation: a prefetch of this shape already pending or
             # running is JOINED as committed
             self._prep_ticket = svc.submit(
-                key, lambda: self._build_exec(target_p),
+                key, lambda: self._build_exec(target_p, target_mp),
                 priority=PRIO_COMMITTED, owner=self.job_handle)
             self._prep_ticket.add_done_callback(on_ticket)
             return None
@@ -616,8 +672,8 @@ class ElasticTrainer:
         return None
 
     def _home(self) -> torch.device:
-        """The device that holds the train state."""
-        return tree_leaves(self.state)[0][1].device
+        """The device that holds model shard 0 of the train state."""
+        return tree_leaves(model_shards(self.state)[0])[0][1].device
 
     def _maybe_stage_switch(self):
         """Stage the state move when a ready switch commits at the current
@@ -627,39 +683,67 @@ class ElasticTrainer:
                 and self.step_idx + 1 >= plan.switch_step):
             self._stage_switch(plan)
 
+    def _state_for(self, handle: ExecHandle, record: ScalingRecord | None
+                   ) -> tuple[object, int]:
+        """The train state laid out for ``handle``, and the bytes the move
+        copies. A reshape goes through the planner (``record`` gets its
+        byte accounting) and ``apply_plan``; any other switch moves each
+        model shard whose slot's device changed, and hands the others over
+        as they are (the live state itself when none moves)."""
+        shards = model_shards(self.state)
+        homes = handle.devices[:handle.mp]
+        if record is not None and record.op == "reshape":
+            src, dst = self.exec.layout, handle.layout
+            rplan = plan_reshard(src, dst)
+            record.reshard_bytes_moved = rplan.bytes_moved
+            record.reshard_bytes_kept = rplan.bytes_kept
+            flat = [flatten_tree(shards[i % src.mp])
+                    for i in range(src.n_devices)]
+            moved = [unflatten_tree(f) for f in apply_plan(rplan, flat, homes)]
+            return join_shards(moved), rplan.bytes_moved
+        moved, nbytes = [], 0
+        for shard, home in zip(shards, homes):
+            if tree_leaves(shard)[0][1].device != home:
+                nbytes += sum(t.numel() * t.element_size()
+                              for _, t in tree_leaves(shard))
+                shard = tree_map(lambda t: t.to(
+                    home, non_blocking=home.type == "cuda"), shard)
+            moved.append(shard)
+        return (join_shards(moved) if nbytes else self.state), nbytes
+
+    def _state_devices(self, *states) -> list[torch.device]:
+        return list(dict.fromkeys(t.device for state in states
+                                  for shard in model_shards(state)
+                                  for _, t in tree_leaves(shard)))
+
     def _stage_switch(self, plan):
-        """Overlapped state move. The only move a switch at mp = 1 makes is
-        to a new slot 0's device: the copy is issued on the destination's
-        side stream behind the step that produces the current state, into
+        """Overlapped state move, issued on the side streams of the devices
+        it touches behind the step that produces the current state, into
         fresh buffers. The staged tensors are the double buffer: the live
         state keeps its own until the commit's pointer swap, so training is
         untouched if the commit never consumes the staging (it falls back
-        to the in-stop move). When slot 0's device stays, nothing is copied
-        and the staged state is the live state."""
+        to the in-stop move). When no shard changes device and the switch
+        is not a reshape, nothing is copied and the staged state is the
+        live state."""
         if plan.staged_state is not None:
             return
         plan.record.t_stage_start = self.controller.clock()
-        src, home = self._home(), plan.exec_handle.devices[0]
-        staged = self.state
-        if src != home:
-            leaves = [t for _, t in tree_leaves(self.state)]
-            plan.record.bytes_moved_overlapped = sum(
-                t.numel() * t.element_size() for t in leaves)
-            if home.type == "cuda":
-                side = self._side_stream(home)
-                if src.type == "cuda":
-                    side.wait_stream(torch.cuda.current_stream(src))
-                with torch.cuda.stream(side):
-                    staged = tree_map(lambda t: t.to(home, non_blocking=True),
-                                      self.state)
-                main = torch.cuda.current_stream(home)
-                for t in leaves:
+        handle: ExecHandle = plan.exec_handle
+        devs = self._state_devices(self.state) + list(
+            handle.devices[:handle.mp])
+        with self._on_side_streams(devs, after_main=True) as sides:
+            staged, nbytes = self._state_for(handle, plan.record)
+        if sides:
+            side_of = {side.device: side for side in sides}
+            for shard in model_shards(self.state):
+                for _, t in tree_leaves(shard):
                     if t.is_cuda:       # read on the side stream
-                        t.record_stream(side)
-                for _, t in tree_leaves(staged):
-                    t.record_stream(main)   # used on the stepping stream
-            else:
-                staged = tree_map(lambda t: t.to(home), self.state)
+                        t.record_stream(side_of[t.device])
+            for shard in model_shards(staged):
+                for _, t in tree_leaves(shard):
+                    if t.is_cuda:       # used on the stepping stream
+                        t.record_stream(torch.cuda.current_stream(t.device))
+        plan.record.bytes_moved_overlapped = nbytes
         plan.staged_state = staged
         plan.staged_from = self.state
         plan.record.t_stage_end = self.controller.clock()
@@ -670,7 +754,11 @@ class ElasticTrainer:
         plan = self.controller.plan
         self.controller.begin_switch()
         handle: ExecHandle = plan.exec_handle
-        if plan.record.op in ("scale_in", "migrate"):
+        op = plan.record.op
+        # a reshape that shrinks the data axis retires the surplus groups
+        # exactly like a scale-in
+        if op in ("scale_in", "migrate") or \
+                (op == "reshape" and handle.p < len(self.worker_ids)):
             victims = list(plan.exiting) or self.worker_ids[handle.p:]
             leader_leaving = self.leader_id in victims
             for wid in victims:
@@ -682,47 +770,64 @@ class ElasticTrainer:
                 self.leader_id = self.election.elect().leader_id
         while len(self.worker_ids) < handle.p:
             self._add_worker()
-        # model broadcast: the state lives on slot 0's device
-        home = handle.devices[0]
+        # model broadcast: model shard m lives on slot m's device
         if plan.staged_state is not None and plan.staged_from is self.state:
-            if plan.staged_state is not self.state and home.type == "cuda":
-                # the staged copy: wait on its stream only
-                side = self._side_stream(home)
-                torch.cuda.current_stream(home).wait_stream(side)
-                side.synchronize()
+            if plan.staged_state is not self.state:
+                # the staged move: wait on the side streams only
+                for dev in self._state_devices(self.state,
+                                               plan.staged_state):
+                    if dev.type == "cuda":
+                        side = self._side_stream(dev)
+                        torch.cuda.current_stream(dev).wait_stream(side)
+                        side.synchronize()
             self.state = plan.staged_state
-        elif self._home() != home:
-            self.state = tree_map(lambda t: t.to(home), self.state)
-            if home.type == "cuda":
-                torch.cuda.synchronize(home)
+        else:
+            self.state, _ = self._state_for(handle, plan.record)
+            plan.record.bytes_moved_overlapped = 0
+            for dev in self._state_devices(self.state):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         self.exec = handle
         self.p = handle.p
+        self.model_parallel = handle.mp
         freed = []
         if plan.release_devices:
             # hand every slot beyond the new topology back to the caller:
             # the job stops owning it
-            freed, self.devices = self.devices[handle.p:], \
-                self.devices[:handle.p]
+            in_use = handle.p * handle.mp
+            freed, self.devices = self.devices[in_use:], \
+                self.devices[:in_use]
         rec = self.controller.complete()
         if freed and self.on_devices_released is not None:
-            self.on_devices_released(self, freed)
+            # the hook learns WHICH verb frees the slots (a reshape's
+            # surplus is not a data-parallel scale-in)
+            self._releasing_op = rec.op
+            try:
+                self.on_devices_released(self, freed)
+            finally:
+                self._releasing_op = None
         return rec
 
     # ------------------------------------------------ device pool hand-off
     def grant_devices(self, new_devices, *, block: bool = False
                       ) -> ScalingRecord | None:
         """Non-blocking hand-off path: a scheduler grants this job extra
-        slots and the job scales out onto them, stop-free. The slots join
-        the job's pool immediately; the topology switch commits at a
-        mini-batch boundary."""
+        slots, in whole groups of ``model_parallel``, and the job scales out
+        onto them, stop-free. The slots join the job's pool immediately;
+        the topology switch commits at a mini-batch boundary."""
         if self.controller.phase is not Phase.IDLE:
             raise Busy("scaling in flight; retry later")
         new = [resolve_device(d) for d in new_devices]
-        if not new:
-            raise ValueError("a grant needs at least one device")
+        n_new, rem = divmod(len(new), self.model_parallel)
+        if n_new < 1 or rem:
+            # a partial group could never host a data-parallel group of
+            # the (data, model) layout; refusing keeps the arithmetic exact
+            raise ValueError(
+                f"a grant moves at least one whole slot group: got "
+                f"{len(new)} slot(s), group size is {self.model_parallel}")
         self.devices = self.devices + new
         try:
-            return self._request("scale_out", self.p + len(new), block=block)
+            return self._request("scale_out", self.p + n_new, block=block)
         except Exception:
             self.devices = self.devices[:len(self.devices) - len(new)]
             raise
@@ -730,12 +835,45 @@ class ElasticTrainer:
     def release_devices(self, n_slices: int = 1, *,
                         victims: list[str] | None = None,
                         block: bool = False) -> ScalingRecord | None:
-        """Graceful scale-in that RETURNS the freed slots: once the switch
-        commits, they leave ``self.devices`` and are handed to the
+        """Graceful scale-in that RETURNS the freed groups' slots: once the
+        switch commits, they leave ``self.devices`` and are handed to the
         ``on_devices_released`` hook (the reclaim side of a transient loan).
         Stop-free like any scale-in; raises Busy under a conflicting op."""
         return self.scale_in(n_slices, victims=victims, block=block,
                              release=True)
+
+    def reshape(self, p: int, mp: int, *, new_devices=None,
+                block: bool = False, release: bool = False
+                ) -> ScalingRecord | None:
+        """RESHAPE: trade data-parallel for model-parallel degree live —
+        re-lay the job from ``(self.p, self.model_parallel)`` to ``(p, mp)``
+        stop-free. The new handle is prepared in the background while
+        training continues at the old shape; at the scheduled mini-batch
+        boundary the train state is resharded along a
+        ``reshape.plan_reshard`` plan (the record carries its byte
+        accounting) and surplus data-parallel groups exit gracefully,
+        returning their data remainders.
+
+        Device arithmetic: ``new_devices`` joins the job's pool first (a
+        scheduler funding a footprint-growing reshape); with ``release=
+        True`` any slots beyond ``p * mp`` are handed to
+        ``on_devices_released`` when the switch commits. Raises ``Busy``
+        (the paper's RETRY) while another operation is in flight."""
+        if self.controller.phase is not Phase.IDLE:
+            raise Busy("scaling in flight; retry later")
+        if mp < 1 or p < 1:
+            raise ValueError(f"reshape target ({p}, {mp}) must be >= 1 "
+                             f"on both axes")
+        if p == self.p and mp == self.model_parallel:
+            raise ValueError(f"already at shape ({p}, {mp})")
+        new = [resolve_device(d) for d in new_devices or ()]
+        self.devices = self.devices + new
+        try:
+            return self._request("reshape", p, block=block,
+                                 release=release, target_mp=mp)
+        except Exception:
+            self.devices = self.devices[:len(self.devices) - len(new)]
+            raise
 
     # ------------------------------------------------------------- helpers
     def run(self, n_steps: int, *, on_step=None):
@@ -780,3 +918,16 @@ class ElasticTrainer:
     def throughput(self, last_n: int = 20) -> float:
         xs = self.throughput_log[-last_n:]
         return float(np.mean([t for _, _, t in xs])) if xs else 0.0
+
+
+def groups_to_tail(devices: list, worker_ids: list[str], leaving, mp: int
+                   ) -> list:
+    """The slot pool with the slot groups of the ``leaving`` workers moved
+    to its tail in ``leaving``'s order, after the groups that stay and
+    before the parked surplus: worker i of ``worker_ids`` holds the group
+    ``devices[i mp:(i + 1) mp]``."""
+    group = {w: devices[i * mp:(i + 1) * mp]
+             for i, w in enumerate(worker_ids)}
+    surplus = devices[len(worker_ids) * mp:]
+    return ([d for w in worker_ids if w not in leaving for d in group[w]]
+            + [d for w in leaving for d in group[w]] + surplus)

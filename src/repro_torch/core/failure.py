@@ -16,9 +16,9 @@ import time
 import torch
 
 from repro_torch.core.election import LeaderElection
+from repro_torch.core.elastic_runtime import groups_to_tail
 from repro_torch.core.scaling import ScalingRecord
 from repro_torch.core.stop_resume import resume_from_checkpoint
-from repro_torch.models.params import tree_map
 
 
 def use_approximate() -> bool:
@@ -47,13 +47,13 @@ def recover(trainer, *, checkpoint_dir: str | None = None
 
 
 def _drop_dead(trainer, dead):
-    # the dead workers' slots go to the pool's tail, as handle_failure does,
-    # so the survivor topology is built on devices[:p], all live slots
-    slot = dict(zip(trainer.worker_ids, trainer.devices))
-    surplus = trainer.devices[len(trainer.worker_ids):]
-    trainer.devices = ([slot[w] for w in trainer.worker_ids if w not in dead]
-                       + [slot[w] for w in trainer.worker_ids if w in dead]
-                       + surplus)
+    # the dead workers' slot groups go to the pool's tail, as
+    # handle_failure does, so the survivor topology is built on
+    # devices[:p * mp], all live slots
+    trainer.devices = groups_to_tail(
+        trainer.devices, trainer.worker_ids,
+        [w for w in trainer.worker_ids if w in dead],
+        trainer.model_parallel)
     for wid in dead:
         trainer._remove_worker(wid, dead=True)
     if trainer.leader_id in dead:
@@ -71,11 +71,10 @@ def _approximate(trainer, dead) -> ScalingRecord:
     handle = trainer._build_exec(len(trainer.worker_ids))
     rec.t_prep_end = time.monotonic()
     rec.t_switch_start = rec.t_prep_end
-    home = handle.devices[0]
-    if trainer._home() != home:
-        trainer.state = tree_map(lambda t: t.to(home), trainer.state)
-    if home.type == "cuda":
-        torch.cuda.synchronize(home)
+    trainer.state, _ = trainer._state_for(handle, None)
+    for dev in trainer._state_devices(trainer.state):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     trainer.exec = handle
     trainer.p = handle.p
     rec.t_switch_end = time.monotonic()

@@ -12,9 +12,10 @@ rescale baseline (the approach EDL replaces, §2.2).
     progress and the step / sample counters, so training continues exactly
     where it stopped.
 
-The port runs at model-parallel degree 1 only; a checkpoint written by the
-JAX package at any ``(dp, mp)`` resumes here all the same, because its npz
-holds whole arrays.
+The npz holds whole arrays, whatever the writer's ``(dp, mp)``, so files
+stay interchangeable with the JAX package; the writer's layout rides along
+as its ``StateSpec``, and a restore onto another shape is planned from it
+(``meta["reshard"]``) before the arrays land on the trainer's model shards.
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ import torch
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.scaling import Busy, Phase, ScalingRecord
-from repro_torch.models.params import tree_map
-from repro_torch.reshape.spec import StateSpec, flatten_tree
-from repro_torch.training.step import state_shapes
+from repro_torch.parallel import require_model_parallel
+from repro_torch.reshape import StateSpec, flatten_tree, gather_state, \
+    place_state, plan_reshard
+from repro_torch.training.step import join_shards, model_shards, \
+    state_shapes
 
 
 def checkpoint_save(trainer, checkpoint_dir: str) -> None:
@@ -38,9 +41,11 @@ def checkpoint_save(trainer, checkpoint_dir: str) -> None:
     in-flight partition assignment back into the returned-work queue, so a
     restore resumes exactly-once data consumption. The metadata also
     records the writer's parallelization: ``(p, mp)`` plus its
-    ``StateSpec``. Read-only with respect to the trainer."""
+    ``StateSpec``; the arrays are written whole, gathered from the model
+    shards. Read-only with respect to the trainer."""
+    state = gather_state(trainer.exec.layout, model_shards(trainer.state))
     save_checkpoint(
-        checkpoint_dir, trainer.state, step=trainer.step_idx,
+        checkpoint_dir, state, step=trainer.step_idx,
         pipeline_state=trainer.pipeline.state_dict(),
         extra={"samples_seen": trainer.samples_seen, "p": trainer.p,
                "mp": trainer.model_parallel,
@@ -88,11 +93,13 @@ def _check_collection(want: dict, got: dict, what: str):
 
 def resume_from_checkpoint(trainer, checkpoint_dir: str) -> dict:
     """Restore a checkpoint into a freshly built trainer whose execution
-    context (``trainer.exec``) already targets the new topology. The saved
-    collection — the npz's tensors, and the writer's ``StateSpec`` when it
-    recorded one — is checked path by path against this trainer's state
-    tree (shapes and dtypes) before the state lands on slot 0's device.
-    Restores the data pipeline's progress and the step / sample counters,
+    context (``trainer.exec``) already targets the new topology, at any
+    ``(p, mp)``. The saved collection — the npz's tensors, and the writer's
+    ``StateSpec`` when it recorded one — is checked path by path against
+    this trainer's state tree (shapes and dtypes). A recorded spec plans
+    the restore as a reshard from the writer's ``(dp, mp)`` onto the
+    trainer's, reported under ``meta["reshard"]``; the whole arrays then
+    land on the trainer's model shards. Restores the data pipeline's progress and the step / sample counters,
     and invalidates the worker iterators' local buffers so the first draw
     after the resume fetches fresh assignments from the restored
     pipeline."""
@@ -116,15 +123,18 @@ def resume_from_checkpoint(trainer, checkpoint_dir: str) -> dict:
         if flat[path].dtype != dtype:
             raise ValueError(f"checkpoint: {path} is {flat[path].dtype}, "
                              f"this trainer's is {dtype}")
+    layout = trainer.exec.layout
     if extra.get("state_spec") is not None:
         spec = StateSpec.from_json(extra["state_spec"])
         _check_collection({k: s for k, (s, _) in want.items()},
                           {t.path: t.shape for t in spec.tensors},
                           "checkpoint's state_spec")
-    home = trainer.exec.devices[0]
-    trainer.state = tree_map(lambda t: t.to(home), restored)
-    if home.type == "cuda":
-        torch.cuda.synchronize(home)
+        meta["reshard"] = plan_reshard(spec, layout).summary()
+    homes = trainer.exec.devices[:layout.mp]
+    trainer.state = join_shards(place_state(layout, restored, homes))
+    for dev in dict.fromkeys(homes):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     trainer.pipeline.load_state_dict(meta["pipeline"])
     for it in trainer.iters.values():
         it.assignment = None
@@ -139,23 +149,27 @@ def stop_resume_rescale(trainer, target_p: int,
                         *, target_mp: int | None = None,
                         checkpoint_dir: str | None = None
                         ) -> ScalingRecord:
-    """Adjust ``trainer`` to ``target_p`` the stop-resume way. Training is
-    fully stopped from t_request to t_switch_end (stop_time == e2e_time).
-    A checkpoint directory this call makes for itself is removed after the
-    restore. ``target_mp`` other than 1 is not ported yet."""
+    """Adjust ``trainer`` to ``target_p`` (and optionally a new
+    model-parallel degree ``target_mp`` — the checkpoint-based
+    reparallelization the in-memory RESHAPE verb is compared with) the
+    stop-resume way. Training is fully stopped from t_request to
+    t_switch_end (stop_time == e2e_time). A checkpoint directory this call
+    makes for itself is removed after the restore."""
     if trainer.controller.plan is not None:
         raise Busy("scaling already in flight; retry")   # paper: RETRY
-    if target_mp not in (None, 1):
-        raise NotImplementedError(
-            "stop_resume at model_parallel > 1 is not yet ported")
-    if target_p > len(trainer.devices):
-        raise ValueError(f"p={target_p} needs {target_p} slots, trainer "
-                         f"owns {len(trainer.devices)}")
+    target_mp = (target_mp if target_mp is not None
+                 else trainer.model_parallel)
+    require_model_parallel(trainer.cfg, target_mp)
+    if target_p * target_mp > len(trainer.devices):
+        raise ValueError(f"shape ({target_p}, {target_mp}) needs "
+                         f"{target_p * target_mp} slots, trainer owns "
+                         f"{len(trainer.devices)}")
     nv = trainer.n_virtual
     if nv and nv % target_p:
         raise ValueError(f"p={target_p} must divide virtual_workers={nv}")
     rec = ScalingRecord("stop_resume", trainer.p, target_p,
-                        t_request=time.monotonic())
+                        t_request=time.monotonic(),
+                        from_mp=trainer.model_parallel, to_mp=target_mp)
     rec.t_prep_start = rec.t_request
     ckpt = checkpoint_dir or tempfile.mkdtemp(prefix="edl_sr_")
     try:
@@ -173,12 +187,15 @@ def stop_resume_rescale(trainer, target_p: int,
             trainer._remove_worker(trainer.worker_ids[-1])
         while len(trainer.worker_ids) < target_p:
             trainer._add_worker()
-        handle = trainer._build_exec(target_p)
+        handle = trainer._build_exec(target_p, target_mp)
         rec.t_prep_end = time.monotonic()
         # 4. restore model + pipeline state onto the rebuilt topology
         trainer.exec = handle
         trainer.p = target_p
-        resume_from_checkpoint(trainer, ckpt)
+        trainer.model_parallel = target_mp
+        meta = resume_from_checkpoint(trainer, ckpt)
+        rec.reshard_bytes_moved = (meta.get("reshard") or {}).get(
+            "bytes_moved", 0)
     finally:
         if checkpoint_dir is None:
             shutil.rmtree(ckpt, ignore_errors=True)

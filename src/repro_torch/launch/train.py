@@ -12,8 +12,13 @@ onto the visible cards (several slots on one card when there is one).
 ``--device cpu`` runs every slot on the CPU; the default is ``cuda``, and a
 run that asks for CUDA without a card fails.
 
+``--model-parallel M`` runs each data-parallel worker as a group of M slots
+(tensor parallelism over the model axis); ``--devices`` counts slots, so
+the job can grow to ``devices / M`` workers.
+
 Schedule grammar: ``<op>:<n>@<step>`` with op in {out, in, migrate,
-stop_resume_out, stop_resume_in, straggler, fail, kill, kill_leader}.
+stop_resume_out, stop_resume_in, stop_resume_mp, straggler, fail, kill,
+kill_leader}.
 ``kill:n`` crashes the last n workers WITHOUT an explicit recovery call:
 they stop sending gradient-syncs, the leader's liveness view flags them
 dead after ``miss_threshold`` missed steps, and the driver's detection loop
@@ -22,15 +27,18 @@ triggers an automatic stop-free ``handle_failure`` scale-in
 at the commit). ``fail`` is the blocking path (immediate ``recover``,
 approximate under USE_APPX_RECOVERY=1). ``stop_resume_out:n`` and
 ``stop_resume_in:n`` checkpoint the job to disk, tear it down and resume it
-at p ± n (the paper's stop-resume baseline).
+at p ± n (the paper's stop-resume baseline). ``stop_resume_mp:M``
+checkpoint-stops the job and resumes it reparallelized at model-parallel
+degree M, its slot footprint held constant: (p, mp) -> (p mp / M, M).
 
 ``--virtual-workers K`` (or ``auto``) turns on deterministic elasticity:
 the loss trajectory (the JSON ``losses`` field) is bitwise-identical
-across every parallelism and every elastic schedule above, kills and
+across every (p, mp) and every elastic schedule above, kills and
 stop-resumes included.
 
-The reference's stop_resume_mp op and ``--model-parallel > 1`` are not yet
-ported and are refused when the arguments are parsed.
+The RWKV6 mixers have no tensor-parallel form yet: ``--arch rwkv6-1.6b``
+with ``--model-parallel`` above 1, or a ``stop_resume_mp`` to it, is
+refused when the arguments are parsed.
 """
 import argparse
 import json
@@ -38,9 +46,8 @@ import os
 import sys
 import time
 
-PORTED_OPS = ("out", "in", "migrate", "stop_resume_out", "stop_resume_in",
-              "straggler", "fail", "kill", "kill_leader")
-NOT_PORTED_OPS = ("stop_resume_mp",)
+OPS = ("out", "in", "migrate", "stop_resume_out", "stop_resume_in",
+       "stop_resume_mp", "straggler", "fail", "kill", "kill_leader")
 
 
 def parse_schedule(ap: argparse.ArgumentParser, text: str
@@ -55,9 +62,7 @@ def parse_schedule(ap: argparse.ArgumentParser, text: str
             n, at = int(n), int(at)
         except ValueError:
             ap.error(f"bad schedule entry {item!r}: expected <op>:<n>@<step>")
-        if opn in NOT_PORTED_OPS:
-            ap.error(f"schedule op {opn!r} is not yet ported")
-        if opn not in PORTED_OPS:
+        if opn not in OPS:
             ap.error(f"unknown schedule op {opn!r}")
         schedule.setdefault(at, []).append((opn, n))
     return schedule
@@ -93,12 +98,20 @@ def main(argv=None):
             vw = int(vw)
         except ValueError:
             ap.error(f"--virtual-workers takes an int or 'auto', not {vw!r}")
-    if args.model_parallel != 1:
-        ap.error("--model-parallel > 1 is not yet ported")
     schedule = parse_schedule(ap, args.schedule)
 
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.parallel import require_model_parallel
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    try:
+        for mp in {args.model_parallel} | {n for ops in schedule.values()
+                                           for opn, n in ops
+                                           if opn == "stop_resume_mp"}:
+            require_model_parallel(cfg, mp)
+    except NotImplementedError as e:
+        ap.error(str(e))
     from repro_torch.core import ElasticTrainer, stop_resume_rescale
     from repro_torch.core.failure import fail_worker, recover
     from repro_torch.core.scaling import Busy, Phase
@@ -116,6 +129,12 @@ def main(argv=None):
             stop_resume_rescale(trainer, trainer.p + n)
         elif opn == "stop_resume_in":
             stop_resume_rescale(trainer, trainer.p - n)
+        elif opn == "stop_resume_mp":
+            # checkpoint-based reparallelization onto mp=n at a constant
+            # slot footprint: (p, mp) -> (p*mp/n, n)
+            stop_resume_rescale(
+                trainer, max(1, trainer.p * trainer.model_parallel // n),
+                target_mp=n)
         elif opn == "straggler":
             trainer.injected_delay[trainer.worker_ids[-1]] = 0.05
         elif opn == "fail":
@@ -128,10 +147,10 @@ def main(argv=None):
         elif opn == "kill_leader":
             trainer.inject_worker_failure(trainer.leader_id)
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     trainer = ElasticTrainer(
         cfg, global_batch=args.batch, seq_len=args.seq,
-        init_parallelism=args.init_p, optimizer=adamw(args.lr),
+        init_parallelism=args.init_p, model_parallel=args.model_parallel,
+        optimizer=adamw(args.lr),
         n_samples=args.n_samples, d_partitions=args.d_partitions,
         seed=args.seed, devices=slot_devices(args.devices, args.device),
         virtual_workers=vw)

@@ -6,14 +6,19 @@ list; ``scan_plan`` folds it into the smallest repeating period, whose
 stacked ``[n_periods, ...]`` parameter leaves are the reference's layout.
 Ported mixers: ``attn`` (GQA) and ``rwkv_tm``; ffns: ``mlp`` and
 ``rwkv_cm``. Any other block raises ``NotImplementedError``.
+``block_forward`` runs a block over the model axis: the norms whole on
+the residual stream's device, the mixer and the FFN tensor-parallel where
+they have that form (``attn`` and ``mlp``), whole otherwise — at mp = 1
+every leaf is whole and the block is the plain one, op for op.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention, ssm
-from repro_torch.models.layers import apply_mlp, apply_rmsnorm, dt, \
-    mlp_specs, rmsnorm_specs
+from repro_torch.models.layers import apply_mlp, apply_mlp_tp, \
+    apply_rmsnorm, dt, mlp_specs, rmsnorm_specs
+from repro_torch.parallel import ShardedParams
 
 
 def layer_plan(cfg) -> list[tuple[str, str]]:
@@ -71,13 +76,26 @@ def block_specs(cfg, mixer: str, ffn: str) -> dict:
             "ffn": FFNS[ffn][0](cfg)}
 
 
-def block_forward(cfg, p, x: torch.Tensor, *, mixer: str, ffn: str,
-                  positions: torch.Tensor):
-    """Returns (x, aux_loss)."""
+MIXERS_TP = {"attn": attention.attention_forward_tp}
+FFNS_TP = {"mlp": lambda cfg, sp, h: apply_mlp_tp(sp, h, dt(cfg, "compute"))}
+
+
+def block_forward(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
+                  ffn: str, positions: torch.Tensor):
+    """One block over the model axis of a data group; ``x`` is the residual
+    stream on the group's first slot. A mixer or FFN with no
+    tensor-parallel form runs whole there. Returns (x, aux_loss)."""
     _require_ported(mixer, ffn)
-    h = apply_rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mix_out, _ = MIXERS[mixer][1](cfg, p["mixer"], h, positions=positions)
+    h = apply_rmsnorm(sp["norm1"].whole(), x, cfg.norm_eps)
+    if mixer in MIXERS_TP:
+        mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions)
+    else:
+        mix_out, _ = MIXERS[mixer][1](cfg, sp["mixer"].whole(), h,
+                                      positions=positions)
     x = x + mix_out
-    h = apply_rmsnorm(p["norm2"], x, cfg.norm_eps)
-    f, _ = FFNS[ffn][1](cfg, p["ffn"], h)
+    h = apply_rmsnorm(sp["norm2"].whole(), x, cfg.norm_eps)
+    if ffn in FFNS_TP:
+        f = FFNS_TP[ffn](cfg, sp["ffn"], h)
+    else:
+        f, _ = FFNS[ffn][1](cfg, sp["ffn"].whole(), h)
     return x + f, torch.zeros((), dtype=torch.float32, device=x.device)

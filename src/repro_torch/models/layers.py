@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ShardedInit
+from repro_torch.parallel import ShardedParams, copy_to_model, \
+    reduce_from_model
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -90,6 +92,38 @@ def embed_specs(vocab: int, d_model: int) -> dict:
 
 def apply_embed(p: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     return F.embedding(tokens, p["table"].to(compute_dtype))
+
+
+def apply_mlp_tp(sp: ShardedParams, x: torch.Tensor, compute_dtype
+                 ) -> torch.Tensor:
+    """The MLP over the model axis: ``wi_gate`` and ``wi_up`` column shards
+    and ``wo`` row shards by ``mlp``, each shard's partial output summed in
+    shard order onto ``x``'s device. Run whole when the rules left the
+    leaves replicated (an mp that does not divide d_ff)."""
+    if not sp.split():
+        return apply_mlp(sp.whole(), x, compute_dtype)
+    xs = copy_to_model(x, sp.devices)
+    return reduce_from_model([apply_mlp(t, xm, compute_dtype)
+                              for t, xm in zip(sp.trees, xs)], x.device)
+
+
+def apply_embed_tp(sp: ShardedParams, tokens: torch.Tensor, compute_dtype
+                   ) -> torch.Tensor:
+    """The vocab-parallel embedding: shard m holds rows ``[m V/mp, (m + 1)
+    V/mp)`` of the table, looks up the tokens in its range and gives exact
+    zeros for the rest, and the shards are summed in shard order onto
+    ``tokens``' device — the lookup's bits. Run whole when the rules left
+    the table replicated."""
+    if not sp.split():
+        return apply_embed(sp.whole(), tokens, compute_dtype)
+    parts = []
+    for m, (t, dev) in enumerate(zip(sp.trees, sp.devices)):
+        rows = t["table"].shape[0]
+        local = tokens.to(dev) - m * rows
+        own = (local >= 0) & (local < rows)
+        e = F.embedding(local.clamp(0, rows - 1), t["table"].to(compute_dtype))
+        parts.append(torch.where(own[..., None], e, 0.0))
+    return reduce_from_model(parts, tokens.device)
 
 
 def unembed_specs(d_model: int, vocab: int) -> dict:

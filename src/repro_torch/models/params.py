@@ -1,9 +1,10 @@
 """Parameter specs and their initializer, plus the chunk-fitting helper.
 
 Counterpart of ``ShardedInit`` and ``fit_chunk`` in the reference's
-``sharding.py``. The logical axes ride along so a later tensor-parallel
-slice can map them to devices; this slice places every leaf whole on one
-device, so the reference's ``constrain`` has no counterpart here.
+``sharding.py``. The logical axes ride along: ``sharding.spec_for`` maps
+them to the model axis, which lays out the train state's model shards
+(``reshape.StateSpec.for_config``). The port splits tensors explicitly, so
+the reference's ``constrain`` has no counterpart here.
 """
 from __future__ import annotations
 

@@ -219,5 +219,9 @@ def test_virtual_workers_mismatch_raises(tmp_path):
 
 
 def test_stop_resume_beyond_model_parallel_1_is_not_ported():
-    with _trainer() as t, pytest.raises(NotImplementedError):
+    """RWKV6 has no tensor-parallel form yet: its stop-resume to mp = 2 is
+    refused before anything is torn down."""
+    with _trainer("rwkv6-1.6b") as t, \
+            pytest.raises(NotImplementedError, match="not yet ported"):
         stop_resume_rescale(t, 1, target_mp=2)
+    assert t.state is not None and t.model_parallel == 1

@@ -293,3 +293,47 @@ def test_leader_kill_across_two_cards_stages_the_state_and_keeps_bits():
                    for _, x in tree_leaves(t.state))
         assert t.leader_id != dead and dead not in t.worker_ids
     assert losses == static
+
+
+def test_tensor_parallel_across_two_cards_keeps_bits():
+    """Model shards on two cards: the tensor-parallel step's sums are
+    ``.to(device)`` copies folded in slot order, so (1, 2) across
+    ``cuda:0`` and ``cuda:1`` steps as (1, 2) on one card does; and under
+    virtual workers a live reshape (2, 1) -> (1, 2) across the cards,
+    whose planner move stages shard 1 onto ``cuda:1``, keeps the one-card
+    static losses with ==."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the model shards share one card "
+                    "otherwise")
+    from repro_torch.configs import get_config
+    from repro_torch.core import ElasticTrainer
+    from repro_torch.models.params import tree_leaves
+
+    def trainer(devices, p, mp, **kw):
+        return ElasticTrainer(get_config("edl-paper", smoke=True),
+                              global_batch=4, seq_len=64,
+                              init_parallelism=p, model_parallel=mp,
+                              n_samples=256, d_partitions=16, seed=0,
+                              devices=devices, time_allowance_s=0, **kw)
+
+    runs = []
+    for devices in (["cuda:0", "cuda:0"], ["cuda:0", "cuda:1"]):
+        with trainer(devices, 1, 2) as t:
+            runs.append([t.step()["loss"] for _ in range(4)])
+            assert [str(tree_leaves(s)[0][1].device) for s in t.state] == \
+                devices
+    assert runs[0] == pytest.approx(runs[1], rel=1e-6), runs
+
+    steps = 8
+    with trainer(["cuda:0"], 1, 1, virtual_workers=4) as t:
+        static = [t.step()["loss"] for _ in range(steps)]
+    with trainer(["cuda:0", "cuda:1"], 2, 1, virtual_workers=4) as t:
+        t.run(2)
+        rec = t.reshape(1, 2, block=True)
+        t.run(steps - t.step_idx)
+        losses = [m["loss"] for m in t.metrics_log][:steps]
+        assert (rec.op, t.p, t.model_parallel) == ("reshape", 1, 2)
+        assert rec.stop_time < rec.prep_time, rec.summary()
+        assert [str(tree_leaves(s)[0][1].device) for s in t.state] == \
+            ["cuda:0", "cuda:1"]
+    assert losses == static

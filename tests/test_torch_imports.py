@@ -34,7 +34,10 @@ MODULES = [
     "repro_torch.models.model", "repro_torch.models.params",
     "repro_torch.models.ssm",
     "repro_torch.optim", "repro_torch.optim.optimizers",
-    "repro_torch.reshape", "repro_torch.reshape.spec",
+    "repro_torch.parallel",
+    "repro_torch.reshape", "repro_torch.reshape.apply",
+    "repro_torch.reshape.plan", "repro_torch.reshape.spec",
+    "repro_torch.sharding",
     "repro_torch.training", "repro_torch.training.step",
 ]
 

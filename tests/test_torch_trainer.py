@@ -188,7 +188,8 @@ def test_exactly_once_across_scaling():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--schedule", "stop_resume_mp:1@3"], ["--model-parallel", "2"],
+    ["--arch", "rwkv6-1.6b", "--schedule", "stop_resume_mp:2@3"],
+    ["--arch", "rwkv6-1.6b", "--model-parallel", "2"],
     ["--schedule", "bogus:1@3"]])
 def test_unported_options_are_refused_when_parsed(argv, capsys):
     with pytest.raises(SystemExit) as e:

@@ -3,8 +3,9 @@
 
 Builds the port's ``ElasticTrainer`` on a full-width architecture
 (``--arch``: ``edl-paper`` or ``rwkv6-1.6b``; batch 8, sequence 1024,
-AdamW), then at p = 1 and again after a blocking scale-out to p = 2 (both
-slots on one card):
+AdamW) at model-parallel degree ``--model-parallel M`` (default 1), then
+at (p, mp) = (1, M) and again after a blocking scale-out to (2, M) (all
+2 M slots on one card):
 
 * times ``--steps`` steps with a host clock around work that ends in
   ``torch.cuda.synchronize()`` (the trainer's own step time);
@@ -15,14 +16,14 @@ slots on one card):
   is taken over the traced steps.
 
 With ``--virtual-workers K`` the trainer runs the deterministic
-virtual-worker step (K shards of batch / K at every p) instead of the
-default step.
+virtual-worker step (K shards of batch / K at every (p, mp)) instead of
+the default step.
 
 Prints one JSON line per parallelism and writes the traces under
 ``build/profile/``. Run from the repo root on a machine with a card:
 
     python3 tools/torch_step_profile.py [--arch rwkv6-1.6b] [--steps 6] \
-        [--virtual-workers 8]
+        [--virtual-workers 8] [--model-parallel 2]
 """
 import argparse
 import json
@@ -101,6 +102,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--virtual-workers", type=int, default=0, metavar="K")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="M")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
 
@@ -117,10 +119,11 @@ def main() -> int:
                           text=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
     cfg = get_config(args.arch)
+    mp = args.model_parallel
     with ElasticTrainer(cfg, global_batch=args.batch, seq_len=args.seq,
-                        init_parallelism=1, n_samples=4096,
-                        d_partitions=16, devices=["cuda:0"] * 2,
-                        time_allowance_s=0,
+                        init_parallelism=1, model_parallel=mp,
+                        n_samples=4096, d_partitions=16,
+                        devices=["cuda:0"] * (2 * mp), time_allowance_s=0,
                         virtual_workers=args.virtual_workers) as trainer:
         for p in (1, 2):
             if p == 2:
@@ -131,10 +134,11 @@ def main() -> int:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 timed_steps(torch, trainer, 2)
-            path = os.path.join(args.out, f"trace_{args.arch}_p{p}"
+            path = os.path.join(args.out, f"trace_{args.arch}_p{p}_mp{mp}"
                                 f"_vw{args.virtual_workers}.json")
             prof.export_chrome_trace(path)
-            rec = {"arch": cfg.name, "p": trainer.p, "batch": args.batch,
+            rec = {"arch": cfg.name, "p": trainer.p,
+                   "mp": trainer.model_parallel, "batch": args.batch,
                    "seq": args.seq, "virtual_workers": trainer.n_virtual,
                    "step_ms_median": 1e3 * statistics.median(times),
                    "step_ms": [1e3 * t for t in times],
