@@ -62,7 +62,24 @@ Phases, in order; any failure exits non-zero:
    host-side init of its parameters; then the same trainer refits one batch
    four times, and its loss must fall at every step; a held-out batch's
    loss must stay above the tokens' entropy less a margin; and one slot
-   shard's loss and gradients must be the same with remat on and off.
+   shard's loss and gradients must be the same with remat on and off;
+9. the cluster tier: ``repro_torch.cluster.ClusterExecutor`` on four slots
+   of the card, its tenants full-width ``edl_paper`` trainers (the trainer
+   ``default_trainer_factory`` builds, from CONFIG) at batch 8, sequence
+   1024: (a) the throughput policy with telemetry and a trace, where c's
+   arrival must be funded by a stop-free shrink of a live tenant, every
+   tenant's loss must fall, every telemetry record must be valid and every
+   committed switch must be a span tree with its commit; (b) Tiresias
+   (quanta 0.1, 1000) checkpoint-stops the ``vw=8`` tenant a to disk and
+   re-admits it on other slots, and its losses must equal a static
+   single-slot run's bit for bit; (c) a worker of x dies and a slot of y is
+   revoked: two recoveries, and exactly those two slots leave the pool;
+   (d) ``repro_torch.launch.cluster.main`` with the reference's default
+   jobs at their SMOKE width for 12 rounds must report conservation. In
+   (a)-(c) every tenant finishes its steps with finite losses and
+   exactly-once data, every committed switch is stop-free (``stop_s <
+   prep_s``, or under ``STOP_HIT_S`` where the prep was a cache lookup),
+   and the executor asserts slot conservation every round.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -1154,6 +1171,403 @@ def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
             "remat_losses": remat_losses, "remat_grad_err": remat_err}
 
 
+# phase 9: the cluster tier on CLUSTER_SLOTS slots of the card, tenants of
+# full-width edl_paper at global batch 8, sequence 1024, AdamW 1e-3 (the
+# trainer default_trainer_factory builds, from CONFIG). (a) throughput
+# policy with telemetry and a trace; (b) Tiresias preempts the vw = 8
+# tenant a to disk and re-admits it; (c) a worker of x dies and a slot of y
+# is revoked; (d) the entry point with the reference's default jobs at
+# their SMOKE width, for a few rounds
+CLUSTER_SLOTS, CLUSTER_RESCHED = 4, 3
+CLUSTER_JOB_KW = dict(batch=MAIN_BATCH, seq=1024, n_samples=1024,
+                      d_partitions=16)
+CLUSTER_RUNS = {
+    "throughput": ("a=vgg19:2:16@0,b=resnet50:1:16@0,c=googlenet:1:10@4",
+                   "throughput", {}),
+    "tiresias": ("a=resnet50:2:12:vw=8@0,b=vgg19:4:8@3", "tiresias",
+                 {"quanta": (0.1, 1000.0)}),
+    "chaos": ("x=resnet50:2:14@0,y=googlenet:2:14@0", "static", {}),
+}
+CLUSTER_FAULTS = (dict(kind="kill_worker", at=2, jid=0, worker=1),
+                  dict(kind="revoke_devices", at=4, jid=1, n_devices=1))
+CLUSTER_MAIN_ARGS = ["--device", "cuda", "--devices", str(CLUSTER_SLOTS),
+                     "--json", "--max-rounds", "12"]
+# a switch whose prep was a cache lookup stops for the swap alone: it must
+# stop for well under one full-width step (~210 ms, phase 4)
+STOP_HIT_S = 0.05
+
+
+@contextlib.contextmanager
+def counted_warm_ups(groups: list):
+    """Append, for each context prep's warm-up while the block runs, the
+    data groups it warms: one shard each (all slots share the card), one
+    launch of each attention kernel per layer."""
+    from repro_torch.core.elastic_runtime import ElasticTrainer
+    inner = ElasticTrainer._warm
+
+    def warm(self, gs):
+        groups.append(len(dict.fromkeys(gs)))
+        return inner(self, gs)
+
+    ElasticTrainer._warm = warm
+    try:
+        yield
+    finally:
+        ElasticTrainer._warm = inner
+
+
+def cluster_tools(torch):
+    """Phase 9's executor, checkpointer and trainer factory: the port's own
+    with clocks on them. ``Tenants`` builds each trainer exactly as
+    ``default_trainer_factory`` does, from CONFIG, and records it with its
+    build seconds and the sample ids each of its steps consumed."""
+    from repro_torch.cluster import ClusterExecutor, DiskCheckpointer
+    from repro_torch.cluster.executor import default_trainer_factory
+
+    class TimedExecutor(ClusterExecutor):
+        """Records the wall clock at each round's start and at each
+        finish, for JCTs in seconds."""
+
+        def __init__(self, *args, **kw):
+            self.round_t, self.finish_t = {}, {}
+            super().__init__(*args, **kw)
+
+        def _admit_arrivals(self):
+            self.round_t.setdefault(self.round, time.monotonic())
+            super()._admit_arrivals()
+
+        def _finish(self, job):
+            super()._finish(job)
+            self.finish_t[job.jid] = time.monotonic()
+
+    class TimedCheckpointer(DiskCheckpointer):
+        def __init__(self):
+            super().__init__()
+            self.restore_s = []
+
+        def restore(self, job, trainer):
+            t0 = time.monotonic()
+            super().restore(job, trainer)
+            torch.cuda.synchronize()
+            self.restore_s.append(time.monotonic() - t0)
+
+    class Tenants:
+        def __init__(self):
+            self.built, self.ids = [], {}
+
+        def __call__(self, spec, devices):
+            t0 = time.monotonic()
+            t = default_trainer_factory(spec, devices, smoke=False)
+            torch.cuda.synchronize()
+            self.built.append((spec.name, t, time.monotonic() - t0))
+            ids, step = self.ids.setdefault(spec.name, []), t.step
+
+            def counted_step():
+                m = step()
+                if m is not None:
+                    ids.append(t._last_sample_ids)
+                return m
+            t.step = counted_step
+            return t
+
+        def metrics(self, name: str) -> list:
+            return [m for n, t, _ in self.built if n == name
+                    for m in t.metrics_log]
+
+    return TimedExecutor, TimedCheckpointer, Tenants
+
+
+def check_adjustment_spans(obs, n_committed: int) -> int:
+    """Every committed switch's span tree in the trace: its root, with
+    plan, prep, drain and stop_window inside it on its tenant's track and a
+    ``commit`` instant at its end. Returns the trees found."""
+    spans, marks = obs.tracer.spans, obs.tracer.instants
+    roots = [s for s in spans if s["cat"] == "adjust" and "->" in s["name"]]
+    for root in roots:
+        kids = {s["name"] for s in spans if s["tid"] == root["tid"]
+                and s is not root and s["cat"] == "adjust"
+                and root["t0"] <= s["t0"] <= s["t1"] <= root["t1"]}
+        commit = [m for m in marks if m["name"] == "commit"
+                  and m["tid"] == root["tid"] and m["t"] == root["t1"]]
+        if not {"plan", "prep", "drain", "stop_window"} <= kids or \
+                not commit:
+            fail(f"cluster trace: adjustment {root} lacks nested spans or "
+                 f"its commit: {sorted(kids)}")
+    if len(roots) != n_committed or not roots:
+        fail(f"cluster trace: {len(roots)} adjustment trees for "
+             f"{n_committed} committed switches")
+    return len(roots)
+
+
+def run_cluster(torch, launches_of, kernels, per_shard: dict, name: str,
+                step_ms_ref: float, *, faults=None, obs=None) -> tuple:
+    """One run of ``CLUSTER_RUNS[name]`` through ``ClusterExecutor`` on
+    ``CLUSTER_SLOTS`` slots of the card, with the launch counts reset just
+    before and read just after. Every tenant must finish its steps with
+    finite losses and exactly-once data (a deterministic tenant's whole
+    trajectory is checked by its caller), every committed switch must be
+    stop-free, and the launches must equal the prediction: per layer, one
+    of each attention kernel a shard stepped (p shards a step, K under
+    virtual workers) and one a data group warmed. The executor asserts
+    conservation every round. Returns a record and the executor."""
+    from repro_torch.cluster import make_policy
+    from repro_torch.devices import slot_devices
+    from repro_torch.launch.cluster import parse_jobs
+    TimedExecutor, TimedCheckpointer, Tenants = cluster_tools(torch)
+    jobs, policy, policy_kw = CLUSTER_RUNS[name]
+    specs = parse_jobs(jobs, **CLUSTER_JOB_KW)
+    tenants, ckpt, warmed = Tenants(), TimedCheckpointer(), []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches_of.reset()
+    t0 = time.monotonic()
+    ex = TimedExecutor(specs, make_policy(policy, **policy_kw),
+                       devices=slot_devices(CLUSTER_SLOTS, "cuda"),
+                       resched_every=CLUSTER_RESCHED,
+                       trainer_factory=tenants, checkpointer=ckpt,
+                       faults=faults, obs=obs)
+    with counted_warm_ups(warmed):
+        try:
+            stats = ex.run(max_rounds=400)
+        finally:
+            ex.close()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = launches_of.snapshot()
+    warm = launches_of.snapshot(warm=True)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if stats["finished"] != len(specs) or not stats["conserved"]:
+        fail(f"cluster {name}: {stats['finished']} of {len(specs)} tenants "
+             f"finished, conserved {stats['conserved']}: {stats['events']}")
+    # a dead worker's partition replays from its start (the reference's
+    # recovery; the dynamic pipeline's release(dead=True)): at-least-once
+    killed = {e["job"] for e in stats["events"] if e["op"] == "worker_dead"}
+    tenant_rows = {}
+    for spec in specs:
+        job = next(j for j in ex.jobs.values() if j.spec.name == spec.name)
+        ms = tenants.metrics(spec.name)
+        losses = [m["loss"] for m in ms]
+        if len(losses) != spec.total_steps or \
+                not all(math.isfinite(x) for x in losses):
+            fail(f"cluster {name}: tenant {spec.name} losses {losses}")
+        ids = [int(i) for b in tenants.ids[spec.name] for i in b]
+        if not spec.virtual_workers and spec.name not in killed and \
+                len(set(ids)) != len(ids):
+            fail(f"cluster {name}: tenant {spec.name} saw a sample twice")
+        arrived = ex.round_t[math.ceil(spec.arrival)]
+        tenant_rows[spec.name] = {
+            "jct_rounds": job.finish_time - job.arrival,
+            "jct_s": ex.finish_t[job.jid] - arrived,
+            "median_step_ms": 1e3 * sorted(
+                m["step_time"] for m in ms)[len(ms) // 2],
+            "losses": losses, "unique_samples": len(set(ids)),
+            "samples": len(ids)}
+    records = [(n, r.summary()) for n, t, _ in tenants.built
+               for r in t.controller.history]
+    for n, r in records:
+        if r["cache_hit"] and not r["stop_s"] < STOP_HIT_S or \
+                not r["cache_hit"] and not r["stop_s"] < r["prep_s"]:
+            fail(f"cluster {name}: tenant {n}'s switch was not stop-free: "
+                 f"{r}")
+    n_shards = sum(t.n_virtual or m["p"] for _, t, _ in tenants.built
+                   for m in t.metrics_log)
+    per_shard_got = check_launches(f"cluster {name}", launches, warm,
+                                   kernels, per_shard, n_shards,
+                                   sum(warmed))
+    print(f"  ({name}) {jobs}: policy {policy} {policy_kw or ''}, "
+          f"{stats['rounds']} rounds in {seconds:.2f} s, peak "
+          f"{peak_gib:.2f} GiB allocated", flush=True)
+    for e in stats["events"]:
+        print(f"    round {e['round']:3d} {e['op']:>15s} {e['job'] or '-':>2s}"
+              f" p {e['from_p']} -> {e['to_p']} loaned {e['loaned']} "
+              f"slots {e.get('devices')}", flush=True)
+    for n, r in records:
+        print(f"    {n} {r['op']} {r['from_p']} -> {r['to_p']}: stop_s "
+              f"{r['stop_s']} prep_s {r['prep_s']} cache_hit "
+              f"{r['cache_hit']} steps during prep "
+              f"{r['steps_during_prep']}", flush=True)
+    for n, row in tenant_rows.items():
+        print(f"    tenant {n}: JCT {row['jct_rounds']} rounds, "
+              f"{row['jct_s']:.2f} s; median step {row['median_step_ms']:.1f}"
+              f" ms against phase 4's single-job {step_ms_ref:.1f} ms; "
+              f"losses {row['losses'][0]:.4f} -> {row['losses'][-1]:.4f}; "
+              f"{row['unique_samples']} distinct of {row['samples']} "
+              f"samples", flush=True)
+    print(f"    trainer builds (s): "
+          f"{[(n, round(s, 2)) for n, _, s in tenants.built]}; launches "
+          f"{ {k: launches[k] for k in kernels} }, warm-ups "
+          f"{ {k: warm[k] for k in kernels} } ({sum(warmed)} shards "
+          f"warmed); {n_shards} shards stepped, per shard {per_shard_got}, "
+          f"as predicted", flush=True)
+    record = {"jobs": jobs, "policy": policy, "seconds": seconds,
+              "rounds": stats["rounds"], "peak_gib": peak_gib,
+              "tenants": tenant_rows,
+              "switches": [{"tenant": n, **r} for n, r in records],
+              "events": stats["events"],
+              "trainer_build_s": [(n, s) for n, _, s in tenants.built],
+              "restore_s": ckpt.restore_s,
+              "recovery_latencies_s": ex.recovery_latencies,
+              "launches": {k: launches[k] for k in kernels},
+              "warmup_launches": {k: warm[k] for k in kernels},
+              "launches_per_shard_step": per_shard_got}
+    return record, ex
+
+
+def spans_named(obs, name: str) -> list:
+    return [s["t1"] - s["t0"] for s in obs.tracer.spans if s["name"] == name]
+
+
+def run_cluster_path(torch, launches_of, kernels, per_shard: dict,
+                     step_ms_ref: float) -> dict:
+    """Phase 9 (a)-(d). Returns a record of the runs."""
+    import tempfile
+    from repro_torch.chaos import FaultEvent, FaultPlan
+    from repro_torch.launch import cluster
+    from repro_torch.launch.cluster import parse_jobs
+    from repro_torch.obs import Observability, report
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = os.path.join(tmp, "telemetry.jsonl")
+        obs = Observability(telemetry_out=tel,
+                            trace_out=os.path.join(tmp, "trace.json"))
+        rec, ex = run_cluster(torch, launches_of, kernels, per_shard,
+                              "throughput", step_ms_ref, obs=obs)
+        obs.close()
+        records = report.load(tel)
+        problems = report.validate(records)
+        if problems or not records:
+            fail(f"cluster telemetry: {problems[:5]}")
+        n_trees = check_adjustment_spans(obs, len(rec["switches"]))
+    events = rec["events"]
+    c_in = next((i for i, e in enumerate(events) if e["op"] == "scale_out"
+                 and e["job"] == "c" and e["from_p"] == 0), None)
+    # the shrinks that last handed back a slot c was admitted on, and
+    # those of them whose prep was cold: stop_s < prep_s
+    shrinks = set()
+    for slot in events[c_in]["devices"] if c_in is not None else ():
+        back = [e for e in events[:c_in] if slot in e.get("devices", ())
+                and e["op"] in ("scale_out", "scale_in")]
+        if back and back[-1]["op"] == "scale_in":
+            shrinks.add((back[-1]["job"], back[-1]["from_p"],
+                         back[-1]["to_p"]))
+    funding = [r for r in rec["switches"] if r["op"] == "scale_in"
+               and (r["tenant"], r["from_p"], r["to_p"]) in shrinks
+               and not r["cache_hit"] and r["stop_s"] < r["prep_s"]]
+    if c_in is None or not funding:
+        fail(f"cluster throughput: c's admission was not funded by a "
+             f"stop-free shrink: {events}")
+    for n, row in rec["tenants"].items():
+        if not row["losses"][-1] < row["losses"][0]:
+            fail(f"cluster throughput: tenant {n}'s loss did not fall: "
+                 f"{row['losses']}")
+    print(f"    c admitted at round {events[c_in]['round']} on slots "
+          f"{events[c_in]['devices']}, funded by {funding[0]['tenant']}'s "
+          f"stop-free shrink (stop_s {funding[0]['stop_s']}, prep_s "
+          f"{funding[0]['prep_s']}); telemetry: {len(records)} records, all "
+          f"valid; trace: {n_trees} adjustment trees, each nested with its "
+          f"commit", flush=True)
+    out["throughput"] = {**rec, "telemetry_records": len(records),
+                         "adjustment_trees": n_trees}
+    del ex
+
+    a_spec = parse_jobs(CLUSTER_RUNS["tiresias"][0], **CLUSTER_JOB_KW)[0]
+    from repro_torch.cluster.executor import default_trainer_factory
+    from repro_torch.devices import slot_devices
+    with default_trainer_factory(a_spec, slot_devices(1, "cuda"),
+                                 smoke=False) as t:
+        static = [t.step()["loss"] for _ in range(a_spec.total_steps)]
+    del t
+    obs = Observability()
+    rec, ex = run_cluster(torch, launches_of, kernels, per_shard,
+                          "tiresias", step_ms_ref, obs=obs)
+    ops = [(e["op"], e["job"]) for e in rec["events"]]
+    pre = [e for e in rec["events"] if e["op"] == "preempt"
+           and e["job"] == "a"]
+    back = [e for e in rec["events"] if e["op"] == "readmit"
+            and e["job"] == "a"]
+    if not pre or not back or set(back[0]["devices"]) == \
+            set(pre[0]["devices"]):
+        fail(f"cluster tiresias: a was not preempted to disk and "
+             f"re-admitted on other slots: {ops}")
+    if rec["tenants"]["a"]["losses"] != static:
+        fail(f"cluster tiresias: a's losses differ from its static run's: "
+             f"{rec['tenants']['a']['losses']} vs {static}")
+    saves = spans_named(obs, "checkpoint_save")
+    builds = [s for n, s in rec["trainer_build_s"] if n == "a"]
+    print(f"    a: checkpoint-stopped on slots {pre[0]['devices']}, "
+          f"re-admitted on {back[0]['devices']}; its {len(static)} losses "
+          f"== its static single-slot run's, step for step; checkpoint "
+          f"saves (s) {[round(x, 2) for x in saves]}; re-admission prep: "
+          f"trainer build {builds[-1]:.2f} s, restore "
+          f"{[round(x, 2) for x in rec['restore_s']]} s", flush=True)
+    out["tiresias"] = {**rec, "static_losses": static,
+                       "checkpoint_save_s": saves, "losses_equal": True}
+    del ex
+
+    plan = FaultPlan(events=[FaultEvent(**e) for e in CLUSTER_FAULTS])
+    obs = Observability()
+    rec, ex = run_cluster(torch, launches_of, kernels, per_shard, "chaos",
+                          step_ms_ref, faults=plan, obs=obs)
+    dead = [e for e in rec["events"] if e["op"] == "worker_dead"]
+    revoked = [e for e in rec["events"] if e["op"] == "revoke"]
+    gone = set(range(CLUSTER_SLOTS)) - {s.id for s in ex.devices}
+    if len(dead) != 1 or len(revoked) != 1 or \
+            gone != set(dead[0]["devices"]) | set(revoked[0]["devices"]) \
+            or ex.n_gpus != CLUSTER_SLOTS - 2 or \
+            len(ex.recovery_latencies) != 2 or \
+            (ex.workers_killed, ex.devices_revoked) != (1, 1):
+        fail(f"cluster chaos: expected the dead worker's slot and the "
+             f"revoked slot, and only those, to leave, with two recoveries:"
+             f" {rec['events']}")
+    print(f"    x's worker {dead[0]['workers']} died on slot "
+          f"{dead[0]['devices']}, y's slot {revoked[0]['devices']} was "
+          f"revoked; the pool lost exactly slots {sorted(gone)} "
+          f"({CLUSTER_SLOTS} -> {ex.n_gpus}); recovery latencies (s) "
+          f"{[round(x, 3) for x in ex.recovery_latencies]}", flush=True)
+    out["chaos"] = {**rec, "slots_lost": sorted(gone),
+                    "recovery_spans_s": spans_named(obs, "recovery")}
+    del ex
+
+    from repro_torch.configs import get_config
+    smoke_layers = get_config("edl-paper", smoke=True).n_layers
+    warmed = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_of.reset()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf), counted_warm_ups(warmed):
+        rc = cluster.main(CLUSTER_MAIN_ARGS)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = launches_of.snapshot()
+    warm = launches_of.snapshot(warm=True)
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    strays = {k: n for k, n in launches.items() if k not in kernels and n}
+    stepped = {k: launches[k] - warm[k] for k in kernels}
+    if rc != 0 or not stats["conserved"] or strays or \
+            warm != {**dict.fromkeys(launches, 0),
+                     **{k: sum(warmed) * smoke_layers for k in kernels}} or \
+            not all(n > 0 and n % smoke_layers == 0
+                    for n in stepped.values()):
+        fail(f"cluster main: rc {rc}, conserved {stats['conserved']}, "
+             f"launches {launches}, warm-ups {warm} ({sum(warmed)} shards "
+             f"warmed)")
+    print(f"  (main) python -m repro_torch.launch.cluster "
+          f"{' '.join(CLUSTER_MAIN_ARGS)}: {stats['rounds']} rounds in "
+          f"{seconds:.2f} s, device conservation: OK; launches "
+          f"{ {k: launches[k] for k in kernels} }, warm-ups "
+          f"{ {k: warm[k] for k in kernels} } ({sum(warmed)} shards "
+          f"warmed at {smoke_layers} layers)", flush=True)
+    out["main"] = {"args": CLUSTER_MAIN_ARGS, "seconds": seconds,
+                   "rounds": stats["rounds"], "conserved": True,
+                   "events": stats["events"],
+                   "launches": {k: launches[k] for k in kernels},
+                   "warmup_launches": {k: warm[k] for k in kernels}}
+    return out
+
+
 def shape_record(r: dict) -> dict:
     """A kernel's record at one more timed shape, for its kernel entry."""
     return {**{k: r[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
@@ -1175,12 +1589,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/9] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/10] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/9] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/10] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     if sorted(built) != sorted(build.SOURCES):
@@ -1190,35 +1604,35 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/9] attention kernels against their plain versions", flush=True)
+    print("[3/10] attention kernels against their plain versions", flush=True)
     timed, pair = check_attention(torch, aops)
     records = dict(timed[ATT_MAIN_CASE[0]])
 
     edl = get_config("edl-paper")
-    print("[4/9] edl_paper path: python -m repro_torch.launch.train "
+    print("[4/10] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # forward, dq and dkdv once per layer and shard
     edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
     paths = {"edl-paper": run_path(
         torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
 
-    print("[5/9] edl_paper virtual-worker path: python -m "
+    print("[5/10] edl_paper virtual-worker path: python -m "
           "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
     vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
 
-    print("[6/9] edl_paper model-parallel path on four slots of the card",
+    print("[6/10] edl_paper model-parallel path on four slots of the card",
           flush=True)
     mp = run_mp_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard,
                      paths["edl-paper"],
                      vw["runs"]["static"]["losses"][:VW_STEPS])
 
-    print("[7/9] WKV6 kernels against their plain versions", flush=True)
+    print("[7/10] WKV6 kernels against their plain versions", flush=True)
     records.update(check_wkv(torch, wops))
 
     rwkv = get_config("rwkv6-1.6b")
-    print("[8/9] rwkv6 path: python -m repro_torch.launch.train "
+    print("[8/10] rwkv6 path: python -m repro_torch.launch.train "
           + " ".join(RWKV_ARGS), flush=True)
     # each kernel once per layer and shard; remat runs the forward again
     rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
@@ -1267,7 +1681,21 @@ def main() -> int:
                 name: {"launches": run["launches"][kname],
                        "warmup_launches": run["warmup_launches"][kname]}
                 for name, run in mp["runs"].items()}
-    print("[9/9] results; library_ms is F.scaled_dot_product_attention for "
+    print(f"[9/10] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
+          f"ClusterExecutor with full-width edl_paper tenants, then "
+          f"repro_torch.launch.cluster.main", flush=True)
+    cluster = run_cluster_path(torch, LAUNCHES, aops.KERNELS, edl_shard,
+                               paths["edl-paper"]["mean_step_ms"])
+    for entry in kernels:
+        if entry["name"] in aops.KERNELS:
+            # each phase-9 run's launches, counted from 0 just before it
+            entry["cluster_path"] = {
+                name: {"launches": run["launches"][entry["name"]],
+                       "warmup_launches":
+                           run["warmup_launches"][entry["name"]]}
+                for name, run in cluster.items()}
+    print(f"  {card}", flush=True)
+    print("[10/10] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd, its whole "
           "backward for both backward kernels) and null for the WKV6 "
           "kernels, whose outputs no single PyTorch call computes; "
@@ -1279,7 +1707,8 @@ def main() -> int:
         **{name: {k: v for k, v in run.items()
                   if k not in ("launches", "warmup_launches")}
            for name, run in paths.items()},
-        "virtual_workers": vw, "model_parallel": mp}, "card": card}))
+        "virtual_workers": vw, "model_parallel": mp, "cluster": cluster},
+        "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -49,7 +49,7 @@ from repro_torch.data.pipeline import DynamicDataPipeline, \
     VirtualWorkerPipeline
 from repro_torch.data.synthetic import SyntheticTokenDataset
 from repro_torch.data.worker import WorkerDataIterator
-from repro_torch.devices import default_pool, resolve_device
+from repro_torch.devices import Slot, as_slots, default_pool
 from repro_torch.kernels.launches import LAUNCHES
 from repro_torch.models.model import param_spec_tree
 from repro_torch.models.params import tree_leaves, tree_map
@@ -114,9 +114,10 @@ class ElasticTrainer:
     Full preemption (checkpoint-stop to disk and later resume) is layered on
     top by ``core.stop_resume``.
 
-    ``devices`` is the job's slot pool, one torch device per logical slot
-    (several slots may share a card), read in groups of ``model_parallel``;
-    by default one slot per visible card,
+    ``devices`` is the job's slot pool (``devices.Slot``: an id and the
+    torch device it runs on; several slots may share a card), read in
+    groups of ``model_parallel``; plain torch devices are wrapped in slots
+    numbered in order. By default one slot per visible card,
     or per CPU core when ``device`` is the CPU, as the reference's default
     pool is every device, and at least ``init_parallelism`` slots.
     ``use_aot`` warms each new shape during its prep, the counterpart of
@@ -150,8 +151,7 @@ class ElasticTrainer:
         self.seq_len = seq_len
         self.model_parallel = model_parallel
         self.optimizer = optimizer or adamw(1e-3)
-        self.devices = ([resolve_device(d) for d in devices]
-                        if devices is not None
+        self.devices = (as_slots(devices) if devices is not None
                         else default_pool(init_parallelism, device))
         self.job_handle = job_handle
         self.store = store or CoordinationStore()
@@ -201,7 +201,8 @@ class ElasticTrainer:
 
         self.exec = self._build_exec(init_parallelism)
         gen = torch.Generator().manual_seed(seed)
-        state = init_train_state(cfg, self.optimizer, gen, self.devices[0])
+        state = init_train_state(cfg, self.optimizer, gen,
+                                 self.devices[0].device)
         self.state = join_shards(place_state(
             self.exec.layout, state, self.exec.devices[:model_parallel]))
 
@@ -282,12 +283,15 @@ class ElasticTrainer:
         self.straggler_detector.reset(wid)
 
     # ---------------------------------------------------------- exec handles
-    def _exec_key(self, p: int, mp: int | None = None) -> tuple:
-        """The exec-cache identity of shape (p, mp) on a slot-pool prefix,
-        in the reference's ``(p, mp, devices)`` form. Order matters: the
-        same slots in another order are another topology."""
+    def _exec_key(self, p: int, mp: int | None = None,
+                  devices=None) -> tuple:
+        """The exec-cache identity of shape (p, mp) on a slot-pool prefix
+        (of ``devices``, by default the job's pool), in the reference's
+        ``(p, mp, slot ids)`` form. Order matters: the same slots in another
+        order are another topology."""
         mp = mp if mp is not None else self.model_parallel
-        return (p, mp, tuple(str(d) for d in self.devices[:p * mp]))
+        slots = as_slots(devices if devices is not None else self.devices)
+        return (p, mp, tuple(s.id for s in slots[:p * mp]))
 
     def _side_stream(self, dev: torch.device) -> "torch.cuda.Stream":
         """This trainer's side stream on ``dev`` (preps and staged state
@@ -349,20 +353,26 @@ class ElasticTrainer:
                                           {"tokens": toks, "labels": toks})
         loss.item()
 
-    def _build_exec(self, p: int, mp: int | None = None) -> ExecHandle:
+    def _build_exec(self, p: int, mp: int | None = None,
+                    devices=None) -> ExecHandle:
         """Execution-context preparation for shape (p, mp): the step
         callable over the first p * mp slots of the pool, warmed at its
         shape. This is the cost stop-free scaling hides. ``mp`` defaults to
         the job's current model-parallel degree; the RESHAPE verb passes
-        another. Handles are cached per (p, mp, slot devices), LRU-bounded;
+        another. ``devices`` overrides the job's pool: the speculative
+        prefetch builds for a PREDICTED slot set (the pool plus the free
+        slots a growth grant would append) without touching trainer state.
+        Handles are cached per (p, mp, slot ids), LRU-bounded;
         a shape the job ran at before (migrate at constant p, a
         compact/expand cycle) skips the warm-up. A shape cached or in
         flight is never built again: a second caller waits for the build
         in flight and takes its handle. The expensive part runs outside the
         cache lock."""
         mp = mp if mp is not None else self.model_parallel
-        devs = tuple(self.devices[:p * mp])
-        key = self._exec_key(p, mp)
+        slots = tuple(as_slots(devices if devices is not None
+                               else self.devices)[:p * mp])
+        devs = tuple(s.device for s in slots)
+        key = self._exec_key(p, mp, slots)
         while True:
             with self._exec_lock:
                 cached = self._exec_cache.get(key)
@@ -809,6 +819,12 @@ class ElasticTrainer:
         return rec
 
     # ------------------------------------------------ device pool hand-off
+    def _new_slots(self, devices) -> list[Slot]:
+        """Granted ``devices`` as slots; plain torch devices are numbered
+        after the highest slot id the job holds."""
+        return as_slots(devices, first_id=1 + max(
+            (s.id for s in self.devices), default=-1))
+
     def grant_devices(self, new_devices, *, block: bool = False
                       ) -> ScalingRecord | None:
         """Non-blocking hand-off path: a scheduler grants this job extra
@@ -817,7 +833,7 @@ class ElasticTrainer:
         the topology switch commits at a mini-batch boundary."""
         if self.controller.phase is not Phase.IDLE:
             raise Busy("scaling in flight; retry later")
-        new = [resolve_device(d) for d in new_devices]
+        new = self._new_slots(new_devices)
         n_new, rem = divmod(len(new), self.model_parallel)
         if n_new < 1 or rem:
             # a partial group could never host a data-parallel group of
@@ -866,7 +882,7 @@ class ElasticTrainer:
                              f"on both axes")
         if p == self.p and mp == self.model_parallel:
             raise ValueError(f"already at shape ({p}, {mp})")
-        new = [resolve_device(d) for d in new_devices or ()]
+        new = self._new_slots(new_devices or ())
         self.devices = self.devices + new
         try:
             return self._request("reshape", p, block=block,

@@ -337,3 +337,48 @@ def test_tensor_parallel_across_two_cards_keeps_bits():
         assert [str(tree_leaves(s)[0][1].device) for s in t.state] == \
             ["cuda:0", "cuda:1"]
     assert losses == static
+
+
+def test_two_full_width_tenants_loan_and_reclaim_on_two_slots(card):
+    """The cluster tier on two slots of one card: a full-width edl_paper
+    tenant alone is loaned the idle slot by the throughput policy; the
+    second tenant's arrival reclaims it with a stop-free release, and the
+    freed slot admits the newcomer. Both finish with finite losses, and
+    the executor holds slot conservation every round."""
+    from functools import partial
+
+    from repro_torch.cluster import ClusterExecutor, JobSpec, make_policy
+    from repro_torch.cluster.executor import default_trainer_factory
+    from repro_torch.devices import slot_devices
+
+    full = dict(arch="edl-paper", global_batch=8, seq_len=1024,
+                n_samples=256, d_partitions=16)
+    ex = ClusterExecutor([JobSpec("a", 1, 10, profile="vgg19", **full),
+                          JobSpec("b", 1, 4, profile="resnet50",
+                                  arrival=4.0, seed=1, **full)],
+                         make_policy("throughput"),
+                         devices=slot_devices(2, card), resched_every=2,
+                         trainer_factory=partial(default_trainer_factory,
+                                                 smoke=False))
+    try:
+        stats = ex.run(max_rounds=200)
+    finally:
+        ex.close()
+    ops = [(e["op"], e["job"], e["from_p"], e["to_p"], e["loaned"])
+           for e in stats["events"]]
+    assert ("scale_out", "a", 1, 2, 1) in ops, ops
+    assert ("scale_in", "a", 2, 1, 0) in ops, ops
+    assert ("scale_out", "b", 0, 1, 0) in ops, ops
+    assert ops.index(("scale_in", "a", 2, 1, 0)) < \
+        ops.index(("scale_out", "b", 0, 1, 0))
+    for job in ex.jobs.values():
+        losses = [m["loss"] for m in job.trainer.metrics_log]
+        assert all(math.isfinite(x) for x in losses), losses
+        # a cold switch stops for less than its prep; one whose prep was a
+        # cache lookup stops for the swap alone, well under a step
+        recs = job.trainer.controller.history
+        assert all(r.stop_time < 0.05 if r.compile_cache_hit
+                   else r.stop_time < r.prep_time for r in recs), \
+            [r.summary() for r in recs]
+    assert stats["finished"] == 2 and stats["conserved"]
+    assert [j["steps_done"] for j in stats["jobs"]] == [10, 4]

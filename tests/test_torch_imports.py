@@ -12,7 +12,10 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 MODULES = [
     "repro_torch", "repro_torch.bridge", "repro_torch.devices",
     "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
-    "repro_torch.cluster", "repro_torch.cluster.job",
+    "repro_torch.chaos", "repro_torch.chaos.inject",
+    "repro_torch.chaos.plan",
+    "repro_torch.cluster", "repro_torch.cluster.executor",
+    "repro_torch.cluster.job", "repro_torch.cluster.policy",
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.edl_paper", "repro_torch.configs.rwkv6_1p6b",
     "repro_torch.core", "repro_torch.core.api",
@@ -28,15 +31,23 @@ MODULES = [
     "repro_torch.kernels.attention", "repro_torch.kernels.attention.ops",
     "repro_torch.kernels.launches", "repro_torch.kernels.rwkv",
     "repro_torch.kernels.rwkv.ops",
-    "repro_torch.launch", "repro_torch.launch.train",
+    "repro_torch.launch", "repro_torch.launch.cluster",
+    "repro_torch.launch.train",
     "repro_torch.models", "repro_torch.models.attention",
     "repro_torch.models.blocks", "repro_torch.models.layers",
     "repro_torch.models.model", "repro_torch.models.params",
     "repro_torch.models.ssm",
+    "repro_torch.obs", "repro_torch.obs.audit", "repro_torch.obs.bus",
+    "repro_torch.obs.events", "repro_torch.obs.metrics",
+    "repro_torch.obs.report", "repro_torch.obs.trace",
     "repro_torch.optim", "repro_torch.optim.optimizers",
     "repro_torch.parallel",
     "repro_torch.reshape", "repro_torch.reshape.apply",
     "repro_torch.reshape.plan", "repro_torch.reshape.spec",
+    "repro_torch.sched", "repro_torch.sched.base",
+    "repro_torch.sched.serving", "repro_torch.sched.simulator",
+    "repro_torch.sched.throughput", "repro_torch.sched.tiresias",
+    "repro_torch.sched.traffic", "repro_torch.sched.workload",
     "repro_torch.sharding",
     "repro_torch.training", "repro_torch.training.step",
 ]
