@@ -450,8 +450,11 @@ def test_launcher_refuses_serving_compile_cache_and_missing_card():
 
 
 def test_launcher_runs_smoke_tenants_on_cpu_slots(tmp_path, capsys):
-    """The entry point on four CPU slots, with telemetry and a trace: JSON
-    out, conservation, every record valid under both packages' schema."""
+    """The entry point on four CPU slots, with telemetry, a trace and the
+    speculative prefetch (the executor builds predicted slot sets through
+    the trainer's ``_build_exec(p, mp, devices=)``): JSON out,
+    conservation, prefetches built without failure, every record valid
+    under both packages' schema."""
     from repro.obs import report as ref_report
     from repro_torch.launch import cluster
     from repro_torch.obs import report
@@ -460,10 +463,13 @@ def test_launcher_runs_smoke_tenants_on_cpu_slots(tmp_path, capsys):
                        "--jobs", "a=vgg19:2:8@0,b=resnet50:1:8@0",
                        "--batch", "4", "--seq", "16", "--n-samples", "64",
                        "--d-partitions", "8", "--resched-every", "2",
-                       "--metrics-out", str(tel), "--trace-out", str(trace)])
+                       "--prefetch-shapes", "--metrics-out", str(tel),
+                       "--trace-out", str(trace)])
     assert rc == 0
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["conserved"] and stats["finished"] == 2
+    svc = stats["compile_service"]
+    assert svc["submitted"] > 0 and svc["failed"] == 0, svc
     for pkg in (report, ref_report):
         records = pkg.load(str(tel))
         assert records and pkg.validate(records) == []
