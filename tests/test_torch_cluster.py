@@ -357,8 +357,8 @@ def test_real_preemption_to_disk_and_readmission(tmp_path):
     """A scripted 0-slot target checkpoint-stops a live tenant to disk;
     re-admission restores it onto another slot set and it finishes with
     its step counter continuous."""
-    pol = ScriptedPolicy({2: {0: 0, 1: 3}, 5: {0: 2, 1: 1}})
-    ex, stats = run_real([spec("a", 2, 6), spec("b", 2, 8)], pol,
+    pol = ScriptedPolicy({2: {0: 0, 1: 3}, 6: {0: 2, 1: 1}})
+    ex, stats = run_real([spec("a", 2, 6), spec("b", 2, 12)], pol,
                          resched_every=1,
                          checkpointer=port_cluster.DiskCheckpointer(
                              str(tmp_path)))
