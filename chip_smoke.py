@@ -79,7 +79,28 @@ Phases, in order; any failure exits non-zero:
    (a)-(c) every tenant finishes its steps with finite losses and
    exactly-once data, every committed switch is stop-free (``stop_s <
    prep_s``, or under ``STOP_HIT_S`` where the prep was a cache lookup),
-   and the executor asserts slot conservation every round.
+   and the executor asserts slot conservation every round;
+10. the serving path: (a) ``repro_torch.core.serve_batch`` at full width
+   on one slot for ``edl_paper`` (fp32) and ``rwkv6_1p6b`` (bf16), batch 8,
+   prompt 64, 64 generated tokens, params and prompts from the seed: a
+   warm-up wave, then two timed waves, whose launches a decode step must
+   be one ``wkv6_fwd`` a layer (rwkv6) or none (edl_paper) and whose ids
+   must be the same; eight decode steps traced for kernels and the
+   device's idle share; ``prefill`` on the same prompts, which must launch
+   one ``flash_attn_fwd`` (edl_paper) or ``wkv6_fwd`` (rwkv6) a layer; the
+   decode's logits over the wave's tokens against the train-mode
+   forward's (teacher forcing), and prefill's against the decode's after
+   the last prompt token, within ``SERVE_TF_TOL``; for rwkv6 an fp32
+   control at full width, four layers, within 1e-4. (b) Phase 3 holds and
+   times ``flash_attn_fwd`` at the prefill shape (L 64) and phase 7
+   ``wkv6_fwd`` at a decode step's (L 1, nonzero s0, the same bits twice).
+   (c) ``ClusterExecutor`` on four slots: a full-width edl_paper live
+   serving tenant (rates 4 for 8 rounds, 16 for 24, 4 for 8; cap 4, at
+   most 3 replicas) beside a full-width edl_paper trainer under the
+   throughput policy in ``CrossTierPolicy``: the lull must loan slots to
+   the trainer and the spike reclaim them for the server's growth to 3,
+   every switch stop-free, the trainer never parked and its steps
+   numbered without a gap, slots conserved every round.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -97,8 +118,8 @@ in virtual-worker mode a step runs K shards at every (p, mp), so each
 kernel launches layers x K times a step, and a prep warms one shard. Then
 print
 ``{"backward_pair": {...}}`` (the two backward kernels together against
-SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the card
-line, and last
+SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the
+serving path's record, the card line, and last
 ``{"ok": true, "device": {...}}``.
 
 Peaks for the bounds are NVIDIA's published H100 SXM figures at 700 W.
@@ -128,6 +149,9 @@ ATT_MAIN_CASE = ("main_p1", 8, 12, 12, 1024, 1024, 64, True, 0, None,
                  "float32")
 # one virtual worker's shard of the main case (batch 8, K = 8)
 ATT_VW_CASE = ("vw_b1", 1, 12, 12, 1024, 1024, 64, True, 0, None, "float32")
+# edl_paper's prefill of a serving wave's prompt (phase 10): B 8, L 64
+ATT_PREFILL_CASE = ("prefill_l64", 8, 12, 12, 64, 64, 64, True, 0, None,
+                    "float32")
 # one model shard of the main case at mp = 2 and mp = 4 (H / mp heads)
 ATT_MP_CASES = [("main_mp2", 8, 6, 6, 1024, 1024, 64, True, 0, None,
                  "float32"),
@@ -138,6 +162,7 @@ ATT_CASES = [
     ("main_p2", 4, 12, 12, 1024, 1024, 64, True, 0, None, "float32"),
     ATT_VW_CASE,
     *ATT_MP_CASES,
+    ATT_PREFILL_CASE,
     ("gqa", 2, 8, 2, 512, 512, 64, True, 0, None, "float32"),
     ("window", 2, 4, 4, 1024, 1024, 64, True, 200, None, "float32"),
     ("ragged", 2, 4, 2, 1000, 1000, 64, True, 0, None, "float32"),
@@ -152,8 +177,8 @@ ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
 # the same bits
 DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa")
 # the cases whose kernels are timed beside their bounds and SDPA
-TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0]) + tuple(
-    c[0] for c in ATT_MP_CASES)
+TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0], ATT_PREFILL_CASE[0]) + \
+    tuple(c[0] for c in ATT_MP_CASES)
 
 # name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
 # range the model's clip allows; a number sets every logw to it
@@ -168,6 +193,8 @@ WKV_CASES = [
     ("hd16", 2, 300, 8, 16, "model"),
     ("hd32", 2, 300, 8, 32, "model"),
 ]
+# one decode step of rwkv6 (phase 10): L = 1, the state carried in s0
+WKV_DECODE_CASE = ("decode_l1", 8, 1, 32, 64, "model")
 # fp32 kernels against fp32 plain versions that sum in another order: each
 # output within WKV_TOL of the plain output's largest entry
 WKV_TOL = 1e-4
@@ -253,6 +280,39 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def traced(torch, run) -> dict:
+    """``run()`` under ``torch.profiler``, then synchronized: its kernels'
+    breakdown (``tools/torch_step_profile.kernel_breakdown``: device ms by
+    group, busy and traced-window ms, kernel count, idle share)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    if os.path.join(ROOT, "tools") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from torch_step_profile import kernel_breakdown
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return kernel_breakdown(path)
+
+
+def device_ms(torch, fn, reps: int = 50) -> float:
+    """Mean device time of ``fn``'s kernels a call, from their own
+    durations in a trace of ``reps`` calls after one warm call. At shapes
+    this small back-to-back calls under CUDA events time the host's
+    launches, not the kernel."""
+    fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    return traced(torch, run)["busy_ms"] / reps
 
 
 def visible_pairs(torch, Lq, Lk, causal, window, kv_len) -> int:
@@ -467,6 +527,19 @@ def check_attention(torch, ops):
                 library_ms=library[kname],
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, L=Lq, D=D, causal=causal,
                            window=window, dtype=dname))
+        if name == ATT_PREFILL_CASE[0]:
+            # a few microseconds of work: the kernels' own durations too
+            records["flash_attn_fwd"].update(
+                device_ms=device_ms(torch, kern["flash_attn_fwd"]),
+                library_device_ms=device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal)))
+            print(f"  case {name:15s} flash_attn_fwd       "
+                  f"{records['flash_attn_fwd']['ms'] * 1e3:.2f} us back to "
+                  f"back, {records['flash_attn_fwd']['device_ms'] * 1e3:.2f}"
+                  f" us of device time; SDPA {lib_fwd * 1e3:.2f} us, "
+                  f"{records['flash_attn_fwd']['library_device_ms'] * 1e3:.2f}"
+                  f" us", flush=True)
         if name != ATT_MAIN_CASE[0]:
             continue
         # the backward pair against SDPA's backward, which computes dq, dk
@@ -639,6 +712,52 @@ def check_wkv(torch, wops):
         records["wkv6_bwd_dk"]["du_library_ms"] = cuda_ms(
             torch, lambda: du_part.sum(0))
     return records
+
+
+def check_wkv_decode(torch, wops) -> dict:
+    """Phase 7's decode case (``WKV_DECODE_CASE``): ``wkv6_fwd`` at L = 1
+    with a nonzero s0, the shape each decode step of rwkv6 gives it, held
+    against its plain version, run twice for the same bits, and timed
+    beside the plain version and its byte bound. Returns its record."""
+    name, B, L, H, hd, logw_kind = WKV_DECODE_CASE
+    r, k, v, logw, u, s0, _, _ = wkv_inputs(torch, B, L, H, hd, logw_kind,
+                                            len(WKV_CASES))
+    run = lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0)
+    got = run()
+    torch.cuda.synchronize()
+    want = wops.wkv6_fwd_plain(r, k, v, logw, u, s0)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    mags = [float(w.abs().max()) for w in want]
+    rel = max(e / max(m, 1e-30) for e, m in zip(errs, mags))
+    ok = finite and all(e <= WKV_TOL * m for e, m in zip(errs, mags))
+    same = same_bits_twice(torch, run)
+    print(f"  case {name:13s} wkv6_fwd     max_abs_err {max(errs):.3e} "
+          f"max err/max|plain| {rel:.2e} tol {WKV_TOL:g} "
+          f"{'ok' if ok else 'FAIL'}; run twice: y and sT "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    if not ok or not same:
+        fail(f"wkv6_fwd at L = 1 (finite {finite}, same bits {same}): "
+             f"errors {errs}, largest plain entries {mags}")
+    nbytes, flops = wkv_work(B, L, H, hd)["wkv6_fwd"]
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    rec = {"max_abs_err": max(errs), "max_rel_err": rel,
+           "tolerance": WKV_TOL, "tolerance_scale": "max|plain|",
+           "ms": cuda_ms(torch, run, reps=200, warm=10),
+           "plain_ms": cuda_ms(torch, lambda: wops.wkv6_fwd_plain(
+               r, k, v, logw, u, s0), reps=20, warm=2),
+           "device_ms": device_ms(torch, run),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes > t_ops else "operations",
+           "bytes": nbytes, "flops": flops, "library_ms": None,
+           "shape": dict(B=B, L=L, H=H, hd=hd, logw=logw_kind,
+                         dtype="float32")}
+    print(f"  case {name:13s} wkv6_fwd     {rec['ms'] * 1e3:.2f} us back to "
+          f"back, {rec['device_ms'] * 1e3:.2f} us of device time, plain "
+          f"{rec['plain_ms'] * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.2f}"
+          f" us ({rec['bound_by']})", flush=True)
+    return rec
 
 
 def slot_steps(events: list, steps: int, init: tuple[int, int]) -> int:
@@ -1568,6 +1687,371 @@ def run_cluster_path(torch, launches_of, kernels, per_shard: dict,
     return out
 
 
+# phase 10: the serving path on the card. (a) ``serve_batch`` on one slot
+# at full width: a wave feeds SERVE_PROMPT prompt tokens one at a time
+# through ``serve_step``, then decodes SERVE_GEN greedy tokens, for
+# SERVE_BATCH sequences; params and prompts from the seed
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_WAVES = 8, 64, 64, 2
+SERVE_ARCHS = ("edl-paper", "rwkv6-1.6b")
+# Teacher forcing: the decode's logits over a wave's prompt and generated
+# tokens against the train-mode forward's over the same tokens, max |diff|
+# over max |train-mode logit|; prefill's logits against the decode's after
+# the last prompt token by the same measure. Both are read at two points of
+# the same seed: the reference's init ("init", whose stacked layer matrices
+# have std 1/sqrt(n_periods)) and those matrices rescaled to 1/sqrt(d_in)
+# ("fan_in", tools/torch_serve_probe.fan_in_scaled, the well-conditioned
+# point of tests/test_torch_model.py). SERVE_TF_GATED names the points each
+# tolerance holds at; the other reading is printed and recorded.
+# - edl_paper (fp32): 1e-4 at "fan_in", where the card read 2.2e-6. At the
+#   reference's init the fp32 forward is ill-conditioned (ROADMAP C): the
+#   card read 9.7e-5 there (NVIDIA H100 80GB HBM3, 700.00 W), where decode
+#   and the train-mode forward sum in other orders.
+# - rwkv6-1.6b (bf16): 0.2 at "init". Decode rounds the wkv state to bf16
+#   between tokens (the reference's semantics), the train-mode forward keeps
+#   it in fp32 across the sequence, and every bf16 matrix product rounds in
+#   another order at another shape. The gap grows with depth: on the card
+#   at d_model 2048, 1.8e-2, 5.8e-2, 8.3e-2 and 0.148 at 1, 4, 8 and 24
+#   layers; at 24 layers 9.5e-2 to 1.08e-1 at d_model 256 to 1024; the CPU
+#   reads the same points within 7 %. So 0.2 is 1.35x the full
+#   config's reading, which is the same to four digits on every run. The
+#   rescale that conditions edl_paper does not condition rwkv6: at
+#   "fan_in" its gap grows with depth even in fp32 (0.21 at 24 layers), so
+#   that reading is recorded, not gated. (tools/torch_serve_probe.py --part
+#   tf; PERF.md section 6.)
+SERVE_TF_TOL = {"edl-paper": 1e-4, "rwkv6-1.6b": 0.2}
+SERVE_TF_GATED = {"edl-paper": ("fan_in",), "rwkv6-1.6b": ("init",)}
+# the rwkv6 decode path without bf16: full width in fp32, depth cut to
+# SERVE_CONTROL_LAYERS, teacher-forced within SERVE_CONTROL_TOL of the
+# largest logit at init (the card read 2.9e-5 and the CPU 4.4e-5 at this
+# point, against the CPU's 4.3e-6 at d_model 256 and 24 layers: the width
+# sets the reading, not the card)
+SERVE_CONTROL_LAYERS, SERVE_CONTROL_TOL = 4, 1e-4
+# decode steps traced for the device's busy and idle time
+SERVE_PROFILED_STEPS = 8
+# (c) the serving tier on CLUSTER_SLOTS slots: a full-width edl_paper live
+# serving tenant beside a full-width edl_paper trainer under the throughput
+# policy wrapped in CrossTierPolicy, on the reference's live test's trace
+SERVE_TIER_LULL = 8         # the trace's first rounds, at rate 4
+SERVE_TIER_TRACE = "/".join(["4"] * SERVE_TIER_LULL + ["16"] * 24 + ["4"] * 8)
+SERVE_TIER_JOBS = (f"api=resnet50:1:40:serve={SERVE_TIER_TRACE}:cap=4:max=3@0,"
+                   f"t=resnet50:1:100@0")
+
+
+def serve_probe():
+    """``tools/torch_serve_probe``: ``teacher_forced`` and
+    ``fan_in_scaled``."""
+    if os.path.join(ROOT, "tools") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_serve_probe
+    return torch_serve_probe
+
+
+def teacher_forcing_points(torch, cfg, params, prompts, tokens) -> dict:
+    """At "init" (``params``) and "fan_in" (them rescaled): the teacher
+    forcing gap over ``tokens`` and prefill's gap against the decode after
+    the prompt, each over the largest logit."""
+    from repro_torch.models import model as M
+    probe = serve_probe()
+    out = {}
+    for point in ("init", "fan_in"):
+        ps = params if point == "init" else probe.fan_in_scaled(params)
+        with torch.inference_mode():
+            pre = M.prefill(cfg, ps, {"tokens": prompts})
+        tf, after = probe.teacher_forced(cfg, ps, tokens, prompts.shape[1])
+        out[point] = {"teacher_forcing": tf, "prefill": float(
+            (pre - after).abs().max()) / float(after.abs().max())}
+        del ps, pre, after
+    return out
+
+
+def decode_profile(torch, cfg, params, decode) -> dict:
+    """``SERVE_PROFILED_STEPS`` decode steps from position SERVE_PROMPT
+    under ``torch.profiler``: kernels, device busy ms and traced window ms
+    a step, the idle share, and device ms by kernel group."""
+    from repro_torch.models.cache import init_cache
+    n = SERVE_PROFILED_STEPS
+    state = {"cache": init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + n,
+                                 pos=SERVE_PROMPT, device="cuda"),
+             "tok": torch.zeros((SERVE_BATCH, 1), dtype=torch.int32,
+                                device="cuda")}
+
+    def run():
+        for _ in range(n):
+            ids, state["cache"] = decode(params, {"tokens": state["tok"]},
+                                         state["cache"])
+            state["tok"] = ids[:, None]
+    bd = traced(torch, run)
+    return {"steps": n, "kernels_per_step": bd["n_kernels"] / n,
+            "busy_ms_per_step": bd["busy_ms"] / n,
+            "window_ms_per_step": bd["window_ms"] / n,
+            "idle_share": bd["idle_share"], "kernel_ms": bd["kernel_ms"],
+            "top": bd["top"]}
+
+
+def run_serve(torch, launches_of, arch: str) -> dict:
+    """Phase 10 (a) for ``arch`` at full width on one slot: a warm-up wave,
+    then SERVE_WAVES timed waves with the launch counts reset just before
+    and read just after, which must equal the prediction per decode step
+    (one ``wkv6_fwd`` a layer for rwkv6, no port kernel for edl_paper) and
+    give the same ids; a traced stretch of decode; ``prefill`` on the same
+    prompts, which must launch one forward kernel a layer; teacher forcing
+    and prefill within ``SERVE_TF_TOL``; for rwkv6 the fp32 control.
+    Returns a record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_decode_fn, serve_batch
+    from repro_torch.kernels.launches import KERNELS
+    from repro_torch.models import model as M
+    from repro_torch.models.cache import cache_bytes
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32).cuda()
+    decode = make_decode_fn(cfg)
+    t0 = time.monotonic()
+    serve_batch(cfg, params, prompts, SERVE_GEN, decode=decode)
+    warm_s = time.monotonic() - t0
+    steps = SERVE_PROMPT + SERVE_GEN
+    launches_of.reset()
+    waves, wave_s = [], []
+    for _ in range(SERVE_WAVES):
+        t0 = time.monotonic()
+        ids, cache = serve_batch(cfg, params, prompts, SERVE_GEN,
+                                 decode=decode)
+        wave_s.append(time.monotonic() - t0)
+        waves.append(ids)
+    launches = launches_of.snapshot()
+    per_step = {k: launches[k] / (SERVE_WAVES * steps) for k in KERNELS}
+    fwd = "wkv6_fwd" if cfg.family == "ssm" else "flash_attn_fwd"
+    want = dict.fromkeys(KERNELS, 0.0)
+    if cfg.family == "ssm":
+        want["wkv6_fwd"] = float(cfg.n_layers)
+    if per_step != want:
+        fail(f"serve {arch}: launches per decode step {per_step}, "
+             f"predicted {want}")
+    ids = waves[0]
+    if ids.shape != (SERVE_BATCH, SERVE_GEN) or ids.dtype != torch.int32 \
+            or not bool(((ids >= 0) & (ids < cfg.vocab)).all()) \
+            or int(cache["pos"]) != steps:
+        fail(f"serve {arch}: ids {tuple(ids.shape)} {ids.dtype}, cache at "
+             f"{int(cache['pos'])}")
+    if not all(torch.equal(w, ids) for w in waves[1:]):
+        fail(f"serve {arch}: two waves from the same prompts gave other ids")
+    prof = decode_profile(torch, cfg, params, decode)
+
+    launches_of.reset()
+    with torch.inference_mode():
+        pre = M.prefill(cfg, params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    pre_launches = launches_of.snapshot()
+    want_pre = {**dict.fromkeys(KERNELS, 0), fwd: cfg.n_layers}
+    if pre_launches != want_pre:
+        fail(f"prefill {arch}: launches {pre_launches}, predicted {want_pre}")
+
+    def run_prefill():
+        with torch.inference_mode():
+            M.prefill(cfg, params, {"tokens": prompts})
+    prefill_ms = cuda_ms(torch, run_prefill, reps=5, warm=1)
+    tokens = torch.cat([prompts, ids], dim=1)
+    gaps = teacher_forcing_points(torch, cfg, params, prompts, tokens)
+    tol, gated = SERVE_TF_TOL[arch], SERVE_TF_GATED[arch]
+    print(f"  ({arch}) B {SERVE_BATCH}, prompt {SERVE_PROMPT}, gen "
+          f"{SERVE_GEN}, {cfg.param_dtype}: params drawn and placed in "
+          f"{init_s:.2f} s; warm-up wave {warm_s:.2f} s; waves "
+          f"{[round(x * 1e3, 1) for x in wave_s]} ms, so "
+          f"{1e3 * min(wave_s) / steps:.2f} ms a decode step and "
+          f"{SERVE_BATCH * SERVE_GEN / min(wave_s):.1f} generated tok/s; "
+          f"same ids in both waves; launches a decode step {per_step}, as "
+          f"predicted; prefill launches {pre_launches[fwd]} {fwd} "
+          f"({prefill_ms:.2f} ms); cache {cache_bytes(cfg, SERVE_BATCH, steps) / 2 ** 20:.1f} MiB; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    print(f"    decode traced over {prof['steps']} steps: "
+          f"{prof['kernels_per_step']:.0f} kernels, device busy "
+          f"{prof['busy_ms_per_step']:.3f} ms of "
+          f"{prof['window_ms_per_step']:.3f} ms a step (idle "
+          f"{prof['idle_share']:.1%}); by group (ms) "
+          f"{ {k: round(v, 3) for k, v in prof['kernel_ms'].items()} }",
+          flush=True)
+    for point, g in gaps.items():
+        print(f"    teacher forcing over {tokens.shape[1]} tokens at "
+              f"{point}: max |decode - train-mode| / max |logit| "
+              f"{g['teacher_forcing']:.3e}; prefill against the decode "
+              f"after the last prompt token {g['prefill']:.3e}; "
+              + (f"tolerance {tol:g}" if point in gated else "not gated"),
+              flush=True)
+        if point in gated and not (g["teacher_forcing"] <= tol
+                                   and g["prefill"] <= tol):
+            fail(f"serve {arch}: at {point} teacher forcing "
+                 f"{g['teacher_forcing']:.3e} or prefill {g['prefill']:.3e}"
+                 f" beyond {tol:g}")
+    record = {"arch": arch, "dtype": cfg.param_dtype, "batch": SERVE_BATCH,
+              "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+              "params_init_s": init_s, "warmup_wave_s": warm_s,
+              "wave_ms": [x * 1e3 for x in wave_s],
+              "ms_per_decode_step": 1e3 * min(wave_s) / steps,
+              "generated_tok_per_s": SERVE_BATCH * SERVE_GEN / min(wave_s),
+              "launches": {k: launches[k] for k in KERNELS},
+              "launches_per_decode_step": per_step,
+              "prefill_launches": pre_launches, "prefill_ms": prefill_ms,
+              "decode_profile": prof, "teacher_forcing": gaps,
+              "tolerance": tol, "gated_at": list(gated),
+              "cache_bytes": cache_bytes(cfg, SERVE_BATCH, steps),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del params, cache, pre
+    if cfg.family == "ssm":
+        control = dataclasses.replace(cfg, n_layers=SERVE_CONTROL_LAYERS,
+                                      param_dtype="float32",
+                                      compute_dtype="float32")
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = M.init_params(control, torch.Generator().manual_seed(0),
+                               "cuda")
+        probe = serve_probe()
+        gap, _ = probe.teacher_forced(control, params, tokens, SERVE_PROMPT)
+        scaled = probe.fan_in_scaled(params)
+        gap_fan_in, _ = probe.teacher_forced(control, scaled, tokens,
+                                             SERVE_PROMPT)
+        print(f"    fp32 control at full width, {SERVE_CONTROL_LAYERS} "
+              f"layers: teacher forcing {gap:.3e} at init (tolerance "
+              f"{SERVE_CONTROL_TOL:g}), {gap_fan_in:.3e} at fan_in",
+              flush=True)
+        if not gap <= SERVE_CONTROL_TOL:
+            fail(f"serve {arch}: the fp32 control's teacher forcing "
+                 f"{gap:.3e} beyond {SERVE_CONTROL_TOL:g}")
+        record["fp32_control"] = {"init": gap, "fan_in": gap_fan_in}
+        del params, scaled
+    return record
+
+
+def run_serving_tier(torch, launches_of, kernels, per_shard: dict) -> dict:
+    """Phase 10 (c): ``SERVE_TIER_JOBS`` through ``ClusterExecutor`` on
+    ``CLUSTER_SLOTS`` slots of the card, both tenants full-width edl_paper
+    (``default_trainer_factory(..., smoke=False)``), round by round with
+    slot conservation checked after each; the launch counts reset just
+    before and read just after. The lull must loan slots to the trainer
+    and the spike reclaim them, every switch stop-free, the server grow to
+    its cap of 3, the trainer never parked and its steps numbered without a
+    gap; the attention launches must equal the trainer's prediction (the
+    decode launches none). Returns a record."""
+    from repro_torch.cluster import ClusterExecutor, DiskCheckpointer, \
+        JobState, make_policy
+    from repro_torch.cluster.executor import default_trainer_factory
+    from repro_torch.devices import slot_devices
+    from repro_torch.launch.cluster import parse_jobs
+    from repro_torch.sched.serving import CrossTierPolicy
+    specs = parse_jobs(SERVE_TIER_JOBS, **CLUSTER_JOB_KW)
+    built, warmed = [], []
+
+    def factory(spec, devices):
+        t0 = time.monotonic()
+        t = default_trainer_factory(spec, devices, smoke=False)
+        torch.cuda.synchronize()
+        built.append((spec.name, t, time.monotonic() - t0))
+        return t
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches_of.reset()
+    t0 = time.monotonic()
+    ex = ClusterExecutor(specs, CrossTierPolicy(make_policy("throughput")),
+                         devices=slot_devices(CLUSTER_SLOTS, "cuda"),
+                         resched_every=CLUSTER_RESCHED,
+                         trainer_factory=factory,
+                         checkpointer=DiskCheckpointer())
+    with counted_warm_ups(warmed):
+        try:
+            while ex.round < 400 and any(j.state is not JobState.FINISHED
+                                         for j in ex.jobs.values()):
+                ex.run(max_rounds=ex.round + 1)
+                held = sum(j.devices_held for j in ex.jobs.values())
+                if held + len(ex.free) != ex.n_gpus:
+                    fail(f"serving tier: round {ex.round}: {held} slots held "
+                         f"+ {len(ex.free)} free != {ex.n_gpus}")
+        finally:
+            ex.close()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    stats = ex.stats()
+    launches = launches_of.snapshot()
+    warm = launches_of.snapshot(warm=True)
+    events = stats["events"]
+    api, t = ex.jobs[0], ex.jobs[1]
+    if stats["finished"] != 2 or not stats["conserved"]:
+        fail(f"serving tier: finished {stats['finished']}, conserved "
+             f"{stats['conserved']}: {events}")
+    find = lambda op, job: [e for e in events
+                            if e["op"] == op and e["job"] == job]
+    loans = [e for e in find("scale_out", "t") if e["loaned"] > 0]
+    grow = [e for e in find("scale_out", "api") if e["to_p"] == 3]
+    reclaim = [e for e in find("scale_in", "t")
+               if grow and events.index(e) < events.index(grow[0])]
+    if not loans or not grow or not reclaim or \
+            loans[0]["round"] >= SERVE_TIER_LULL or \
+            events.index(loans[0]) > events.index(reclaim[0]) or \
+            find("preempt", "t"):
+        fail(f"serving tier: expected a loan to t in the lull, its reclaim "
+             f"funding api's growth to 3, and no preemption of t: {events}")
+    trainers = [x for n, x, _ in built if n == "t"]
+    steps = [m["step"] for m in trainers[0].metrics_log]
+    losses = [m["loss"] for m in trainers[0].metrics_log]
+    if len(trainers) != 1 or steps != list(range(1, 101)) or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"serving tier: t built {len(trainers)} times, steps {steps}")
+    records = [r.summary() for r in trainers[0].controller.history]
+    for r in records:
+        if r["cache_hit"] and not r["stop_s"] < STOP_HIT_S or \
+                not r["cache_hit"] and not r["stop_s"] < r["prep_s"]:
+            fail(f"serving tier: t's switch was not stop-free: {r}")
+    n_shards = sum(m["p"] for m in trainers[0].metrics_log)
+    per_shard_got = check_launches("serving tier", launches, warm, kernels,
+                                   per_shard, n_shards, sum(warmed))
+    waves = [m for n, x, _ in built if n == "api" for m in x.metrics_log]
+    wave_ms = [m["p99_ms"] / m["waves"] for m in waves if m["waves"]]
+    print(f"  (tier) api serves rates 4 x {SERVE_TIER_LULL}, 16 x 24, 4 x 8 "
+          f"(cap 4, max 3 replicas) beside t (100 steps): "
+          f"{stats['rounds']} rounds in "
+          f"{seconds:.2f} s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB; slots conserved every round", flush=True)
+    for e in events:
+        print(f"    round {e['round']:3d} {e['op']:>10s} {e['job'] or '-':>3s} "
+              f"p {e['from_p']} -> {e['to_p']} loaned {e['loaned']} slots "
+              f"{e.get('devices')}", flush=True)
+    for r in records:
+        print(f"    t {r['op']} {r['from_p']} -> {r['to_p']}: stop_s "
+              f"{r['stop_s']} prep_s {r['prep_s']} cache_hit "
+              f"{r['cache_hit']}", flush=True)
+    print(f"    api: {api.rounds_served} rounds served, wave ms median "
+          f"{sorted(wave_ms)[len(wave_ms) // 2]:.1f} (min {min(wave_ms):.1f},"
+          f" max {max(wave_ms):.1f}), slo_attainment "
+          f"{stats['slo_attainment']} at {api.spec.slo_ms} ms, max replicas "
+          f"{max(m['p'] for m in waves)}; t: steps 1..{steps[-1]} without a "
+          f"gap, losses {losses[0]:.4f} -> {losses[-1]:.4f}, never parked; "
+          f"builds (s) {[(n, round(s, 2)) for n, _, s in built]}; launches "
+          f"{ {k: launches[k] for k in kernels} }, warm-ups "
+          f"{ {k: warm[k] for k in kernels} } ({sum(warmed)} shards warmed),"
+          f" per shard stepped {per_shard_got}, as predicted", flush=True)
+    return {"jobs": SERVE_TIER_JOBS, "seconds": seconds,
+            "rounds": stats["rounds"], "events": events,
+            "switches": records, "wave_ms": wave_ms,
+            "slo_attainment": stats["slo_attainment"],
+            "slo_ms": api.spec.slo_ms,
+            "rounds_served": api.rounds_served,
+            "trainer_losses": losses,
+            "builds_s": [(n, s) for n, _, s in built],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: launches[k] for k in kernels},
+            "warmup_launches": {k: warm[k] for k in kernels},
+            "launches_per_shard_step": per_shard_got}
+
+
 def shape_record(r: dict) -> dict:
     """A kernel's record at one more timed shape, for its kernel entry."""
     return {**{k: r[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
@@ -1589,12 +2073,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/10] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/11] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/10] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/11] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     if sorted(built) != sorted(build.SOURCES):
@@ -1604,35 +2088,36 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/10] attention kernels against their plain versions", flush=True)
+    print("[3/11] attention kernels against their plain versions", flush=True)
     timed, pair = check_attention(torch, aops)
     records = dict(timed[ATT_MAIN_CASE[0]])
 
     edl = get_config("edl-paper")
-    print("[4/10] edl_paper path: python -m repro_torch.launch.train "
+    print("[4/11] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # forward, dq and dkdv once per layer and shard
     edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
     paths = {"edl-paper": run_path(
         torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
 
-    print("[5/10] edl_paper virtual-worker path: python -m "
+    print("[5/11] edl_paper virtual-worker path: python -m "
           "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
     vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
 
-    print("[6/10] edl_paper model-parallel path on four slots of the card",
+    print("[6/11] edl_paper model-parallel path on four slots of the card",
           flush=True)
     mp = run_mp_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard,
                      paths["edl-paper"],
                      vw["runs"]["static"]["losses"][:VW_STEPS])
 
-    print("[7/10] WKV6 kernels against their plain versions", flush=True)
+    print("[7/11] WKV6 kernels against their plain versions", flush=True)
     records.update(check_wkv(torch, wops))
+    wkv_decode = check_wkv_decode(torch, wops)
 
     rwkv = get_config("rwkv6-1.6b")
-    print("[8/10] rwkv6 path: python -m repro_torch.launch.train "
+    print("[8/11] rwkv6 path: python -m repro_torch.launch.train "
           + " ".join(RWKV_ARGS), flush=True)
     # each kernel once per layer and shard; remat runs the forward again
     rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
@@ -1681,7 +2166,7 @@ def main() -> int:
                 name: {"launches": run["launches"][kname],
                        "warmup_launches": run["warmup_launches"][kname]}
                 for name, run in mp["runs"].items()}
-    print(f"[9/10] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
+    print(f"[9/11] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
           f"ClusterExecutor with full-width edl_paper tenants, then "
           f"repro_torch.launch.cluster.main", flush=True)
     cluster = run_cluster_path(torch, LAUNCHES, aops.KERNELS, edl_shard,
@@ -1694,8 +2179,37 @@ def main() -> int:
                        "warmup_launches":
                            run["warmup_launches"][entry["name"]]}
                 for name, run in cluster.items()}
+    print("[10/11] the serving path: serve_batch at full width on one slot "
+          "(edl_paper fp32, rwkv6-1.6b bf16), then a live serving tenant "
+          "beside a trainer on four slots", flush=True)
+    serving = {arch: run_serve(torch, LAUNCHES, arch) for arch in SERVE_ARCHS}
+    serving["tier"] = run_serving_tier(torch, LAUNCHES, aops.KERNELS,
+                                       edl_shard)
+    for entry in kernels:
+        name = entry["name"]
+        if name == "flash_attn_fwd":
+            prefill = timed[ATT_PREFILL_CASE[0]][name]
+            entry["serving_path"] = {
+                "prefill_shape": {**shape_record(prefill), **{
+                    k: prefill[k] for k in ("device_ms",
+                                            "library_device_ms")}},
+                "prefill_launches": serving["edl-paper"][
+                    "prefill_launches"][name],
+                "decode_launches": serving["edl-paper"]["launches"][name],
+                "tier_launches": serving["tier"]["launches"][name],
+                "tier_warmup_launches": serving["tier"][
+                    "warmup_launches"][name]}
+        elif name == "wkv6_fwd":
+            entry["serving_path"] = {
+                "decode_shape": {**shape_record(wkv_decode), **{
+                    k: wkv_decode[k] for k in ("max_rel_err", "device_ms")}},
+                "decode_launches": serving["rwkv6-1.6b"]["launches"][name],
+                "decode_launches_per_step": serving["rwkv6-1.6b"][
+                    "launches_per_decode_step"][name],
+                "prefill_launches": serving["rwkv6-1.6b"][
+                    "prefill_launches"][name]}
     print(f"  {card}", flush=True)
-    print("[10/10] results; library_ms is F.scaled_dot_product_attention for "
+    print("[11/11] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd, its whole "
           "backward for both backward kernels) and null for the WKV6 "
           "kernels, whose outputs no single PyTorch call computes; "
@@ -1709,6 +2223,7 @@ def main() -> int:
            for name, run in paths.items()},
         "virtual_workers": vw, "model_parallel": mp, "cluster": cluster},
         "card": card}))
+    print(json.dumps({"serving": serving, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

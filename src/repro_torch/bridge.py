@@ -1,8 +1,9 @@
-"""Move parameter and train-state trees between numpy and the port.
+"""Move parameter, train-state and decode-cache trees between numpy and the
+port.
 
-The JAX package's ``init_params`` and train-state trees, converted leaf by
-leaf with ``np.asarray``, load into the port with the same paths, shapes and
-dtypes; ``to_numpy`` goes back. A bfloat16 leaf (the 2-byte extension
+The JAX package's ``init_params``, train-state and ``init_cache`` trees,
+converted leaf by leaf with ``np.asarray``, load into the port with the
+same paths, shapes and dtypes; ``to_numpy`` goes back. A bfloat16 leaf (the 2-byte extension
 dtype JAX hands numpy) is reinterpreted bit for bit; it goes back as
 float32, since numpy itself has no bfloat16. ``shard_state_from_numpy``
 lands a numpy train state on a trainer's model shards at any (dp, mp).
@@ -26,13 +27,15 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, device) -> dict:
-    """A numpy parameter tree as the port's tensor tree on ``device``."""
+    """A numpy tree as the port's tensor tree on ``device``: parameters, or
+    a whole train state (``params``, ``opt``, ``step``), whose scalars stay
+    0-d tensors of their dtype."""
     return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
 
 
-def state_from_numpy(tree: dict, device) -> dict:
-    """A numpy train-state tree (``params``, ``opt``, ``step``) as the port's
-    tensor tree on ``device``; scalars stay 0-d tensors of their dtype."""
+def cache_from_numpy(tree: dict, device) -> dict:
+    """A numpy decode cache (``layers`` and ``pos``) as the port's on
+    ``device``; ``pos`` stays a 0-d int32 tensor."""
     return params_from_numpy(tree, device)
 
 
@@ -49,7 +52,8 @@ def shard_state_from_numpy(tree: dict, spec, devices):
 
 
 def to_numpy(tree: dict) -> dict:
-    """The port's tensor tree as numpy, bfloat16 leaves as float32."""
+    """The port's tensor tree (params, train state or decode cache) as
+    numpy, bfloat16 leaves as float32."""
     def one(t: torch.Tensor):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:

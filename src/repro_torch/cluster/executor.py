@@ -83,14 +83,15 @@ from repro_torch.sched.base import normalize_target
 
 def default_trainer_factory(spec: JobSpec, devices: list, *,
                             smoke: bool = True):
-    """Build the live ElasticTrainer owning exactly ``devices`` (a whole
-    number of mp-sized groups, each one data-parallel replica of the
-    ``(data, model)`` layout), on the spec's arch at its SMOKE width as the
-    reference's factory does; ``smoke=False`` builds the full CONFIG. The
-    serving tier is not ported: a serving spec raises."""
+    """Build the live engine owning exactly ``devices``: an ElasticTrainer
+    for training specs (a whole number of mp-sized groups, each one
+    data-parallel replica of the ``(data, model)`` layout), a replicated
+    inference engine for serving-tier specs; each on the spec's arch at its
+    SMOKE width as the reference's factory does, and ``smoke=False`` builds
+    the full CONFIG."""
     if getattr(spec, "tier", "training") == "serving":
-        raise NotImplementedError(
-            f"{spec.name}: the serving tier is not ported yet (ROADMAP A6)")
+        from repro_torch.cluster.serving import make_serving_engine
+        return make_serving_engine(spec, devices, smoke=smoke)
     from repro_torch.configs import get_config
     from repro_torch.core import ElasticTrainer
     from repro_torch.optim import adamw

@@ -69,8 +69,9 @@ class JobSpec:
     training workload is the (transformer) ``arch`` config.
 
     ``tier`` distinguishes tenant classes: training specs build
-    ``ClusterJob`` + ``ElasticTrainer``. The reference's serving specs
-    (tier "serving") are not ported: ``make_cluster_job`` refuses them.
+    ``ClusterJob`` + ``ElasticTrainer``; serving specs
+    (``repro_torch.cluster.serving.ServingSpec``, tier "serving") build
+    ``ServingJob`` + a replicated inference engine.
     """
     tier: ClassVar[str] = "training"
     name: str
@@ -299,12 +300,10 @@ class ClusterJob:
 
 
 def make_cluster_job(jid: int, spec: JobSpec) -> ClusterJob:
-    """Build the executor-side job object for ``spec``. The serving tier
-    needs a decode path the port does not have yet: a serving spec
-    raises."""
+    """Build the executor-side job object for ``spec``, dispatching on the
+    spec's tenant tier (lazy import: serving is optional machinery the
+    training-only paths never pay for)."""
     if getattr(spec, "tier", "training") == "serving":
-        raise NotImplementedError(
-            f"{spec.name}: the serving tier (the reference's "
-            f"cluster/serving.py) is not ported yet; it needs the decode "
-            f"path (ROADMAP A6)")
+        from repro_torch.cluster.serving import ServingJob
+        return ServingJob(jid, spec)
     return ClusterJob(jid, spec)

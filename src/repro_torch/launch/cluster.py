@@ -56,18 +56,22 @@ jobs, steps=LO:HI, mp=1:2 — colon-separated model-parallel degrees drawn
 per job for a mixed-mp population; the degree ``auto`` draws
 reshape-able tenants).
 
-Not ported yet, and refused when parsed: ``serve=`` tenants (the serving
-tier, ROADMAP A6) and ``--compile-cache`` (the reference's persistent XLA
-cache has no counterpart).
+A ``serve=TRACE`` tenant is a serving replica set (the serving tier,
+``repro_torch.cluster.serving``) whose demand follows the request-rate
+trace; any serving tenant wraps the policy in ``CrossTierPolicy``, so a
+lull loans its slots to training and a spike reclaims them stop-free:
+
+  python -m repro_torch.launch.cluster --devices 4 --policy throughput \
+      --jobs "api=resnet50:1:12:serve=4/4/4/16/16/16/16/16/16/4/4/4:cap=4\
+:max=3@0,t=resnet50:1:40@0"
+
+Not ported, and refused: ``--compile-cache`` (the reference's persistent
+XLA cache has no counterpart).
 """
 import argparse
 import json
 import sys
 import time
-
-SERVING_KEYS = ("serve", "slo", "cap", "min", "max", "peak", "base",
-                "period")
-
 
 def parse_jobs(text: str, *, batch: int, seq: int, n_samples: int,
                d_partitions: int, default_mp: int = 1):
@@ -82,10 +86,15 @@ def parse_jobs(text: str, *, batch: int, seq: int, n_samples: int,
     (every dp must divide K). ``default_mp`` applies to jobs without an
     explicit ``mp=`` (the bench's --model-parallel knob).
 
-    ``arch=A`` names the tenant's model config. The reference's
-    ``serve=TRACE`` tenants and their knobs (``slo``, ``cap``, ``min``,
-    ``max``, ``peak``, ``base``, ``period``) raise ``ValueError``: the
-    serving tier is not ported yet."""
+    ``serve=TRACE`` makes the tenant a SERVING job instead (tier
+    "serving", repro_torch.cluster.serving): TRACE is ``diurnal`` /
+    ``spike`` / ``flat`` or a literal ``/``-separated rate list;
+    ``requested_p`` becomes the reserved replica count, ``total_steps`` the
+    trace length in served rounds. Serving knobs (all ``key=value``
+    extras): ``slo=MS`` (p99 SLO, default 250), ``cap=R`` (requests per
+    replica per wave), ``peak=``/``base=``/``period=`` (trace synthesis),
+    ``min=``/``max=`` (replica bounds), ``arch=`` (model config; also valid
+    on training jobs)."""
     from repro_torch.cluster.job import JobSpec
     specs = []
     for i, item in enumerate(text.split(",")):
@@ -94,25 +103,40 @@ def parse_jobs(text: str, *, batch: int, seq: int, n_samples: int,
         profile, req_p, steps, *extras = body.split(":")
         mp, mp_auto = default_mp, False
         vw: int | str = 0
+        serve = None
         arch = None
+        trace_kw: dict = {}
+        serve_kw: dict = {}
         for extra in extras:
             key, eq, val = extra.partition("=")
-            if key in SERVING_KEYS and eq:
-                raise ValueError(
-                    f"job {name!r}: {extra!r}: serving tenants are not "
-                    f"ported yet (ROADMAP A6)")
             if key == "mp" and eq and val == "auto":
                 mp, mp_auto = 1, True
             elif key == "mp" and eq:
                 mp = int(val)
             elif key == "vw" and eq:
                 vw = val if val == "auto" else int(val)
+            elif key == "serve" and eq:
+                serve = val
             elif key == "arch" and eq:
                 arch = val
+            elif key == "slo" and eq:
+                serve_kw["slo_ms"] = float(val)
+            elif key == "cap" and eq:
+                serve_kw["replica_capacity"] = int(val)
+            elif key == "min" and eq:
+                serve_kw["min_replicas"] = int(val)
+            elif key == "max" and eq:
+                serve_kw["max_replicas"] = int(val)
+            elif key in ("peak", "base") and eq:
+                trace_kw[key] = float(val)
+            elif key == "period" and eq:
+                trace_kw["period"] = int(val)
             else:
                 raise ValueError(
                     f"job {name!r}: unknown spec field {extra!r} "
-                    f"(supported: mp=M, mp=auto, vw=K, vw=auto, arch=A)")
+                    f"(supported: mp=M, mp=auto, vw=K, vw=auto, arch=A, "
+                    f"serve=TRACE, slo=MS, cap=R, min=P, max=P, peak=X, "
+                    f"base=X, period=N)")
         common = dict(
             name=name.strip(), profile=profile, requested_p=int(req_p),
             total_steps=int(steps), arrival=float(arrival or 0.0),
@@ -120,6 +144,20 @@ def parse_jobs(text: str, *, batch: int, seq: int, n_samples: int,
             d_partitions=d_partitions, seed=i)
         if arch is not None:
             common["arch"] = arch
+        if serve is not None:
+            if vw or mp_auto:
+                raise ValueError(f"job {name!r}: serve= is incompatible "
+                                 f"with vw= and mp=auto")
+            from repro_torch.cluster.serving import ServingSpec
+            from repro_torch.sched.traffic import parse_trace
+            trace = parse_trace(serve, rounds=int(steps), **trace_kw)
+            specs.append(ServingSpec(model_parallel=mp, trace=trace,
+                                     **serve_kw, **common))
+            continue
+        if serve_kw or trace_kw:
+            bad = sorted(set(serve_kw) | set(trace_kw))
+            raise ValueError(f"job {name!r}: serving knobs {bad} need "
+                             f"serve=TRACE")
         specs.append(JobSpec(model_parallel=mp, mp_auto=mp_auto,
                              virtual_workers=vw, **common))
     return specs
@@ -262,6 +300,11 @@ def main(argv=None):
         policy_kw["quanta"] = tuple(
             float(q) for q in args.quanta.split(","))
     policy = make_policy(args.policy, **policy_kw)
+    if any(getattr(s, "tier", "training") == "serving" for s in specs):
+        # reclaim priority for the serving tier regardless of the base
+        # policy; a no-op wrapper around already-serving-aware policies
+        from repro_torch.sched.serving import CrossTierPolicy
+        policy = CrossTierPolicy(policy)
     model = (MeasuredModel() if args.throughput_model == "measured"
              else AnalyticModel())
     faults = None
@@ -344,6 +387,11 @@ def main(argv=None):
               f"{stats['n_gpus_initial']} -> {stats['n_gpus']}; "
               f"{stats['recoveries']} recoveries"
               + (f" (mean latency {lat}s)" if lat is not None else ""))
+    if "slo_attainment" in stats:
+        att = stats["slo_attainment"]
+        print(f"serving: {stats['rounds_served']} round(s) served, "
+              f"{stats['slo_breaches']} SLO breach(es), p99 attainment "
+              + (f"{att:.1%}" if att is not None else "-"))
     return 0
 
 

@@ -9,7 +9,9 @@ Ported mixers: ``attn`` (GQA) and ``rwkv_tm``; ffns: ``mlp`` and
 ``block_forward`` runs a block over the model axis: the norms whole on
 the residual stream's device, the mixer and the FFN tensor-parallel where
 they have that form (``attn`` and ``mlp``), whole otherwise — at mp = 1
-every leaf is whole and the block is the plain one, op for op.
+every leaf is whole and the block is the plain one, op for op. With a
+decode cache (mp = 1 only) the mixer and the FFN run whole and write
+their parts of the block's cache in place.
 """
 from __future__ import annotations
 
@@ -56,9 +58,12 @@ MIXERS = {
     "attn": (attention.attention_specs, attention.attention_forward),
     "rwkv_tm": (ssm.rwkv_tm_specs, ssm.rwkv_tm_forward),
 }
+MIXER_CACHES = {"attn": attention.attention_cache_spec,
+                "rwkv_tm": ssm.rwkv_cache_spec}
 FFNS = {
     "mlp": (lambda cfg: mlp_specs(cfg.d_model, cfg.d_ff),
-            lambda cfg, p, h: (apply_mlp(p, h, dt(cfg, "compute")), None)),
+            lambda cfg, p, h, cache=None: (
+                apply_mlp(p, h, dt(cfg, "compute")), None)),
     "rwkv_cm": (ssm.rwkv_cm_specs, ssm.rwkv_cm_forward),
 }
 
@@ -76,26 +81,36 @@ def block_specs(cfg, mixer: str, ffn: str) -> dict:
             "ffn": FFNS[ffn][0](cfg)}
 
 
+def block_cache_spec(cfg, mixer: str, batch: int, max_seq: int) -> dict:
+    """The block's decode cache; the RWKV6 mixer's also holds the
+    channel-mix's shift state."""
+    if mixer not in MIXER_CACHES:
+        raise NotImplementedError(f"mixer {mixer} is not yet ported")
+    return MIXER_CACHES[mixer](cfg, batch, max_seq)
+
+
 MIXERS_TP = {"attn": attention.attention_forward_tp}
 FFNS_TP = {"mlp": lambda cfg, sp, h: apply_mlp_tp(sp, h, dt(cfg, "compute"))}
 
 
 def block_forward(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
-                  ffn: str, positions: torch.Tensor):
+                  ffn: str, positions: torch.Tensor, cache=None):
     """One block over the model axis of a data group; ``x`` is the residual
     stream on the group's first slot. A mixer or FFN with no
-    tensor-parallel form runs whole there. Returns (x, aux_loss)."""
+    tensor-parallel form runs whole there, and so does every one against a
+    decode ``cache`` (the block's slice of it, written in place). Returns
+    (x, aux_loss)."""
     _require_ported(mixer, ffn)
     h = apply_rmsnorm(sp["norm1"].whole(), x, cfg.norm_eps)
-    if mixer in MIXERS_TP:
+    if mixer in MIXERS_TP and cache is None:
         mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions)
     else:
         mix_out, _ = MIXERS[mixer][1](cfg, sp["mixer"].whole(), h,
-                                      positions=positions)
+                                      positions=positions, cache=cache)
     x = x + mix_out
     h = apply_rmsnorm(sp["norm2"].whole(), x, cfg.norm_eps)
-    if ffn in FFNS_TP:
+    if ffn in FFNS_TP and cache is None:
         f = FFNS_TP[ffn](cfg, sp["ffn"], h)
     else:
-        f, _ = FFNS[ffn][1](cfg, sp["ffn"].whole(), h)
+        f, _ = FFNS[ffn][1](cfg, sp["ffn"].whole(), h, cache=cache)
     return x + f, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,5 +1,6 @@
-"""Top-level language model: param specs, init, the train-mode forward over
-the stacked block periods, and the chunked cross-entropy loss.
+"""Top-level language model: param specs, init, the forward over the
+stacked block periods (train / prefill / decode), the chunked cross-entropy
+loss, and the serving entry points ``prefill`` and ``serve_step``.
 
 The reference scans the periods with ``lax.scan``; here the forward is a
 Python loop over them, reading period i of each stacked ``[n_periods, ...]``
@@ -14,7 +15,12 @@ axis of one data group (``parallel.ShardedParams``) — vocab-parallel
 embedding, tensor-parallel blocks, and a vocab-parallel unembedding and
 cross-entropy at the same ``loss_chunk`` — and each leaf the layout leaves
 whole runs its plain layer. ``forward`` and ``loss_fn`` call them on the
-one shard of mp = 1, where every leaf is whole.
+one shard of mp = 1, where every leaf is whole. The prefill and decode
+modes run at mp = 1, where the reference's live serving engine runs; at
+mp > 1 they raise (ROADMAP A7). Decode hands period i a view of row i of
+each stacked cache leaf, which its blocks write in place, and advances
+``pos`` in place: a token moves its own slots of the cache, where the
+reference's scan returns a new one.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.launches import recompute_context
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import apply_embed_tp, \
+from repro_torch.models.layers import apply_embed_tp, apply_linear, \
     apply_rmsnorm, dt, embed_specs, rmsnorm_specs, unembed_specs
 from repro_torch.models.params import ShardedInit, fit_chunk, tree_leaves, \
     tree_map, tree_unflatten
@@ -59,12 +65,28 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
 
 
 # ------------------------------------------------------------------ forward
-def forward(cfg, params, batch, *, mode: str = "train"):
-    """mode 'train' -> (hidden [B,L,D], aux): ``forward_tp`` on the one
-    shard of mp = 1."""
-    if mode != "train":
-        raise NotImplementedError(f"mode {mode!r} is not yet ported")
-    return forward_tp(cfg, ShardedParams.one(params), batch)
+MODES = ("train", "prefill", "decode")
+
+
+def forward(cfg, params, batch, *, mode: str = "train", cache=None):
+    """mode 'train' -> (hidden [B,L,D], aux); 'prefill' -> (last-position
+    logits [B,V] fp32, aux); 'decode' -> (logits [B,1,V] fp32, cache), the
+    cache updated in place: ``forward_tp`` on the one shard of mp = 1."""
+    return forward_tp(cfg, ShardedParams.one(params), batch, mode=mode,
+                      cache=cache)
+
+
+def prefill(cfg, params, batch):
+    """The last prompt position's logits [B,V] (fp32), no cache."""
+    logits, _ = forward(cfg, params, batch, mode="prefill")
+    return logits
+
+
+def serve_step(cfg, params, batch, cache):
+    """ONE new token against the cache, which it updates in place. Returns
+    (next_token_ids [B] int32, cache)."""
+    logits, cache = forward(cfg, params, batch, mode="decode", cache=cache)
+    return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
 
 
 def chunked_xent(cfg, params, hidden: torch.Tensor, labels: torch.Tensor
@@ -89,11 +111,23 @@ def loss_fn(cfg, params, batch):
 
 
 # ------------------------------------------------------- over the model axis
-def forward_tp(cfg, sp: ShardedParams, batch):
-    """The train-mode forward over the model axis of one data group;
-    ``batch`` lies on the group's first slot, which carries the residual
-    stream. Returns (hidden [B,L,D], aux)."""
-    if cfg.remat and cfg.remat_group > 1:
+def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
+               cache=None):
+    """The forward over the model axis of one data group; ``batch`` lies on
+    the group's first slot, which carries the residual stream. Returns
+    (hidden [B,L,D], aux) in train mode; prefill and decode (mp = 1 only)
+    as ``forward``. Remat applies in train mode only, as in the
+    reference."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    if mode != "train" and sp.mp > 1:
+        raise NotImplementedError(
+            f"{mode} at model_parallel={sp.mp} is not yet ported (ROADMAP "
+            f"A7); serving runs at mp = 1")
+    if (mode == "decode") != (cache is not None):
+        raise ValueError("decode takes a cache, and only decode does")
+    train = mode == "train"
+    if train and cfg.remat and cfg.remat_group > 1:
         raise NotImplementedError("grouped remat is not yet ported")
     cd = dt(cfg, "compute")
     if cfg.frontend == "embeds":
@@ -101,20 +135,28 @@ def forward_tp(cfg, sp: ShardedParams, batch):
     else:
         x = apply_embed_tp(sp["embed"], batch["tokens"], cd)
     Bsz, L, _ = x.shape
-    positions = torch.arange(L, device=x.device).expand(Bsz, L)
+    if mode == "decode":
+        positions = cache["pos"].expand(Bsz, 1)
+    else:
+        positions = torch.arange(L, device=x.device).expand(Bsz, L)
     slots, _ = B.scan_plan(cfg)
 
-    def period(x, p_i):
+    def period(x, p_i, c_i=None):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, (mixer, ffn) in enumerate(slots):
-            x, aux = B.block_forward(cfg, p_i[f"slot{j}"], x, mixer=mixer,
-                                     ffn=ffn, positions=positions)
+            x, aux = B.block_forward(
+                cfg, p_i[f"slot{j}"], x, mixer=mixer, ffn=ffn,
+                positions=positions,
+                cache=None if c_i is None else c_i[f"slot{j}"])
             aux_total = aux_total + aux
         return x, aux_total
 
     auxes = []
-    for p_i in sp["layers"].periods():
-        if cfg.remat:
+    for i, p_i in enumerate(sp["layers"].periods()):
+        if mode == "decode":
+            x, aux = period(x, p_i, tree_map(lambda a: a[i],
+                                             cache["layers"]))
+        elif train and cfg.remat:
             x, aux = checkpoint(period, x, p_i, use_reentrant=False,
                                 preserve_rng_state=False,
                                 context_fn=recompute_context)
@@ -122,7 +164,15 @@ def forward_tp(cfg, sp: ShardedParams, batch):
             x, aux = period(x, p_i)
         auxes.append(aux)
     x = apply_rmsnorm(sp["final_norm"].whole(), x, cfg.norm_eps)
-    return x, torch.stack(auxes).mean()
+    aux = torch.stack(auxes).mean()
+    if train:
+        return x, aux
+    unembed = sp["unembed"].whole()
+    if mode == "prefill":
+        return apply_linear(unembed, x[:, -1], torch.float32), aux
+    logits = apply_linear(unembed, x, torch.float32)
+    cache["pos"].add_(1)
+    return logits, cache
 
 
 def chunked_xent_tp(cfg, sp: ShardedParams, hidden: torch.Tensor,

@@ -1,12 +1,14 @@
-"""RWKV6 time-mix and channel-mix: the train branch of the reference's
-``models/ssm.py``.
+"""RWKV6 time-mix and channel-mix: the reference's ``models/ssm.py``, its
+train/prefill branch and its decode branch against the cache.
 
 Same parameter paths and ``[d_in, d_out]`` layout as the reference. The
 time-mix's WKV recurrence always goes through the port's WKV6 op
 (``kernels/rwkv/ops.wkv6``): on the card its CUDA kernels and their
-backward, on the CPU their plain versions. ``wkv6_scan`` and
-``wkv6_chunked`` are the reference's plain forms, kept as the semantics the
-op is held to. The decode caches and Mamba are not ported yet.
+backward, on the CPU their plain versions. In decode it carries the state
+from the cache (``wkv``, cast to fp32 for the op and back to the cache's
+dtype after), the token shifts come from ``shift_tm`` and ``shift_cm``,
+and each is written back in place. ``wkv6_scan`` and ``wkv6_chunked`` are the reference's plain
+forms, kept as the semantics the op is held to. Mamba is not ported yet.
 """
 from __future__ import annotations
 
@@ -45,6 +47,18 @@ def rwkv_cm_specs(cfg) -> dict:
         "wk": linear_specs(D, F_, "embed", "mlp"),
         "wv": linear_specs(F_, D, "mlp", "embed"),
         "wr": linear_specs(D, D, "embed", None),
+    }
+
+
+def rwkv_cache_spec(cfg, batch: int, max_seq: int) -> dict:
+    D = cfg.d_model
+    hd = cfg.ssm.rwkv_head_dim
+    H = D // hd
+    return {
+        "shift_tm": ShardedInit((batch, D), ("batch", "embed"), "zeros"),
+        "shift_cm": ShardedInit((batch, D), ("batch", "embed"), "zeros"),
+        "wkv": ShardedInit((batch, H, hd, hd),
+                           ("batch", "heads", None, None), "zeros"),
     }
 
 
@@ -100,15 +114,24 @@ def wkv6_chunked(r, k, v, logw, u, state, *, chunk: int = 32):
     return torch.cat(ys, dim=1), S
 
 
-def rwkv_tm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
-    """Time-mix, train mode. x: [B,L,D]. Returns (out, None)."""
+def _prev_token(x: torch.Tensor, cache, key: str) -> torch.Tensor:
+    """The token before x's first: the cache's shift state, or zeros at a
+    sequence's start."""
     if cache is not None:
-        raise NotImplementedError("the RWKV6 decode cache is not yet ported")
+        return cache[key].to(x.dtype)
+    return torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
+                       device=x.device)
+
+
+def rwkv_tm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
+    """Time-mix. x: [B,L,D]; ``cache`` ({"shift_tm", "wkv", ...}) in
+    decode, None in train/prefill, its ``shift_tm`` and ``wkv`` written in
+    place. Returns (out, cache or None)."""
     B, L, D = x.shape
     hd = cfg.ssm.rwkv_head_dim
     H = D // hd
     cd = dt(cfg, "compute")
-    xs = _token_shift(x, torch.zeros((B, D), dtype=x.dtype, device=x.device))
+    xs = _token_shift(x, _prev_token(x, cache, "shift_tm"))
     mix = p["mix"]["w"].to(x.dtype)                         # [5, D]
     xr, xk, xv, xw, xg = (x + (xs - x) * mix[i] for i in range(5))
     r = apply_linear(p["wr"], xr, cd).reshape(B, L, H, hd)
@@ -121,26 +144,32 @@ def rwkv_tm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
     raw = p["w0"]["w"].float() + lora.float()
     decay_log = -torch.exp(torch.clamp(raw, -8.0, 4.0)).reshape(B, L, H, hd)
     u = p["u"]["w"].float().reshape(H, hd)
-    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    y, _ = rwkv_ops.wkv6(r.float(), k.float(), v.float(), decay_log, u,
+    state = (cache["wkv"].float() if cache is not None else
+             torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device))
+    y, S = rwkv_ops.wkv6(r.float(), k.float(), v.float(), decay_log, u,
                          state)
     # per-head group norm; jnp.var is the population variance
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
     y_n = y.reshape(B, L, D) * p["ln_x"]["scale"].float()
-    return apply_linear(p["wo"], y_n.to(cd) * F.silu(g), cd), None
+    out = apply_linear(p["wo"], y_n.to(cd) * F.silu(g), cd)
+    if cache is not None:
+        cache["shift_tm"].copy_(x[:, -1])
+        cache["wkv"].copy_(S)
+    return out, cache
 
 
 def rwkv_cm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
-    """Channel-mix, train mode. x: [B,L,D]. Returns (out, None)."""
-    if cache is not None:
-        raise NotImplementedError("the RWKV6 decode cache is not yet ported")
-    B, _, D = x.shape
+    """Channel-mix. x: [B,L,D]; ``cache`` ({"shift_cm", ...}) in decode,
+    its ``shift_cm`` written in place. Returns (out, cache or None)."""
     cd = dt(cfg, "compute")
-    xs = _token_shift(x, torch.zeros((B, D), dtype=x.dtype, device=x.device))
+    xs = _token_shift(x, _prev_token(x, cache, "shift_cm"))
     mix = p["mix"]["w"].to(x.dtype)
     xk, xr = x + (xs - x) * mix[0], x + (xs - x) * mix[1]
     k = torch.square(F.relu(apply_linear(p["wk"], xk, cd)))
     vv = apply_linear(p["wv"], k, cd)
-    return torch.sigmoid(apply_linear(p["wr"], xr, cd)) * vv, None
+    out = torch.sigmoid(apply_linear(p["wr"], xr, cd)) * vv
+    if cache is not None:
+        cache["shift_cm"].copy_(x[:, -1])
+    return out, cache

@@ -138,7 +138,7 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
     jt = _jax_trainer()
     state = _scaled_jax_state(jt)
     with _trainer() as pt:
-        pt.state = bridge.state_from_numpy(state, "cpu")
+        pt.state = bridge.params_from_numpy(state, "cpu")
         pt.run(2)
         checkpoint_save(pt, str(tmp_path))
         want = [pt.step()["loss"] for _ in range(3)]

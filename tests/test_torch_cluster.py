@@ -233,15 +233,10 @@ def test_plan_actions_equal_reference(alloc):
     assert plan(PORT) == plan(REF)
 
 
-def test_serving_specs_and_compile_cache_are_refused():
+def test_compile_cache_is_refused():
     with pytest.raises(ValueError, match="compile_cache"):
         ClusterExecutor([JobSpec("a", 1, 2)], make_policy("static"),
                         devices=list(range(2)), compile_cache="x")
-    spec = types.SimpleNamespace(tier="serving", name="api")
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_cluster.make_cluster_job(0, spec)
-    with pytest.raises(NotImplementedError, match="A6"):
-        default_trainer_factory(spec, [])
 
 
 # --------------------------------------------------------- slot identity
@@ -409,6 +404,10 @@ GRAMMAR = [
     "flex=vgg19:4:20:mp=auto@0,b=googlenet:2:10@4",
     "d=resnet50:2:12:vw=4@0,e=vgg19:1:8:vw=auto@2.5",
     "r=resnet50:1:6:arch=rwkv6-1.6b@1,s=googlenet:2:9:mp=2:vw=2@3",
+    # the reference's serving grammar (tests/test_serving.py)
+    "api=resnet50:1:20:serve=4/8/12:cap=4:slo=90:min=1:max=3@0,"
+    "t=vgg19:2:30@1",
+    "api=resnet50:1:16:serve=diurnal:period=8:base=2:peak=10:cap=4@0",
 ]
 
 
@@ -432,18 +431,10 @@ def test_parse_workload_equals_reference(text):
         [dataclasses.asdict(s) for s in ref_parse(text, **kw)]
 
 
-def test_launcher_refuses_serving_compile_cache_and_missing_card():
+def test_launcher_refuses_compile_cache_and_missing_card():
     from repro_torch.launch import cluster
-    kw = dict(batch=12, seq=64, n_samples=1024, d_partitions=16)
-    with pytest.raises(ValueError, match="A6"):
-        cluster.parse_jobs("api=resnet50:1:40:serve=flat@0", **kw)
-    with pytest.raises(ValueError, match="A6"):
-        cluster.parse_jobs("api=resnet50:1:40:slo=100@0", **kw)
     with pytest.raises(SystemExit):
         cluster.main(["--device", "cpu", "--compile-cache", "x"])
-    with pytest.raises(SystemExit):
-        cluster.main(["--device", "cpu", "--jobs",
-                      "api=resnet50:1:40:serve=flat@0"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cluster.main(["--device", "cuda", "--jobs", "a=resnet50:1:2@0"])

@@ -382,3 +382,68 @@ def test_two_full_width_tenants_loan_and_reclaim_on_two_slots(card):
             [r.summary() for r in recs]
     assert stats["finished"] == 2 and stats["conserved"]
     assert [j["steps_done"] for j in stats["jobs"]] == [10, 4]
+
+
+@pytest.mark.parametrize("arch", ["edl-paper", "rwkv6-1.6b"])
+def test_decode_on_the_card_follows_the_cpu(card, arch):
+    """SMOKE decode on the card against the same params on the CPU: logits
+    at every step within 1e-4 of the largest, one ``wkv6_fwd`` a layer and
+    step for rwkv6 (none for edl_paper), and ``serve_batch`` synchronizes
+    before it returns two identical waves."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_decode_fn, serve_batch
+    from repro_torch.kernels.launches import KERNELS
+    from repro_torch.models import model as M
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.params import tree_map
+
+    cfg = get_config(arch, smoke=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_card = tree_map(lambda t: t.to(card), params)
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    caches = (init_cache(cfg, 2, 12, device="cpu"),
+              init_cache(cfg, 2, 12, device=card))
+    LAUNCHES.reset()
+    with torch.inference_mode():
+        for t in range(12):
+            want, c0 = M.forward(cfg, params, {"tokens": toks[:, t:t + 1]},
+                                 mode="decode", cache=caches[0])
+            got, c1 = M.forward(cfg, params_card,
+                                {"tokens": toks[:, t:t + 1].to(card)},
+                                mode="decode", cache=caches[1])
+            caches = (c0, c1)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+    launches = LAUNCHES.snapshot()
+    per_step = 12 * (cfg.n_layers if cfg.family == "ssm" else 0)
+    assert launches == {**dict.fromkeys(KERNELS, 0), "wkv6_fwd": per_step}
+    assert caches[1]["pos"].is_cuda and int(caches[1]["pos"]) == 12
+    decode = make_decode_fn(cfg)
+    waves = [serve_batch(cfg, params_card, toks.to(card), 6, decode=decode)[0]
+             for _ in range(2)]
+    assert waves[0].is_cuda and torch.equal(waves[0], waves[1])
+
+
+def test_live_serving_engine_follows_its_first_replica_across_cards():
+    """A live serving tenant on two cards: when the replica on the first
+    card dies, its params and prompts move to the survivor's card and the
+    next wave runs there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the params move only when the first "
+                    "replica's card changes")
+    from repro_torch.cluster.serving import LiveServingEngine, ServingSpec
+    from repro_torch.devices import Slot
+    from repro_torch.models.params import tree_leaves
+
+    slots = [Slot(0, torch.device("cuda:0")), Slot(1, torch.device("cuda:1"))]
+    spec = ServingSpec("api", 1, 4, trace=(8.0,), replica_capacity=4,
+                       global_batch=2, prompt_len=3, gen_len=2)
+    eng = LiveServingEngine(spec, slots)
+    assert {t.device for _, t in tree_leaves(eng._params)} == \
+        {torch.device("cuda:0")}
+    eng.inject_worker_failure("s0")
+    assert eng.handle_failure(["s0"], release=False) == [slots[0]]
+    assert {t.device for _, t in tree_leaves(eng._params)} == \
+        {eng._prompts.device} == {torch.device("cuda:1")}
+    assert eng.step()["waves"] == 2

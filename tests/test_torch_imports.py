@@ -16,6 +16,7 @@ MODULES = [
     "repro_torch.chaos.plan",
     "repro_torch.cluster", "repro_torch.cluster.executor",
     "repro_torch.cluster.job", "repro_torch.cluster.policy",
+    "repro_torch.cluster.serving",
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.edl_paper", "repro_torch.configs.rwkv6_1p6b",
     "repro_torch.core", "repro_torch.core.api",
@@ -23,7 +24,7 @@ MODULES = [
     "repro_torch.core.elastic_runtime", "repro_torch.core.election",
     "repro_torch.core.failure", "repro_torch.core.membership",
     "repro_torch.core.profiling", "repro_torch.core.scaling",
-    "repro_torch.core.stop_resume",
+    "repro_torch.core.serving", "repro_torch.core.stop_resume",
     "repro_torch.data", "repro_torch.data.partition",
     "repro_torch.data.pipeline", "repro_torch.data.synthetic",
     "repro_torch.data.worker",
@@ -34,7 +35,8 @@ MODULES = [
     "repro_torch.launch", "repro_torch.launch.cluster",
     "repro_torch.launch.train",
     "repro_torch.models", "repro_torch.models.attention",
-    "repro_torch.models.blocks", "repro_torch.models.layers",
+    "repro_torch.models.blocks", "repro_torch.models.cache",
+    "repro_torch.models.layers",
     "repro_torch.models.model", "repro_torch.models.params",
     "repro_torch.models.ssm",
     "repro_torch.obs", "repro_torch.obs.audit", "repro_torch.obs.bus",

@@ -155,7 +155,7 @@ def test_bridge_round_trips_exactly():
                            rng.standard_normal(5), jnp.bfloat16))},
             "opt": {"count": np.int32(7)},
             "step": np.zeros((), np.int32)}
-    state = bridge.state_from_numpy(tree, "cpu")
+    state = bridge.params_from_numpy(tree, "cpu")
     assert state["params"]["b"].dtype == torch.bfloat16
     assert state["opt"]["count"].dtype == torch.int32
     assert state["opt"]["count"].shape == ()

@@ -213,7 +213,7 @@ def test_bridge_carries_bf16_rwkv_tree():
         assert tuple(t.shape) == spec[k].shape
         np.testing.assert_array_equal(t.view(torch.int16).numpy(),
                                       a.view(np.int16), err_msg=k)
-    state = bridge.state_from_numpy(
+    state = bridge.params_from_numpy(
         {"params": np_params, "step": np.zeros((), np.int32)}, "cpu")
     assert state["params"]["layers"]["slot0"]["mixer"]["u"]["w"].dtype == \
         torch.bfloat16
@@ -259,7 +259,7 @@ def test_loss_trajectory_matches_jax_trainer():
 
     def port_losses(**kw):
         with _trainer(**kw) as pt:
-            pt.state = bridge.state_from_numpy(state, "cpu")
+            pt.state = bridge.params_from_numpy(state, "cpu")
             return np.array([pt.step()["loss"] for _ in range(5)])
 
     np.testing.assert_allclose(port_losses(), want, rtol=TRAJ_RTOL)

@@ -98,7 +98,7 @@ def _jax_step_and_port_step(arch, point, p):
     state, batch, jloss, want = _jax_step(arch, point)
     pfn = make_train_step(get_config(arch, smoke=True), adamw(1e-3),
                           ["cpu"] * p, n_virtual=4, global_batch=BATCH)
-    pstate, pm = pfn(bridge.state_from_numpy(state, "cpu"), batch)
+    pstate, pm = pfn(bridge.params_from_numpy(state, "cpu"), batch)
     got = {k: t.numpy() for k, t in tree_leaves(pstate)}
     return jloss, float(pm["loss"]), want, got
 
