@@ -15,13 +15,15 @@ Phases, in order; any failure exits non-zero:
 3. attention kernels: call each flash-attention kernel's wrapper on CUDA
    tensors at the edl_paper path's shape, at one virtual worker's shard of
    it (B 1), at the tensor-parallel shard shapes (H 6 at mp = 2, H 3 at
-   mp = 4), and at GQA, window, ragged, non-causal, head-dim and bf16
-   cases, and hold it against its plain PyTorch version on the same
-   inputs; run the forward and the backward pair twice on the main, mp = 2
-   and GQA cases and require the same bits; time kernel, plain version and
+   mp = 4), at GQA, window, ragged, non-causal, head-dim and bf16 cases,
+   and at the zoo's shapes (phase 11's configs: bf16, B 1, L 1024, D 96
+   and 128, G 1 to 12, and window 4096 at L 5120), and hold it against its
+   plain PyTorch version on the same inputs; run the forward and the
+   backward pair twice on the main, mp = 2, GQA and D 96 cases and
+   require the same bits; time kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it) at the main, virtual-worker and tensor-parallel shapes, and
-   the backward
+   calls it) at the main, virtual-worker, tensor-parallel and zoo shapes,
+   with each bound at the peak of the inputs' type, and the backward
    pair against SDPA's backward under its default and under each backend
    that takes fp32 (``EFFICIENT_ATTENTION``, ``MATH``; the others are
    recorded as refusing), naming the default's backend by its time;
@@ -100,7 +102,20 @@ Phases, in order; any failure exits non-zero:
    throughput policy in ``CrossTierPolicy``: the lull must loan slots to
    the trainer and the spike reclaim them for the server's growth to 3,
    every switch stop-free, the trainer never parked and its steps
-   numbered without a gap, slots conserved every round.
+   numbered without a gap, slots conserved every round;
+11. the zoo: each of phi3-mini, mistral-nemo, qwen2.5, starcoder2,
+   llava-next, musicgen and mixtral at its published widths in bf16, the
+   depth cut (``ZOO_TRAIN_LAYERS``, ``ZOO_SERVE_LAYERS``): an
+   ``ElasticTrainer`` at (1, 1) on one slot takes ``ZOO_STEPS`` steps on
+   one batch of 4 x 1024, each loss finite and below the one before, with
+   one ``flash_attn_fwd`` a layer (two under remat) and one of each
+   backward kernel a layer per step, its context prep's warm-ups apart;
+   then serving at batch 4, prompt 32, 32 generated: ``serve_batch`` (the
+   ``embeds`` configs: ``serve_step``) in a warm-up and two timed waves
+   that give the same ids and launch no port kernel, a traced stretch of
+   decode, ``prefill`` with one ``flash_attn_fwd`` a layer, and teacher
+   forcing within ``ZOO_TF_TOL`` at the rescaled point (mixtral where its
+   teacher-forced pass routed every token as the decode did).
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -119,7 +134,7 @@ kernel launches layers x K times a step, and a prep warms one shard. Then
 print
 ``{"backward_pair": {...}}`` (the two backward kernels together against
 SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the
-serving path's record, the card line, and last
+serving path's record, the zoo's record, the card line, and last
 ``{"ok": true, "device": {...}}``.
 
 Peaks for the bounds are NVIDIA's published H100 SXM figures at 700 W.
@@ -138,6 +153,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
+# the peak for the inputs' type: the bound of a bf16 case is reckoned at the
+# bf16 rate, though the kernels compute in fp32 on the CUDA cores
+PEAK_FLOPS = {"float32": FP32_FLOPS, "bfloat16": BF16_FLOPS}
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 ATT = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu",
        "replaces": "src/repro/kernels/attention/kernel.py:85"}
@@ -157,6 +176,21 @@ ATT_MP_CASES = [("main_mp2", 8, 6, 6, 1024, 1024, 64, True, 0, None,
                  "float32"),
                 ("main_mp4", 8, 3, 3, 1024, 1024, 64, True, 0, None,
                  "float32")]
+# the zoo's attention shapes (phase 11's configs at their published
+# widths), bf16, B 1, causal; two at L 5120 so that the window of 4096 bites
+ATT_ZOO_CASES = [
+    ("zoo_phi3", 1, 32, 32, 1024, 1024, 96, True, 0, None, "bfloat16"),
+    ("zoo_nemo_llava_mixtral", 1, 32, 8, 1024, 1024, 128, True, 0, None,
+     "bfloat16"),
+    ("zoo_qwen", 1, 40, 8, 1024, 1024, 128, True, 0, None, "bfloat16"),
+    ("zoo_starcoder2", 1, 48, 4, 1024, 1024, 128, True, 0, None,
+     "bfloat16"),
+    ("zoo_musicgen", 1, 24, 24, 1024, 1024, 64, True, 0, None, "bfloat16"),
+    ("zoo_starcoder2_w4096", 1, 48, 4, 5120, 5120, 128, True, 4096, None,
+     "bfloat16"),
+    ("zoo_mixtral_w4096", 1, 32, 8, 5120, 5120, 128, True, 4096, None,
+     "bfloat16"),
+]
 ATT_CASES = [
     ATT_MAIN_CASE,
     ("main_p2", 4, 12, 12, 1024, 1024, 64, True, 0, None, "float32"),
@@ -170,15 +204,16 @@ ATT_CASES = [
     ("d128_bf16", 1, 4, 4, 384, 384, 128, True, 0, None, "bfloat16"),
     ("d16_window_gqa", 1, 8, 2, 200, 200, 16, True, 32, None, "float32"),
     ("bf16", 2, 12, 12, 1024, 1024, 64, True, 0, None, "bfloat16"),
+    *ATT_ZOO_CASES,
 ]
 ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
            "bfloat16": {"fwd": 2e-2, "bwd": 2e-2}}
 # the forward and the backward pair run twice on these cases and must give
 # the same bits
-DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa")
+DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa", "zoo_phi3")
 # the cases whose kernels are timed beside their bounds and SDPA
 TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0], ATT_PREFILL_CASE[0]) + \
-    tuple(c[0] for c in ATT_MP_CASES)
+    tuple(c[0] for c in ATT_MP_CASES) + tuple(c[0] for c in ATT_ZOO_CASES)
 
 # name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
 # range the model's clip allows; a number sets every logw to it
@@ -206,6 +241,8 @@ HOLD_OUT_MARGIN = 0.1
 # weight recomputed) moves the gradients by O(1)
 REMAT_RTOL = 1e-2
 
+# the device of phase 11 and of phase 10's decode trace: the card
+DEVICE = "cuda"
 MAIN_BATCH, MAIN_INIT_P = 8, 1
 PATH_ARGS = ["--batch", str(MAIN_BATCH), "--seq", "1024", "--devices", "2",
              "--init-p", str(MAIN_INIT_P), "--schedule", "out:1@3",
@@ -384,6 +421,21 @@ def sdpa_backends(torch, q, k, v, do, causal) -> dict:
     return out
 
 
+def sdpa_call(torch, q, k, v, causal: bool, window: int):
+    """``F.scaled_dot_product_attention`` on the kernels' inputs (the
+    yardstick; the port never calls it): GQA heads grouped as the kernels
+    group them, and a window as a boolean mask."""
+    F = torch.nn.functional
+    gqa = dict(enable_gqa=True) if q.shape[1] != k.shape[1] else {}
+    if window <= 0:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              **gqa)
+    qp = torch.arange(q.shape[2], device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **gqa)
+
+
 def same_bits_twice(torch, fn) -> bool:
     """Two calls of ``fn`` (kernel launches returning a tuple of tensors) on
     the same inputs give the same bits in every output."""
@@ -403,7 +455,6 @@ def check_attention(torch, ops):
     """Phase 3. Returns per-kernel records of each case of
     ``TIMED_CASES`` (case: kernel: record) and the record of the backward
     pair."""
-    F = torch.nn.functional
     timed = {name: {} for name in TIMED_CASES}    # case: kernel: record
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (name, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len,
@@ -505,10 +556,9 @@ def check_attention(torch, ops):
         }
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(ql, kl, vl,
-                                                  is_causal=causal)
-        lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
+        sdpa_out = sdpa_call(torch, ql, kl, vl, causal, window)
+        lib_fwd = cuda_ms(torch, lambda: sdpa_call(torch, q, k, v, causal,
+                                              window))
         lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
             sdpa_out, (ql, kl, vl), do, retain_graph=True))
         del sdpa_out, ql, kl, vl
@@ -517,7 +567,7 @@ def check_attention(torch, ops):
         for kname in kern:
             nbytes, flops = work[kname]
             t_bytes = nbytes / HBM_BYTES_S * 1e3
-            t_ops = flops / FP32_FLOPS * 1e3
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
             records[kname].update(
                 ms=cuda_ms(torch, kern[kname]),
                 plain_ms=cuda_ms(torch, plain[kname], reps=3, warm=1),
@@ -527,13 +577,19 @@ def check_attention(torch, ops):
                 library_ms=library[kname],
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, L=Lq, D=D, causal=causal,
                            window=window, dtype=dname))
+            r = records[kname]
+            print(f"  case {name:15s} {kname:20s} {r['ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{PEAK_FLOPS[dname] / 1e12:g} TFLOP/s, "
+                  f"{HBM_BYTES_S / 1e12:g} TB/s), plain "
+                  f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms",
+                  flush=True)
         if name == ATT_PREFILL_CASE[0]:
             # a few microseconds of work: the kernels' own durations too
             records["flash_attn_fwd"].update(
                 device_ms=device_ms(torch, kern["flash_attn_fwd"]),
                 library_device_ms=device_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=causal)))
+                    torch, lambda: sdpa_call(torch, q, k, v, causal, window)))
             print(f"  case {name:15s} flash_attn_fwd       "
                   f"{records['flash_attn_fwd']['ms'] * 1e3:.2f} us back to "
                   f"back, {records['flash_attn_fwd']['device_ms'] * 1e3:.2f}"
@@ -1764,22 +1820,29 @@ def teacher_forcing_points(torch, cfg, params, prompts, tokens) -> dict:
     return out
 
 
-def decode_profile(torch, cfg, params, decode) -> dict:
-    """``SERVE_PROFILED_STEPS`` decode steps from position SERVE_PROMPT
-    under ``torch.profiler``: kernels, device busy ms and traced window ms
-    a step, the idle share, and device ms by kernel group."""
+def decode_profile(torch, cfg, params, decode, batch: int = SERVE_BATCH,
+                   start: int = SERVE_PROMPT) -> dict:
+    """``SERVE_PROFILED_STEPS`` decode steps of ``batch`` sequences from
+    position ``start`` under ``torch.profiler``: kernels, device busy ms and
+    traced window ms a step, the idle share, and device ms by kernel group.
+    Each step feeds back the ids of the one before; an ``embeds`` config
+    takes zero embeddings."""
     from repro_torch.models.cache import init_cache
     n = SERVE_PROFILED_STEPS
-    state = {"cache": init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + n,
-                                 pos=SERVE_PROMPT, device="cuda"),
-             "tok": torch.zeros((SERVE_BATCH, 1), dtype=torch.int32,
-                                device="cuda")}
+    embeds = cfg.frontend == "embeds"
+    state = {"cache": init_cache(cfg, batch, start + n, pos=start,
+                                 device=DEVICE),
+             "x": torch.zeros((batch, 1, cfg.d_model) if embeds
+                              else (batch, 1), device=DEVICE,
+                              dtype=torch.float32 if embeds else torch.int32)}
 
     def run():
         for _ in range(n):
-            ids, state["cache"] = decode(params, {"tokens": state["tok"]},
-                                         state["cache"])
-            state["tok"] = ids[:, None]
+            ids, state["cache"] = decode(
+                params, {"embeds" if embeds else "tokens": state["x"]},
+                state["cache"])
+            if not embeds:
+                state["x"] = ids[:, None]
     bd = traced(torch, run)
     return {"steps": n, "kernels_per_step": bd["n_kernels"] / n,
             "busy_ms_per_step": bd["busy_ms"] / n,
@@ -2052,6 +2115,310 @@ def run_serving_tier(torch, launches_of, kernels, per_shard: dict) -> dict:
             "launches_per_shard_step": per_shard_got}
 
 
+# phase 11: the zoo. Each CONFIG at its published widths and dtype (bf16);
+# only the depth is cut, with dataclasses.replace(CONFIG, n_layers=...).
+ZOO_ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b", "qwen2.5-32b",
+             "starcoder2-15b", "llava-next-mistral-7b", "musicgen-medium",
+             "mixtral-8x7b")
+# Training: 2 layers, batch 4, sequence 1024, AdamW 1e-3, ZOO_STEPS steps on
+# one batch. Mixtral trains at 1: at 2 layers (3.17 B parameters) its train
+# state is 38 GB (bf16 params and gradients, fp32 moments), and the
+# functional AdamW update holds the old and the new moments at once (25 GB
+# more) beside fp32 temporaries of its 3.76 GB expert leaf, ~85 GB in all.
+ZOO_TRAIN_LAYERS = {"mixtral-8x7b": 1}
+ZOO_BATCH, ZOO_SEQ, ZOO_STEPS = 4, 1024, 4
+# Serving: 2 layers, phi3 at all 32 (3.82 B parameters, one whole zoo model
+# on the card); batch 4, prompt 32, 32 generated, from the seed
+ZOO_SERVE_LAYERS = {"phi3-mini-3.8b": 32}
+ZOO_SERVE_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 32
+# Teacher forcing at the rescaled point ("fan_in"), over the largest
+# logit, bf16. Written before the first run on the card, from the CPU
+# (tools/torch_serve_probe.py --part tf --device cpu --batch 4 --prompt 32
+# --gen 32, 2 layers): 5.1e-3 to 6.2e-3 for the six dense configs at
+# d_model 768 or 1024, and 6.8e-3 (phi3), 5.6e-3 (nemo at 2048) and
+# 5.9e-3 (musicgen) nearer or at full width, so width barely moves it;
+# 1.89e-2 for phi3 at d_model 768 and 32 layers. The tolerance is about
+# 3x the largest reading at the depth: bf16 rounds the decode and the
+# train-mode forward at other shapes, in another order. The reading at
+# the reference's init is printed, not gated (3.7e-3 to 2.1e-2 at 2
+# layers, 9.4e-2 at 32).
+ZOO_TF_TOL = {2: 2e-2, 32: 6e-2}
+# Mixtral is held at its depth's tolerance only where the teacher-forced
+# pass routed every token as the decode did: its train-mode groups are
+# 128 tokens (capacity 40) and can drop claims, where the decode's groups
+# of 4 (capacity 4) cannot; and a token whose two best experts are near a
+# tie in the router can take another pair when bf16 rounds its input
+# otherwise (the CPU read 0.71 at d_model 1024). Either makes the gap a
+# routing difference, not a numerical one: it is recorded with its drops
+# and its tokens routed otherwise.
+
+
+@contextlib.contextmanager
+def moe_routes(records: list):
+    """Record, for every MoE layer call, its tokens' experts and its kept
+    and made claims, counted from the router weights with
+    ``models.moe.route`` (the forward's own routing)."""
+    from repro_torch.models import blocks, moe
+    specs, forward = blocks.FFNS["moe"]
+
+    def recorded(cfg, p, h, cache=None):
+        r = moe.route(cfg, p, h)
+        records.append({
+            "L": h.shape[1],
+            "experts": r["expert"].reshape(h.shape[0], h.shape[1], -1)
+            .sort(dim=-1).values.cpu(),
+            "kept": int((r["pos"] < r["C"]).sum()), "made": r["pos"].numel()})
+        return forward(cfg, p, h, cache)
+    blocks.FFNS["moe"] = (specs, recorded)
+    try:
+        yield
+    finally:
+        blocks.FFNS["moe"] = (specs, forward)
+
+
+def routing_gap(torch, records: list, n_layers: int) -> dict:
+    """The teacher-forced pass's routing against the decode's: claims
+    dropped in the train-mode pass (the decode never drops) and the
+    (token, layer) pairs whose experts differ."""
+    train = [r for r in records if r["L"] > 1]
+    dec = [r for r in records if r["L"] == 1]
+    T = train[0]["L"]
+    flips = 0
+    for layer, r in enumerate(train):
+        steps = torch.stack([dec[t * n_layers + layer]["experts"][:, 0]
+                             for t in range(T)], dim=1)
+        flips += int((steps != r["experts"]).any(-1).sum())
+    return {"dropped_claims": sum(r["made"] - r["kept"] for r in train),
+            "decode_dropped_claims": sum(r["made"] - r["kept"] for r in dec),
+            "claims": sum(r["made"] for r in train),
+            "tokens_routed_otherwise": flips,
+            "token_layers": sum(r["experts"].shape[0] * T for r in train)}
+
+
+def zoo_decode_fn(torch, cfg):
+    """``make_decode_fn`` for a tokens config; ``serve_step`` under
+    ``inference_mode`` for an ``embeds`` one, which ``serve_batch``
+    refuses, as the reference's does."""
+    from repro_torch.core import make_decode_fn
+    from repro_torch.models import model as M
+    if cfg.frontend == "tokens":
+        return make_decode_fn(cfg)
+
+    def decode(params, batch, cache):
+        with torch.inference_mode():
+            return M.serve_step(cfg, params, batch, cache)
+    return decode
+
+
+def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
+    """Phase 11's serving of ``cfg`` from ``params`` (drawn from seed 0):
+    the served inputs (a warm-up wave for a tokens config), then two timed
+    waves with the launch counts reset just before and read just after,
+    which must launch no port kernel and give the warm-up's ids; a traced
+    stretch of decode; ``prefill``, one ``flash_attn_fwd`` a layer; and
+    teacher forcing at "init" and "fan_in", gated at "fan_in"."""
+    from repro_torch.core import serve_batch
+    from repro_torch.kernels.launches import KERNELS
+    from repro_torch.models import model as M
+    from repro_torch.models.cache import init_cache
+    probe = serve_probe()
+    Bz, P, G = ZOO_SERVE_BATCH, ZOO_PROMPT, ZOO_GEN
+    decode = zoo_decode_fn(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    served = probe.served_inputs(torch, cfg, params, Bz, P, G)
+    warm_s = time.monotonic() - t0
+
+    def wave():
+        if cfg.frontend == "tokens":
+            return serve_batch(cfg, params, served[:, :P], G,
+                               decode=decode)[0]
+        cache, ids = init_cache(cfg, Bz, P + G, device=DEVICE), []
+        for t in range(P + G):
+            out, cache = decode(params, {"embeds": served[:, t:t + 1]},
+                                cache)
+            ids.append(out)
+        torch.cuda.synchronize()
+        return torch.stack(ids[P:], dim=1)
+
+    if cfg.frontend == "embeds":
+        wave()                          # the warm-up
+    launches_of.reset()
+    waves, wave_s = [], []
+    for _ in range(SERVE_WAVES):
+        t0 = time.monotonic()
+        waves.append(wave())
+        wave_s.append(time.monotonic() - t0)
+    launches = launches_of.snapshot()
+    if any(launches.values()):
+        fail(f"serve {cfg.name}: decode launched port kernels {launches}")
+    want = served[:, P:] if cfg.frontend == "tokens" else waves[0]
+    if not all(torch.equal(w, want) for w in waves) \
+            or waves[0].shape != (Bz, G):
+        fail(f"serve {cfg.name}: the waves gave other ids")
+    prof = decode_profile(torch, cfg, params, decode, batch=Bz, start=P)
+
+    launches_of.reset()
+    with torch.inference_mode():
+        M.prefill(cfg, params, probe.inputs(cfg, served[:, :P]))
+    torch.cuda.synchronize()
+    pre = launches_of.snapshot()
+    want_pre = {**dict.fromkeys(KERNELS, 0), "flash_attn_fwd": cfg.n_layers}
+    if pre != want_pre:
+        fail(f"prefill {cfg.name}: launches {pre}, predicted {want_pre}")
+
+    tol = ZOO_TF_TOL[cfg.n_layers]
+    gaps = {}
+    for point in ("init", "fan_in"):
+        ps = params if point == "init" else probe.fan_in_scaled(params)
+        records: list = []
+        with (moe_routes(records) if cfg.moe else contextlib.nullcontext()):
+            gap, _ = probe.teacher_forced(cfg, ps, served, P)
+        del ps
+        gaps[point] = {"teacher_forcing": gap}
+        if cfg.moe:
+            gaps[point].update(routing_gap(torch, records, cfg.n_layers))
+    g = gaps["fan_in"]
+    gated = not cfg.moe or (g["dropped_claims"] == 0
+                            and g["tokens_routed_otherwise"] == 0)
+    step_ms = 1e3 * min(wave_s) / (P + G)
+    print(f"  ({cfg.name}) serve, {cfg.n_layers} layers, B {Bz}, prompt "
+          f"{P}, gen {G}, through "
+          f"{'serve_batch' if cfg.frontend == 'tokens' else 'serve_step'}: "
+          f"params drawn in {init_s:.2f} s; waves "
+          f"{[round(x * 1e3, 1) for x in wave_s]} ms, {step_ms:.2f} ms a "
+          f"decode step, {Bz * G / min(wave_s):.1f} generated tok/s; the "
+          f"same ids each wave; no port kernel in decode; "
+          f"{prof['kernels_per_step']:.0f} kernels a decode step, device "
+          f"busy {prof['busy_ms_per_step']:.3f} ms of "
+          f"{prof['window_ms_per_step']:.3f} (idle {prof['idle_share']:.1%});"
+          f" prefill {pre['flash_attn_fwd']} flash_attn_fwd; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    for point, r in gaps.items():
+        extra = ""
+        if cfg.moe:
+            extra = (f"; the train-mode pass dropped {r['dropped_claims']} "
+                     f"of {r['claims']} claims, the decode "
+                     f"{r['decode_dropped_claims']}; "
+                     f"{r['tokens_routed_otherwise']} of {r['token_layers']}"
+                     f" (token, layer) pairs routed otherwise")
+        print(f"    teacher forcing at {point}: {r['teacher_forcing']:.3e} "
+              f"of the largest logit" + extra + "; " + (
+                  f"tolerance {tol:g}" if point == "fan_in" and gated
+                  else "not gated"), flush=True)
+    if gated and not g["teacher_forcing"] <= tol:
+        fail(f"serve {cfg.name}: teacher forcing {g['teacher_forcing']:.3e} "
+             f"at fan_in beyond {tol:g}")
+    if not gated:
+        print(f"    {cfg.name}: not gated, the gap is the routing's (see "
+              f"ZOO_TF_TOL)", flush=True)
+    return {"layers": cfg.n_layers, "batch": Bz, "prompt": P, "gen": G,
+            "entry": "serve_batch" if cfg.frontend == "tokens"
+            else "serve_step", "params_init_s": init_s,
+            "served_inputs_s": warm_s, "wave_ms": [x * 1e3 for x in wave_s],
+            "ms_per_decode_step": step_ms,
+            "generated_tok_per_s": Bz * G / min(wave_s),
+            "decode_profile": prof, "prefill_launches": pre,
+            "teacher_forcing": gaps, "tolerance": tol, "gated": gated,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def run_zoo(torch, launches_of, kernels, arch: str) -> dict:
+    """Phase 11 for ``arch``: an ``ElasticTrainer`` at (1, 1) on one slot
+    of the card, built directly, whose context prep's warm-ups launch one
+    slot shard's worth; ``zoo_serve`` on its initial params where the
+    serving depth is the training depth (else on params drawn anew); then
+    ZOO_STEPS steps on one batch with the counts reset just before and
+    read just after: each loss finite and below the one before, and the
+    launches a step one ``flash_attn_fwd`` a layer (two under remat) and
+    one of each backward kernel a layer. Returns a record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import ElasticTrainer
+    from repro_torch.devices import slot_devices
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=ZOO_TRAIN_LAYERS.get(arch, 2))
+    serve_cfg = dataclasses.replace(full,
+                                    n_layers=ZOO_SERVE_LAYERS.get(arch, 2))
+    per_shard = {"flash_attn_fwd": cfg.n_layers * (2 if cfg.remat else 1),
+                 "flash_attn_bwd_dq": cfg.n_layers,
+                 "flash_attn_bwd_dkdv": cfg.n_layers}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.monotonic()
+    init_s: list = []
+    launches_of.reset()
+    with timed_state_init(torch, init_s):
+        t = ElasticTrainer(cfg, global_batch=ZOO_BATCH, seq_len=ZOO_SEQ,
+                           init_parallelism=1, optimizer=adamw(1e-3),
+                           n_samples=ZOO_BATCH, d_partitions=1, seed=0,
+                           devices=slot_devices(1, DEVICE))
+    torch.cuda.synchronize()
+    warm_all, warm = launches_of.snapshot(), launches_of.snapshot(warm=True)
+    with t:
+        if serve_cfg.n_layers == cfg.n_layers:
+            serve = zoo_serve(torch, launches_of, serve_cfg,
+                              t.state["params"], sum(init_s))
+        batch = t.dataset.read(0, ZOO_BATCH)
+        batch.pop("sample_ids")
+        # hand the warm-up's and the serving's cached blocks back, so that
+        # the update's large temporaries find whole segments (qwen2.5's
+        # step peaks near 67 GiB)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches_of.reset()
+        losses, step_s = [], []
+        for _ in range(ZOO_STEPS):
+            t0 = time.monotonic()
+            t.state, m = t.exec.step_fn(t.state, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.monotonic() - t0)
+        torch.cuda.synchronize()
+        steps = launches_of.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del m
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: warm_all[k] + steps[k] for k in warm_all}
+    per_step = check_launches(f"zoo {arch}", launches, warm, kernels,
+                              per_shard, ZOO_STEPS, 1)
+    if not all(math.isfinite(x) for x in losses) or \
+            any(b >= a for a, b in zip(losses, losses[1:])):
+        fail(f"zoo {arch}: the loss did not fall at every step: {losses}")
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    print(f"  ({cfg.name}) train, {cfg.n_layers} of {full.n_layers} layers"
+          f", d_model {cfg.d_model}, {cfg.param_dtype}: state drawn and "
+          f"placed in {sum(init_s):.2f} s; losses "
+          f"{['%.4f' % x for x in losses]}, each below the one before; "
+          f"steps {[round(x * 1e3, 1) for x in step_s]} ms (median "
+          f"{step_ms:.1f}); peak {peak:.2f} GiB; launches a step "
+          f"{per_step}, warm-ups { {k: warm[k] for k in kernels} }, as "
+          f"predicted", flush=True)
+    if serve_cfg.n_layers != cfg.n_layers:
+        t0 = time.monotonic()
+        params = M.init_params(serve_cfg, torch.Generator().manual_seed(0),
+                               DEVICE)
+        torch.cuda.synchronize()
+        serve = zoo_serve(torch, launches_of, serve_cfg, params,
+                          time.monotonic() - t0)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"arch": arch, "train_layers": cfg.n_layers,
+            "serve_layers": serve_cfg.n_layers,
+            "full_layers": full.n_layers, "init_state_s": sum(init_s),
+            "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+            "median_step_ms": step_ms, "peak_gib": peak,
+            "launches": {k: launches[k] for k in kernels},
+            "warmup_launches": {k: warm[k] for k in kernels},
+            "launches_per_slot_step": per_step, "serve": serve,
+            "seconds": time.monotonic() - t_start}
+
+
 def shape_record(r: dict) -> dict:
     """A kernel's record at one more timed shape, for its kernel entry."""
     return {**{k: r[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
@@ -2073,12 +2440,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/11] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/12] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/11] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/12] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     if sorted(built) != sorted(build.SOURCES):
@@ -2088,36 +2455,36 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/11] attention kernels against their plain versions", flush=True)
+    print("[3/12] attention kernels against their plain versions", flush=True)
     timed, pair = check_attention(torch, aops)
     records = dict(timed[ATT_MAIN_CASE[0]])
 
     edl = get_config("edl-paper")
-    print("[4/11] edl_paper path: python -m repro_torch.launch.train "
+    print("[4/12] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # forward, dq and dkdv once per layer and shard
     edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
     paths = {"edl-paper": run_path(
         torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
 
-    print("[5/11] edl_paper virtual-worker path: python -m "
+    print("[5/12] edl_paper virtual-worker path: python -m "
           "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
     vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
 
-    print("[6/11] edl_paper model-parallel path on four slots of the card",
+    print("[6/12] edl_paper model-parallel path on four slots of the card",
           flush=True)
     mp = run_mp_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard,
                      paths["edl-paper"],
                      vw["runs"]["static"]["losses"][:VW_STEPS])
 
-    print("[7/11] WKV6 kernels against their plain versions", flush=True)
+    print("[7/12] WKV6 kernels against their plain versions", flush=True)
     records.update(check_wkv(torch, wops))
     wkv_decode = check_wkv_decode(torch, wops)
 
     rwkv = get_config("rwkv6-1.6b")
-    print("[8/11] rwkv6 path: python -m repro_torch.launch.train "
+    print("[8/12] rwkv6 path: python -m repro_torch.launch.train "
           + " ".join(RWKV_ARGS), flush=True)
     # each kernel once per layer and shard; remat runs the forward again
     rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
@@ -2166,7 +2533,7 @@ def main() -> int:
                 name: {"launches": run["launches"][kname],
                        "warmup_launches": run["warmup_launches"][kname]}
                 for name, run in mp["runs"].items()}
-    print(f"[9/11] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
+    print(f"[9/12] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
           f"ClusterExecutor with full-width edl_paper tenants, then "
           f"repro_torch.launch.cluster.main", flush=True)
     cluster = run_cluster_path(torch, LAUNCHES, aops.KERNELS, edl_shard,
@@ -2179,7 +2546,7 @@ def main() -> int:
                        "warmup_launches":
                            run["warmup_launches"][entry["name"]]}
                 for name, run in cluster.items()}
-    print("[10/11] the serving path: serve_batch at full width on one slot "
+    print("[10/12] the serving path: serve_batch at full width on one slot "
           "(edl_paper fp32, rwkv6-1.6b bf16), then a live serving tenant "
           "beside a trainer on four slots", flush=True)
     serving = {arch: run_serve(torch, LAUNCHES, arch) for arch in SERVE_ARCHS}
@@ -2208,8 +2575,33 @@ def main() -> int:
                     "launches_per_decode_step"][name],
                 "prefill_launches": serving["rwkv6-1.6b"][
                     "prefill_launches"][name]}
+    print("[11/12] the zoo: each config at its published widths, bf16, "
+          "its depth cut; an ElasticTrainer at (1, 1) and serving on one "
+          "slot", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"  {resident:.2f} GiB still allocated from the phases before",
+          flush=True)
+    t0 = time.monotonic()
+    zoo = {arch: run_zoo(torch, LAUNCHES, aops.KERNELS, arch)
+           for arch in ZOO_ARCHS}
+    zoo_s = time.monotonic() - t0
+    print(f"  phase 11 took {zoo_s:.1f} s", flush=True)
+    for entry in kernels:
+        if entry["name"] in aops.KERNELS:
+            entry["zoo_shapes"] = {case: shape_record(timed[case][entry[
+                "name"]]) for case, *_ in ATT_ZOO_CASES}
+            # each config's training run, counted from 0 just before it
+            entry["zoo_path"] = {
+                arch: {"launches": run["launches"][entry["name"]],
+                       "warmup_launches": run["warmup_launches"][
+                           entry["name"]],
+                       "prefill_launches": run["serve"]["prefill_launches"][
+                           entry["name"]]}
+                for arch, run in zoo.items()}
     print(f"  {card}", flush=True)
-    print("[11/11] results; library_ms is F.scaled_dot_product_attention for "
+    print("[12/12] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd, its whole "
           "backward for both backward kernels) and null for the WKV6 "
           "kernels, whose outputs no single PyTorch call computes; "
@@ -2224,6 +2616,8 @@ def main() -> int:
         "virtual_workers": vw, "model_parallel": mp, "cluster": cluster},
         "card": card}))
     print(json.dumps({"serving": serving, "card": card}))
+    print(json.dumps({"zoo": zoo, "seconds": zoo_s,
+                      "resident_gib_before": resident, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

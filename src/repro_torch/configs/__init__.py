@@ -1,5 +1,8 @@
-from repro_torch.configs.base import (ALIASES, ArchConfig, MLAConfig,
-                                      MoEConfig, SSMConfig, get_config)
+from repro_torch.configs.base import (ALIASES, ARCH_IDS, INPUT_SHAPES,
+                                      ArchConfig, InputShape, MLAConfig,
+                                      MoEConfig, SSMConfig, all_configs,
+                                      get_config, input_specs)
 
-__all__ = ["ALIASES", "ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig",
-           "get_config"]
+__all__ = ["ALIASES", "ARCH_IDS", "INPUT_SHAPES", "ArchConfig", "InputShape",
+           "MLAConfig", "MoEConfig", "SSMConfig", "all_configs", "get_config",
+           "input_specs"]

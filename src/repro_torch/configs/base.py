@@ -3,13 +3,16 @@
 Each ported architecture gets a ``configs/<id>.py`` exporting ``CONFIG``
 (the exact published shape) and ``SMOKE`` (a reduced same-family variant for
 CPU tests). The dataclasses are those of the JAX package, field for field,
-so a config means the same model in both packages.
+so a config means the same model in both packages. ``input_specs()`` builds
+meta-device tensors as stand-ins for every model input — no allocation.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Literal
+
+import torch
 
 AttnKind = Literal["gqa", "mla", "none"]
 Frontend = Literal["tokens", "embeds"]
@@ -102,6 +105,26 @@ class ArchConfig:
         return (i % self.moe.every) == (self.moe.every - 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: Literal["train", "prefill", "decode"]
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS = [
+    "rwkv6_1p6b", "jamba_v01_52b", "llava_next_mistral_7b", "phi3_mini_3p8b",
+    "musicgen_medium", "starcoder2_15b", "qwen2p5_32b", "deepseek_v2_236b",
+    "mistral_nemo_12b", "mixtral_8x7b",
+]
 # CLI aliases matching the assignment sheet
 ALIASES = {
     "rwkv6-1.6b": "rwkv6_1p6b", "jamba-v0.1-52b": "jamba_v01_52b",
@@ -122,3 +145,33 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
             raise
         raise ValueError(f"architecture {arch!r} is not yet ported") from None
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_configs(smoke: bool = False) -> dict[str, ArchConfig]:
+    """Every architecture of ``ARCH_IDS``; raises ``ValueError`` while one
+    of them is not yet ported."""
+    return {a: get_config(a, smoke) for a in ARCH_IDS}
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape | str
+                ) -> dict[str, torch.Tensor]:
+    """Meta-device stand-ins for every model input (no allocation); the
+    decode shape adds the cache of ``models.cache.cache_specs``."""
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    B, L = shape.global_batch, shape.seq_len
+
+    def spec(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    if shape.mode == "decode":      # ONE new token against a cache of L
+        L = 1
+    if cfg.frontend == "embeds":
+        out = {"embeds": spec(B, L, cfg.d_model, dtype=torch.bfloat16)}
+    else:
+        out = {"tokens": spec(B, L)}
+    if shape.mode == "train":
+        out["labels"] = spec(B, L)
+    elif shape.mode == "decode":
+        from repro_torch.models.cache import cache_specs
+        out["cache"] = cache_specs(cfg, batch=B, max_seq=shape.seq_len)
+    return out

@@ -324,7 +324,7 @@ class ElasticTrainer:
     def _warm(self, groups: tuple[tuple[torch.device, ...], ...]):
         """Run one forward and backward at the step's shard shape on each
         distinct data group (``groups``: each group's slot devices), with
-        zero params and tokens, on side streams: one virtual worker's shard
+        zero params and inputs, on side streams: one virtual worker's shard
         on the group's first slot in virtual mode, else one data group's
         shard over its mp slots. Touches no trainer state; its kernel
         launches are tallied as warm-ups."""
@@ -349,8 +349,11 @@ class ElasticTrainer:
         trees = split_tree(params, dims, devs)
         toks = torch.zeros((per, self.seq_len), dtype=torch.long,
                            device=devs[0])
-        loss, _, _ = group_loss_and_grads(self.cfg, trees, dims, devs,
-                                          {"tokens": toks, "labels": toks})
+        batch = {"tokens": toks, "labels": toks}
+        if self.cfg.frontend == "embeds":
+            batch["embeds"] = torch.zeros((per, self.seq_len,
+                                           self.cfg.d_model), device=devs[0])
+        loss, _, _ = group_loss_and_grads(self.cfg, trees, dims, devs, batch)
         loss.item()
 
     def _build_exec(self, p: int, mp: int | None = None,

@@ -23,7 +23,7 @@ from repro_torch.kernels.launches import FAMILIES, LAUNCHES
 
 NEG_INF = -1e30
 KERNELS = FAMILIES["attention"]
-CUDA_HEAD_DIMS = (16, 32, 64, 128)
+CUDA_HEAD_DIMS = (16, 32, 64, 96, 128)
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 

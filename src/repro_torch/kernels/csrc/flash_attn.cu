@@ -45,10 +45,13 @@
 //   operands as float4: the score loops along d (S = Q K^T and dP = dO V^T
 //   contract over d, contiguous in both rows), the dQ/dV/dK loops along the
 //   score tile's columns and along d of the data tile. A thread owns an
-//   MR x 4 micro-tile of the score tile (MR = 8 for D <= 64, 4 for D = 128)
-//   and MR x D/16 outputs: 12 LDS.128 per 128 FMAs at D = 64 (10.7 FMAs a
-//   load, against 2). S and dP take two passes over d; P goes to shared
-//   memory between them, so only one score micro-tile is live in registers.
+//   MR x 4 micro-tile of the score tile (MR = 8 for D <= 64, 4 for D = 96
+//   and 128) and MR x D/16 outputs (out_col; at D = 96 four of its six
+//   columns are a whole chunk and two are read one float at a time, since
+//   16 threads cannot share 24 chunks evenly): 12 LDS.128 per 128 FMAs at
+//   D = 64 (10.7 FMAs a load, against 2). S and dP take two passes over
+//   d; P goes to shared memory between them, so only one score micro-tile
+//   is live in registers.
 //   On the H100 a warp-wide LDS.128 is cheapest when the warp touches at
 //   most 8 different chunks, and costs more the more it touches beyond
 //   that (measured on the card). The lanes of a warp are therefore 4
@@ -68,11 +71,11 @@
 //   two buffers, so dV += P^T dO and dK += dS^T Q both follow that barrier.
 // - Blocks: dQ, one per (b, q head, 64-row q tile), 128 threads at D <= 64,
 //   113 KB of shared memory, two blocks an SM; dK/dV, one per (b, kv
-//   head, 128-key tile) at D <= 64 (64 keys at D = 128), 256 threads, 193 KB
-//   at D = 64, one block an SM. dK/dV loops over the G q heads of its kv
-//   head and the q tiles that see its keys and owns its rows; dQ owns its
-//   rows and also writes delta = rowsum(dO * O): no atomics, and two runs
-//   give the same bits.
+//   head, 128-key tile) at D <= 64 (64 keys at D = 96 and 128), 256
+//   threads, 193 KB at D = 64, one block an SM. dK/dV loops over the G q
+//   heads of its kv head and the q tiles that see its keys and owns its
+//   rows; dQ owns its rows and also writes delta = rowsum(dO * O): no
+//   atomics, and two runs give the same bits.
 // - Order: the tile index is the grid's slow axis, so the heaviest causal
 //   tiles (the last q tiles for dQ, the first key tiles for dK/dV) are
 //   dispatched first. The inner loops are unrolled 4 times.
@@ -176,13 +179,21 @@ __device__ __forceinline__ Place place() {
   return {(w >> 1) * 4 * MR + (lane >> 3) * MR, (lane & 7) + 8 * (w & 1), w >> 1};
 }
 
-// Output column e of output chunk ox: whole chunks ox + 16 g where a thread
-// owns 4 columns or more, else columns ox * NO + e.
+// Output columns of a thread: NW of them in whole chunks ox + 16 g (NW = NO
+// rounded down to a multiple of 4, 0 where NO < 4), then the other NO - NW
+// as columns 16 NW + ox (NO - NW) + e - NW. D = 64 and 128 are whole chunks;
+// D = 16 and 32 the columns ox NO + e; D = 96 takes chunk ox (columns 4 ox
+// .. 4 ox + 3) and columns 64 + 2 ox and 64 + 2 ox + 1.
+template <int D>
+struct OutCols {
+  static constexpr int NO = D / 16;
+  static constexpr int NW = NO >= 4 ? NO / 4 * 4 : 0;
+};
 template <int D>
 __device__ __forceinline__ int out_col(int ox, int e) {
-  constexpr int NO = D / 16;
-  if constexpr (NO >= 4) return ((ox + 16 * (e >> 2)) << 2) + (e & 3);
-  else return ox * NO + e;
+  constexpr int NO = OutCols<D>::NO, NW = OutCols<D>::NW;
+  if (e < NW) return ((ox + 16 * (e >> 2)) << 2) + (e & 3);
+  return 16 * NW + ox * (NO - NW) + (e - NW);
 }
 
 // The 64 threads of the two warps of warp row wr wait for each other.
@@ -268,7 +279,8 @@ __device__ __forceinline__ void tile_dots(const float* A, const float* B, const 
 template <int D>
 __device__ __forceinline__ void tile_product(const float* P, const float* X, const Place& pl,
                                              float (&acc)[BwdCfg<D>::MR][D / 16]) {
-  constexpr int MR = BwdCfg<D>::MR, SH = BwdCfg<D>::SH, NO = D / 16;
+  constexpr int MR = BwdCfg<D>::MR, SH = BwdCfg<D>::SH;
+  constexpr int NO = OutCols<D>::NO, NW = OutCols<D>::NW;
 #pragma unroll 4
   for (int c4 = 0; c4 < BK / 4; ++c4) {
     float4 a[MR];
@@ -278,21 +290,18 @@ __device__ __forceinline__ void tile_product(const float* P, const float* X, con
     for (int cc = 0; cc < 4; ++cc) {
       const int c = c4 * 4 + cc;
       float x[NO];
-      if constexpr (NO >= 4) {
 #pragma unroll
-        for (int g = 0; g < NO / 4; ++g) {
-          const float4 v = chunk<D, 2>(X, c, pl.ox + 16 * g);
-          x[4 * g] = v.x;
-          x[4 * g + 1] = v.y;
-          x[4 * g + 2] = v.z;
-          x[4 * g + 3] = v.w;
-        }
-      } else {
+      for (int g = 0; g < NW / 4; ++g) {
+        const float4 v = chunk<D, 2>(X, c, pl.ox + 16 * g);
+        x[4 * g] = v.x;
+        x[4 * g + 1] = v.y;
+        x[4 * g + 2] = v.z;
+        x[4 * g + 3] = v.w;
+      }
 #pragma unroll
-        for (int e = 0; e < NO; ++e) {
-          const int col = out_col<D>(pl.ox, e);
-          x[e] = X[sw<D, 2>(c, col >> 2) + (col & 3)];
-        }
+      for (int e = NW; e < NO; ++e) {
+        const int col = out_col<D>(pl.ox, e);
+        x[e] = X[sw<D, 2>(c, col >> 2) + (col & 3)];
       }
 #pragma unroll
       for (int i = 0; i < MR; ++i) {
@@ -774,6 +783,7 @@ constexpr size_t bwd_dkdv_smem() {
   return sizeof(float) * (2 * KR * D + 4 * BQ * D + 2 * KR * BQ + 4 * BQ);
 }
 static_assert(bwd_dq_smem<128>() <= 232448 && bwd_dkdv_smem<128>() <= 232448 &&
+                  bwd_dq_smem<96>() <= 232448 && bwd_dkdv_smem<96>() <= 232448 &&
                   bwd_dkdv_smem<64>() <= 232448,
               "a backward block fits in the 227 KB of shared memory a block can use");
 
@@ -798,7 +808,7 @@ int can_copy_async(const void* a, const void* b, const void* c, const void* d) {
 
 template <int D>
 constexpr size_t fwd_smem() { return sizeof(float) * (5 * BQ * D + BQ * BK); }
-static_assert(fwd_smem<128>() <= 232448,
+static_assert(fwd_smem<128>() <= 232448 && fwd_smem<96>() <= 232448,
               "a forward block fits in the 227 KB of shared memory a block can use");
 
 template <typename T, int D>
@@ -846,7 +856,7 @@ cudaError_t bwd_dkdv(const void* q, const void* k, const void* v, const void* do
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 16, 32, 64 or 128. Every
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 16, 32, 64, 96 or 128. Every
 // tensor is contiguous; the caller checks shapes. Returns a cudaError_t.
 #define FA_DISPATCH(FN, ...)                                                  \
   do {                                                                        \
@@ -858,6 +868,8 @@ cudaError_t bwd_dkdv(const void* q, const void* k, const void* v, const void* do
                                   : FN<float, 32>(__VA_ARGS__));              \
       case 64: return (int)(dtype ? FN<__nv_bfloat16, 64>(__VA_ARGS__)        \
                                   : FN<float, 64>(__VA_ARGS__));              \
+      case 96: return (int)(dtype ? FN<__nv_bfloat16, 96>(__VA_ARGS__)        \
+                                  : FN<float, 96>(__VA_ARGS__));              \
       case 128: return (int)(dtype ? FN<__nv_bfloat16, 128>(__VA_ARGS__)      \
                                    : FN<float, 128>(__VA_ARGS__));            \
       default: return (int)cudaErrorInvalidValue;                             \

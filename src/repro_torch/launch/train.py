@@ -36,9 +36,10 @@ the loss trajectory (the JSON ``losses`` field) is bitwise-identical
 across every (p, mp) and every elastic schedule above, kills and
 stop-resumes included.
 
-The RWKV6 mixers have no tensor-parallel form yet: ``--arch rwkv6-1.6b``
-with ``--model-parallel`` above 1, or a ``stop_resume_mp`` to it, is
-refused when the arguments are parsed.
+The RWKV6 mixers and MoE have no tensor-parallel form yet: ``--arch
+rwkv6-1.6b`` or ``mixtral-8x7b`` with ``--model-parallel`` above 1, or a
+``stop_resume_mp`` to it, is refused when the arguments are parsed, as is
+an ``--arch`` not yet ported (``deepseek-v2-236b``, ``jamba-v0.1-52b``).
 """
 import argparse
 import json
@@ -104,13 +105,13 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.parallel import require_model_parallel
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     try:
+        cfg = get_config(args.arch, smoke=args.smoke)
         for mp in {args.model_parallel} | {n for ops in schedule.values()
                                            for opn, n in ops
                                            if opn == "stop_resume_mp"}:
             require_model_parallel(cfg, mp)
-    except NotImplementedError as e:
+    except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     from repro_torch.core import ElasticTrainer, stop_resume_rescale
     from repro_torch.core.failure import fail_worker, recover

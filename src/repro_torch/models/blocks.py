@@ -4,20 +4,21 @@ A block = pre-norm mixer (+residual) then pre-norm FFN (+residual).
 ``layer_plan(cfg)`` expands the architecture into a per-layer (mixer, ffn)
 list; ``scan_plan`` folds it into the smallest repeating period, whose
 stacked ``[n_periods, ...]`` parameter leaves are the reference's layout.
-Ported mixers: ``attn`` (GQA) and ``rwkv_tm``; ffns: ``mlp`` and
+Ported mixers: ``attn`` (GQA) and ``rwkv_tm``; ffns: ``mlp``, ``moe`` and
 ``rwkv_cm``. Any other block raises ``NotImplementedError``.
 ``block_forward`` runs a block over the model axis: the norms whole on
 the residual stream's device, the mixer and the FFN tensor-parallel where
 they have that form (``attn`` and ``mlp``), whole otherwise — at mp = 1
 every leaf is whole and the block is the plain one, op for op. With a
 decode cache (mp = 1 only) the mixer and the FFN run whole and write
-their parts of the block's cache in place.
+their parts of the block's cache in place. The block returns the FFN's
+auxiliary loss (MoE's load-balance loss; zero for the others).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, ssm
+from repro_torch.models import attention, moe, ssm
 from repro_torch.models.layers import apply_mlp, apply_mlp_tp, \
     apply_rmsnorm, dt, mlp_specs, rmsnorm_specs
 from repro_torch.parallel import ShardedParams
@@ -60,11 +61,16 @@ MIXERS = {
 }
 MIXER_CACHES = {"attn": attention.attention_cache_spec,
                 "rwkv_tm": ssm.rwkv_cache_spec}
+# ffn: (specs, forward (cfg, p, h, cache=None) -> (out, aux loss or None))
 FFNS = {
     "mlp": (lambda cfg: mlp_specs(cfg.d_model, cfg.d_ff),
             lambda cfg, p, h, cache=None: (
                 apply_mlp(p, h, dt(cfg, "compute")), None)),
-    "rwkv_cm": (ssm.rwkv_cm_specs, ssm.rwkv_cm_forward),
+    "moe": (moe.moe_specs,
+            lambda cfg, p, h, cache=None: moe.moe_forward(cfg, p, h)),
+    "rwkv_cm": (ssm.rwkv_cm_specs,
+                lambda cfg, p, h, cache=None: (
+                    ssm.rwkv_cm_forward(cfg, p, h, cache=cache)[0], None)),
 }
 
 
@@ -110,7 +116,9 @@ def block_forward(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
     x = x + mix_out
     h = apply_rmsnorm(sp["norm2"].whole(), x, cfg.norm_eps)
     if ffn in FFNS_TP and cache is None:
-        f = FFNS_TP[ffn](cfg, sp["ffn"], h)
+        f, aux = FFNS_TP[ffn](cfg, sp["ffn"], h), None
     else:
-        f, _ = FFNS[ffn][1](cfg, sp["ffn"].whole(), h, cache=cache)
-    return x + f, torch.zeros((), dtype=torch.float32, device=x.device)
+        f, aux = FFNS[ffn][1](cfg, sp["ffn"].whole(), h, cache=cache)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux

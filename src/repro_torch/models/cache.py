@@ -1,5 +1,6 @@
 """Decode-state (KV / SSM) cache: spec construction, init and size, in the
-stacked layout of the layer periods.
+stacked layout of the layer periods, and the dry-run's meta-device specs
+and logical axes.
 
 Counterpart of the reference's ``models/cache.py``, with its tree:
 
@@ -9,8 +10,6 @@ Counterpart of the reference's ``models/cache.py``, with its tree:
 Every leaf takes ``cfg.param_dtype``, as in the reference: under a bf16
 config the RWKV6 ``wkv`` state is rounded to bf16 between tokens. ``pos``
 lies on the cache's device, so a decode step reads it without a host sync.
-The dry-run's ``cache_specs`` and ``cache_logical_axes`` are not ported yet
-(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -33,6 +32,22 @@ def cache_spec_tree(cfg, batch: int, max_seq: int) -> dict:
         f"slot{j}": tree_map(lambda s: _stack(s, n_periods),
                              block_cache_spec(cfg, mixer, batch, max_seq))
         for j, (mixer, _) in enumerate(slots)}}
+
+
+def cache_specs(cfg, batch: int, max_seq: int) -> dict:
+    """Meta-device stand-ins of the cache's leaves (no allocation)."""
+    dtype = dt(cfg, "param")
+    tree = tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"),
+                    cache_spec_tree(cfg, batch, max_seq))
+    tree["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return tree
+
+
+def cache_logical_axes(cfg, batch: int, max_seq: int) -> dict:
+    tree = tree_map(lambda s: s.axes, cache_spec_tree(cfg, batch, max_seq))
+    tree["pos"] = ()
+    return tree
 
 
 def init_cache(cfg, batch: int, max_seq: int, pos: int = 0, *,

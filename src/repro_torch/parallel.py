@@ -142,8 +142,13 @@ class ShardedParams:
 def require_model_parallel(cfg, mp: int):
     """Raise ``NotImplementedError`` for a model-parallel degree the port
     cannot run ``cfg`` at: the RWKV6 mixers have no tensor-parallel form
-    yet (WKV6 at H/mp heads, ``ssm_inner`` column shards)."""
+    yet (WKV6 at H/mp heads, ``ssm_inner`` column shards), nor has MoE
+    (experts split over the model axis)."""
     if mp > 1 and cfg.family == "ssm":
         raise NotImplementedError(
             f"model_parallel={mp} for {cfg.name} (the RWKV6 mixers) is not "
+            f"yet ported")
+    if mp > 1 and cfg.moe is not None and cfg.moe.n_experts:
+        raise NotImplementedError(
+            f"model_parallel={mp} for {cfg.name} (its MoE layers) is not "
             f"yet ported")

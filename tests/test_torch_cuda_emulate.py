@@ -307,6 +307,14 @@ CASES = [  # B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype, tol
       for n in (63, 64, 65, 127, 128, 129)],
     (1, 2, 2, 64, 129, 64, False, 0, None, F32, 1e-4),
     (1, 2, 2, 129, 64, 64, False, 0, None, F32, 1e-4),
+    # head_dim 96 (phi3): six output columns a thread in the backward, at a
+    # tile's edge, across tiles and in bf16
+    (1, 2, 2, 65, 65, 96, True, 0, None, F32, 1e-4),
+    (1, 2, 2, 130, 130, 96, True, 0, None, F32, 1e-4),
+    (1, 2, 2, 130, 130, 96, True, 0, None, BF16, 2e-2),
+    # GQA at G = 5 (qwen SMOKE's 5 q heads on 1) and G = 12 (starcoder2)
+    (1, 5, 1, 100, 100, 64, True, 0, None, F32, 1e-4),
+    (1, 12, 1, 80, 80, 128, True, 0, None, F32, 1e-4),
 ]
 
 

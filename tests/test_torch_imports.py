@@ -19,6 +19,12 @@ MODULES = [
     "repro_torch.cluster.serving",
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.edl_paper", "repro_torch.configs.rwkv6_1p6b",
+    "repro_torch.configs.phi3_mini_3p8b",
+    "repro_torch.configs.mistral_nemo_12b",
+    "repro_torch.configs.qwen2p5_32b", "repro_torch.configs.starcoder2_15b",
+    "repro_torch.configs.llava_next_mistral_7b",
+    "repro_torch.configs.musicgen_medium",
+    "repro_torch.configs.mixtral_8x7b",
     "repro_torch.core", "repro_torch.core.api",
     "repro_torch.core.compile_service", "repro_torch.core.coordination",
     "repro_torch.core.elastic_runtime", "repro_torch.core.election",
@@ -37,7 +43,8 @@ MODULES = [
     "repro_torch.models", "repro_torch.models.attention",
     "repro_torch.models.blocks", "repro_torch.models.cache",
     "repro_torch.models.layers",
-    "repro_torch.models.model", "repro_torch.models.params",
+    "repro_torch.models.model", "repro_torch.models.moe",
+    "repro_torch.models.params",
     "repro_torch.models.ssm",
     "repro_torch.obs", "repro_torch.obs.audit", "repro_torch.obs.bus",
     "repro_torch.obs.events", "repro_torch.obs.metrics",

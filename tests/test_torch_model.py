@@ -38,11 +38,13 @@ INIT_GRAD_NORM_RTOL = 1e-3
 
 
 def _fan_in_scaled(np_params):
-    """The JAX init tree with every stacked layer weight rescaled from std
-    1/sqrt(n_periods) to 1/sqrt(d_in): a well-conditioned point."""
+    """The JAX init tree with every stacked layer weight ``[n_periods,
+    d_in, d_out]`` (and stacked expert weight ``[n_periods, E, d_in,
+    d_out]``) rescaled from std 1/sqrt(n_periods) to 1/sqrt(d_in): a
+    well-conditioned point."""
     def one(k, a):
-        if k.startswith("layers/") and a.ndim == 3:
-            return (a * np.sqrt(a.shape[0] / a.shape[1])).astype(a.dtype)
+        if k.startswith("layers/") and a.ndim >= 3:
+            return (a * np.sqrt(a.shape[0] / a.shape[-2])).astype(a.dtype)
         return a
     return tree_unflatten((k, one(k, a)) for k, a in tree_leaves(np_params))
 

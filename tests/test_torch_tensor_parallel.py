@@ -428,3 +428,49 @@ def test_rwkv6_beyond_model_parallel_1_is_refused():
         with pytest.raises(NotImplementedError, match="not yet ported"):
             t.reshape(1, 2)
         assert (t.p, t.model_parallel) == (2, 1)
+
+
+def test_starcoder2_step_at_mp2_matches_mp1():
+    """The dense zoo on the tensor-parallel path: starcoder2 SMOKE (QKV
+    bias, window 64 under L 128, 2 KV heads of 4 q heads each) at (1, 2)
+    against (1, 1), one step's loss and every gradient leaf at
+    MODULE_RTOL, from the rescaled init. Its KV heads split over the two
+    shards, and so do the biases."""
+    cfg = get_config("starcoder2-15b", smoke=True)
+    dims = model_dims(port_layout(cfg, OPT, 1, 2))
+    assert dict(tree_leaves(dims))["layers/slot0/mixer/wk/b"] == 1
+    params = bridge.params_from_numpy(_fan_in_scaled(bridge.to_numpy(
+        M.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 129)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, _, grads = loss_and_grads(cfg, params, batch)
+    loss2, _, grads2 = group_loss_and_grads(
+        cfg, split_tree(params, dims, ["cpu"] * 2), dims, ["cpu"] * 2, batch)
+    _close(loss2, loss, "loss")
+    whole = dict(tree_leaves(ShardedParams(grads2, dims,
+                                           ("cpu",) * 2).whole()))
+    for k, g in tree_leaves(grads):
+        _close(whole[k], g, k)
+
+
+def test_moe_beyond_model_parallel_1_is_refused():
+    """MoE has no tensor-parallel form yet: mixtral SMOKE at mp = 2 is
+    refused by the trainer, by ``reshape`` and by a stop-resume to mp = 2,
+    before anything changes."""
+    from repro_torch.core.stop_resume import stop_resume_rescale
+    mixtral = get_config("mixtral-8x7b", smoke=True)
+    with pytest.raises(NotImplementedError, match="MoE layers"):
+        ElasticTrainer(mixtral, global_batch=4, seq_len=32,
+                       init_parallelism=1, model_parallel=2, n_samples=64,
+                       devices=["cpu"] * 2, device="cpu")
+    with ElasticTrainer(mixtral, global_batch=4, seq_len=32,
+                        init_parallelism=2, n_samples=64, devices=["cpu"] * 2,
+                        device="cpu") as t:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            t.reshape(1, 2)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            stop_resume_rescale(t, 1, target_mp=2)
+        assert (t.p, t.model_parallel) == (2, 1)
+        assert t.state is not None
+

@@ -14,15 +14,17 @@ slots adds only the reads of ``decode_attention``.
 
 ``--part tf``: teacher forcing at each of ``--points``
 (``ARCH:DTYPE:D_MODEL:N_LAYERS``, comma-separated; the full configs at
-other widths and depths, heads and ``d_ff`` in proportion to the width).
-For each point it draws params from seed 0 and 8 prompts of 64 tokens
-from seed 1, lets ``serve_batch`` generate 64 more, and holds
-the decode's logits over those 128 tokens against the train-mode
-forward's: max |diff| over max |train-mode logit|, as ``chip_smoke.py``
-phase 10 does. It does so at the reference's init, whose stacked layer
-matrices have std 1/sqrt(n_periods), and with them rescaled to
-1/sqrt(d_in) (``fan_in_scaled``, the well-conditioned point of
-``tests/test_torch_model.py``).
+other widths and depths, KV heads and ``d_ff`` in proportion to the
+width).
+For each point it draws params from seed 0 and ``--batch`` prompts of
+``--prompt`` tokens (8 and 64) from seed 1, lets ``serve_batch`` generate
+``--gen`` (64) more (an ``embeds`` config takes that many seeded
+embeddings instead), and holds the decode's logits over those tokens
+against the train-mode forward's: max |diff| over max |train-mode logit|,
+as ``chip_smoke.py`` phases 10 and 11 do. It does so at the reference's
+init, whose stacked layer matrices have std 1/sqrt(n_periods), and with
+them rescaled to 1/sqrt(d_in) (``fan_in_scaled``, the well-conditioned
+point of ``tests/test_torch_model.py``).
 
 ``--src DIR`` imports ``repro_torch`` from another tree (e.g. an earlier
 revision unpacked with ``git archive``), so two versions run in one call.
@@ -31,7 +33,8 @@ limit. Run from the repo root:
 
     python3 tools/torch_serve_probe.py --part decode [--src DIR]
     python3 tools/torch_serve_probe.py --part tf [--device cpu] \\
-        [--points rwkv6-1.6b:bfloat16:256:24,edl-paper:float32:768:12]
+        [--points rwkv6-1.6b:bfloat16:256:24,edl-paper:float32:768:12] \\
+        [--batch 4 --prompt 32 --gen 32]
 """
 import argparse
 import dataclasses
@@ -56,36 +59,44 @@ DEFAULT_POINTS = ",".join(
 
 def fan_in_scaled(params: dict) -> dict:
     """``params`` with every stacked layer matrix ``[n_periods, d_in,
-    d_out]`` rescaled from the reference's std 1/sqrt(n_periods) to
+    d_out]`` (and every stacked expert matrix ``[n_periods, E, d_in,
+    d_out]``) rescaled from the reference's std 1/sqrt(n_periods) to
     1/sqrt(d_in); the other leaves are shared."""
     from repro_torch.models.params import tree_leaves, tree_unflatten
 
     def one(path, t):
-        if path.startswith("layers/") and t.dim() == 3:
-            return t * math.sqrt(t.shape[0] / t.shape[1])
+        if path.startswith("layers/") and t.dim() >= 3:
+            return t * math.sqrt(t.shape[0] / t.shape[-2])
         return t
     return tree_unflatten((p, one(p, t)) for p, t in tree_leaves(params))
 
 
+def inputs(cfg, x) -> dict:
+    """The model's input dict for ``x``: token ids [B, T], or embeddings
+    [B, T, D] for an ``embeds`` frontend."""
+    return {"embeds" if cfg.frontend == "embeds" else "tokens": x}
+
+
 def teacher_forced(cfg, params, tokens, prompt_len: int):
-    """Decode ``tokens`` [B, T] one at a time from a fresh cache against
-    the train-mode forward over all of them (remat off: the same math).
+    """Decode ``tokens`` (ids [B, T], or embeddings [B, T, D] for an
+    ``embeds`` frontend) one at a time from a fresh cache against the
+    train-mode forward over all of them (remat off: the same math).
     Returns (max |diff| / max |train-mode logit|, the decode's logits after
     the first ``prompt_len`` tokens)."""
     import torch
 
     from repro_torch.models import model as M
     from repro_torch.models.cache import init_cache
-    B, T = tokens.shape
+    B, T = tokens.shape[:2]
     with torch.inference_mode():
         hidden, _ = M.forward(dataclasses.replace(cfg, remat=False), params,
-                              {"tokens": tokens})
+                              inputs(cfg, tokens))
         ref = hidden.float() @ params["unembed"]["w"].float()
         del hidden
         cache = init_cache(cfg, B, T, device=tokens.device)
         err, after_prompt = torch.zeros((), device=tokens.device), None
         for t in range(T):
-            lg, cache = M.forward(cfg, params, {"tokens": tokens[:, t:t + 1]},
+            lg, cache = M.forward(cfg, params, inputs(cfg, tokens[:, t:t + 1]),
                                   mode="decode", cache=cache)
             err = torch.maximum(err, (lg[:, 0] - ref[:, t]).abs().max())
             if t == prompt_len - 1:
@@ -94,35 +105,53 @@ def teacher_forced(cfg, params, tokens, prompt_len: int):
 
 
 def point_config(arch: str, dtype: str, d_model: int, n_layers: int):
-    """The full config of ``arch`` at another width and depth: heads, KV
-    heads and ``d_ff`` scale with ``d_model``, the head width stays."""
+    """The full config of ``arch`` at another width and depth: KV heads
+    (at least one), ``d_ff`` and the experts' ``d_ff`` scale with
+    ``d_model``; the head width and the q heads a KV head stay."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
 
     def scaled(n):
         return n * d_model // cfg.d_model
+    kv = max(1, scaled(cfg.n_kv_heads))
+    moe = cfg.moe and dataclasses.replace(
+        cfg.moe, d_ff_expert=scaled(cfg.moe.d_ff_expert))
     return dataclasses.replace(
-        cfg, d_model=d_model, n_layers=n_layers, n_heads=scaled(cfg.n_heads),
-        n_kv_heads=scaled(cfg.n_kv_heads), d_ff=scaled(cfg.d_ff),
-        head_dim=cfg.resolved_head_dim, param_dtype=dtype,
-        compute_dtype=dtype)
+        cfg, d_model=d_model, n_layers=n_layers,
+        n_heads=kv * (cfg.n_heads // cfg.n_kv_heads), n_kv_heads=kv,
+        d_ff=scaled(cfg.d_ff), moe=moe, head_dim=cfg.resolved_head_dim,
+        param_dtype=dtype, compute_dtype=dtype)
 
 
-def tf_point(torch, spec: str, device: str) -> dict:
+def served_inputs(torch, cfg, params, batch: int, prompt: int, gen: int):
+    """The inputs a teacher-forcing reading decodes: ``batch`` prompts of
+    ``prompt`` ids from seed 1 and the ``gen`` ids ``serve_batch``
+    generates after them; for an ``embeds`` frontend (no generation from
+    ids), ``prompt + gen`` embeddings from seed 1, std 0.02 as the
+    reference's tests draw them."""
     from repro_torch.core import make_decode_fn, serve_batch
+    device = next(iter(params["unembed"].values())).device
+    gen_ = torch.Generator().manual_seed(1)
+    if cfg.frontend == "embeds":
+        x = torch.randn((batch, prompt + gen, cfg.d_model), generator=gen_)
+        return (x * 0.02).to(device)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen_,
+                            dtype=torch.int32).to(device)
+    ids, _ = serve_batch(cfg, params, prompts, gen,
+                         decode=make_decode_fn(cfg))
+    return torch.cat([prompts, ids], dim=1)
+
+
+def tf_point(torch, spec: str, device: str, batch: int, prompt: int,
+             gen: int) -> dict:
     from repro_torch.models import model as M
     arch, dtype, d_model, n_layers = spec.split(":")
     cfg = point_config(arch, dtype, int(d_model), int(n_layers))
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device)
-    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
-                            generator=torch.Generator().manual_seed(1),
-                            dtype=torch.int32).to(device)
-    ids, _ = serve_batch(cfg, params, prompts, GEN,
-                         decode=make_decode_fn(cfg))
-    tokens = torch.cat([prompts, ids], dim=1)
-    rec = {"point": spec}
+    tokens = served_inputs(torch, cfg, params, batch, prompt, gen)
+    rec = {"point": spec, "batch": batch, "prompt": prompt, "gen": gen}
     for name, ps in (("init", params), ("fan_in", fan_in_scaled(params))):
-        rec[name], _ = teacher_forced(cfg, ps, tokens, PROMPT)
+        rec[name], _ = teacher_forced(cfg, ps, tokens, prompt)
         del ps
     return rec
 
@@ -176,6 +205,9 @@ def main() -> int:
     ap.add_argument("--max-seqs", default="128,2048")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--points", default=DEFAULT_POINTS)
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--prompt", type=int, default=PROMPT)
+    ap.add_argument("--gen", type=int, default=GEN)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -204,7 +236,8 @@ def main() -> int:
         return 0
     for spec in args.points.split(","):
         t0 = time.monotonic()
-        rec = tf_point(torch, spec, args.device)
+        rec = tf_point(torch, spec, args.device, args.batch, args.prompt,
+                       args.gen)
         rec["seconds"] = time.monotonic() - t0
         print(json.dumps({"teacher_forcing": rec, "card": card}), flush=True)
         if args.device != "cpu":
