@@ -16,8 +16,9 @@ Phases, in order; any failure exits non-zero:
    tensors at the edl_paper path's shape, at one virtual worker's shard of
    it (B 1), at the tensor-parallel shard shapes (H 6 at mp = 2, H 3 at
    mp = 4), at GQA, window, ragged, non-causal, head-dim and bf16 cases,
-   and at the zoo's shapes (phase 11's configs: bf16, B 1, L 1024, D 96
-   and 128, G 1 to 12, and window 4096 at L 5120), and hold it against its
+   and at the zoo's shapes (phase 11's configs in bf16, D 96 and 128, G 1
+   to 12: a training slot shard, B 4 x L 1024, and a prefill, B 4 x L 32;
+   window 4096 at B 1, L 5120), and hold it against its
    plain PyTorch version on the same inputs; run the forward and the
    backward pair twice on the main, mp = 2, GQA and D 96 cases and
    require the same bits; time kernel, plain version and
@@ -115,7 +116,8 @@ Phases, in order; any failure exits non-zero:
    that give the same ids and launch no port kernel, a traced stretch of
    decode, ``prefill`` with one ``flash_attn_fwd`` a layer, and teacher
    forcing within ``ZOO_TF_TOL`` at the rescaled point (mixtral where its
-   teacher-forced pass routed every token as the decode did).
+   teacher-forced pass routed every token as the decode did); and for
+   mixtral an fp32 control that drops no claim, within ``ZOO_MOE_TOL``.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -176,16 +178,26 @@ ATT_MP_CASES = [("main_mp2", 8, 6, 6, 1024, 1024, 64, True, 0, None,
                  "float32"),
                 ("main_mp4", 8, 3, 3, 1024, 1024, 64, True, 0, None,
                  "float32")]
-# the zoo's attention shapes (phase 11's configs at their published
-# widths), bf16, B 1, causal; two at L 5120 so that the window of 4096 bites
+# phase 11's shapes: each config trains at batch ZOO_BATCH x ZOO_SEQ on one
+# slot (one slot shard a step) and serves batch ZOO_SERVE_BATCH, prompts of
+# ZOO_PROMPT tokens and ZOO_GEN generated
+ZOO_BATCH, ZOO_SEQ, ZOO_STEPS = 4, 1024, 4
+ZOO_SERVE_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 32
+# the zoo's attention shapes at their published widths, bf16, causal, as
+# phase 11 gives them to the kernels: a slot shard of a training step
+# (B 4, L 1024) and a prefill (B 4, L 32, one partial 64-row tile). Two more
+# at L 5120, where the window of 4096 bites (phase 11 trains at L 1024, so
+# its window never does), run at B 1: the plain backward holds four
+# [B, Hkv, G, L, L] bf16 tensors at once, 2.5 GB each at B 1 and H 48, and
+# at B 4 they would not fit beside them.
+ZOO_SHAPES = {"phi3": (32, 32, 96), "nemo_llava_mixtral": (32, 8, 128),
+              "qwen": (40, 8, 128), "starcoder2": (48, 4, 128),
+              "musicgen": (24, 24, 64)}
 ATT_ZOO_CASES = [
-    ("zoo_phi3", 1, 32, 32, 1024, 1024, 96, True, 0, None, "bfloat16"),
-    ("zoo_nemo_llava_mixtral", 1, 32, 8, 1024, 1024, 128, True, 0, None,
-     "bfloat16"),
-    ("zoo_qwen", 1, 40, 8, 1024, 1024, 128, True, 0, None, "bfloat16"),
-    ("zoo_starcoder2", 1, 48, 4, 1024, 1024, 128, True, 0, None,
-     "bfloat16"),
-    ("zoo_musicgen", 1, 24, 24, 1024, 1024, 64, True, 0, None, "bfloat16"),
+    *((f"zoo_{n}", ZOO_BATCH, H, Hkv, ZOO_SEQ, ZOO_SEQ, D, True, 0, None,
+       "bfloat16") for n, (H, Hkv, D) in ZOO_SHAPES.items()),
+    *((f"zoo_{n}_prefill", ZOO_SERVE_BATCH, H, Hkv, ZOO_PROMPT, ZOO_PROMPT, D,
+       True, 0, None, "bfloat16") for n, (H, Hkv, D) in ZOO_SHAPES.items()),
     ("zoo_starcoder2_w4096", 1, 48, 4, 5120, 5120, 128, True, 4096, None,
      "bfloat16"),
     ("zoo_mixtral_w4096", 1, 32, 8, 5120, 5120, 128, True, 4096, None,
@@ -2120,17 +2132,15 @@ def run_serving_tier(torch, launches_of, kernels, per_shard: dict) -> dict:
 ZOO_ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b", "qwen2.5-32b",
              "starcoder2-15b", "llava-next-mistral-7b", "musicgen-medium",
              "mixtral-8x7b")
-# Training: 2 layers, batch 4, sequence 1024, AdamW 1e-3, ZOO_STEPS steps on
-# one batch. Mixtral trains at 1: at 2 layers (3.17 B parameters) its train
+# Training: 2 layers, batch ZOO_BATCH, sequence ZOO_SEQ, AdamW 1e-3,
+# ZOO_STEPS steps on one batch. Mixtral trains at 1: at 2 layers (3.17 B parameters) its train
 # state is 38 GB (bf16 params and gradients, fp32 moments), and the
 # functional AdamW update holds the old and the new moments at once (25 GB
 # more) beside fp32 temporaries of its 3.76 GB expert leaf, ~85 GB in all.
 ZOO_TRAIN_LAYERS = {"mixtral-8x7b": 1}
-ZOO_BATCH, ZOO_SEQ, ZOO_STEPS = 4, 1024, 4
 # Serving: 2 layers, phi3 at all 32 (3.82 B parameters, one whole zoo model
-# on the card); batch 4, prompt 32, 32 generated, from the seed
+# on the card), from the seed
 ZOO_SERVE_LAYERS = {"phi3-mini-3.8b": 32}
-ZOO_SERVE_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 32
 # Teacher forcing at the rescaled point ("fan_in"), over the largest
 # logit, bf16. Written before the first run on the card, from the CPU
 # (tools/torch_serve_probe.py --part tf --device cpu --batch 4 --prompt 32
@@ -2144,13 +2154,30 @@ ZOO_SERVE_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 32
 # layers, 9.4e-2 at 32).
 ZOO_TF_TOL = {2: 2e-2, 32: 6e-2}
 # Mixtral is held at its depth's tolerance only where the teacher-forced
-# pass routed every token as the decode did: its train-mode groups are
-# 128 tokens (capacity 40) and can drop claims, where the decode's groups
-# of 4 (capacity 4) cannot; and a token whose two best experts are near a
-# tie in the router can take another pair when bf16 rounds its input
-# otherwise (the CPU read 0.71 at d_model 1024). Either makes the gap a
-# routing difference, not a numerical one: it is recorded with its drops
-# and its tokens routed otherwise.
+# pass routed every token as the decode did: its train-mode group is the
+# 256 tokens of the wave (capacity 80) and can drop claims, where the
+# decode's groups of 4 (capacity 4) cannot; and a token whose two best
+# experts are near a tie in the router can take another pair when bf16
+# rounds its input otherwise (the CPU read 0.71 at d_model 1024). Either
+# makes the gap a routing difference, not a numerical one: it is recorded
+# with its drops and its tokens routed otherwise.
+#
+# So mixtral is also held by a control that routing cannot move: its
+# serving params cast to fp32 and rescaled to fan_in, with capacity_factor
+# E / K, so that a group's capacity is all its tokens and no claim drops,
+# teacher-forced over the same inputs. In fp32 only the order of the sums
+# can break a near-tie in the router, so a (token, layer) routed otherwise
+# is rare; where one is, the positions of its row from it on see other
+# experts' outputs (through attention in later layers), so the gate holds
+# each row's positions before its first one, and fails unless at least
+# ZOO_MOE_GATED_SHARE of all positions are held. ZOO_MOE_TOL is the
+# reference's tolerance for decode against teacher forcing, phase 10's for
+# fp32 edl_paper; written before the first run on the card, where the CPU
+# read 1.74e-6 and 1.78e-6 (the control at d_model 1024 and 2048, 2
+# layers, batch 4, prompt 32, 32 generated; every position held, no claim
+# dropped, no token routed otherwise), so width barely moves it.
+ZOO_MOE_TOL = 1e-4
+ZOO_MOE_GATED_SHARE = 0.9
 
 
 @contextlib.contextmanager
@@ -2176,23 +2203,73 @@ def moe_routes(records: list):
         blocks.FFNS["moe"] = (specs, forward)
 
 
-def routing_gap(torch, records: list, n_layers: int) -> dict:
+def routing_gap(torch, records: list, n_layers: int):
     """The teacher-forced pass's routing against the decode's: claims
-    dropped in the train-mode pass (the decode never drops) and the
-    (token, layer) pairs whose experts differ."""
+    dropped in each, and the (token, layer) pairs whose experts differ.
+    Returns (a record, whether each token [B, T] was routed otherwise in
+    some layer)."""
     train = [r for r in records if r["L"] > 1]
     dec = [r for r in records if r["L"] == 1]
     T = train[0]["L"]
-    flips = 0
+    flips, flipped = 0, None
     for layer, r in enumerate(train):
         steps = torch.stack([dec[t * n_layers + layer]["experts"][:, 0]
                              for t in range(T)], dim=1)
-        flips += int((steps != r["experts"]).any(-1).sum())
+        differ = (steps != r["experts"]).any(-1)
+        flips += int(differ.sum())
+        flipped = differ if flipped is None else flipped | differ
     return {"dropped_claims": sum(r["made"] - r["kept"] for r in train),
             "decode_dropped_claims": sum(r["made"] - r["kept"] for r in dec),
             "claims": sum(r["made"] for r in train),
             "tokens_routed_otherwise": flips,
-            "token_layers": sum(r["experts"].shape[0] * T for r in train)}
+            "token_layers": sum(r["experts"].shape[0] * T for r in train)}, \
+        flipped
+
+
+def moe_control(torch, cfg, params, served, prompt_len: int) -> dict:
+    """Mixtral's control (see ``ZOO_MOE_TOL``): ``params`` cast to fp32
+    and rescaled to fan_in, capacity_factor E / K, teacher-forced over
+    ``served``; no claim may drop, and each row's positions before its
+    first token routed otherwise must hold ``ZOO_MOE_TOL``."""
+    import dataclasses
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    probe = serve_probe()
+    m = cfg.moe
+    ctl = dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32",
+        moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
+    ps = probe.fan_in_scaled(tree_unflatten(
+        (p, t.float()) for p, t in tree_leaves(params)))
+    records: list = []
+    with moe_routes(records):
+        gaps, _ = probe.decode_gaps(ctl, ps, served, prompt_len)
+    del ps
+    rec, flipped = routing_gap(torch, records, cfg.n_layers)
+    gaps = gaps.cpu()
+    T = gaps.shape[1]
+    first = torch.where(flipped.any(1), flipped.float().argmax(1),
+                        torch.full_like(flipped[:, 0], T, dtype=torch.long))
+    held = torch.arange(T)[None, :] < first[:, None]
+    share = float(held.float().mean())
+    gap = float(gaps[held].max()) if held.any() else math.nan
+    rec.update(teacher_forcing=gap, all_positions=float(gaps.max()),
+               held_share=share, tolerance=ZOO_MOE_TOL)
+    print(f"    fp32 control (capacity_factor {ctl.moe.capacity_factor:g}): "
+          f"teacher forcing {gap:.3e} of the largest logit over {share:.1%}"
+          f" of the positions (all: {rec['all_positions']:.3e}); dropped "
+          f"{rec['dropped_claims']} of {rec['claims']} claims, the decode "
+          f"{rec['decode_dropped_claims']}; {rec['tokens_routed_otherwise']}"
+          f" of {rec['token_layers']} (token, layer) pairs routed otherwise;"
+          f" tolerance {ZOO_MOE_TOL:g}", flush=True)
+    if rec["dropped_claims"] or rec["decode_dropped_claims"]:
+        fail(f"serve {cfg.name}: the fp32 control dropped claims: {rec}")
+    if share < ZOO_MOE_GATED_SHARE:
+        fail(f"serve {cfg.name}: the fp32 control routed otherwise too early"
+             f" to hold: {share:.1%} of the positions held")
+    if not gap <= ZOO_MOE_TOL:
+        fail(f"serve {cfg.name}: the fp32 control's teacher forcing {gap:.3e}"
+             f" beyond {ZOO_MOE_TOL:g}")
+    return rec
 
 
 def zoo_decode_fn(torch, cfg):
@@ -2277,7 +2354,7 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
         del ps
         gaps[point] = {"teacher_forcing": gap}
         if cfg.moe:
-            gaps[point].update(routing_gap(torch, records, cfg.n_layers))
+            gaps[point].update(routing_gap(torch, records, cfg.n_layers)[0])
     g = gaps["fan_in"]
     gated = not cfg.moe or (g["dropped_claims"] == 0
                             and g["tokens_routed_otherwise"] == 0)
@@ -2312,6 +2389,7 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
     if not gated:
         print(f"    {cfg.name}: not gated, the gap is the routing's (see "
               f"ZOO_TF_TOL)", flush=True)
+    control = moe_control(torch, cfg, params, served, P) if cfg.moe else None
     return {"layers": cfg.n_layers, "batch": Bz, "prompt": P, "gen": G,
             "entry": "serve_batch" if cfg.frontend == "tokens"
             else "serve_step", "params_init_s": init_s,
@@ -2320,6 +2398,7 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
             "generated_tok_per_s": Bz * G / min(wave_s),
             "decode_profile": prof, "prefill_launches": pre,
             "teacher_forcing": gaps, "tolerance": tol, "gated": gated,
+            "fp32_control": control,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 

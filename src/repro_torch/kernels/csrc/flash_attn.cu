@@ -165,6 +165,7 @@ struct BwdCfg {
   static constexpr int MR = D <= 64 ? 8 : 4;      // score rows of a thread
   static constexpr int SH = MR == 8 ? 3 : 2;      // log2(MR): swizzle of row-read tiles
   static constexpr int NO = D / 16;               // output columns of a thread
+  static constexpr int NW = NO >= 4 ? NO / 4 * 4 : 0;  // of them in whole chunks
   static constexpr int DQ_NT = 64 * BQ / (4 * MR);  // threads of a dQ block
   static constexpr int KR = D <= 64 ? 128 : 64;   // key rows of a dK/dV block
   static constexpr int KV_NT = 64 * KR / (4 * MR);  // threads of a dK/dV block
@@ -185,13 +186,8 @@ __device__ __forceinline__ Place place() {
 // D = 16 and 32 the columns ox NO + e; D = 96 takes chunk ox (columns 4 ox
 // .. 4 ox + 3) and columns 64 + 2 ox and 64 + 2 ox + 1.
 template <int D>
-struct OutCols {
-  static constexpr int NO = D / 16;
-  static constexpr int NW = NO >= 4 ? NO / 4 * 4 : 0;
-};
-template <int D>
 __device__ __forceinline__ int out_col(int ox, int e) {
-  constexpr int NO = OutCols<D>::NO, NW = OutCols<D>::NW;
+  constexpr int NO = BwdCfg<D>::NO, NW = BwdCfg<D>::NW;
   if (e < NW) return ((ox + 16 * (e >> 2)) << 2) + (e & 3);
   return 16 * NW + ox * (NO - NW) + (e - NW);
 }
@@ -280,7 +276,7 @@ template <int D>
 __device__ __forceinline__ void tile_product(const float* P, const float* X, const Place& pl,
                                              float (&acc)[BwdCfg<D>::MR][D / 16]) {
   constexpr int MR = BwdCfg<D>::MR, SH = BwdCfg<D>::SH;
-  constexpr int NO = OutCols<D>::NO, NW = OutCols<D>::NW;
+  constexpr int NO = BwdCfg<D>::NO, NW = BwdCfg<D>::NW;
 #pragma unroll 4
   for (int c4 = 0; c4 < BK / 4; ++c4) {
     float4 a[MR];

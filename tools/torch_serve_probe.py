@@ -77,12 +77,12 @@ def inputs(cfg, x) -> dict:
     return {"embeds" if cfg.frontend == "embeds" else "tokens": x}
 
 
-def teacher_forced(cfg, params, tokens, prompt_len: int):
+def decode_gaps(cfg, params, tokens, prompt_len: int):
     """Decode ``tokens`` (ids [B, T], or embeddings [B, T, D] for an
     ``embeds`` frontend) one at a time from a fresh cache against the
     train-mode forward over all of them (remat off: the same math).
-    Returns (max |diff| / max |train-mode logit|, the decode's logits after
-    the first ``prompt_len`` tokens)."""
+    Returns (max |diff| at each position [B, T] over max |train-mode
+    logit|, the decode's logits after the first ``prompt_len`` tokens)."""
     import torch
 
     from repro_torch.models import model as M
@@ -94,14 +94,23 @@ def teacher_forced(cfg, params, tokens, prompt_len: int):
         ref = hidden.float() @ params["unembed"]["w"].float()
         del hidden
         cache = init_cache(cfg, B, T, device=tokens.device)
-        err, after_prompt = torch.zeros((), device=tokens.device), None
+        err = torch.zeros((B, T), device=tokens.device)
+        after_prompt = None
         for t in range(T):
             lg, cache = M.forward(cfg, params, inputs(cfg, tokens[:, t:t + 1]),
                                   mode="decode", cache=cache)
-            err = torch.maximum(err, (lg[:, 0] - ref[:, t]).abs().max())
+            err[:, t] = (lg[:, 0] - ref[:, t]).abs().amax(-1)
             if t == prompt_len - 1:
                 after_prompt = lg[:, 0]
-    return float(err) / float(ref.abs().max()), after_prompt
+    return err / ref.abs().max(), after_prompt
+
+
+def teacher_forced(cfg, params, tokens, prompt_len: int):
+    """``decode_gaps`` at its largest: (max |diff| / max |train-mode
+    logit| over every position, the decode's logits after the first
+    ``prompt_len`` tokens)."""
+    gaps, after_prompt = decode_gaps(cfg, params, tokens, prompt_len)
+    return float(gaps.max()), after_prompt
 
 
 def point_config(arch: str, dtype: str, d_model: int, n_layers: int):
