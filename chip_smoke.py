@@ -105,19 +105,24 @@ Phases, in order; any failure exits non-zero:
    every switch stop-free, the trainer never parked and its steps
    numbered without a gap, slots conserved every round;
 11. the zoo: each of phi3-mini, mistral-nemo, qwen2.5, starcoder2,
-   llava-next, musicgen and mixtral at its published widths in bf16, the
-   depth cut (``ZOO_TRAIN_LAYERS``, ``ZOO_SERVE_LAYERS``): an
-   ``ElasticTrainer`` at (1, 1) on one slot takes ``ZOO_STEPS`` steps on
-   one batch of 4 x 1024, each loss finite and below the one before, with
-   one ``flash_attn_fwd`` a layer (two under remat) and one of each
-   backward kernel a layer per step, its context prep's warm-ups apart;
-   then serving at batch 4, prompt 32, 32 generated: ``serve_batch`` (the
-   ``embeds`` configs: ``serve_step``) in a warm-up and two timed waves
-   that give the same ids and launch no port kernel, a traced stretch of
-   decode, ``prefill`` with one ``flash_attn_fwd`` a layer, and teacher
-   forcing within ``ZOO_TF_TOL`` at the rescaled point (mixtral where its
-   teacher-forced pass routed every token as the decode did); and for
-   mixtral an fp32 control that drops no claim, within ``ZOO_MOE_TOL``.
+   llava-next, musicgen, mixtral, deepseek-v2 and jamba at its published
+   widths in bf16, the depth cut (``ZOO_TRAIN_LAYERS``,
+   ``ZOO_SERVE_LAYERS``): an ``ElasticTrainer`` at (1, 1) on one slot
+   takes ``ZOO_STEPS`` steps on one batch of 4 x 1024, each loss finite
+   and below the one before, with one ``flash_attn_fwd`` a GQA layer (two
+   under remat) and one of each backward kernel a GQA layer per step, its
+   context prep's warm-ups apart (jamba trains its first layer, Mamba and
+   a dense MLP, with no port kernel; deepseek does not train on the card,
+   and its MLA block runs forward and backward at B 4 x L 1024 within
+   ``ZOO_MLA_TOL`` of fp32 instead); then serving at batch 4, prompt 32,
+   32 generated: ``serve_batch`` (the ``embeds`` configs: ``serve_step``)
+   in a warm-up and two timed waves that give the same ids and launch no
+   port kernel, a traced stretch of decode, ``prefill`` with one
+   ``flash_attn_fwd`` a GQA layer (jamba's 8 layers: 1; deepseek's MLA:
+   none), and teacher forcing within ``ZOO_TF_TOL`` at the rescaled point
+   (a MoE config where its teacher-forced pass routed every token as the
+   decode did); and for each MoE config an fp32 control that drops no
+   claim, within ``ZOO_MOE_TOL``.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -2131,16 +2136,46 @@ def run_serving_tier(torch, launches_of, kernels, per_shard: dict) -> dict:
 # only the depth is cut, with dataclasses.replace(CONFIG, n_layers=...).
 ZOO_ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b", "qwen2.5-32b",
              "starcoder2-15b", "llava-next-mistral-7b", "musicgen-medium",
-             "mixtral-8x7b")
+             "mixtral-8x7b", "deepseek-v2-236b", "jamba-v0.1-52b")
 # Training: 2 layers, batch ZOO_BATCH, sequence ZOO_SEQ, AdamW 1e-3,
 # ZOO_STEPS steps on one batch. Mixtral trains at 1: at 2 layers (3.17 B parameters) its train
 # state is 38 GB (bf16 params and gradients, fp32 moments), and the
 # functional AdamW update holds the old and the new moments at once (25 GB
 # more) beside fp32 temporaries of its 3.76 GB expert leaf, ~85 GB in all.
-ZOO_TRAIN_LAYERS = {"mixtral-8x7b": 1}
+# Jamba trains at 1 layer, (mamba, mlp): 0.82 B parameters; its next
+# layer is (mamba, moe), 2.82 B parameters, about 100 GB under AdamW by
+# mixtral's one-layer reading (47 GiB for 1.67 B, ~28 bytes a parameter).
+# DeepSeek-V2 trains on the CPU only (tests/test_torch_zoo_jax.py): one
+# layer holds 3.77 B expert parameters (160 x 3 x 5120 x 1536), 5.0 B with
+# its shared experts, MLA and the 1.05 B of embedding and unembedding, and
+# AdamW's state alone is 16 bytes a parameter, 80 GB (ROADMAP A4c, A9).
+# Its MLA block runs forward and backward at full width instead
+# (ZOO_MLA_TOL).
+ZOO_TRAIN_LAYERS = {"mixtral-8x7b": 1, "jamba-v0.1-52b": 1,
+                    "deepseek-v2-236b": 0}
+# Each training run: (point, AdamW lr, whether the loss must fall at every
+# step). The others train once from the reference's init at 1e-3. Jamba
+# is gated at the rescaled point ("fan_in", stacked layer matrices at std
+# 1/sqrt(d_in)): from the reference's init (std 1/sqrt(n_periods), 1 at
+# one layer) its Mamba output at d_model 4096 has an rms of 2.2e17 (0.094
+# at fan_in) against the embedding's 0.0039, and the loss of a one-batch
+# refit at 1e-3 sits at ln V and rises there, in the JAX package too
+# (tools/torch_refit_probe.py --device cpu --layers 1 --seq 128 --dtype
+# float32 --points init --jax: JAX 11.516, 11.115, 11.072, 11.084, 11.069;
+# the port 11.516, 11.128, 11.072, 11.057, 11.083); that run is recorded,
+# not gated. At fan_in AdamW's first steps are sign steps of the lr on
+# every parameter, and at this width 1e-4 memorises the batch within two
+# (--seq 256, bf16: 11.592, 0.698, 3e-4, 0.0, 0.0), so the gate runs at
+# 3e-5, where it fell 11.592, 9.474, 7.381, 5.332, 3.379.
+ZOO_TRAIN_RUNS = {"jamba-v0.1-52b": (("fan_in", 3e-5, True),
+                                     ("init", 1e-3, False))}
 # Serving: 2 layers, phi3 at all 32 (3.82 B parameters, one whole zoo model
-# on the card), from the seed
-ZOO_SERVE_LAYERS = {"phi3-mini-3.8b": 32}
+# on the card), jamba one whole period of 8 (7 Mamba, 1 attention, 4 MoE;
+# 13.3 B parameters, 26.6 GB), from the seed. DeepSeek's 2 layers are
+# 8.98 B parameters (18.0 GB).
+# Params drawn anew for serving come from a CUDA generator on the card (the
+# host draws ~10 s a billion parameters: 68 s for phi3's and mixtral's).
+ZOO_SERVE_LAYERS = {"phi3-mini-3.8b": 32, "jamba-v0.1-52b": 8}
 # Teacher forcing at the rescaled point ("fan_in"), over the largest
 # logit, bf16. Written before the first run on the card, from the CPU
 # (tools/torch_serve_probe.py --part tf --device cpu --batch 4 --prompt 32
@@ -2151,10 +2186,15 @@ ZOO_SERVE_LAYERS = {"phi3-mini-3.8b": 32}
 # 3x the largest reading at the depth: bf16 rounds the decode and the
 # train-mode forward at other shapes, in another order. The reading at
 # the reference's init is printed, not gated (3.7e-3 to 2.1e-2 at 2
-# layers, 9.4e-2 at 32).
-ZOO_TF_TOL = {2: 2e-2, 32: 6e-2}
-# Mixtral is held at its depth's tolerance only where the teacher-forced
-# pass routed every token as the decode did: its train-mode group is the
+# layers, 9.4e-2 at 32). Jamba serves 8 layers: its tolerance is about 3x
+# the CPU's reading at d_model 1024, 8 layers, over the positions held
+# (those before their row's first token routed otherwise or short of a
+# claim; see below): 1.88e-2 over 3.9 % of the positions (6.2e-2 over
+# 5.5 % at init; over all of them 0.82, the routing's).
+ZOO_TF_TOL = {2: 2e-2, 8: 5e-2, 32: 6e-2}
+# A MoE config (mixtral, deepseek, jamba) is held at its depth's tolerance
+# only where the teacher-forced pass routed every token as the decode
+# did, as mixtral's is: its train-mode group is the
 # 256 tokens of the wave (capacity 80) and can drop claims, where the
 # decode's groups of 4 (capacity 4) cannot; and a token whose two best
 # experts are near a tie in the router can take another pair when bf16
@@ -2162,7 +2202,13 @@ ZOO_TF_TOL = {2: 2e-2, 32: 6e-2}
 # makes the gap a routing difference, not a numerical one: it is recorded
 # with its drops and its tokens routed otherwise.
 #
-# So mixtral is also held by a control that routing cannot move: its
+# The CPU reads the same at deepseek's and jamba's cut widths (d_model
+# 1024 at fan_in: 694 of 3072 and 16 of 2048 claims dropped, 153 of 512
+# and 61 of 1024 (token, MoE layer) pairs routed otherwise; jamba's Mamba
+# state is also rounded to bf16 between tokens, as RWKV6's is), so
+# neither is expected to be gated.
+#
+# So each is also held by a control that routing cannot move: its
 # serving params cast to fp32 and rescaled to fan_in, with capacity_factor
 # E / K, so that a group's capacity is all its tokens and no claim drops,
 # teacher-forced over the same inputs. In fp32 only the order of the sums
@@ -2175,91 +2221,47 @@ ZOO_TF_TOL = {2: 2e-2, 32: 6e-2}
 # fp32 edl_paper; written before the first run on the card, where the CPU
 # read 1.74e-6 and 1.78e-6 (the control at d_model 1024 and 2048, 2
 # layers, batch 4, prompt 32, 32 generated; every position held, no claim
-# dropped, no token routed otherwise), so width barely moves it.
+# dropped, no token routed otherwise), so width barely moves it; and
+# 2e-6 (deepseek, d_model 512 and 1024, 2 layers) and 3e-6 and 4e-6
+# (jamba, d_model 512 and 1024, 8 layers). Deepseek's control is 35.9 GB
+# and jamba's 53 GB: each is cast from the bf16 params leaf by leaf,
+# freeing them as it goes.
 ZOO_MOE_TOL = 1e-4
 ZOO_MOE_GATED_SHARE = 0.9
-
-
-@contextlib.contextmanager
-def moe_routes(records: list):
-    """Record, for every MoE layer call, its tokens' experts and its kept
-    and made claims, counted from the router weights with
-    ``models.moe.route`` (the forward's own routing)."""
-    from repro_torch.models import blocks, moe
-    specs, forward = blocks.FFNS["moe"]
-
-    def recorded(cfg, p, h, cache=None):
-        r = moe.route(cfg, p, h)
-        records.append({
-            "L": h.shape[1],
-            "experts": r["expert"].reshape(h.shape[0], h.shape[1], -1)
-            .sort(dim=-1).values.cpu(),
-            "kept": int((r["pos"] < r["C"]).sum()), "made": r["pos"].numel()})
-        return forward(cfg, p, h, cache)
-    blocks.FFNS["moe"] = (specs, recorded)
-    try:
-        yield
-    finally:
-        blocks.FFNS["moe"] = (specs, forward)
-
-
-def routing_gap(torch, records: list, n_layers: int):
-    """The teacher-forced pass's routing against the decode's: claims
-    dropped in each, and the (token, layer) pairs whose experts differ.
-    Returns (a record, whether each token [B, T] was routed otherwise in
-    some layer)."""
-    train = [r for r in records if r["L"] > 1]
-    dec = [r for r in records if r["L"] == 1]
-    T = train[0]["L"]
-    flips, flipped = 0, None
-    for layer, r in enumerate(train):
-        steps = torch.stack([dec[t * n_layers + layer]["experts"][:, 0]
-                             for t in range(T)], dim=1)
-        differ = (steps != r["experts"]).any(-1)
-        flips += int(differ.sum())
-        flipped = differ if flipped is None else flipped | differ
-    return {"dropped_claims": sum(r["made"] - r["kept"] for r in train),
-            "decode_dropped_claims": sum(r["made"] - r["kept"] for r in dec),
-            "claims": sum(r["made"] for r in train),
-            "tokens_routed_otherwise": flips,
-            "token_layers": sum(r["experts"].shape[0] * T for r in train)}, \
-        flipped
+# deepseek's MLA block in bf16 against an fp32 copy of the same bf16
+# values, forward and backward at B ZOO_BATCH x L ZOO_SEQ: the output, the
+# input's gradient and every weight's gradient, |bf16 - fp32| / |fp32| in
+# the Frobenius norm. Written before the first run on the card, from the
+# CPU at the published widths (tools/torch_serve_probe.py --part mla
+# --device cpu): 8.19e-3 at B 1 x L 128 and 8.08e-3 at B 2 x L 256, the
+# largest of the weight gradients (q_norm's, kv_norm's), the input's
+# gradient 7.7e-3 and 7.9e-3, the output 6.1e-3 and 6.3e-3; so about 3x.
+ZOO_MLA_TOL = 2.5e-2
 
 
 def moe_control(torch, cfg, params, served, prompt_len: int) -> dict:
-    """Mixtral's control (see ``ZOO_MOE_TOL``): ``params`` cast to fp32
-    and rescaled to fan_in, capacity_factor E / K, teacher-forced over
-    ``served``; no claim may drop, and each row's positions before its
-    first token routed otherwise must hold ``ZOO_MOE_TOL``."""
-    import dataclasses
-    from repro_torch.models.params import tree_leaves, tree_unflatten
+    """A MoE config's control (see ``ZOO_MOE_TOL``): ``params`` cast to
+    fp32 in place, leaf by leaf, so that the bf16 copy is freed as the
+    fp32 one grows (``probe.fp32_control``), rescaled to fan_in, with
+    capacity_factor E / K, teacher-forced over ``served``; no claim may
+    drop, and each row's positions before its first token routed otherwise
+    must hold ``ZOO_MOE_TOL``. ``params`` is the control's after."""
     probe = serve_probe()
-    m = cfg.moe
-    ctl = dataclasses.replace(
-        cfg, param_dtype="float32", compute_dtype="float32",
-        moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
-    ps = probe.fan_in_scaled(tree_unflatten(
-        (p, t.float()) for p, t in tree_leaves(params)))
-    records: list = []
-    with moe_routes(records):
-        gaps, _ = probe.decode_gaps(ctl, ps, served, prompt_len)
+    ctl, ps = probe.fp32_control(cfg, params)
+    torch.cuda.empty_cache()
+    r = probe.moe_decode_gaps(torch, ctl, ps, served, prompt_len)
     del ps
-    rec, flipped = routing_gap(torch, records, cfg.n_layers)
-    gaps = gaps.cpu()
-    T = gaps.shape[1]
-    first = torch.where(flipped.any(1), flipped.float().argmax(1),
-                        torch.full_like(flipped[:, 0], T, dtype=torch.long))
-    held = torch.arange(T)[None, :] < first[:, None]
-    share = float(held.float().mean())
-    gap = float(gaps[held].max()) if held.any() else math.nan
-    rec.update(teacher_forcing=gap, all_positions=float(gaps.max()),
-               held_share=share, tolerance=ZOO_MOE_TOL)
+    gap, share = r.pop("held"), r.pop("held_share")
+    rec = dict(r, teacher_forcing=gap, all_positions=r["teacher_forcing"],
+               held_share=share, tolerance=ZOO_MOE_TOL,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"    fp32 control (capacity_factor {ctl.moe.capacity_factor:g}): "
           f"teacher forcing {gap:.3e} of the largest logit over {share:.1%}"
           f" of the positions (all: {rec['all_positions']:.3e}); dropped "
           f"{rec['dropped_claims']} of {rec['claims']} claims, the decode "
           f"{rec['decode_dropped_claims']}; {rec['tokens_routed_otherwise']}"
-          f" of {rec['token_layers']} (token, layer) pairs routed otherwise;"
+          f" of {rec['token_layers']} (token, MoE layer) pairs routed "
+          f"otherwise;"
           f" tolerance {ZOO_MOE_TOL:g}", flush=True)
     if rec["dropped_claims"] or rec["decode_dropped_claims"]:
         fail(f"serve {cfg.name}: the fp32 control dropped claims: {rec}")
@@ -2287,13 +2289,24 @@ def zoo_decode_fn(torch, cfg):
     return decode
 
 
-def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
+def gqa_layers(cfg) -> int:
+    """The layers of ``cfg``'s plan that run GQA attention, the flash
+    kernels' layers: MLA and the Mamba and RWKV6 mixers run none."""
+    from repro_torch.models.blocks import layer_plan
+    return sum(mixer == "attn" and cfg.attn_kind == "gqa"
+               for mixer, _ in layer_plan(cfg))
+
+
+def zoo_serve(torch, launches_of, cfg, params, init_s: float, *,
+              owned: bool = False) -> dict:
     """Phase 11's serving of ``cfg`` from ``params`` (drawn from seed 0):
     the served inputs (a warm-up wave for a tokens config), then two timed
     waves with the launch counts reset just before and read just after,
     which must launch no port kernel and give the warm-up's ids; a traced
-    stretch of decode; ``prefill``, one ``flash_attn_fwd`` a layer; and
-    teacher forcing at "init" and "fan_in", gated at "fan_in"."""
+    stretch of decode; ``prefill``, one ``flash_attn_fwd`` a GQA layer;
+    and teacher forcing at "init" and "fan_in", gated at "fan_in". A MoE
+    config's fp32 control comes last and turns ``params`` (which must be
+    ``owned``, the caller's to give up) into its own."""
     from repro_torch.core import serve_batch
     from repro_torch.kernels.launches import KERNELS
     from repro_torch.models import model as M
@@ -2340,7 +2353,7 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
         M.prefill(cfg, params, probe.inputs(cfg, served[:, :P]))
     torch.cuda.synchronize()
     pre = launches_of.snapshot()
-    want_pre = {**dict.fromkeys(KERNELS, 0), "flash_attn_fwd": cfg.n_layers}
+    want_pre = {**dict.fromkeys(KERNELS, 0), "flash_attn_fwd": gqa_layers(cfg)}
     if pre != want_pre:
         fail(f"prefill {cfg.name}: launches {pre}, predicted {want_pre}")
 
@@ -2348,13 +2361,12 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
     gaps = {}
     for point in ("init", "fan_in"):
         ps = params if point == "init" else probe.fan_in_scaled(params)
-        records: list = []
-        with (moe_routes(records) if cfg.moe else contextlib.nullcontext()):
-            gap, _ = probe.teacher_forced(cfg, ps, served, P)
-        del ps
-        gaps[point] = {"teacher_forcing": gap}
         if cfg.moe:
-            gaps[point].update(routing_gap(torch, records, cfg.n_layers)[0])
+            gaps[point] = probe.moe_decode_gaps(torch, cfg, ps, served, P)
+        else:
+            gaps[point] = {"teacher_forcing": probe.teacher_forced(
+                cfg, ps, served, P)[0]}
+        del ps
     g = gaps["fan_in"]
     gated = not cfg.moe or (g["dropped_claims"] == 0
                             and g["tokens_routed_otherwise"] == 0)
@@ -2378,7 +2390,9 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
                      f"of {r['claims']} claims, the decode "
                      f"{r['decode_dropped_claims']}; "
                      f"{r['tokens_routed_otherwise']} of {r['token_layers']}"
-                     f" (token, layer) pairs routed otherwise")
+                     f" (token, MoE layer) pairs routed otherwise; "
+                     f"{r['held']:.3e} over the {r['held_share']:.1%} of "
+                     f"positions before their row's first")
         print(f"    teacher forcing at {point}: {r['teacher_forcing']:.3e} "
               f"of the largest logit" + extra + "; " + (
                   f"tolerance {tol:g}" if point == "fan_in" and gated
@@ -2389,7 +2403,11 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
     if not gated:
         print(f"    {cfg.name}: not gated, the gap is the routing's (see "
               f"ZOO_TF_TOL)", flush=True)
-    control = moe_control(torch, cfg, params, served, P) if cfg.moe else None
+    control = None
+    if cfg.moe:
+        if not owned:
+            fail(f"serve {cfg.name}: the fp32 control needs params it owns")
+        control = moe_control(torch, cfg, params, served, P)
     return {"layers": cfg.n_layers, "batch": Bz, "prompt": P, "gen": G,
             "entry": "serve_batch" if cfg.frontend == "tokens"
             else "serve_step", "params_init_s": init_s,
@@ -2402,41 +2420,39 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def run_zoo(torch, launches_of, kernels, arch: str) -> dict:
-    """Phase 11 for ``arch``: an ``ElasticTrainer`` at (1, 1) on one slot
-    of the card, built directly, whose context prep's warm-ups launch one
-    slot shard's worth; ``zoo_serve`` on its initial params where the
-    serving depth is the training depth (else on params drawn anew); then
-    ZOO_STEPS steps on one batch with the counts reset just before and
-    read just after: each loss finite and below the one before, and the
-    launches a step one ``flash_attn_fwd`` a layer (two under remat) and
-    one of each backward kernel a layer. Returns a record."""
-    import dataclasses
-    from repro_torch.configs import get_config
+def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
+              point: str = "init", lr: float = 1e-3,
+              gated: bool = True) -> dict:
+    """An ``ElasticTrainer`` at (1, 1) of ``cfg`` with AdamW ``lr`` on one
+    slot of the card, built directly, whose context prep's warm-ups launch
+    one slot shard's worth, its params rescaled at ``point`` "fan_in";
+    ``zoo_serve`` on its initial params where ``serve_cfg`` has the
+    training depth; then ZOO_STEPS steps on one batch with the counts reset
+    just before and read just after: each loss finite and (if ``gated``)
+    below the one before, and the launches a step one ``flash_attn_fwd`` a
+    GQA layer (two under remat) and one of each backward kernel a GQA
+    layer; with no GQA layer, no port kernel at all. Returns a record."""
     from repro_torch.core import ElasticTrainer
     from repro_torch.devices import slot_devices
-    from repro_torch.models import model as M
     from repro_torch.optim import adamw
-    full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=ZOO_TRAIN_LAYERS.get(arch, 2))
-    serve_cfg = dataclasses.replace(full,
-                                    n_layers=ZOO_SERVE_LAYERS.get(arch, 2))
-    per_shard = {"flash_attn_fwd": cfg.n_layers * (2 if cfg.remat else 1),
-                 "flash_attn_bwd_dq": cfg.n_layers,
-                 "flash_attn_bwd_dkdv": cfg.n_layers}
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_start = time.monotonic()
+    n_gqa = gqa_layers(cfg)
+    path_kernels = kernels if n_gqa else ()
+    per_shard = {"flash_attn_fwd": n_gqa * (2 if cfg.remat else 1),
+                 "flash_attn_bwd_dq": n_gqa,
+                 "flash_attn_bwd_dkdv": n_gqa} if n_gqa else {}
     init_s: list = []
     launches_of.reset()
     with timed_state_init(torch, init_s):
         t = ElasticTrainer(cfg, global_batch=ZOO_BATCH, seq_len=ZOO_SEQ,
-                           init_parallelism=1, optimizer=adamw(1e-3),
+                           init_parallelism=1, optimizer=adamw(lr),
                            n_samples=ZOO_BATCH, d_partitions=1, seed=0,
                            devices=slot_devices(1, DEVICE))
     torch.cuda.synchronize()
     warm_all, warm = launches_of.snapshot(), launches_of.snapshot(warm=True)
+    serve = None
     with t:
+        if point == "fan_in":
+            t.state["params"] = serve_probe().fan_in_scaled(t.state["params"])
         if serve_cfg.n_layers == cfg.n_layers:
             serve = zoo_serve(torch, launches_of, serve_cfg,
                               t.state["params"], sum(init_s))
@@ -2463,39 +2479,98 @@ def run_zoo(torch, launches_of, kernels, arch: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches = {k: warm_all[k] + steps[k] for k in warm_all}
-    per_step = check_launches(f"zoo {arch}", launches, warm, kernels,
-                              per_shard, ZOO_STEPS, 1)
-    if not all(math.isfinite(x) for x in losses) or \
-            any(b >= a for a, b in zip(losses, losses[1:])):
-        fail(f"zoo {arch}: the loss did not fall at every step: {losses}")
+    per_step = check_launches(f"zoo {cfg.name}", launches, warm,
+                              path_kernels, per_shard, ZOO_STEPS, 1)
+    fell = all(b < a for a, b in zip(losses, losses[1:]))
+    trend = ("each below the one before" if fell
+             else "not each below the one before (not gated)")
+    if not all(math.isfinite(x) for x in losses) or (gated and not fell):
+        fail(f"zoo {cfg.name}: the loss did not fall at every step: "
+             f"{losses}")
     step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
-    print(f"  ({cfg.name}) train, {cfg.n_layers} of {full.n_layers} layers"
-          f", d_model {cfg.d_model}, {cfg.param_dtype}: state drawn and "
-          f"placed in {sum(init_s):.2f} s; losses "
-          f"{['%.4f' % x for x in losses]}, each below the one before; "
-          f"steps {[round(x * 1e3, 1) for x in step_s]} ms (median "
-          f"{step_ms:.1f}); peak {peak:.2f} GiB; launches a step "
-          f"{per_step}, warm-ups { {k: warm[k] for k in kernels} }, as "
-          f"predicted", flush=True)
+    print(f"  ({cfg.name}) train, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_dtype}, at {point}, AdamW {lr:g}: "
+          f"state drawn and placed in {sum(init_s):.2f} s; losses "
+          f"{['%.4f' % x for x in losses]}, {trend}; steps "
+          f"{[round(x * 1e3, 1) for x in step_s]} ms (median {step_ms:.1f})"
+          f"; peak {peak:.2f} GiB; launches a step {per_step}, warm-ups "
+          f"{ {k: warm[k] for k in kernels} }, as predicted ({n_gqa} GQA "
+          f"layers)", flush=True)
+    return {"train_layers": cfg.n_layers, "gqa_layers": n_gqa,
+            "point": point, "lr": lr, "gated": gated,
+            "init_state_s": sum(init_s), "losses": losses,
+            "step_ms": [x * 1e3 for x in step_s], "median_step_ms": step_ms,
+            "peak_gib": peak, "launches": {k: launches[k] for k in kernels},
+            "warmup_launches": {k: warm[k] for k in kernels},
+            "launches_per_slot_step": per_step, "serve": serve}
+
+
+def mla_block_check(torch, launches_of) -> dict:
+    """deepseek's MLA block forward and backward at its published widths,
+    B ZOO_BATCH x L ZOO_SEQ, bf16 (``probe.mla_block``), with the launch
+    counts reset just before and read just after (MLA runs no port
+    kernel): the output, the input's gradient and every weight's gradient
+    within ZOO_MLA_TOL of an fp32 copy of the same values, norm-wise."""
+    launches_of.reset()
+    rec = serve_probe().mla_block(torch, DEVICE, ZOO_BATCH, ZOO_SEQ)
+    launched = {k: n for k, n in launches_of.snapshot().items() if n}
+    worst = max(rec["out"], rec["x"], rec["grad_max"])
+    print(f"  (deepseek-v2-236b) MLA block, {rec['params'] / 1e6:.1f} M "
+          f"parameters, B {ZOO_BATCH} x L {ZOO_SEQ}, bf16, forward and "
+          f"backward: {rec['ms']:.1f} ms (median of 3), peak "
+          f"{rec['peak_gib']:.2f} GiB; against fp32: out {rec['out']:.3e}, "
+          f"input gradient {rec['x']:.3e}, weight gradients up to "
+          f"{rec['grad_max']:.3e}; tolerance {ZOO_MLA_TOL:g}; port kernels "
+          f"launched: {launched or 'none'}", flush=True)
+    if launched:
+        fail(f"MLA block: launched port kernels {launched}")
+    if not worst <= ZOO_MLA_TOL:
+        fail(f"MLA block: bf16 against fp32 {worst:.3e} beyond "
+             f"{ZOO_MLA_TOL:g}: {rec}")
+    return dict(rec, tolerance=ZOO_MLA_TOL)
+
+
+def run_zoo(torch, launches_of, kernels, arch: str) -> dict:
+    """Phase 11 for ``arch``: ``zoo_train`` at its training depth (none
+    for deepseek, whose MLA block runs alone instead), and ``zoo_serve``
+    at its serving depth, on params drawn anew on the card where the
+    depths differ. Returns a record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=ZOO_TRAIN_LAYERS.get(arch, 2))
+    serve_cfg = dataclasses.replace(full,
+                                    n_layers=ZOO_SERVE_LAYERS.get(arch, 2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.monotonic()
+    rec = {"arch": arch, "full_layers": full.n_layers,
+           "serve_layers": serve_cfg.n_layers, "train_layers": cfg.n_layers}
+    for point, lr, gated in (ZOO_TRAIN_RUNS.get(arch, (("init", 1e-3, True),))
+                             if cfg.n_layers else ()):
+        run = zoo_train(torch, launches_of, kernels, cfg, serve_cfg,
+                        point=point, lr=lr, gated=gated)
+        if gated:
+            rec.update(run)
+        else:
+            rec.setdefault("ungated_train", []).append(run)
+    if full.attn_kind == "mla":
+        rec["mla_block"] = mla_block_check(torch, launches_of)
+        gc.collect()
+        torch.cuda.empty_cache()
     if serve_cfg.n_layers != cfg.n_layers:
         t0 = time.monotonic()
-        params = M.init_params(serve_cfg, torch.Generator().manual_seed(0),
-                               DEVICE)
+        params = M.init_params(serve_cfg, torch.Generator(DEVICE).manual_seed(
+            0), DEVICE)
         torch.cuda.synchronize()
-        serve = zoo_serve(torch, launches_of, serve_cfg, params,
-                          time.monotonic() - t0)
+        rec["serve"] = zoo_serve(torch, launches_of, serve_cfg, params,
+                                 time.monotonic() - t0, owned=True)
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    return {"arch": arch, "train_layers": cfg.n_layers,
-            "serve_layers": serve_cfg.n_layers,
-            "full_layers": full.n_layers, "init_state_s": sum(init_s),
-            "losses": losses, "step_ms": [x * 1e3 for x in step_s],
-            "median_step_ms": step_ms, "peak_gib": peak,
-            "launches": {k: launches[k] for k in kernels},
-            "warmup_launches": {k: warm[k] for k in kernels},
-            "launches_per_slot_step": per_step, "serve": serve,
-            "seconds": time.monotonic() - t_start}
+    rec["seconds"] = time.monotonic() - t_start
+    return rec
 
 
 def shape_record(r: dict) -> dict:
@@ -2672,10 +2747,12 @@ def main() -> int:
             entry["zoo_shapes"] = {case: shape_record(timed[case][entry[
                 "name"]]) for case, *_ in ATT_ZOO_CASES}
             # each config's training run, counted from 0 just before it
+            # (null where the config does not train on the card)
             entry["zoo_path"] = {
-                arch: {"launches": run["launches"][entry["name"]],
-                       "warmup_launches": run["warmup_launches"][
-                           entry["name"]],
+                arch: {"launches": run.get("launches", {}).get(
+                           entry["name"]),
+                       "warmup_launches": run.get(
+                           "warmup_launches", {}).get(entry["name"]),
                        "prefill_launches": run["serve"]["prefill_launches"][
                            entry["name"]]}
                 for arch, run in zoo.items()}

@@ -143,13 +143,12 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     except ModuleNotFoundError as e:
         if e.name != f"repro_torch.configs.{arch}":
             raise
-        raise ValueError(f"architecture {arch!r} is not yet ported") from None
+        raise ValueError(f"unknown architecture {arch!r}") from None
     return mod.SMOKE if smoke else mod.CONFIG
 
 
 def all_configs(smoke: bool = False) -> dict[str, ArchConfig]:
-    """Every architecture of ``ARCH_IDS``; raises ``ValueError`` while one
-    of them is not yet ported."""
+    """Every architecture of ``ARCH_IDS``."""
     return {a: get_config(a, smoke) for a in ARCH_IDS}
 
 

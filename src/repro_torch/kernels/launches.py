@@ -10,6 +10,9 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
 FAMILIES = {
     # csrc/flash_attn.cu (kernels/attention/ops.py)
     "attention": ("flash_attn_fwd", "flash_attn_bwd_dq",
@@ -67,6 +70,17 @@ class LaunchCounter:
 
 
 LAUNCHES = LaunchCounter(KERNELS)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint`` while
+    autograd records (the backward keeps only ``args`` and recomputes the
+    rest, the reference's ``nothing_saveable``), plainly otherwise; its
+    recomputation counts launches as ``recompute_context`` says."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=recompute_context)
 
 
 def recompute_context():

@@ -36,10 +36,12 @@ the loss trajectory (the JSON ``losses`` field) is bitwise-identical
 across every (p, mp) and every elastic schedule above, kills and
 stop-resumes included.
 
-The RWKV6 mixers and MoE have no tensor-parallel form yet: ``--arch
-rwkv6-1.6b`` or ``mixtral-8x7b`` with ``--model-parallel`` above 1, or a
-``stop_resume_mp`` to it, is refused when the arguments are parsed, as is
-an ``--arch`` not yet ported (``deepseek-v2-236b``, ``jamba-v0.1-52b``).
+``--arch`` takes edl-paper and every one of the reference's ``ARCH_IDS``
+(or their aliases). The RWKV6 mixers, MoE, MLA and Mamba have no
+tensor-parallel form yet: ``--arch rwkv6-1.6b``, ``mixtral-8x7b``,
+``deepseek-v2-236b`` or ``jamba-v0.1-52b`` with ``--model-parallel`` above
+1, or a ``stop_resume_mp`` to it, is refused when the arguments are parsed,
+as is an unknown ``--arch``.
 """
 import argparse
 import json
@@ -71,7 +73,9 @@ def parse_schedule(ap: argparse.ArgumentParser, text: str
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="edl-paper")
+    ap.add_argument("--arch", default="edl-paper",
+                    help="edl-paper, or any reference ARCH_ID or alias "
+                         "(e.g. deepseek-v2-236b, jamba-v0.1-52b)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

@@ -1,13 +1,17 @@
-"""Attention: the reference's ``gqa_forward``, its train/prefill branch and
-its decode branch against the KV cache.
+"""Attention: the reference's ``gqa_forward`` and ``mla_forward``, each
+with its train/prefill branch and its decode branch against the cache.
 
-q is laid out [B,Hkv,G,L,D] and k/v [B,Hkv,L,D], as in the reference. Train
-and prefill go through the port's flash op: the CUDA kernels on the card,
-their plain versions on the CPU. Over the model axis
+q is laid out [B,Hkv,G,L,D] and k/v [B,Hkv,L,D], as in the reference. GQA's
+train and prefill go through the port's flash op: the CUDA kernels on the
+card, their plain versions on the CPU. Over the model axis
 (``attention_forward_tp``) each shard runs the same branch on its heads.
-Decode (one token against the cache) is ``decode_attention``, plain
-PyTorch, as the reference computes it outside any Pallas kernel. MLA and
-the window-pruned branch are not ported yet.
+MLA attends as MQA over its compressed KV, whose k (``kv_lora +
+qk_rope_dim`` wide) and v (``kv_lora``) differ in width; its train and
+prefill run ``chunked_attention``, the reference's chunked online softmax,
+as the reference runs it, and MLA has no tensor-parallel form. Decode (one
+token against the cache) is ``decode_attention``, plain PyTorch, as the
+reference computes it outside any Pallas kernel. The window-pruned branch
+is not ported: windowed GQA runs the flash op's window mask.
 """
 from __future__ import annotations
 
@@ -16,13 +20,61 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.models.layers import apply_linear, apply_rope, dt, \
-    linear_specs
-from repro_torch.models.params import ShardedInit
+from repro_torch.kernels.launches import remat
+from repro_torch.models.layers import apply_linear, apply_rmsnorm, \
+    apply_rope, dt, linear_specs, rmsnorm_specs
+from repro_torch.models.params import ShardedInit, fit_chunk
 from repro_torch.parallel import ShardedParams, copy_to_model, \
     reduce_from_model
 
 NEG_INF = -1e30
+
+
+def _online_update(m_prev, l_prev, acc_prev, q, k_c, v_c, mask,
+                   scale: float):
+    """One kv chunk of the online softmax. q: [B,Hkv,G,Lq,Dk]; k_c:
+    [B,Hkv,C,Dk]; v_c: [B,Hkv,C,Dv]; mask [Lq,C] (True: visible). The
+    scores, the running max ``m`` and sum ``l`` and the accumulator are
+    fp32; q and k enter the product as fp32 copies of their values, as the
+    reference's ``preferred_element_type=float32`` product sees them."""
+    s = torch.einsum("bhgqd,bhcd->bhgqc", q.float(), k_c.float()) * scale
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m_prev, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m_prev - m_new)
+    l_new = l_prev * corr + p.sum(-1)
+    acc_new = acc_prev * corr[..., None] + torch.einsum(
+        "bhgqc,bhcd->bhgqd", p, v_c.float())
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, chunk: int = 1024,
+                      scale: float | None = None) -> torch.Tensor:
+    """The reference's ``chunked_attention``: q [B,Hkv,G,Lq,Dk], k
+    [B,Hkv,Lk,Dk], v [B,Hkv,Lk,Dv] (k and v may differ in width), kv in
+    chunks of ``fit_chunk(Lk, chunk)`` under a running fp32 softmax; the
+    causal mask aligns query i with key i. Returns [B,Hkv,G,Lq,Dv] in q's
+    dtype. Under autograd each chunk is checkpointed, as the reference's
+    ``nothing_saveable`` chunk body is, so a backward keeps no chunk's
+    scores: it recomputes them from the chunk's inputs."""
+    B, Hkv, G, Lq, Dk = q.shape
+    Lk, Dv = k.shape[2], v.shape[3]
+    scale = Dk ** -0.5 if scale is None else scale
+    chunk = fit_chunk(Lk, chunk)
+    q_pos = torch.arange(Lq, device=q.device)
+    m = torch.full((B, Hkv, G, Lq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, Lq, Dv), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, Lk, chunk):
+        k_pos = c0 + torch.arange(chunk, device=q.device)
+        mask = (q_pos[:, None] >= k_pos[None, :] if causal else
+                torch.ones((Lq, chunk), dtype=torch.bool, device=q.device))
+        m, l, acc = remat(_online_update, m, l, acc, q,
+                          k[:, :, c0:c0 + chunk], v[:, :, c0:c0 + chunk],
+                          mask, scale)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
 def gqa_specs(cfg) -> dict:
@@ -94,21 +146,97 @@ def gqa_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
     return apply_linear(p["wo"], out, cd), cache
 
 
+def mla_specs(cfg) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq_a": linear_specs(D, m.q_lora, "embed", "lora"),
+        "q_norm": rmsnorm_specs(m.q_lora),
+        "wq_b": linear_specs(m.q_lora, H * qk, "lora", "heads"),
+        "wkv_a": linear_specs(D, m.kv_lora + m.qk_rope_dim, "embed", "lora"),
+        "kv_norm": rmsnorm_specs(m.kv_lora),
+        "w_uk": {"w": ShardedInit((H, m.kv_lora, m.qk_nope_dim),
+                                  ("heads", "lora", None))},
+        "w_uv": {"w": ShardedInit((H, m.kv_lora, m.v_head_dim),
+                                  ("heads", "lora", None))},
+        "wo": linear_specs(H * m.v_head_dim, D, "heads", "embed"),
+    }
+
+
+def mla_cache_spec(cfg, batch: int, max_seq: int) -> dict:
+    """The compressed cache: ``ckv`` [B,1,S,kv_lora] and ``krope``
+    [B,1,S,qk_rope_dim]."""
+    m = cfg.mla
+    ax = ("batch", None, "seq_shard", None)
+    return {"ckv": ShardedInit((batch, 1, max_seq, m.kv_lora), ax, "zeros"),
+            "krope": ShardedInit((batch, 1, max_seq, m.qk_rope_dim), ax,
+                                 "zeros")}
+
+
+def mla_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
+                cache=None, **_):
+    """MLA as MQA over the compressed KV: k = [c_kv ; k_rope] (one head,
+    read by all ``n_heads`` queries), v = c_kv, with each head's ``w_uk``
+    absorbed into its query and ``w_uv`` applied to the attention output.
+    The scores scale by ``(qk_nope_dim + qk_rope_dim) ** -0.5``, not by the
+    key's width. Decode writes this token's ``ckv`` and ``krope`` in place
+    at slot ``pos``. Returns (out, cache or None)."""
+    B, L, D = x.shape
+    m = cfg.mla
+    H = cfg.n_heads
+    cd = dt(cfg, "compute")
+    q_lat = apply_rmsnorm(p["q_norm"], apply_linear(p["wq_a"], x, cd),
+                          cfg.norm_eps)
+    q = apply_linear(p["wq_b"], q_lat, cd).reshape(
+        B, L, H, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions[:, :, None], cfg.rope_theta)
+    # absorb W_uk: [B,L,H,nope] x [H,lora,nope] -> [B,L,H,lora]
+    q_abs = torch.einsum("blhn,hkn->blhk", q_nope.to(cd),
+                         p["w_uk"]["w"].to(cd))
+    q_full = torch.cat([q_abs, q_rope.to(cd)], dim=-1)
+    q_full = q_full.permute(0, 2, 1, 3)[:, None]          # [B,1,H,L,qk']
+
+    kv_a = apply_linear(p["wkv_a"], x, cd)
+    ckv, k_rope = kv_a.split([m.kv_lora, m.qk_rope_dim], dim=-1)
+    ckv = apply_rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions[:, :, None],
+                        cfg.rope_theta)[:, :, 0]
+    ckv_n = ckv[:, None]                                   # [B,1,L,lora]
+    krope_n = k_rope[:, None].to(cd)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    if cache is not None:                                  # decode (L == 1)
+        pos = positions[0, 0]
+        slot = pos.long().reshape(1)
+        cache["ckv"].index_copy_(2, slot, ckv_n.to(cache["ckv"].dtype))
+        cache["krope"].index_copy_(2, slot, krope_n.to(cache["krope"].dtype))
+        c = cache["ckv"].to(cd)
+        k_full = torch.cat([c, cache["krope"].to(cd)], dim=-1)
+        out = decode_attention(q_full, k_full, c, pos + 1, scale=scale)
+    else:
+        k_full = torch.cat([ckv_n.to(cd), krope_n], dim=-1)
+        out = chunked_attention(q_full, k_full, ckv_n.to(cd), causal=True,
+                                chunk=cfg.attn_chunk, scale=scale)
+    # out: [B,1,H,L,lora] -> W_uv -> [B,L,H,v_dim]
+    out = torch.einsum("bhlk,hkv->blhv", out[:, 0].to(cd),
+                       p["w_uv"]["w"].to(cd))
+    out = out.reshape(B, L, H * m.v_head_dim)
+    return apply_linear(p["wo"], out, cd), cache
+
+
 def attention_specs(cfg) -> dict:
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.attn_kind} attention is not yet ported")
-    return gqa_specs(cfg)
+    return mla_specs(cfg) if cfg.attn_kind == "mla" else gqa_specs(cfg)
 
 
 def attention_forward(cfg, p, x, **kw):
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.attn_kind} attention is not yet ported")
-    return gqa_forward(cfg, p, x, **kw)
+    fn = mla_forward if cfg.attn_kind == "mla" else gqa_forward
+    return fn(cfg, p, x, **kw)
 
 
 def attention_cache_spec(cfg, batch: int, max_seq: int) -> dict:
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.attn_kind} attention is not yet ported")
+    if cfg.attn_kind == "mla":
+        return mla_cache_spec(cfg, batch, max_seq)
     return gqa_cache_spec(cfg, batch, max_seq)
 
 
@@ -118,12 +246,12 @@ def attention_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
     heads and kv_heads, so shard m runs the flash kernels on its H/mp
     heads, and ``wo`` row shards by heads, whose partial outputs are summed
     in shard order onto ``x``'s device. Run whole when the rules left a
-    leaf replicated or a shard would split a KV group (Hkv % mp != 0)."""
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.attn_kind} attention is not yet ported")
+    leaf replicated or a shard would split a KV group (Hkv % mp != 0),
+    and run MLA whole: it has no tensor-parallel form, and the trainer
+    refuses it at mp > 1 (``parallel.require_model_parallel``)."""
     mp = sp.mp
-    if not sp.split() or cfg.n_kv_heads % mp:
-        return gqa_forward(cfg, sp.whole(), x, positions=positions)[0]
+    if cfg.attn_kind != "gqa" or not sp.split() or cfg.n_kv_heads % mp:
+        return attention_forward(cfg, sp.whole(), x, positions=positions)[0]
     shard_cfg = dataclasses.replace(
         cfg, n_heads=cfg.n_heads // mp, n_kv_heads=cfg.n_kv_heads // mp,
         head_dim=cfg.resolved_head_dim)

@@ -4,11 +4,11 @@ A block = pre-norm mixer (+residual) then pre-norm FFN (+residual).
 ``layer_plan(cfg)`` expands the architecture into a per-layer (mixer, ffn)
 list; ``scan_plan`` folds it into the smallest repeating period, whose
 stacked ``[n_periods, ...]`` parameter leaves are the reference's layout.
-Ported mixers: ``attn`` (GQA) and ``rwkv_tm``; ffns: ``mlp``, ``moe`` and
-``rwkv_cm``. Any other block raises ``NotImplementedError``.
+Mixers: ``attn`` (GQA or MLA, by ``cfg.attn_kind``), ``mamba`` and
+``rwkv_tm``; ffns: ``mlp``, ``moe`` and ``rwkv_cm``.
 ``block_forward`` runs a block over the model axis: the norms whole on
 the residual stream's device, the mixer and the FFN tensor-parallel where
-they have that form (``attn`` and ``mlp``), whole otherwise — at mp = 1
+they have that form (GQA ``attn`` and ``mlp``), whole otherwise — at mp = 1
 every leaf is whole and the block is the plain one, op for op. With a
 decode cache (mp = 1 only) the mixer and the FFN run whole and write
 their parts of the block's cache in place. The block returns the FFN's
@@ -57,9 +57,11 @@ def scan_plan(cfg) -> tuple[list[tuple[str, str]], int]:
 
 MIXERS = {
     "attn": (attention.attention_specs, attention.attention_forward),
+    "mamba": (ssm.mamba_specs, ssm.mamba_forward),
     "rwkv_tm": (ssm.rwkv_tm_specs, ssm.rwkv_tm_forward),
 }
 MIXER_CACHES = {"attn": attention.attention_cache_spec,
+                "mamba": ssm.mamba_cache_spec,
                 "rwkv_tm": ssm.rwkv_cache_spec}
 # ffn: (specs, forward (cfg, p, h, cache=None) -> (out, aux loss or None))
 FFNS = {
@@ -74,13 +76,7 @@ FFNS = {
 }
 
 
-def _require_ported(mixer: str, ffn: str):
-    if mixer not in MIXERS or ffn not in FFNS:
-        raise NotImplementedError(f"block ({mixer}, {ffn}) is not yet ported")
-
-
 def block_specs(cfg, mixer: str, ffn: str) -> dict:
-    _require_ported(mixer, ffn)
     return {"norm1": rmsnorm_specs(cfg.d_model),
             "mixer": MIXERS[mixer][0](cfg),
             "norm2": rmsnorm_specs(cfg.d_model),
@@ -90,8 +86,6 @@ def block_specs(cfg, mixer: str, ffn: str) -> dict:
 def block_cache_spec(cfg, mixer: str, batch: int, max_seq: int) -> dict:
     """The block's decode cache; the RWKV6 mixer's also holds the
     channel-mix's shift state."""
-    if mixer not in MIXER_CACHES:
-        raise NotImplementedError(f"mixer {mixer} is not yet ported")
     return MIXER_CACHES[mixer](cfg, batch, max_seq)
 
 
@@ -106,7 +100,6 @@ def block_forward(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
     tensor-parallel form runs whole there, and so does every one against a
     decode ``cache`` (the block's slice of it, written in place). Returns
     (x, aux_loss)."""
-    _require_ported(mixer, ffn)
     h = apply_rmsnorm(sp["norm1"].whole(), x, cfg.norm_eps)
     if mixer in MIXERS_TP and cache is None:
         mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions)

@@ -6,9 +6,11 @@ The reference scans the periods with ``lax.scan``; here the forward is a
 Python loop over them, reading period i of each stacked ``[n_periods, ...]``
 leaf. With ``cfg.remat`` each period is rematerialized in the backward, as
 the reference's ``jax.checkpoint(..., nothing_saveable)`` does in train
-mode: only the period's input is kept. The reference's ``_barrier`` steers
-XLA and has no counterpart; grouped remat (``remat_group > 1``) is not
-ported yet.
+mode: only the period's input is kept. Grouped remat (``remat_group = g
+> 1``, under the reference's condition) checkpoints groups of g periods,
+each period's own checkpoint nested inside, so only every g-th period's
+input is kept between the forward and the backward. The reference's
+``_barrier`` steers XLA and has no counterpart.
 
 There is one path: ``forward_tp`` and ``loss_fn_tp`` run over the model
 axis of one data group (``parallel.ShardedParams``) — vocab-parallel
@@ -25,9 +27,8 @@ reference's scan returns a new one.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.launches import recompute_context
+from repro_torch.kernels.launches import remat
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import apply_embed_tp, apply_linear, \
     apply_rmsnorm, dt, embed_specs, rmsnorm_specs, unembed_specs
@@ -56,8 +57,9 @@ def param_spec_tree(cfg) -> dict:
 
 
 def init_params(cfg, generator: torch.Generator, device) -> dict:
-    """Draw every leaf, in sorted-path order, from ``generator`` (a CPU
-    generator; the values do not depend on ``device``)."""
+    """Draw every leaf, in sorted-path order, from ``generator`` (with a
+    CPU generator the values do not depend on ``device``; see
+    ``ShardedInit.materialize``)."""
     dtype = dt(cfg, "param")
     return tree_unflatten(
         (path, spec.materialize(generator, dtype, torch.device(device)))
@@ -127,8 +129,6 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
     if (mode == "decode") != (cache is not None):
         raise ValueError("decode takes a cache, and only decode does")
     train = mode == "train"
-    if train and cfg.remat and cfg.remat_group > 1:
-        raise NotImplementedError("grouped remat is not yet ported")
     cd = dt(cfg, "compute")
     if cfg.frontend == "embeds":
         x = batch["embeds"].to(cd)
@@ -139,7 +139,7 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
         positions = cache["pos"].expand(Bsz, 1)
     else:
         positions = torch.arange(L, device=x.device).expand(Bsz, L)
-    slots, _ = B.scan_plan(cfg)
+    slots, n_periods = B.scan_plan(cfg)
 
     def period(x, p_i, c_i=None):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -151,20 +151,38 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
             aux_total = aux_total + aux
         return x, aux_total
 
+    def body(x, p_i):
+        return remat(period, x, p_i) if train and cfg.remat else \
+            period(x, p_i)
+
+    def group(x, *p_group):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p_i in p_group:
+            x, aux = body(x, p_i)
+            aux_total = aux_total + aux
+        return x, aux_total
+
+    periods = sp["layers"].periods()
+    g = max(1, cfg.remat_group)
     auxes = []
-    for i, p_i in enumerate(sp["layers"].periods()):
-        if mode == "decode":
-            x, aux = period(x, p_i, tree_map(lambda a: a[i],
-                                             cache["layers"]))
-        elif train and cfg.remat:
-            x, aux = checkpoint(period, x, p_i, use_reentrant=False,
-                                preserve_rng_state=False,
-                                context_fn=recompute_context)
-        else:
-            x, aux = period(x, p_i)
-        auxes.append(aux)
+    if (cfg.scan_layers and train and g > 1 and n_periods % g == 0
+            and n_periods // g > 1):
+        # grouped remat, the reference's condition and aux: the mean over
+        # groups of each group's summed aux, over g
+        for g0 in range(0, n_periods, g):
+            x, aux = remat(group, x, *periods[g0:g0 + g])
+            auxes.append(aux)
+        aux = torch.stack(auxes).mean() / g
+    else:
+        for i, p_i in enumerate(periods):
+            if mode == "decode":
+                x, aux = period(x, p_i, tree_map(lambda a: a[i],
+                                                 cache["layers"]))
+            else:
+                x, aux = body(x, p_i)
+            auxes.append(aux)
+        aux = torch.stack(auxes).mean()
     x = apply_rmsnorm(sp["final_norm"].whole(), x, cfg.norm_eps)
-    aux = torch.stack(auxes).mean()
     if train:
         return x, aux
     unembed = sp["unembed"].whole()

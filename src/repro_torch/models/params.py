@@ -25,8 +25,10 @@ class ShardedInit:
 
     def materialize(self, generator: torch.Generator, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
-        """Draw the leaf on the CPU from ``generator`` (so a seed gives the
-        same values on every device) and move it to ``device``.
+        """Draw the leaf from ``generator`` on the generator's device and
+        move it to ``device``: a CPU generator (what the port's entry
+        points pass) gives a seed the same values on every device; a CUDA
+        one draws a large model in a fraction of the host's time.
 
         The std rule is the reference's as written: ``fan_in = shape[0]``.
         On a stacked ``[n_periods, d_in, d_out]`` layer leaf that is
@@ -41,7 +43,8 @@ class ShardedInit:
             return a.expand(self.shape).to(dtype=dtype, device=device)
         fan_in = self.shape[0] if len(self.shape) > 1 else max(self.shape[-1], 1)
         std = self.scale / math.sqrt(max(fan_in, 1))
-        x = torch.randn(self.shape, generator=generator, dtype=torch.float32)
+        x = torch.randn(self.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
         return (x * std).to(dtype=dtype, device=device)
 
 

@@ -1,26 +1,141 @@
-"""RWKV6 time-mix and channel-mix: the reference's ``models/ssm.py``, its
+"""State-space mixers: Mamba (S6, for Jamba) and the RWKV6 time-mix and
+channel-mix, the reference's ``models/ssm.py``, each with its
 train/prefill branch and its decode branch against the cache.
 
-Same parameter paths and ``[d_in, d_out]`` layout as the reference. The
-time-mix's WKV recurrence always goes through the port's WKV6 op
-(``kernels/rwkv/ops.wkv6``): on the card its CUDA kernels and their
-backward, on the CPU their plain versions. In decode it carries the state
-from the cache (``wkv``, cast to fp32 for the op and back to the cache's
-dtype after), the token shifts come from ``shift_tm`` and ``shift_cm``,
-and each is written back in place. ``wkv6_scan`` and ``wkv6_chunked`` are the reference's plain
-forms, kept as the semantics the op is held to. Mamba is not ported yet.
+Same parameter paths and ``[d_in, d_out]`` layout as the reference. Mamba's
+selective scan has no kernel in the reference (a chunked ``jnp``
+associative scan) and none here: it is plain PyTorch, scanning time in
+chunks of ``cfg.mamba_chunk`` with a doubling scan inside each chunk
+(``_assoc_scan``). The time-mix's WKV recurrence always goes through the
+port's WKV6 op (``kernels/rwkv/ops.wkv6``): on the card its CUDA kernels
+and their backward, on the CPU their plain versions. In decode each mixer
+carries its state from the cache (Mamba's ``conv`` and ``ssm``, RWKV6's
+``wkv``, each cast to fp32 for the recurrence and back to the cache's dtype
+after) and writes it back in place, as it does RWKV6's token shifts
+``shift_tm`` and ``shift_cm``. ``wkv6_scan`` and ``wkv6_chunked`` are the
+reference's plain forms, kept as the semantics the op is held to.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.launches import remat
 from repro_torch.kernels.rwkv import ops as rwkv_ops
 from repro_torch.models.layers import apply_linear, dt, linear_specs, \
     rmsnorm_specs
 from repro_torch.models.params import ShardedInit, fit_chunk
 
 
+# ===================================================================== Mamba
+def _dt_rank(cfg) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def mamba_specs(cfg) -> dict:
+    s = cfg.ssm
+    D = cfg.d_model
+    di = s.expand * D
+    dtr = _dt_rank(cfg)
+    return {
+        "in_proj": linear_specs(D, 2 * di, "embed", "ssm_inner"),
+        "conv_w": {"w": ShardedInit((s.d_conv, di), ("conv", "ssm_inner"),
+                                    "normal", 0.5)},
+        "conv_b": {"b": ShardedInit((di,), ("ssm_inner",), "zeros")},
+        "x_proj": linear_specs(di, dtr + 2 * s.d_state, "ssm_inner", None),
+        "dt_proj": linear_specs(dtr, di, None, "ssm_inner", bias=True),
+        "A_log": {"w": ShardedInit((di, s.d_state), ("ssm_inner", "ssm_state"),
+                                   "alog")},
+        "D_skip": {"w": ShardedInit((di,), ("ssm_inner",), "ones")},
+        "out_proj": linear_specs(di, D, "ssm_inner", "embed"),
+    }
+
+
+def mamba_cache_spec(cfg, batch: int, max_seq: int) -> dict:
+    """``conv``: the last ``d_conv - 1`` inputs of the conv [B, K-1, di];
+    ``ssm``: the scan's state [B, di, N]."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    return {"conv": ShardedInit((batch, s.d_conv - 1, di),
+                                ("batch", "conv", "ssm_inner"), "zeros"),
+            "ssm": ShardedInit((batch, di, s.d_state),
+                               ("batch", "ssm_inner", "ssm_state"), "zeros")}
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
+    """The linear recurrence h_t = a_t h_{t-1} + b_t over dim 1 (time) as
+    a doubling (Hillis-Steele) scan of the reference's combine, (a1, b1) o
+    (a2, b2) = (a1 a2, a2 b1 + b2): log2(T) steps of whole-tensor products.
+    Returns (P_t, Q_t) with h_t = P_t h_0 + Q_t."""
+    T, d = a.shape[1], 1
+    while d < T:
+        a, b = (torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1),
+                torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1))
+        d *= 2
+    return a, b
+
+
+def _mamba_chunk(h, A, d_c, b_c, c_c, x_c):
+    """One time chunk of the selective scan from state ``h`` [B,di,N]:
+    (the state after it, y [B,c,di]). All fp32."""
+    dA = torch.exp(d_c[..., None] * A)                     # [B,c,di,N]
+    dBx = d_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
+    P, Q = _assoc_scan(dA, dBx)
+    h_t = P * h[:, None] + Q
+    return h_t[:, -1], torch.einsum("bcdn,bcn->bcd", h_t, c_c)
+
+
+def mamba_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
+    """Mamba. x: [B,L,D]; ``cache`` ({"conv", "ssm"}) in decode, both
+    written in place. ``in_proj``, ``x_proj``, ``out_proj`` and the gate
+    run in the compute dtype; the conv, ``delta`` (``dt_proj`` in fp32,
+    then softplus), A = -exp(A_log), the scan and the ``D_skip`` term in
+    fp32, as in the reference. The scan runs in chunks of
+    ``fit_chunk(L, cfg.mamba_chunk)``, each checkpointed under autograd
+    (the reference's ``nothing_saveable`` chunk body): a backward keeps
+    one chunk's [B, c, di, N] state at a time. Returns (out, cache or
+    None)."""
+    s = cfg.ssm
+    B, L, D = x.shape
+    di = s.expand * D
+    dtr = _dt_rank(cfg)
+    cd = dt(cfg, "compute")
+    x_in, z = apply_linear(p["in_proj"], x, cd).chunk(2, dim=-1)
+    conv_w = p["conv_w"]["w"].float()                      # [K, di]
+    K = conv_w.shape[0]
+    pad = (cache["conv"].to(x_in.dtype) if cache is not None else
+           torch.zeros((B, K - 1, di), dtype=x_in.dtype, device=x.device))
+    x_pad = torch.cat([pad, x_in], dim=1)
+    new_conv_state = x_pad[:, -(K - 1):]
+    x_pad = x_pad.float()
+    # causal depthwise conv: sum_k w[k] * x[t - (K-1) + k]
+    conv = sum(conv_w[k] * x_pad[:, k:k + L] for k in range(K))
+    x_c = F.silu(conv + p["conv_b"]["b"].float()).to(cd)
+
+    x_db = apply_linear(p["x_proj"], x_c, cd)
+    dt_r, B_, C_ = x_db.split([dtr, s.d_state, s.d_state], dim=-1)
+    delta = F.softplus(apply_linear(p["dt_proj"], dt_r, torch.float32))
+    A = -torch.exp(p["A_log"]["w"].float())                # [di, N]
+    B32, C32, x32 = B_.float(), C_.float(), x_c.float()
+    h = (cache["ssm"].float() if cache is not None else
+         torch.zeros((B, di, s.d_state), dtype=torch.float32,
+                     device=x.device))
+    chunk = fit_chunk(L, cfg.mamba_chunk)
+    ys = []
+    for c0 in range(0, L, chunk):
+        h, y = remat(_mamba_chunk, h, A, *(a[:, c0:c0 + chunk]
+                                           for a in (delta, B32, C32, x32)))
+        ys.append(y)
+    y = torch.cat(ys, dim=1) + p["D_skip"]["w"].float() * x32
+    y = y.to(cd) * F.silu(z)
+    out = apply_linear(p["out_proj"], y, cd)
+    if cache is not None:
+        cache["conv"].copy_(new_conv_state)
+        cache["ssm"].copy_(h)
+    return out, cache
+
+
+# ===================================================================== RWKV6
 def rwkv_tm_specs(cfg) -> dict:
     D = cfg.d_model
     lora = 64

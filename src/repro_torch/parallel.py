@@ -142,13 +142,22 @@ class ShardedParams:
 def require_model_parallel(cfg, mp: int):
     """Raise ``NotImplementedError`` for a model-parallel degree the port
     cannot run ``cfg`` at: the RWKV6 mixers have no tensor-parallel form
-    yet (WKV6 at H/mp heads, ``ssm_inner`` column shards), nor has MoE
-    (experts split over the model axis)."""
-    if mp > 1 and cfg.family == "ssm":
+    yet (WKV6 at H/mp heads, ``ssm_inner`` column shards), nor have MoE
+    (experts split over the model axis), MLA (its heads) or Mamba (its
+    ``ssm_inner`` channels): ROADMAP A4c."""
+    if mp <= 1:
+        return
+    from repro_torch.models.blocks import layer_plan
+    mixers = {mixer for mixer, _ in layer_plan(cfg)}
+    if cfg.family == "ssm":
         raise NotImplementedError(
             f"model_parallel={mp} for {cfg.name} (the RWKV6 mixers) is not "
             f"yet ported")
-    if mp > 1 and cfg.moe is not None and cfg.moe.n_experts:
+    parts = [what for what, there in (
+        ("its MoE layers", cfg.moe is not None and cfg.moe.n_experts),
+        ("its MLA attention", cfg.attn_kind == "mla" and "attn" in mixers),
+        ("its Mamba mixers", "mamba" in mixers)) if there]
+    if parts:
         raise NotImplementedError(
-            f"model_parallel={mp} for {cfg.name} (its MoE layers) is not "
-            f"yet ported")
+            f"model_parallel={mp} for {cfg.name} ({', '.join(parts)}) is not "
+            f"yet ported (ROADMAP A4c)")

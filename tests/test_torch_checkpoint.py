@@ -68,18 +68,24 @@ def _assert_same_state(a: dict, b: dict):
         assert torch.equal(_bits(x), _bits(y)), k
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# (arch, param and compute dtype) of each round trip
+ROUND_TRIPS = {"float32": ("edl-paper", "float32"),
+               "bfloat16": ("rwkv6-1.6b", "bfloat16"),
+               "jamba_float32": ("jamba-v0.1-52b", "float32"),
+               "deepseek_bfloat16": ("deepseek-v2-236b", "bfloat16")}
+
+
+@pytest.mark.parametrize("dtype", list(ROUND_TRIPS))
 def test_round_trip_is_bit_exact(dtype, tmp_path):
     """Save, resume into a fresh trainer: the same state bits, and the same
     next loss (virtual workers make the next batch the same one; the
     dynamic pipeline replays an in-flight partition in another order).
-    bf16 is rwkv6 SMOKE with bf16 params (fp32 moments)."""
-    if dtype == "float32":
-        cfg = get_config("edl-paper", smoke=True)
-    else:
-        cfg = dataclasses.replace(get_config("rwkv6-1.6b", smoke=True),
-                                  param_dtype="bfloat16",
-                                  compute_dtype="bfloat16")
+    bf16 is rwkv6 SMOKE with bf16 params (fp32 moments); jamba and deepseek
+    SMOKE carry the Mamba and MLA leaves (``A_log``, ``conv_w``, ``w_uk``
+    ...) through the same files."""
+    arch, dt = ROUND_TRIPS[dtype]
+    cfg = dataclasses.replace(get_config(arch, smoke=True), param_dtype=dt,
+                              compute_dtype=dt)
     with _trainer(cfg=cfg, virtual_workers=BATCH) as t:
         t.run(2)
         checkpoint_save(t, str(tmp_path))
@@ -87,7 +93,7 @@ def test_round_trip_is_bit_exact(dtype, tmp_path):
             kinds = {z[k].dtype.str for k in z.files}
         want_next = t.step()["loss"]
         saved = t.state
-    if dtype == "bfloat16":
+    if dt == "bfloat16":
         assert "|V2" in kinds        # the reference's bf16 records
     with _trainer(cfg=cfg, virtual_workers=BATCH) as r:    # at its init
         resume_from_checkpoint(r, str(tmp_path))

@@ -36,7 +36,7 @@ from repro_torch.models.cache import cache_bytes, init_cache
 from repro_torch.models.params import tree_leaves
 from repro_torch.parallel import ShardedParams
 
-ARCHS = ["edl-paper", "rwkv6-1.6b"]
+ARCHS = ["edl-paper", "rwkv6-1.6b", "deepseek-v2-236b", "jamba-v0.1-52b"]
 B, T = 2, 12
 RTOL = 1e-4
 BF16_TOL = 8 * 2.0 ** -8
@@ -50,6 +50,16 @@ def _configs(arch, **replace):
     jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), **replace)
     cfg = dataclasses.replace(get_config(arch, smoke=True), **replace)
     return jcfg, cfg
+
+
+def _no_drops(arch) -> dict:
+    """A MoE config's ``moe`` at capacity_factor E / K, so that no claim
+    drops; nothing for the others."""
+    m = get_config(arch, smoke=True).moe
+    if m is None:
+        return {}
+    return {"moe": dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k)}
 
 
 def _params(jcfg):
@@ -82,7 +92,8 @@ def _port_decode(cfg, params, tokens, cache):
 
 # ------------------------------------------------------------ cache trees
 @pytest.mark.parametrize("arch,replace", [
-    ("edl-paper", {}), ("rwkv6-1.6b", {}),
+    ("edl-paper", {}), ("rwkv6-1.6b", {}), ("deepseek-v2-236b", {}),
+    ("jamba-v0.1-52b", {}),
     ("edl-paper", {"window": 8}),
     ("rwkv6-1.6b", {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"})])
 def test_cache_tree_equals_jax(arch, replace):
@@ -224,8 +235,10 @@ def test_jax_cache_continues_in_the_port():
 def test_prefill_equals_jax(arch, use_pallas):
     """The last prompt position's logits against JAX's ``prefill``, its
     Pallas kernels off and in interpret mode; and against the port's own
-    decode after the last prompt token."""
-    jcfg, cfg = _configs(arch)
+    decode after the last prompt token. MoE runs at capacity_factor E / K,
+    where the prompt's group drops no claim, as the decode's groups of B
+    tokens drop none."""
+    jcfg, cfg = _configs(arch, **_no_drops(arch))
     jparams, params = _params(jcfg)
     toks = _tokens(cfg, (B, 16), seed=7)
     want = JM.prefill(jcfg, jparams, {"tokens": toks},
@@ -330,7 +343,7 @@ def test_decode_writes_the_cache_in_place(arch):
             assert {p: t.data_ptr() for p, t in tree_leaves(out)} == ptrs
             assert int(out["pos"]) == t + 1
             for path, leaf in tree_leaves(out["layers"]):
-                if path.endswith(("/k", "/v")):
+                if path.endswith(("/k", "/v", "/ckv", "/krope")):
                     changed = (leaf != before[f"layers/{path}"]).flatten(
                         0, 2).any(-1).any(0).nonzero().flatten().tolist()
                     assert changed == [t], path

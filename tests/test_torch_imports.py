@@ -25,6 +25,8 @@ MODULES = [
     "repro_torch.configs.llava_next_mistral_7b",
     "repro_torch.configs.musicgen_medium",
     "repro_torch.configs.mixtral_8x7b",
+    "repro_torch.configs.deepseek_v2_236b",
+    "repro_torch.configs.jamba_v01_52b",
     "repro_torch.core", "repro_torch.core.api",
     "repro_torch.core.compile_service", "repro_torch.core.coordination",
     "repro_torch.core.elastic_runtime", "repro_torch.core.election",

@@ -30,7 +30,7 @@ from repro_torch.training.step import init_train_state, port_layout
 # every (dp, mp) shape that fits a 4-slot budget, incl. non-power-of-2
 SHAPES = [(dp, mp) for dp, mp in itertools.product((1, 2, 3, 4), repeat=2)
           if dp * mp <= 4]
-ARCHS = ("edl-paper", "rwkv6-1.6b")
+ARCHS = ("edl-paper", "rwkv6-1.6b", "deepseek-v2-236b", "jamba-v0.1-52b")
 OPT = adamw(1e-3)
 
 

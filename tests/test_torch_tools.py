@@ -52,3 +52,69 @@ NAMES = [
     f"{g}-{'mangled' if n.startswith('_Z') else 'demangled'}" for n, g in NAMES])
 def test_step_profile_books_each_kernel_to_its_group(name, group):
     assert load_tool("torch_step_profile").group_of(name) == group
+
+
+def test_serve_probe_held_gap_stops_at_each_rows_first_flag():
+    """``held_gap``: the largest gap over the positions before each row's
+    first flagged token, and their share of all positions."""
+    torch = pytest.importorskip("torch")
+    probe = load_tool("torch_serve_probe")
+    gaps = torch.tensor([[1., 2., 9., 3.], [4., 5., 6., 7.]])
+    flagged = torch.tensor([[False, False, True, False], [False] * 4])
+    assert probe.held_gap(torch, gaps, flagged) == (7.0, 6 / 8)
+    gap, share = probe.held_gap(torch, gaps, torch.ones((2, 4), dtype=bool))
+    assert gap != gap and share == 0.0          # nothing held: nan
+
+
+def test_serve_probe_fp32_control_casts_and_rescales_in_place():
+    """``fp32_control`` on jamba SMOKE in bf16: the control's config is
+    fp32 with capacity_factor E / K; each leaf is the bf16 value in fp32,
+    a stacked layer matrix rescaled to 1/sqrt(d_in); the caller's tree
+    becomes the control's."""
+    torch = pytest.importorskip("torch")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    probe = load_tool("torch_serve_probe")
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", smoke=True),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    before = {k: t.clone() for k, t in tree_leaves(params)}
+    ctl, ps = probe.fp32_control(cfg, params)
+    assert (ctl.param_dtype, ctl.compute_dtype) == ("float32", "float32")
+    assert ctl.moe.capacity_factor == cfg.moe.n_experts / cfg.moe.top_k
+    assert ps is params
+    got = dict(tree_leaves(ps))
+    assert got.keys() == before.keys()
+    for k, t in before.items():
+        assert got[k].dtype == torch.float32
+        scale = (t.shape[0] / t.shape[-2]) ** 0.5 \
+            if k.startswith("layers/") and t.dim() >= 3 else 1.0
+        torch.testing.assert_close(got[k], t.float() * scale, rtol=0,
+                                   atol=0, msg=k)
+
+
+def test_serve_probe_reads_moe_routing_per_moe_layer():
+    """``moe_decode_gaps`` on jamba SMOKE at 4 layers (2 MoE) in fp32 at
+    capacity_factor E / K: the teacher-forced pass and the decode route
+    alike and drop nothing, every position is held, and the gap is fp32
+    rounding."""
+    torch = pytest.importorskip("torch")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    probe = load_tool("torch_serve_probe")
+    cfg = get_config("jamba-v0.1-52b", smoke=True)
+    cfg = dataclasses.replace(cfg, n_layers=4, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 10),
+                           generator=torch.Generator().manual_seed(1))
+    r = probe.moe_decode_gaps(torch, cfg, params, tokens, 4)
+    assert r["token_layers"] == 2 * 10 * 2          # B x T x MoE layers
+    assert r["claims"] == r["token_layers"] * cfg.moe.top_k
+    assert r["dropped_claims"] == r["decode_dropped_claims"] == 0
+    assert r["tokens_routed_otherwise"] == 0 and r["held_share"] == 1.0
+    assert r["held"] == r["teacher_forcing"] < 1e-4

@@ -3,7 +3,8 @@ reference's (``get_config``, ``all_configs``, ``input_specs`` and the
 decode cache's specs and axes), the twin of ``tests/test_models.py`` over
 every ported architecture, the window against both of the reference's
 paths, and mixtral SMOKE's virtual-worker losses ``==`` across p. Each new
-SMOKE config against the JAX package: ``tests/test_torch_zoo_jax.py``."""
+SMOKE config against the JAX package: ``tests/test_torch_zoo_jax.py``;
+MLA, Mamba and grouped remat: ``tests/test_torch_mla_mamba.py``."""
 import dataclasses
 
 import numpy as np
@@ -29,13 +30,17 @@ from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import adamw
 
-UNPORTED = ("deepseek_v2_236b", "jamba_v01_52b")
-PORTED = [a for a in ARCH_IDS if a not in UNPORTED]
+PORTED = list(ARCH_IDS)
 NEW = [a for a in PORTED if a != "rwkv6_1p6b"]
+MOE = [a for a in PORTED if base.get_config(a).moe]
 B, L = 2, 64
 # decode logits against the teacher-forced forward: the reference's
-# tolerance for its dense configs (tests/test_models.py)
+# tolerance for its dense configs (tests/test_models.py), and for its MoE
+# configs, whose train-mode groups route (and drop claims) otherwise than
+# the decode's groups of B tokens; with capacity_factor E / K no claim
+# drops, and MoE is held at TF_TOL too
 TF_TOL = 1e-4
+MOE_TF_TOL = 5e-2
 
 
 def _np_batch(cfg, length=L, seed=0):
@@ -71,17 +76,17 @@ def test_get_config_is_the_reference_field_for_field(arch, smoke):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-def test_only_deepseek_and_jamba_are_not_yet_ported():
-    refused = []
-    for arch in ARCH_IDS:
-        try:
-            base.get_config(arch)
-        except ValueError as e:
-            assert "not yet ported" in str(e)
-            refused.append(arch)
-    assert sorted(refused) == sorted(UNPORTED)
-    with pytest.raises(ValueError, match="not yet ported"):
-        base.all_configs()
+def test_every_reference_arch_is_ported():
+    """``all_configs`` gives every one of the reference's ``ARCH_IDS``,
+    CONFIG and SMOKE, field for field; an unknown name is refused."""
+    for smoke in (False, True):
+        got = base.all_configs(smoke)
+        want = jbase.all_configs(smoke)
+        assert list(got) == list(want) == ARCH_IDS
+        assert {a: dataclasses.asdict(c) for a, c in got.items()} == \
+            {a: dataclasses.asdict(c) for a, c in want.items()}
+    with pytest.raises(ValueError, match="unknown architecture"):
+        base.get_config("bogus-7b")
     assert base.ARCH_IDS == ARCH_IDS
     assert {k: dataclasses.asdict(v) for k, v in base.INPUT_SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in jbase.INPUT_SHAPES.items()}
@@ -169,14 +174,11 @@ def test_smoke_decode_shapes(arch):
                    if t.is_floating_point())
 
 
-@pytest.mark.parametrize("arch", ["phi3_mini_3p8b", "starcoder2_15b",
-                                  "mistral_nemo_12b"])
-def test_decode_matches_teacher_forcing(arch):
-    """Step-by-step decode logits == the train-mode forward's, at the
-    reference's tolerance (starcoder2's window of 64 is past 12 tokens)."""
-    cfg = base.get_config(arch, smoke=True)
-    params = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
+def _decode_and_teacher_forced(cfg, seed: int = 3):
+    """Step-by-step decode logits over 12 seeded tokens and the train-mode
+    forward's over the same tokens, as numpy."""
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (B, 12)))
     with torch.no_grad():
         hidden, _ = M.forward(cfg, params, {"tokens": toks})
@@ -187,8 +189,34 @@ def test_decode_matches_teacher_forcing(arch):
             lg, c = M.forward(cfg, params, {"tokens": toks[:, t:t + 1]},
                               mode="decode", cache=c)
             outs.append(lg[:, 0])
-    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), ref.numpy(),
-                               atol=TF_TOL, rtol=TF_TOL)
+    return torch.stack(outs, 1).numpy(), ref.numpy()
+
+
+@pytest.mark.parametrize("arch", ["phi3_mini_3p8b", "starcoder2_15b",
+                                  "mistral_nemo_12b"])
+def test_decode_matches_teacher_forcing(arch):
+    """Step-by-step decode logits == the train-mode forward's, at the
+    reference's tolerance (starcoder2's window of 64 is past 12 tokens)."""
+    dec, ref = _decode_and_teacher_forced(base.get_config(arch, smoke=True))
+    np.testing.assert_allclose(dec, ref, atol=TF_TOL, rtol=TF_TOL)
+
+
+@pytest.mark.parametrize("arch, no_drops", [
+    *((a, False) for a in ("deepseek_v2_236b", "jamba_v01_52b")),
+    *((a, True) for a in MOE)])
+def test_moe_decode_matches_teacher_forcing(arch, no_drops):
+    """deepseek and jamba SMOKE at their own capacity within MOE_TF_TOL,
+    the reference's tolerance for them; every MoE config with
+    capacity_factor E / K, where a group's capacity covers all its tokens
+    and no claim drops in either pass, within TF_TOL."""
+    cfg = base.get_config(arch, smoke=True)
+    if no_drops:
+        m = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+    dec, ref = _decode_and_teacher_forced(cfg)
+    tol = TF_TOL if no_drops else MOE_TF_TOL
+    np.testing.assert_allclose(dec, ref, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("swa_pruned", [True, False],

@@ -2,7 +2,8 @@
 CPU, from the JAX init tree (carried over by ``bridge.params_from_numpy``)
 as ``tests/test_torch_model.py`` holds edl_paper: the same parameter tree,
 the loss, every gradient leaf, one AdamW update; and the bridge on a MoE
-tree (rank-3 and rank-4 leaves) and on a tree with no ``embed`` leaf."""
+tree (rank-3 and rank-4 leaves), on a tree with no ``embed`` leaf and on
+the MLA and Mamba trees."""
 import dataclasses
 import functools
 
@@ -129,11 +130,13 @@ def test_adamw_update_matches_jax(arch):
 
 @pytest.mark.parametrize("arch, dtype", [
     ("mixtral_8x7b", "float32"), ("mixtral_8x7b", "bfloat16"),
-    ("llava_next_mistral_7b", "float32"), ("musicgen_medium", "bfloat16")])
+    ("llava_next_mistral_7b", "float32"), ("musicgen_medium", "bfloat16"),
+    ("deepseek_v2_236b", "bfloat16"), ("jamba_v01_52b", "float32")])
 def test_bridge_carries_zoo_trees(arch, dtype):
     """The JAX init tree into the port and back, bit for bit: MoE's rank-3
     router and rank-4 expert leaves; an ``embeds`` tree, which has no
-    ``embed`` leaf."""
+    ``embed`` leaf; MLA's rank-4 ``w_uk``/``w_uv`` and Mamba's ``conv_w``,
+    ``A_log``, ``D_skip`` and ``dt_proj`` bias in their stacked layouts."""
     jcfg = dataclasses.replace(jbase.get_config(arch, smoke=True),
                                param_dtype=dtype)
     tree = jax.tree.map(np.asarray, JM.init_params(jcfg,
