@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero:
    mp = 4), at GQA, window, ragged, non-causal, head-dim and bf16 cases,
    and at the zoo's shapes (phase 11's configs in bf16, D 96 and 128, G 1
    to 12: a training slot shard, B 4 x L 1024, and a prefill, B 4 x L 32;
-   window 4096 at B 1, L 5120), and hold it against its
+   window 4096 at B 1, L 5120; mixtral's and jamba's model shard at
+   mp = 2, H 16, Hkv 4), and hold it against its
    plain PyTorch version on the same inputs; run the forward and the
    backward pair twice on the main, mp = 2, GQA and D 96 cases and
    require the same bits; time kernel, plain version and
@@ -52,12 +53,14 @@ Phases, in order; any failure exits non-zero:
    ``TP_LOSS_RTOL`` and ``TP_GRAD_RTOL``, which the same step at bf16
    compute (the control) must miss;
 7. WKV6 kernels: call each WKV6 kernel's wrapper at the rwkv6 path's shape
-   (one slot shard at p = 1 and at p = 2), at ragged L, at RWKV6's training
+   (one slot shard at p = 1 and at p = 2, and at mp = 2 and 4: H 16 and
+   H 8), at ragged L, at RWKV6's training
    context, at extreme decays and at head dims 16, 32 and 64, with nonzero
    s0 and dsT, inputs drawn from a seeded CPU generator, and hold it against
    its plain PyTorch version on the same inputs (du as an output of dk);
-   run every WKV6 kernel twice on the main case and require the same bits;
-   time kernel and plain version (no single PyTorch call computes a WKV6
+   run every WKV6 kernel twice on the main and the mp cases and require the
+   same bits; time kernel and plain version there (no single PyTorch call
+   computes a WKV6
    kernel's outputs; ``du_part.sum(0)``, the one call that computes dk's
    du, is timed beside dk);
 8. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
@@ -66,6 +69,13 @@ Phases, in order; any failure exits non-zero:
    four times, and its loss must fall at every step; a held-out batch's
    loss must stay above the tokens' entropy less a margin; and one slot
    shard's loss and gradients must be the same with remat on and off;
+   then on the model axis, four slots of the card: (c) ``main`` at
+   (1, 2) through a stop-free scale-out to (2, 2), each WKV6 kernel
+   launched once a layer a slot shard a step on its H/2 heads
+   (``wkv6_fwd`` twice, under remat); (d) an ``ElasticTrainer`` at (1, 2)
+   reshaped live to (2, 1), stop-free; (e) one step of the fp32 model cut
+   to ``RWKV_TP_LAYERS`` layers at (1, 2) against (1, 1) within phase 6
+   (e)'s tolerances, its bf16 control outside them;
 9. the cluster tier: ``repro_torch.cluster.ClusterExecutor`` on four slots
    of the card, its tenants full-width ``edl_paper`` trainers (the trainer
    ``default_trainer_factory`` builds, from CONFIG) at batch 8, sequence
@@ -122,7 +132,13 @@ Phases, in order; any failure exits non-zero:
    none), and teacher forcing within ``ZOO_TF_TOL`` at the rescaled point
    (a MoE config where its teacher-forced pass routed every token as the
    decode did); and for each MoE config an fp32 control that drops no
-   claim, within ``ZOO_MOE_TOL``.
+   claim, within ``ZOO_MOE_TOL``. (b) On the model axis, at (1, 2) on two
+   slots of the card: mixtral and jamba train as in (a), each loss below
+   the one before, mixtral's flash kernels once a GQA layer a slot shard
+   at its shard shape (H 16, Hkv 4), and each takes one fp32 step at
+   (1, 2) against (1, 1) within phase 6 (e)'s tolerances; deepseek's MLA
+   block and one MoE FFN run forward and backward at (1, 2) in bf16, and
+   in fp32 against (1, 1) within the same tolerances.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -207,6 +223,10 @@ ATT_ZOO_CASES = [
      "bfloat16"),
     ("zoo_mixtral_w4096", 1, 32, 8, 5120, 5120, 128, True, 4096, None,
      "bfloat16"),
+    # one model shard of mixtral's and jamba's GQA layer at mp = 2 (H 32,
+    # Hkv 8, D 128 whole), as phase 11 (b) trains mixtral at (1, 2)
+    ("zoo_mixtral_jamba_mp2", ZOO_BATCH, 16, 4, ZOO_SEQ, ZOO_SEQ, 128, True,
+     0, None, "bfloat16"),
 ]
 ATT_CASES = [
     ATT_MAIN_CASE,
@@ -235,6 +255,11 @@ TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0], ATT_PREFILL_CASE[0]) + \
 # name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
 # range the model's clip allows; a number sets every logw to it
 WKV_MAIN_CASE = ("main_p1", 8, 1024, 32, 64, "model")
+# one model shard of the main case at mp = 2 and mp = 4 (H / mp heads):
+# held, run twice for the same bits and timed like the main case
+WKV_MP_CASES = [("main_mp2", 8, 1024, 16, 64, "model"),
+                ("main_mp4", 8, 1024, 8, 64, "model")]
+WKV_TIMED_CASES = (WKV_MAIN_CASE[0],) + tuple(c[0] for c in WKV_MP_CASES)
 WKV_CASES = [
     WKV_MAIN_CASE,
     ("main_p2", 4, 1024, 32, 64, "model"),
@@ -244,6 +269,7 @@ WKV_CASES = [
     ("logw_-1e-4", 2, 512, 8, 64, -1e-4),
     ("hd16", 2, 300, 8, 16, "model"),
     ("hd32", 2, 300, 8, 32, "model"),
+    *WKV_MP_CASES,
 ]
 # one decode step of rwkv6 (phase 10): L = 1, the state carried in s0
 WKV_DECODE_CASE = ("decode_l1", 8, 1, 32, 64, "model")
@@ -300,6 +326,19 @@ MP_STOP_RESUME = ["--init-p", "4", "--schedule", "stop_resume_mp:2@5"]
 TP_MPS = (2, 4)
 TP_LOSS_RTOL = 1e-5
 TP_GRAD_RTOL = 1e-3
+# phase 8 at mp = 2: (c) the entry point at (1, 2) through a stop-free
+# scale-out to (2, 2); (d) an ElasticTrainer at (1, 2) reshaped live to
+# (2, 1); (e) one step at (1, 2) against (1, 1) in fp32, the depth cut to
+# RWKV_TP_LAYERS (phase 6 (e)'s tolerances and control)
+RWKV_MP_ARGS = ["--arch", "rwkv6-1.6b", "--batch", str(MAIN_BATCH), "--seq",
+                "1024", "--devices", "4", "--init-p", "1",
+                "--model-parallel", "2", "--schedule", "out:1@3", "--steps",
+                "10", "--n-samples", "1024", "--d-partitions", "16", "--json",
+                "--device", "cuda"]
+RWKV_MP_INIT = (1, 2)
+RWKV_RESHAPES = ((2, 1),)       # from (1, 2)
+RWKV_RESHAPE_STEPS = 6
+RWKV_TP_LAYERS = 4
 # a stop-resume must stop training for more than this many stop-free
 # scale-outs (the reference's test_stop_resume_is_much_slower)
 STOP_RESUME_RATIO = 10
@@ -692,8 +731,9 @@ def wkv_work(B, L, H, hd) -> dict:
 
 
 def check_wkv(torch, wops):
-    """Phase 7. Returns per-kernel records at the main case's shape."""
-    records = {}
+    """Phase 7. Returns per-kernel records of each case of
+    ``WKV_TIMED_CASES`` (case: kernel: record)."""
+    timed = {name: {} for name in WKV_TIMED_CASES}
     for seed, (name, B, L, H, hd, logw_kind) in enumerate(WKV_CASES):
         r, k, v, logw, u, s0, dy, dsT = wkv_inputs(torch, B, L, H, hd,
                                                    logw_kind, seed)
@@ -728,14 +768,15 @@ def check_wkv(torch, wops):
                 fail(f"{kname} disagrees with its plain version in case "
                      f"{name} (finite {finite}): errors {errs}, largest "
                      f"plain entries {mags}")
-            if name == WKV_MAIN_CASE[0]:
+            if name in timed:
                 # the check compares max err / max|plain| with WKV_TOL
-                records[kname] = {"max_abs_err": err, "max_rel_err": rel,
-                                  "tolerance": WKV_TOL,
-                                  "tolerance_scale": "max|plain|"}
+                timed[name][kname] = {"max_abs_err": err, "max_rel_err": rel,
+                                      "tolerance": WKV_TOL,
+                                      "tolerance_scale": "max|plain|"}
 
-        if name != WKV_MAIN_CASE[0]:
+        if name not in timed:
             continue
+        records = timed[name]
         for kname, outs, run in (
                 ("wkv6_fwd", "y and sT",
                  lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0)),
@@ -751,7 +792,7 @@ def check_wkv(torch, wops):
             print(f"  case {name:13s} {kname} run twice: {outs} "
                   f"{'bit-identical' if same else 'DIFFER'}", flush=True)
             if not same:
-                fail(f"{kname} is not deterministic in the main case")
+                fail(f"{kname} is not deterministic in case {name}")
         kern = {
             "wkv6_fwd": lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0),
             "wkv6_bwd_dr": lambda: wops.wkv6_bwd_dr_cuda(r, k, v, logw, u,
@@ -781,10 +822,14 @@ def check_wkv(torch, wops):
                 bytes=nbytes, flops=flops, library_ms=None,
                 shape=dict(B=B, L=L, H=H, hd=hd, logw=logw_kind,
                            dtype="float32"))
+            rec = records[kname]
+            print(f"  case {name:13s} {kname:12s} {rec['ms']:.3f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+                  f"{rec['plain_ms']:.3f} ms", flush=True)
         # the one PyTorch call that computes dk's du
         records["wkv6_bwd_dk"]["du_library_ms"] = cuda_ms(
             torch, lambda: du_part.sum(0))
-    return records
+    return timed
 
 
 def check_wkv_decode(torch, wops) -> dict:
@@ -1059,14 +1104,17 @@ def run_vw_path(torch, launches_of, train, kernels, per_shard: dict) -> dict:
 
 
 def run_reshape_path(torch, launches_of, kernels, per_shard: dict, *,
-                     virtual_workers=None) -> dict:
-    """Phase 6 (b) and (c): an ``ElasticTrainer`` on four slots of the card
-    at (4, 1), driven through ``reshape`` to each shape of ``RESHAPES`` in
-    turn while it trains (each prep runs in the background; the switch
-    commits at a later mini-batch boundary), to ``VW_STEPS`` steps, with the
-    launch counts reset just before and read just after. Each switch must
-    commit stop-free as a reshape to its shape. Returns a record of the
-    run."""
+                     virtual_workers=None, arch: str = "edl-paper",
+                     init: tuple = (4, 1), reshapes: tuple = RESHAPES,
+                     steps: int = VW_STEPS, loss_must_fall: bool = True
+                     ) -> dict:
+    """Phase 6 (b) and (c), and phase 8 (e): an ``ElasticTrainer`` of the
+    full-width ``arch`` on init[0] x init[1] slots of the card at ``init``,
+    driven through ``reshape`` to each shape of ``reshapes`` in turn while
+    it trains (each prep runs in the background; the switch commits at a
+    later mini-batch boundary), to ``steps`` steps, with the launch counts
+    reset just before and read just after. Each switch must commit
+    stop-free as a reshape to its shape. Returns a record of the run."""
     from repro_torch.configs import get_config
     from repro_torch.core import ElasticTrainer
     from repro_torch.devices import slot_devices
@@ -1076,20 +1124,19 @@ def run_reshape_path(torch, launches_of, kernels, per_shard: dict, *,
     torch.cuda.reset_peak_memory_stats()
     launches_of.reset()
     t0 = time.monotonic()
-    init = (4, 1)
-    with ElasticTrainer(get_config("edl-paper"), global_batch=MAIN_BATCH,
+    with ElasticTrainer(get_config(arch), global_batch=MAIN_BATCH,
                         seq_len=1024, init_parallelism=init[0],
-                        optimizer=adamw(1e-3), n_samples=1024,
-                        d_partitions=16, seed=0,
-                        devices=slot_devices(4, "cuda"),
+                        model_parallel=init[1], optimizer=adamw(1e-3),
+                        n_samples=1024, d_partitions=16, seed=0,
+                        devices=slot_devices(init[0] * init[1], "cuda"),
                         virtual_workers=virtual_workers) as t:
         t.run(3)
-        for p, mp in RESHAPES:
+        for p, mp in reshapes:
             if t.reshape(p, mp) is not None:
                 fail(f"reshape({p}, {mp}) committed without a prep")
             t.wait_for_scaling()
             t.run(1)
-        t.run(max(0, VW_STEPS - t.step_idx))
+        t.run(max(0, steps - t.step_idx))
         events = [r.summary() for r in t.controller.history]
         losses = [m["loss"] for m in t.metrics_log]
         throughput = t.throughput()
@@ -1098,15 +1145,15 @@ def run_reshape_path(torch, launches_of, kernels, per_shard: dict, *,
     seconds = time.monotonic() - t0
     launches = launches_of.snapshot()
     warm = launches_of.snapshot(warm=True)
-    name = "reshape" + ("_vw" if virtual_workers else "")
+    name = f"{arch} reshape" + ("_vw" if virtual_workers else "")
     if [(e["op"], e["to_p"], e.get("to_mp", 1)) for e in events] != \
-            [("reshape", p, mp) for p, mp in RESHAPES]:
-        fail(f"{name}: expected reshapes to {RESHAPES}, got {events}")
+            [("reshape", p, mp) for p, mp in reshapes]:
+        fail(f"{name}: expected reshapes to {reshapes}, got {events}")
     if not all(e["stop_s"] < e["prep_s"] for e in events):
         fail(f"{name}: a switch was not stop-free: {events}")
-    if len(losses) < VW_STEPS or not all(math.isfinite(x) for x in losses):
+    if len(losses) < steps or not all(math.isfinite(x) for x in losses):
         fail(f"{name}: losses {losses}")
-    if not virtual_workers and not losses[-1] < losses[0]:
+    if loss_must_fall and not virtual_workers and not losses[-1] < losses[0]:
         fail(f"{name}: loss did not fall: {losses}")
     if virtual_workers:
         n_shards = steps * virtual_workers
@@ -1122,7 +1169,7 @@ def run_reshape_path(torch, launches_of, kernels, per_shard: dict, *,
                                 "reshard_bytes_moved", "reshard_bytes_kept",
                                 "bytes_moved_overlapped")}
              for e in events]
-    print(f"  ({name}) (4, 1) -> " + " -> ".join(map(str, RESHAPES))
+    print(f"  ({name}) {init} -> " + " -> ".join(map(str, reshapes))
           + f": {steps} steps in {seconds:.2f} s, mean step {step_ms:.1f} ms"
           f" over the last {min(steps, 20)}, peak {peak_gib:.2f} GiB",
           flush=True)
@@ -1142,13 +1189,65 @@ def run_reshape_path(torch, launches_of, kernels, per_shard: dict, *,
             "launches_per_shard_step": per_shard_got}
 
 
-def check_tp_numbers(torch) -> dict:
-    """Phase 6 (e): one step's loss and gradients of the full-width fp32
-    edl_paper model on one batch, at (1, mp) for each mp of ``TP_MPS``
-    (the tensor-parallel default step's ``group_loss_and_grads`` over mp
-    slots of the card) against (1, 1): the loss within ``TP_LOSS_RTOL``,
-    each gradient leaf norm-wise within ``TP_GRAD_RTOL``. The same step at
-    bf16 compute must miss them. Returns the readings."""
+def tp_readings(loss, loss1, shards: list, dims: dict, want: dict) -> dict:
+    """One run's deviation from (1, 1): the loss's relative error against
+    ``loss1``, and the worst gradient leaf's norm-wise one against
+    ``want`` ((1, 1)'s gradients by path). ``shards`` holds each model
+    shard's gradients by path: a leaf split along ``dims[path]``, or read
+    from shard 0 where that is None or missing."""
+    mp = len(shards)
+    errs = {}
+    for k, w in want.items():
+        d = dims.get(k)
+        pairs = [(shards[0][k], w)] if d is None else [
+            (s[k], w.narrow(d, m * (w.shape[d] // mp), w.shape[d] // mp))
+            for m, s in enumerate(shards)]
+        errs[k] = math.sqrt(sum(float((g.float() - v).norm()) ** 2
+                                for g, v in pairs)) / float(w.norm())
+    worst = max(errs, key=errs.get)
+    return {"loss": float(loss),
+            "loss_rel_err": abs(float(loss) - float(loss1))
+            / abs(float(loss1)),
+            "worst_leaf": worst, "worst_leaf_rel_err": errs[worst]}
+
+
+def hold_tp_readings(label: str, readings: dict):
+    """Prints each of ``tp_readings``' records; fails unless each but
+    "bf16_control" is within ``TP_LOSS_RTOL`` (loss) and ``TP_GRAD_RTOL``
+    (worst leaf) and the control misses them."""
+    def within(r: dict) -> bool:
+        return r["loss_rel_err"] <= TP_LOSS_RTOL and \
+            r["worst_leaf_rel_err"] <= TP_GRAD_RTOL
+    for name, r in readings.items():
+        print(f"  ({label}) {name} against (1, 1): loss {r['loss']!r} "
+              f"(rel err {r['loss_rel_err']:.3e}, tolerance {TP_LOSS_RTOL}); "
+              f"worst gradient leaf {r['worst_leaf']}, norm-wise rel err "
+              f"{r['worst_leaf_rel_err']:.3e} (tolerance {TP_GRAD_RTOL})",
+              flush=True)
+    bad = [name for name, r in readings.items()
+           if name != "bf16_control" and not within(r)]
+    if bad:
+        fail(f"{label}: tensor-parallel step differs from (1, 1): {bad}: "
+             f"{readings}")
+    if within(readings["bf16_control"]):
+        fail(f"{label}: the bf16 control is within the tolerances, which so "
+             f"cannot tell the runs apart: {readings['bf16_control']}")
+
+
+def check_tp_numbers(torch, arch: str = "edl-paper", *,
+                     n_layers: int | None = None, point: str = "init",
+                     mps: tuple = TP_MPS, batch_size: int = MAIN_BATCH,
+                     seq: int = 1024) -> dict:
+    """Phase 6 (e), phase 8 (e) and phase 11 (b): one step's loss and
+    gradients of the full-width ``arch`` in fp32 (depth cut to
+    ``n_layers``; at ``point`` "fan_in" its stacked layer matrices
+    rescaled to 1/sqrt(d_in)) on one batch, at (1, mp) for each mp of
+    ``mps`` (the tensor-parallel default step's ``group_loss_and_grads``
+    over mp slots of the card) against (1, 1): the loss within
+    ``TP_LOSS_RTOL``, each gradient leaf norm-wise within
+    ``TP_GRAD_RTOL``. The same step at bf16 compute must miss them. The
+    params are drawn on the card from seed 0 (the host takes ~10 s a
+    billion). Returns the readings."""
     import dataclasses
 
     import numpy as np
@@ -1156,64 +1255,45 @@ def check_tp_numbers(torch) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.params import tree_leaves
     from repro_torch.optim import adamw
-    from repro_torch.parallel import ShardedParams, model_dims
+    from repro_torch.parallel import model_dims
     from repro_torch.training.step import group_loss_and_grads, \
         loss_and_grads, port_layout, shard_batch, split_tree
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("edl-paper")
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dev = torch.device("cuda:0")
-    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    if point == "fan_in":
+        params = serve_probe().fan_in_scaled(params)
     toks = np.random.default_rng(0).integers(0, cfg.vocab,
-                                             (MAIN_BATCH, 1025))
+                                             (batch_size, seq + 1))
     batch = shard_batch({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 1,
                         [dev])[0]
     loss1, _, grads1 = loss_and_grads(cfg, params, batch)
     want = dict(tree_leaves(grads1))
-
-    def deviation(loss, grads) -> dict:
-        errs = {k: float((grads[k] - g).norm() / g.norm())
-                for k, g in want.items()}
-        worst = max(errs, key=errs.get)
-        return {"loss": float(loss),
-                "loss_rel_err": abs(float(loss) - float(loss1))
-                / abs(float(loss1)),
-                "worst_leaf": worst, "worst_leaf_rel_err": errs[worst]}
-
-    def within(r: dict) -> bool:
-        return r["loss_rel_err"] <= TP_LOSS_RTOL and \
-            r["worst_leaf_rel_err"] <= TP_GRAD_RTOL
-
     readings = {}
-    for mp in TP_MPS:
+    for mp in mps:
         devs = [dev] * mp
         dims = model_dims(port_layout(cfg, adamw(1e-3), 1, mp))
         loss, _, grads = group_loss_and_grads(
             cfg, split_tree(params, dims, devs), dims, devs, batch)
-        readings[f"mp{mp}"] = deviation(
-            loss, dict(tree_leaves(ShardedParams(grads, dims,
-                                                 tuple(devs)).whole())))
+        readings[f"mp{mp}"] = tp_readings(
+            loss, loss1, [dict(tree_leaves(g)) for g in grads],
+            dict(tree_leaves(dims)), want)
         del grads
     loss, _, grads = loss_and_grads(
         dataclasses.replace(cfg, compute_dtype="bfloat16"), params, batch)
-    readings["bf16_control"] = deviation(
-        loss, {k: g.float() for k, g in tree_leaves(grads)})
+    readings["bf16_control"] = tp_readings(
+        loss, loss1, [dict(tree_leaves(grads))], {}, want)
     del grads, grads1, want, params
-    for name, r in readings.items():
-        print(f"  (e) {name} against (1, 1): loss {r['loss']!r} "
-              f"(rel err {r['loss_rel_err']:.3e}, tolerance {TP_LOSS_RTOL}); "
-              f"worst gradient leaf {r['worst_leaf']}, norm-wise rel err "
-              f"{r['worst_leaf_rel_err']:.3e} (tolerance {TP_GRAD_RTOL})",
-              flush=True)
-    bad = [name for name in readings if name != "bf16_control"
-           and not within(readings[name])]
-    if bad:
-        fail(f"tensor-parallel step differs from (1, 1): {bad}: {readings}")
-    if within(readings["bf16_control"]):
-        fail(f"the bf16 control is within the tolerances, which so cannot "
-             f"tell the runs apart: {readings['bf16_control']}")
-    return {"loss_1_1": float(loss1), "loss_rtol": TP_LOSS_RTOL,
-            "grad_rtol": TP_GRAD_RTOL, **readings}
+    hold_tp_readings(f"{arch}, {cfg.n_layers} layers, fp32, {point}",
+                     readings)
+    return {"arch": arch, "n_layers": cfg.n_layers, "point": point,
+            "batch": batch_size, "seq": seq, "loss_1_1": float(loss1),
+            "loss_rtol": TP_LOSS_RTOL, "grad_rtol": TP_GRAD_RTOL, **readings}
 
 
 def before_switch(run: dict) -> list:
@@ -1274,6 +1354,32 @@ def run_mp_path(torch, launches_of, train, kernels, per_shard: dict,
     return {"runs": runs, "losses_equal_static": True,
             "before_switch_loss_rel_errs": errs,
             "one_step": check_tp_numbers(torch)}
+
+
+def run_rwkv_mp_path(torch, launches_of, train, kernels,
+                     per_shard: dict) -> dict:
+    """Phase 8 at mp = 2: (c) the entry point at ``RWKV_MP_INIT`` through a
+    stop-free scale-out, each WKV6 kernel launched as the (1, 1) path
+    launches it a slot shard (its shard's H/mp heads); (d) ``reshape``
+    from (1, 2) to (2, 1) stop-free; (e) one step at (1, 2) against (1, 1)
+    in fp32 (``check_tp_numbers``). Returns a record of the runs."""
+    print("  (c) python -m repro_torch.launch.train " + " ".join(RWKV_MP_ARGS),
+          flush=True)
+    runs = {"scale_out_mp2": run_path(torch, launches_of, train, RWKV_MP_ARGS,
+                                      kernels, per_shard,
+                                      loss_must_fall=False,
+                                      init=RWKV_MP_INIT)}
+    print(f"  (d) ElasticTrainer at {RWKV_MP_INIT}, reshape to "
+          + ", then ".join(map(str, RWKV_RESHAPES)), flush=True)
+    runs["reshape"] = run_reshape_path(
+        torch, launches_of, kernels, per_shard, arch="rwkv6-1.6b",
+        init=RWKV_MP_INIT, reshapes=RWKV_RESHAPES, steps=RWKV_RESHAPE_STEPS,
+        loss_must_fall=False)
+    print(f"  (e) one step of the full-width model in fp32 at "
+          f"{RWKV_TP_LAYERS} layers on one batch at (1, 2) against (1, 1)",
+          flush=True)
+    return {"runs": runs, "one_step": check_tp_numbers(
+        torch, "rwkv6-1.6b", n_layers=RWKV_TP_LAYERS, mps=(2,))}
 
 
 def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
@@ -2148,9 +2254,9 @@ ZOO_ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b", "qwen2.5-32b",
 # DeepSeek-V2 trains on the CPU only (tests/test_torch_zoo_jax.py): one
 # layer holds 3.77 B expert parameters (160 x 3 x 5120 x 1536), 5.0 B with
 # its shared experts, MLA and the 1.05 B of embedding and unembedding, and
-# AdamW's state alone is 16 bytes a parameter, 80 GB (ROADMAP A4c, A9).
+# AdamW's state alone is 16 bytes a parameter, 80 GB (ROADMAP A9).
 # Its MLA block runs forward and backward at full width instead
-# (ZOO_MLA_TOL).
+# (ZOO_MLA_TOL), and in (b) with one MoE FFN at (1, ZOO_MP).
 ZOO_TRAIN_LAYERS = {"mixtral-8x7b": 1, "jamba-v0.1-52b": 1,
                     "deepseek-v2-236b": 0}
 # Each training run: (point, AdamW lr, whether the loss must fall at every
@@ -2422,19 +2528,22 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float, *,
 
 def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
               point: str = "init", lr: float = 1e-3,
-              gated: bool = True) -> dict:
-    """An ``ElasticTrainer`` at (1, 1) of ``cfg`` with AdamW ``lr`` on one
-    slot of the card, built directly, whose context prep's warm-ups launch
-    one slot shard's worth, its params rescaled at ``point`` "fan_in";
+              gated: bool = True, mp: int = 1) -> dict:
+    """An ``ElasticTrainer`` at (1, mp) of ``cfg`` with AdamW ``lr`` on mp
+    slots of the card, built directly, whose context prep's warm-ups launch
+    mp slot shards' worth, its params rescaled at ``point`` "fan_in";
     ``zoo_serve`` on its initial params where ``serve_cfg`` has the
-    training depth; then ZOO_STEPS steps on one batch with the counts reset
-    just before and read just after: each loss finite and (if ``gated``)
-    below the one before, and the launches a step one ``flash_attn_fwd`` a
-    GQA layer (two under remat) and one of each backward kernel a GQA
-    layer; with no GQA layer, no port kernel at all. Returns a record."""
+    training depth (mp = 1 only); then ZOO_STEPS steps on one batch with
+    the counts reset just before and read just after: each loss finite and
+    (if ``gated``) below the one before, and the launches a slot shard of a
+    step one ``flash_attn_fwd`` a GQA layer (two under remat) and one of
+    each backward kernel a GQA layer; with no GQA layer, no port kernel at
+    all. Returns a record."""
     from repro_torch.core import ElasticTrainer
     from repro_torch.devices import slot_devices
     from repro_torch.optim import adamw
+    from repro_torch.parallel import ShardedParams, model_dims
+    from repro_torch.training.step import split_tree
     n_gqa = gqa_layers(cfg)
     path_kernels = kernels if n_gqa else ()
     per_shard = {"flash_attn_fwd": n_gqa * (2 if cfg.remat else 1),
@@ -2444,16 +2553,27 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
     launches_of.reset()
     with timed_state_init(torch, init_s):
         t = ElasticTrainer(cfg, global_batch=ZOO_BATCH, seq_len=ZOO_SEQ,
-                           init_parallelism=1, optimizer=adamw(lr),
-                           n_samples=ZOO_BATCH, d_partitions=1, seed=0,
-                           devices=slot_devices(1, DEVICE))
+                           init_parallelism=1, model_parallel=mp,
+                           optimizer=adamw(lr), n_samples=ZOO_BATCH,
+                           d_partitions=1, seed=0,
+                           devices=slot_devices(mp, DEVICE))
     torch.cuda.synchronize()
     warm_all, warm = launches_of.snapshot(), launches_of.snapshot(warm=True)
     serve = None
     with t:
-        if point == "fan_in":
+        if point == "fan_in" and mp == 1:
             t.state["params"] = serve_probe().fan_in_scaled(t.state["params"])
-        if serve_cfg.n_layers == cfg.n_layers:
+        elif point == "fan_in":
+            # rescale the whole matrices (a row shard's d_in is not the
+            # matrix's), then lay them out again
+            devs = t.exec.devices[:mp]
+            dims = model_dims(t.exec.layout)
+            scaled = serve_probe().fan_in_scaled(ShardedParams(
+                [s["params"] for s in t.state], dims, tuple(devs)).whole())
+            for s, shard in zip(t.state, split_tree(scaled, dims, devs)):
+                s["params"] = shard
+            del scaled
+        if mp == 1 and serve_cfg.n_layers == cfg.n_layers:
             serve = zoo_serve(torch, launches_of, serve_cfg,
                               t.state["params"], sum(init_s))
         batch = t.dataset.read(0, ZOO_BATCH)
@@ -2479,8 +2599,8 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
     gc.collect()
     torch.cuda.empty_cache()
     launches = {k: warm_all[k] + steps[k] for k in warm_all}
-    per_step = check_launches(f"zoo {cfg.name}", launches, warm,
-                              path_kernels, per_shard, ZOO_STEPS, 1)
+    per_step = check_launches(f"zoo {cfg.name} at (1, {mp})", launches, warm,
+                              path_kernels, per_shard, ZOO_STEPS * mp, mp)
     fell = all(b < a for a, b in zip(losses, losses[1:]))
     trend = ("each below the one before" if fell
              else "not each below the one before (not gated)")
@@ -2488,15 +2608,16 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
         fail(f"zoo {cfg.name}: the loss did not fall at every step: "
              f"{losses}")
     step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
-    print(f"  ({cfg.name}) train, {cfg.n_layers} layers, d_model "
+    print(f"  ({cfg.name}) train at (1, {mp}), {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_dtype}, at {point}, AdamW {lr:g}: "
           f"state drawn and placed in {sum(init_s):.2f} s; losses "
           f"{['%.4f' % x for x in losses]}, {trend}; steps "
           f"{[round(x * 1e3, 1) for x in step_s]} ms (median {step_ms:.1f})"
-          f"; peak {peak:.2f} GiB; launches a step {per_step}, warm-ups "
+          f"; peak {peak:.2f} GiB; launches a slot shard of a step "
+          f"{per_step}, warm-ups "
           f"{ {k: warm[k] for k in kernels} }, as predicted ({n_gqa} GQA "
           f"layers)", flush=True)
-    return {"train_layers": cfg.n_layers, "gqa_layers": n_gqa,
+    return {"train_layers": cfg.n_layers, "gqa_layers": n_gqa, "mp": mp,
             "point": point, "lr": lr, "gated": gated,
             "init_state_s": sum(init_s), "losses": losses,
             "step_ms": [x * 1e3 for x in step_s], "median_step_ms": step_ms,
@@ -2573,6 +2694,156 @@ def run_zoo(torch, launches_of, kernels, arch: str) -> dict:
     return rec
 
 
+# phase 11 (b): the zoo on the model axis, at (1, ZOO_MP) on ZOO_MP slots of
+# the card, at the published widths. Mixtral and jamba train their
+# ZOO_TRAIN_LAYERS as in (a) (their gated run of ZOO_TRAIN_RUNS): mixtral's
+# GQA layer runs the flash kernels at its shard shape (H 16, Hkv 4, D 128);
+# jamba's first layer is Mamba and a dense MLP, with no port kernel. Each
+# also takes one step in fp32 at the rescaled point at (1, ZOO_MP) against
+# (1, 1) (check_tp_numbers, phase 6 (e)'s tolerances and control).
+# DeepSeek runs its MLA block and one MoE FFN (160 experts, 80 a shard)
+# forward and backward in fp32 at (1, ZOO_MP) against (1, 1) on the same
+# input, then in bf16 at (1, ZOO_MP) (timed; the control).
+ZOO_MP = 2
+ZOO_MP_TRAIN = ("mixtral-8x7b", "jamba-v0.1-52b")
+ZOO_TP_REPS = 2
+
+
+def zoo_tp_blocks(torch, launches_of) -> dict:
+    """Phase 11 (b) for deepseek: its MLA block and one MoE FFN at the
+    published widths, on one input x [ZOO_BATCH, ZOO_SEQ, D], the loss
+    sum(mla(x) r) + sum(moe(x) r) + aux. Params drawn on the card from the
+    seed, every matrix at std 1/sqrt(d_in). (1) in fp32 at (1, 1) and at
+    (1, ZOO_MP): the loss within TP_LOSS_RTOL and each weight's gradient
+    norm-wise within TP_GRAD_RTOL; (2) the params cast to bf16 at
+    (1, ZOO_MP), forward and backward timed (median of ZOO_TP_REPS after a
+    warm-up), the launch counts reset just before and read just after
+    (neither module runs a port kernel); its deviation from (1) is the
+    control, which must miss the tolerances. The two blocks are not a
+    model, so ``run`` does on their loss what ``group_loss_and_grads``
+    does on a model's; ``split_tree`` gives the shards, and as the experts
+    split along their leading dim, the 3.8 B expert weights' shards are
+    views, not copies. Returns the readings."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, moe
+    from repro_torch.models.layers import dt
+    from repro_torch.models.params import tree_leaves, tree_map, \
+        tree_unflatten
+    from repro_torch.parallel import ShardedParams
+    from repro_torch.sharding import spec_for
+    from repro_torch.training.step import split_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, mp = "deepseek-v2-236b", ZOO_MP
+    dev = torch.device("cuda:0")
+    full = get_config(arch)
+    cfg32 = dataclasses.replace(full, param_dtype="float32",
+                                compute_dtype="float32")
+    specs = {"mixer": attention.mla_specs(full), "ffn": moe.moe_specs(full)}
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def draw(s):
+        t = s.materialize(gen, torch.float32, dev)
+        if s.init == "normal" and len(s.shape) >= 2:
+            t = t * math.sqrt(s.shape[0] / s.shape[-2])
+        return t
+    params = tree_map(draw, specs)
+    host = torch.Generator().manual_seed(1)
+    x = torch.randn((ZOO_BATCH, ZOO_SEQ, full.d_model), generator=host).to(dev)
+    r = torch.randn((ZOO_BATCH, ZOO_SEQ, full.d_model), generator=host).to(dev)
+    pos = torch.arange(ZOO_SEQ, device=dev).expand(ZOO_BATCH, ZOO_SEQ)
+    dims = tree_map(lambda s: next((i for i, a in enumerate(spec_for(
+        s.axes, s.shape, {"data": 1, "model": mp})) if a == "model"), None),
+        specs)
+
+    def run(cfg, ps, m: int):
+        """(loss, each shard's gradients by path) at (1, m): a replicated
+        leaf differentiated on shard 0 only."""
+        d = dims if m > 1 else tree_map(lambda _: None, dims)
+        split = dict(tree_leaves(d))
+        live = [[(k, t.detach().requires_grad_(i == 0 or split[k] is not None))
+                 for k, t in tree_leaves(tree)]
+                for i, tree in enumerate(split_tree(ps, d, [dev] * m))]
+        sp = ShardedParams([tree_unflatten(leaves) for leaves in live], d,
+                           (dev,) * m)
+        xc = x.to(dt(cfg, "compute"))
+        out_f, aux = moe.moe_forward_tp(cfg, sp["ffn"], xc)
+        out_a = attention.mla_forward_tp(cfg, sp["mixer"], xc, positions=pos)
+        loss = (out_a.float() * r).sum() + (out_f.float() * r).sum() + aux
+        wanted = [(i, k, t) for i, leaves in enumerate(live)
+                  for k, t in leaves if t.requires_grad]
+        grads = torch.autograd.grad(loss, [t for *_, t in wanted])
+        shards = [{} for _ in range(m)]
+        for (i, k, _), g in zip(wanted, grads):
+            shards[i][k] = g
+        return float(loss.detach()), shards
+
+    loss1, (want,) = run(cfg32, params, 1)
+    flat_dims = dict(tree_leaves(dims))
+    loss, shards = run(cfg32, params, mp)
+    readings = {f"mp{mp}": tp_readings(loss, loss1, shards, flat_dims, want)}
+    del shards
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    run(full, p16, mp)                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches_of.reset()
+    ms = []
+    for _ in range(ZOO_TP_REPS):
+        t0 = time.monotonic()
+        loss16, g16 = run(full, p16, mp)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    launched = {k: n for k, n in launches_of.snapshot().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    readings["bf16_control"] = tp_readings(loss16, loss1, g16, flat_dims,
+                                           want)
+    del g16, want, p16
+    n_params = sum(math.prod(s.shape) for _, s in tree_leaves(specs))
+    step_ms = sorted(ms)[len(ms) // 2]
+    print(f"  ({arch}) MLA block and one MoE FFN, {n_params / 1e9:.2f} B "
+          f"parameters, at (1, {mp}), B {ZOO_BATCH} x L {ZOO_SEQ}, bf16 "
+          f"forward and backward {step_ms:.1f} ms (median of {ZOO_TP_REPS}), "
+          f"peak {peak:.2f} GiB; port kernels launched: "
+          f"{launched or 'none'}", flush=True)
+    if launched:
+        fail(f"{arch} blocks at (1, {mp}): launched port kernels {launched}")
+    hold_tp_readings(f"{arch} blocks, fp32", readings)
+    return {"arch": arch, "mp": mp, "batch": ZOO_BATCH, "seq": ZOO_SEQ,
+            "params": n_params, "bf16_ms": step_ms, "peak_gib": peak,
+            "loss_1_1": loss1, "loss_rtol": TP_LOSS_RTOL,
+            "grad_rtol": TP_GRAD_RTOL, **readings}
+
+
+def run_zoo_mp(torch, launches_of, kernels) -> dict:
+    """Phase 11 (b): ``zoo_train`` at (1, ZOO_MP) and ``check_tp_numbers``
+    at the rescaled point for each of ``ZOO_MP_TRAIN``; ``zoo_tp_blocks``
+    for deepseek. Returns a record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    rec = {}
+    for arch in ZOO_MP_TRAIN:
+        t0 = time.monotonic()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=ZOO_TRAIN_LAYERS[arch])
+        point, lr, _ = next(run for run in ZOO_TRAIN_RUNS.get(
+            arch, (("init", 1e-3, True),)) if run[2])
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[arch] = zoo_train(torch, launches_of, kernels, cfg, cfg,
+                              point=point, lr=lr, mp=ZOO_MP)
+        rec[arch]["one_step"] = check_tp_numbers(
+            torch, arch, n_layers=cfg.n_layers, point="fan_in",
+            mps=(ZOO_MP,), batch_size=ZOO_BATCH, seq=ZOO_SEQ)
+        rec[arch]["seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    rec["deepseek-v2-236b"] = zoo_tp_blocks(torch, launches_of)
+    rec["deepseek-v2-236b"]["seconds"] = time.monotonic() - t0
+    return rec
+
+
 def shape_record(r: dict) -> dict:
     """A kernel's record at one more timed shape, for its kernel entry."""
     return {**{k: r[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
@@ -2634,7 +2905,8 @@ def main() -> int:
                      vw["runs"]["static"]["losses"][:VW_STEPS])
 
     print("[7/12] WKV6 kernels against their plain versions", flush=True)
-    records.update(check_wkv(torch, wops))
+    wkv_timed = check_wkv(torch, wops)
+    records.update(wkv_timed[WKV_MAIN_CASE[0]])
     wkv_decode = check_wkv_decode(torch, wops)
 
     rwkv = get_config("rwkv6-1.6b")
@@ -2649,6 +2921,12 @@ def main() -> int:
                                    wops.KERNELS, rwkv_shard,
                                    loss_must_fall=False)
     paths["rwkv6-1.6b"].update(refit_and_hold_out(torch, "rwkv6-1.6b"))
+    print("[8/12] rwkv6 on the model axis: the WKV6 kernels on H/mp heads a "
+          "slot shard", flush=True)
+    t0 = time.monotonic()
+    rwkv_mp = run_rwkv_mp_path(torch, LAUNCHES, train, wops.KERNELS,
+                               rwkv_shard)
+    rwkv_mp["seconds"] = time.monotonic() - t0
 
     kernels = []
     for kernel_names, family, path in ((aops.KERNELS, ATT, "edl-paper"),
@@ -2672,6 +2950,17 @@ def main() -> int:
                 **{k: r[k] for k in ("max_rel_err", "du_library_ms") if k in r},
                 "shape": r["shape"], "card": card})
             if kname not in aops.KERNELS:
+                kernels[-1]["model_parallel_shapes"] = {
+                    case: {**shape_record(wkv_timed[case][kname]),
+                           "max_rel_err": wkv_timed[case][kname][
+                               "max_rel_err"]}
+                    for case, *_ in WKV_MP_CASES}
+                # each phase-8 mp run's launches, counted from 0 just
+                # before it
+                kernels[-1]["model_parallel_path"] = {
+                    name: {"launches": run["launches"][kname],
+                           "warmup_launches": run["warmup_launches"][kname]}
+                    for name, run in rwkv_mp["runs"].items()}
                 continue
             kernels[-1]["virtual_worker_shape"] = {
                 **shape_record(timed[ATT_VW_CASE[0]][kname]),
@@ -2741,7 +3030,14 @@ def main() -> int:
     zoo = {arch: run_zoo(torch, LAUNCHES, aops.KERNELS, arch)
            for arch in ZOO_ARCHS}
     zoo_s = time.monotonic() - t0
-    print(f"  phase 11 took {zoo_s:.1f} s", flush=True)
+    print(f"  phase 11 (a) took {zoo_s:.1f} s", flush=True)
+    print(f"[11/12] (b) the zoo on the model axis at (1, {ZOO_MP}) on "
+          f"{ZOO_MP} slots of the card: mixtral and jamba train, deepseek's "
+          f"MLA block and MoE FFN; each against (1, 1) in fp32", flush=True)
+    t0 = time.monotonic()
+    zoo_mp = run_zoo_mp(torch, LAUNCHES, aops.KERNELS)
+    zoo_mp_s = time.monotonic() - t0
+    print(f"  phase 11 (b) took {zoo_mp_s:.1f} s", flush=True)
     for entry in kernels:
         if entry["name"] in aops.KERNELS:
             entry["zoo_shapes"] = {case: shape_record(timed[case][entry[
@@ -2756,6 +3052,14 @@ def main() -> int:
                        "prefill_launches": run["serve"]["prefill_launches"][
                            entry["name"]]}
                 for arch, run in zoo.items()}
+            # phase 11 (b)'s training runs at (1, ZOO_MP)
+            entry["zoo_mp_path"] = {
+                arch: {"launches": zoo_mp[arch]["launches"][entry["name"]],
+                       "warmup_launches": zoo_mp[arch]["warmup_launches"][
+                           entry["name"]],
+                       "launches_per_slot_step": zoo_mp[arch][
+                           "launches_per_slot_step"].get(entry["name"], 0)}
+                for arch in ZOO_MP_TRAIN}
     print(f"  {card}", flush=True)
     print("[12/12] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd, its whole "
@@ -2769,11 +3073,14 @@ def main() -> int:
         **{name: {k: v for k, v in run.items()
                   if k not in ("launches", "warmup_launches")}
            for name, run in paths.items()},
-        "virtual_workers": vw, "model_parallel": mp, "cluster": cluster},
+        "virtual_workers": vw, "model_parallel": mp,
+        "rwkv6_model_parallel": rwkv_mp, "cluster": cluster},
         "card": card}))
     print(json.dumps({"serving": serving, "card": card}))
     print(json.dumps({"zoo": zoo, "seconds": zoo_s,
                       "resident_gib_before": resident, "card": card}))
+    print(json.dumps({"zoo_model_parallel": zoo_mp, "seconds": zoo_mp_s,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

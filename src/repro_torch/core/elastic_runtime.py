@@ -22,9 +22,6 @@ a ``reshape(p, mp)`` moves the state along a ``reshape.plan_reshard`` plan
 mini-batch on the devices' side streams, so the stop is the swap and the
 bookkeeping. Scale-in (graceful exit) returns the exiting groups'
 partition remainders to the dynamic data pipeline.
-
-The RWKV6 mixers have no tensor-parallel form yet: an rwkv6 job at
-mp > 1 raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,7 +51,7 @@ from repro_torch.kernels.launches import LAUNCHES
 from repro_torch.models.model import param_spec_tree
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import Optimizer, adamw
-from repro_torch.parallel import model_dims, require_model_parallel
+from repro_torch.parallel import model_dims
 from repro_torch.reshape import StateSpec, apply_plan, flatten_tree, \
     place_state, plan_reshard, unflatten_tree
 from repro_torch.training.step import group_loss_and_grads, \
@@ -145,7 +142,6 @@ class ElasticTrainer:
                  virtual_workers: int | str | None = None,
                  time_allowance_s: float = TIME_ALLOWANCE_S,
                  compile_service=None, device: str = "cuda"):
-        require_model_parallel(cfg, model_parallel)
         self.cfg = cfg
         self.global_batch = global_batch
         self.seq_len = seq_len
@@ -608,7 +604,6 @@ class ElasticTrainer:
                  dead: tuple = ()):
         target_mp = (target_mp if target_mp is not None
                      else self.model_parallel)
-        require_model_parallel(self.cfg, target_mp)
         avail = len(self.devices) // target_mp
         if target_p > avail:
             raise ValueError(f"need {target_p} groups of {target_mp} "

@@ -27,7 +27,6 @@ import torch
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.scaling import Busy, Phase, ScalingRecord
-from repro_torch.parallel import require_model_parallel
 from repro_torch.reshape import StateSpec, flatten_tree, gather_state, \
     place_state, plan_reshard
 from repro_torch.training.step import join_shards, model_shards, \
@@ -159,7 +158,6 @@ def stop_resume_rescale(trainer, target_p: int,
         raise Busy("scaling already in flight; retry")   # paper: RETRY
     target_mp = (target_mp if target_mp is not None
                  else trainer.model_parallel)
-    require_model_parallel(trainer.cfg, target_mp)
     if target_p * target_mp > len(trainer.devices):
         raise ValueError(f"shape ({target_p}, {target_mp}) needs "
                          f"{target_p * target_mp} slots, trainer owns "

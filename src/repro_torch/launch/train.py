@@ -37,11 +37,8 @@ across every (p, mp) and every elastic schedule above, kills and
 stop-resumes included.
 
 ``--arch`` takes edl-paper and every one of the reference's ``ARCH_IDS``
-(or their aliases). The RWKV6 mixers, MoE, MLA and Mamba have no
-tensor-parallel form yet: ``--arch rwkv6-1.6b``, ``mixtral-8x7b``,
-``deepseek-v2-236b`` or ``jamba-v0.1-52b`` with ``--model-parallel`` above
-1, or a ``stop_resume_mp`` to it, is refused when the arguments are parsed,
-as is an unknown ``--arch``.
+(or their aliases), each at any ``--model-parallel``; an unknown ``--arch``
+is refused when the arguments are parsed.
 """
 import argparse
 import json
@@ -107,15 +104,10 @@ def main(argv=None):
 
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.parallel import require_model_parallel
 
     try:
         cfg = get_config(args.arch, smoke=args.smoke)
-        for mp in {args.model_parallel} | {n for ops in schedule.values()
-                                           for opn, n in ops
-                                           if opn == "stop_resume_mp"}:
-            require_model_parallel(cfg, mp)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))
     from repro_torch.core import ElasticTrainer, stop_resume_rescale
     from repro_torch.core.failure import fail_worker, recover

@@ -8,7 +8,8 @@ card, their plain versions on the CPU. Over the model axis
 MLA attends as MQA over its compressed KV, whose k (``kv_lora +
 qk_rope_dim`` wide) and v (``kv_lora``) differ in width; its train and
 prefill run ``chunked_attention``, the reference's chunked online softmax,
-as the reference runs it, and MLA has no tensor-parallel form. Decode (one
+as the reference runs it; over the model axis (``mla_forward_tp``) each
+shard runs its heads against the whole compressed head. Decode (one
 token against the cache) is ``decode_attention``, plain PyTorch, as the
 reference computes it outside any Pallas kernel. The window-pruned branch
 is not ported: windowed GQA runs the flash op's window mask.
@@ -174,20 +175,29 @@ def mla_cache_spec(cfg, batch: int, max_seq: int) -> dict:
                                  "zeros")}
 
 
-def mla_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
-                cache=None, **_):
-    """MLA as MQA over the compressed KV: k = [c_kv ; k_rope] (one head,
-    read by all ``n_heads`` queries), v = c_kv, with each head's ``w_uk``
-    absorbed into its query and ``w_uv`` applied to the attention output.
-    The scores scale by ``(qk_nope_dim + qk_rope_dim) ** -0.5``, not by the
-    key's width. Decode writes this token's ``ckv`` and ``krope`` in place
-    at slot ``pos``. Returns (out, cache or None)."""
-    B, L, D = x.shape
+def _mla_latents(cfg, p, x: torch.Tensor, positions: torch.Tensor):
+    """MLA's replicated head: the normed query latent ``q_lat`` [B,L,q_lora]
+    and the compressed KV's ``ckv`` [B,1,L,kv_lora] and roped ``krope``
+    [B,1,L,qk_rope_dim], in the compute dtype."""
     m = cfg.mla
-    H = cfg.n_heads
     cd = dt(cfg, "compute")
     q_lat = apply_rmsnorm(p["q_norm"], apply_linear(p["wq_a"], x, cd),
                           cfg.norm_eps)
+    kv_a = apply_linear(p["wkv_a"], x, cd)
+    ckv, k_rope = kv_a.split([m.kv_lora, m.qk_rope_dim], dim=-1)
+    ckv = apply_rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions[:, :, None],
+                        cfg.rope_theta)[:, :, 0]
+    return q_lat, ckv[:, None], k_rope[:, None].to(cd)
+
+
+def _mla_query(cfg, p, q_lat, positions: torch.Tensor) -> torch.Tensor:
+    """The absorbed queries [B,1,H,L,kv_lora + qk_rope_dim] of the heads
+    whose ``wq_b`` columns and ``w_uk`` rows ``p`` holds."""
+    m = cfg.mla
+    B, L, _ = q_lat.shape
+    H = p["w_uk"]["w"].shape[0]
+    cd = dt(cfg, "compute")
     q = apply_linear(p["wq_b"], q_lat, cd).reshape(
         B, L, H, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
@@ -196,16 +206,37 @@ def mla_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
     q_abs = torch.einsum("blhn,hkn->blhk", q_nope.to(cd),
                          p["w_uk"]["w"].to(cd))
     q_full = torch.cat([q_abs, q_rope.to(cd)], dim=-1)
-    q_full = q_full.permute(0, 2, 1, 3)[:, None]          # [B,1,H,L,qk']
+    return q_full.permute(0, 2, 1, 3)[:, None]             # [B,1,H,L,qk']
 
-    kv_a = apply_linear(p["wkv_a"], x, cd)
-    ckv, k_rope = kv_a.split([m.kv_lora, m.qk_rope_dim], dim=-1)
-    ckv = apply_rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions[:, :, None],
-                        cfg.rope_theta)[:, :, 0]
-    ckv_n = ckv[:, None]                                   # [B,1,L,lora]
-    krope_n = k_rope[:, None].to(cd)
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+def _mla_out(cfg, p, out: torch.Tensor) -> torch.Tensor:
+    """The attention output [B,1,H,L,kv_lora] of ``p``'s heads through
+    their ``w_uv`` and ``wo`` rows: the output, or its partial sum."""
+    B, _, H, L, _ = out.shape
+    cd = dt(cfg, "compute")
+    # out: [B,1,H,L,lora] -> W_uv -> [B,L,H,v_dim]
+    out = torch.einsum("bhlk,hkv->blhv", out[:, 0].to(cd),
+                       p["w_uv"]["w"].to(cd))
+    out = out.reshape(B, L, H * cfg.mla.v_head_dim)
+    return apply_linear(p["wo"], out, cd)
+
+
+def _mla_scale(cfg) -> float:
+    return (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim) ** -0.5
+
+
+def mla_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
+                cache=None, **_):
+    """MLA as MQA over the compressed KV: k = [c_kv ; k_rope] (one head,
+    read by all ``n_heads`` queries), v = c_kv, with each head's ``w_uk``
+    absorbed into its query and ``w_uv`` applied to the attention output.
+    The scores scale by ``(qk_nope_dim + qk_rope_dim) ** -0.5``, not by the
+    key's width. Decode writes this token's ``ckv`` and ``krope`` in place
+    at slot ``pos``. Returns (out, cache or None)."""
+    cd = dt(cfg, "compute")
+    q_lat, ckv_n, krope_n = _mla_latents(cfg, p, x, positions)
+    q_full = _mla_query(cfg, p, q_lat, positions)
+    scale = _mla_scale(cfg)
     if cache is not None:                                  # decode (L == 1)
         pos = positions[0, 0]
         slot = pos.long().reshape(1)
@@ -218,11 +249,37 @@ def mla_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
         k_full = torch.cat([ckv_n.to(cd), krope_n], dim=-1)
         out = chunked_attention(q_full, k_full, ckv_n.to(cd), causal=True,
                                 chunk=cfg.attn_chunk, scale=scale)
-    # out: [B,1,H,L,lora] -> W_uv -> [B,L,H,v_dim]
-    out = torch.einsum("bhlk,hkv->blhv", out[:, 0].to(cd),
-                       p["w_uv"]["w"].to(cd))
-    out = out.reshape(B, L, H * m.v_head_dim)
-    return apply_linear(p["wo"], out, cd), cache
+    return _mla_out(cfg, p, out), cache
+
+
+# MLA's leaves the rules leave whole (their axes are ``embed`` and
+# ``lora``): the compressed head's projections and norms
+MLA_REPLICATED = ("wq_a", "q_norm", "wkv_a", "kv_norm")
+
+
+def mla_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """MLA over the model axis, train mode: the query latent and the
+    compressed ``ckv``/``krope`` head once on the first slot, copied out;
+    shard m takes H/mp heads (``wq_b`` columns, ``w_uk``/``w_uv`` rows)
+    against the whole compressed head and its ``wo`` row shard, the
+    partial outputs summed in shard order there. Run whole when the rules
+    left a head leaf replicated (an mp that does not divide H)."""
+    if not sp.split(but=MLA_REPLICATED):
+        return mla_forward(cfg, sp.whole(), x, positions=positions)[0]
+    cd = dt(cfg, "compute")
+    q_lat, ckv_n, krope_n = _mla_latents(cfg, sp.trees[0], x, positions)
+    k_full = torch.cat([ckv_n.to(cd), krope_n], dim=-1)
+    outs = []
+    for t, dev, q_m, k_m, v_m in zip(
+            sp.trees, sp.devices, copy_to_model(q_lat, sp.devices),
+            copy_to_model(k_full, sp.devices),
+            copy_to_model(ckv_n.to(cd), sp.devices)):
+        q_full = _mla_query(cfg, t, q_m, positions.to(dev))
+        out = chunked_attention(q_full, k_m, v_m, causal=True,
+                                chunk=cfg.attn_chunk, scale=_mla_scale(cfg))
+        outs.append(_mla_out(cfg, t, out))
+    return reduce_from_model(outs, x.device)
 
 
 def attention_specs(cfg) -> dict:
@@ -242,16 +299,17 @@ def attention_cache_spec(cfg, batch: int, max_seq: int) -> dict:
 
 def attention_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
                          positions: torch.Tensor) -> torch.Tensor:
-    """Attention over the model axis: ``wq``/``wk``/``wv`` column shards by
-    heads and kv_heads, so shard m runs the flash kernels on its H/mp
-    heads, and ``wo`` row shards by heads, whose partial outputs are summed
-    in shard order onto ``x``'s device. Run whole when the rules left a
-    leaf replicated or a shard would split a KV group (Hkv % mp != 0),
-    and run MLA whole: it has no tensor-parallel form, and the trainer
-    refuses it at mp > 1 (``parallel.require_model_parallel``)."""
+    """Attention over the model axis. MLA goes to ``mla_forward_tp``. GQA:
+    ``wq``/``wk``/``wv`` column shards by heads and kv_heads, so shard m
+    runs the flash kernels on its H/mp heads, and ``wo`` row shards by
+    heads, whose partial outputs are summed in shard order onto ``x``'s
+    device. Run whole when the rules left a leaf replicated or a shard
+    would split a KV group (Hkv % mp != 0)."""
+    if cfg.attn_kind == "mla":
+        return mla_forward_tp(cfg, sp, x, positions=positions)
     mp = sp.mp
-    if cfg.attn_kind != "gqa" or not sp.split() or cfg.n_kv_heads % mp:
-        return attention_forward(cfg, sp.whole(), x, positions=positions)[0]
+    if not sp.split() or cfg.n_kv_heads % mp:
+        return gqa_forward(cfg, sp.whole(), x, positions=positions)[0]
     shard_cfg = dataclasses.replace(
         cfg, n_heads=cfg.n_heads // mp, n_kv_heads=cfg.n_kv_heads // mp,
         head_dim=cfg.resolved_head_dim)

@@ -7,12 +7,14 @@ stacked ``[n_periods, ...]`` parameter leaves are the reference's layout.
 Mixers: ``attn`` (GQA or MLA, by ``cfg.attn_kind``), ``mamba`` and
 ``rwkv_tm``; ffns: ``mlp``, ``moe`` and ``rwkv_cm``.
 ``block_forward`` runs a block over the model axis: the norms whole on
-the residual stream's device, the mixer and the FFN tensor-parallel where
-they have that form (GQA ``attn`` and ``mlp``), whole otherwise — at mp = 1
-every leaf is whole and the block is the plain one, op for op. With a
-decode cache (mp = 1 only) the mixer and the FFN run whole and write
-their parts of the block's cache in place. The block returns the FFN's
-auxiliary loss (MoE's load-balance loss; zero for the others).
+the residual stream's device, the mixer and the FFN at mp > 1 in their
+tensor-parallel forms (``MIXERS_TP``, ``FFNS_TP``: every mixer and FFN has
+one), each of which runs whole where the rules left its leaves
+replicated; at mp = 1 the plain ones (``MIXERS``, ``FFNS``), so the block
+is the plain one, op for op. With a decode cache (mp = 1 only) the mixer
+and the FFN write their parts of the block's cache in place. The block
+returns the FFN's auxiliary loss (MoE's load-balance loss; zero for the
+others).
 """
 from __future__ import annotations
 
@@ -89,27 +91,36 @@ def block_cache_spec(cfg, mixer: str, batch: int, max_seq: int) -> dict:
     return MIXER_CACHES[mixer](cfg, batch, max_seq)
 
 
-MIXERS_TP = {"attn": attention.attention_forward_tp}
-FFNS_TP = {"mlp": lambda cfg, sp, h: apply_mlp_tp(sp, h, dt(cfg, "compute"))}
+# over the model axis, train mode: mixer (cfg, sp, h, positions=) -> out;
+# ffn (cfg, sp, h) -> (out, aux loss or None)
+MIXERS_TP = {"attn": attention.attention_forward_tp,
+             "mamba": ssm.mamba_forward_tp,
+             "rwkv_tm": ssm.rwkv_tm_forward_tp}
+FFNS_TP = {"mlp": lambda cfg, sp, h: (apply_mlp_tp(sp, h,
+                                                   dt(cfg, "compute")), None),
+           "moe": moe.moe_forward_tp,
+           "rwkv_cm": lambda cfg, sp, h: (ssm.rwkv_cm_forward_tp(cfg, sp, h),
+                                          None)}
 
 
 def block_forward(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
                   ffn: str, positions: torch.Tensor, cache=None):
     """One block over the model axis of a data group; ``x`` is the residual
-    stream on the group's first slot. A mixer or FFN with no
-    tensor-parallel form runs whole there, and so does every one against a
-    decode ``cache`` (the block's slice of it, written in place). Returns
-    (x, aux_loss)."""
+    stream on the group's first slot. At mp = 1, and against a decode
+    ``cache`` (mp = 1 only: the block's slice of it, written in place),
+    the mixer and the FFN run their plain forms there. Returns (x,
+    aux_loss)."""
+    tp = sp.mp > 1 and cache is None
     h = apply_rmsnorm(sp["norm1"].whole(), x, cfg.norm_eps)
-    if mixer in MIXERS_TP and cache is None:
+    if tp:
         mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions)
     else:
         mix_out, _ = MIXERS[mixer][1](cfg, sp["mixer"].whole(), h,
                                       positions=positions, cache=cache)
     x = x + mix_out
     h = apply_rmsnorm(sp["norm2"].whole(), x, cfg.norm_eps)
-    if ffn in FFNS_TP and cache is None:
-        f, aux = FFNS_TP[ffn](cfg, sp["ffn"], h), None
+    if tp:
+        f, aux = FFNS_TP[ffn](cfg, sp["ffn"], h)
     else:
         f, aux = FFNS[ffn][1](cfg, sp["ffn"].whole(), h, cache=cache)
     if aux is None:

@@ -13,7 +13,10 @@ carries its state from the cache (Mamba's ``conv`` and ``ssm``, RWKV6's
 ``wkv``, each cast to fp32 for the recurrence and back to the cache's dtype
 after) and writes it back in place, as it does RWKV6's token shifts
 ``shift_tm`` and ``shift_cm``. ``wkv6_scan`` and ``wkv6_chunked`` are the
-reference's plain forms, kept as the semantics the op is held to.
+reference's plain forms, kept as the semantics the op is held to. Each
+mixer and the channel-mix has a train-mode form over the model axis
+(``mamba_forward_tp``, ``rwkv_tm_forward_tp``, ``rwkv_cm_forward_tp``),
+built from the same helpers as the plain form.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from repro_torch.kernels.rwkv import ops as rwkv_ops
 from repro_torch.models.layers import apply_linear, dt, linear_specs, \
     rmsnorm_specs
 from repro_torch.models.params import ShardedInit, fit_chunk
+from repro_torch.parallel import ShardedParams, copy_to_model, \
+    reduce_from_model, regroup_columns
 
 
 # ===================================================================== Mamba
@@ -85,6 +90,42 @@ def _mamba_chunk(h, A, d_c, b_c, c_c, x_c):
     return h_t[:, -1], torch.einsum("bcdn,bcn->bcd", h_t, c_c)
 
 
+def _mamba_conv(p, x_in: torch.Tensor, pad: torch.Tensor, cd):
+    """The causal depthwise conv of ``x_in`` [B,L,c] after ``pad`` (the
+    last K - 1 inputs, or zeros), in fp32, then ``conv_b`` and silu, in
+    ``cd``: (x_c, the conv's new state)."""
+    L = x_in.shape[1]
+    conv_w = p["conv_w"]["w"].float()                      # [K, c]
+    K = conv_w.shape[0]
+    x_pad = torch.cat([pad, x_in], dim=1)
+    new_conv_state = x_pad[:, -(K - 1):]
+    x_pad = x_pad.float()
+    # causal depthwise conv: sum_k w[k] * x[t - (K-1) + k]
+    conv = sum(conv_w[k] * x_pad[:, k:k + L] for k in range(K))
+    return F.silu(conv + p["conv_b"]["b"].float()).to(cd), new_conv_state
+
+
+def _mamba_scan(cfg, p, x_c, z, x_db, h, cd):
+    """From the conv's output ``x_c`` and the gate ``z`` [B,L,c] on c
+    channels, ``x_proj``'s output ``x_db`` and the scan's state ``h``
+    [B,c,N]: (y [B,L,c], the state after). ``delta``, A, the chunked scan
+    and the ``D_skip`` term in fp32."""
+    s = cfg.ssm
+    L = x_c.shape[1]
+    dt_r, B_, C_ = x_db.split([_dt_rank(cfg), s.d_state, s.d_state], dim=-1)
+    delta = F.softplus(apply_linear(p["dt_proj"], dt_r, torch.float32))
+    A = -torch.exp(p["A_log"]["w"].float())                # [c, N]
+    B32, C32, x32 = B_.float(), C_.float(), x_c.float()
+    chunk = fit_chunk(L, cfg.mamba_chunk)
+    ys = []
+    for c0 in range(0, L, chunk):
+        h, y = remat(_mamba_chunk, h, A, *(a[:, c0:c0 + chunk]
+                                           for a in (delta, B32, C32, x32)))
+        ys.append(y)
+    y = torch.cat(ys, dim=1) + p["D_skip"]["w"].float() * x32
+    return y.to(cd) * F.silu(z), h
+
+
 def mamba_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
     """Mamba. x: [B,L,D]; ``cache`` ({"conv", "ssm"}) in decode, both
     written in place. ``in_proj``, ``x_proj``, ``out_proj`` and the gate
@@ -98,41 +139,59 @@ def mamba_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
     s = cfg.ssm
     B, L, D = x.shape
     di = s.expand * D
-    dtr = _dt_rank(cfg)
     cd = dt(cfg, "compute")
     x_in, z = apply_linear(p["in_proj"], x, cd).chunk(2, dim=-1)
-    conv_w = p["conv_w"]["w"].float()                      # [K, di]
-    K = conv_w.shape[0]
+    K = p["conv_w"]["w"].shape[0]
     pad = (cache["conv"].to(x_in.dtype) if cache is not None else
            torch.zeros((B, K - 1, di), dtype=x_in.dtype, device=x.device))
-    x_pad = torch.cat([pad, x_in], dim=1)
-    new_conv_state = x_pad[:, -(K - 1):]
-    x_pad = x_pad.float()
-    # causal depthwise conv: sum_k w[k] * x[t - (K-1) + k]
-    conv = sum(conv_w[k] * x_pad[:, k:k + L] for k in range(K))
-    x_c = F.silu(conv + p["conv_b"]["b"].float()).to(cd)
-
+    x_c, new_conv_state = _mamba_conv(p, x_in, pad, cd)
     x_db = apply_linear(p["x_proj"], x_c, cd)
-    dt_r, B_, C_ = x_db.split([dtr, s.d_state, s.d_state], dim=-1)
-    delta = F.softplus(apply_linear(p["dt_proj"], dt_r, torch.float32))
-    A = -torch.exp(p["A_log"]["w"].float())                # [di, N]
-    B32, C32, x32 = B_.float(), C_.float(), x_c.float()
     h = (cache["ssm"].float() if cache is not None else
          torch.zeros((B, di, s.d_state), dtype=torch.float32,
                      device=x.device))
-    chunk = fit_chunk(L, cfg.mamba_chunk)
-    ys = []
-    for c0 in range(0, L, chunk):
-        h, y = remat(_mamba_chunk, h, A, *(a[:, c0:c0 + chunk]
-                                           for a in (delta, B32, C32, x32)))
-        ys.append(y)
-    y = torch.cat(ys, dim=1) + p["D_skip"]["w"].float() * x32
-    y = y.to(cd) * F.silu(z)
+    y, h = _mamba_scan(cfg, p, x_c, z, x_db, h, cd)
     out = apply_linear(p["out_proj"], y, cd)
     if cache is not None:
         cache["conv"].copy_(new_conv_state)
         cache["ssm"].copy_(h)
     return out, cache
+
+
+def mamba_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, **_
+                     ) -> torch.Tensor:
+    """Mamba over the model axis, train mode, di/mp channels a shard.
+    Shard m's ``in_proj`` columns are the contiguous ``[m 2di/mp, (m + 1)
+    2di/mp)`` of the stored ``[D, 2 di]`` leaf (at mp = 2 all of x's half
+    on shard 0 and all of z's on shard 1), so each shard forms its columns
+    of ``x @ in_proj`` and ``regroup_columns`` hands shard m channels
+    ``[m di/mp, (m + 1) di/mp)`` of both x and z. The conv, ``dt_proj``,
+    A, the scan and ``D_skip`` run on them; ``x_proj`` is a row split whose
+    partial dt_r, B and C are summed in shard order on the first slot and
+    copied back out; ``out_proj`` row shards are summed there. Run whole
+    when the rules left a leaf replicated (an mp that does not divide
+    di)."""
+    if not sp.split():
+        return mamba_forward(cfg, sp.whole(), x)[0]
+    s = cfg.ssm
+    B = x.shape[0]
+    c = s.expand * cfg.d_model // sp.mp
+    cd = dt(cfg, "compute")
+    xz = regroup_columns([apply_linear(t["in_proj"], xm, cd) for t, xm in
+                          zip(sp.trees, copy_to_model(x, sp.devices))], 2,
+                         sp.devices)
+    x_ins, zs = zip(*(part.chunk(2, dim=-1) for part in xz))
+    convs = [_mamba_conv(t, x_in, x_in.new_zeros((B, s.d_conv - 1, c)),
+                         cd)[0] for t, x_in in zip(sp.trees, x_ins)]
+    x_db = copy_to_model(reduce_from_model(
+        [apply_linear(t["x_proj"], x_c, cd)
+         for t, x_c in zip(sp.trees, convs)], x.device), sp.devices)
+    outs = []
+    for t, x_c, z, x_db_m in zip(sp.trees, convs, zs, x_db):
+        h = torch.zeros((B, c, s.d_state), dtype=torch.float32,
+                        device=x_c.device)
+        outs.append(apply_linear(t["out_proj"], _mamba_scan(
+            cfg, t, x_c, z, x_db_m, h, cd)[0], cd))
+    return reduce_from_model(outs, x.device)
 
 
 # ===================================================================== RWKV6
@@ -238,53 +297,135 @@ def _prev_token(x: torch.Tensor, cache, key: str) -> torch.Tensor:
                        device=x.device)
 
 
-def rwkv_tm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
-    """Time-mix. x: [B,L,D]; ``cache`` ({"shift_tm", "wkv", ...}) in
-    decode, None in train/prefill, its ``shift_tm`` and ``wkv`` written in
-    place. Returns (out, cache or None)."""
-    B, L, D = x.shape
-    hd = cfg.ssm.rwkv_head_dim
-    H = D // hd
+def _rwkv_tm_inputs(cfg, p, x: torch.Tensor, cache):
+    """The time-mix's token shift and its five mixes of x [B,L,D], and the
+    decay LoRA's first half, ``tanh(xw @ w_lora_a)``: (xr, xk, xv, xg,
+    lora_h), the leaves the rules replicate."""
     cd = dt(cfg, "compute")
     xs = _token_shift(x, _prev_token(x, cache, "shift_tm"))
     mix = p["mix"]["w"].to(x.dtype)                         # [5, D]
     xr, xk, xv, xw, xg = (x + (xs - x) * mix[i] for i in range(5))
+    lora_h = torch.tanh(xw.to(cd) @ p["w_lora_a"]["w"].to(cd))
+    return xr, xk, xv, xg, lora_h
+
+
+def _rwkv_tm_heads(cfg, p, ln_scale, xr, xk, xv, xg, lora_h, state):
+    """The time-mix from its mixes on the heads whose columns ``p``'s
+    ``wr``, ``wk``, ``wv``, ``wg``, ``w_lora_b``, ``w0``, ``u`` and ``wo``
+    rows hold (all of them, or one model shard's), ``ln_scale`` the group
+    norm's scale on those channels: (the output or its partial sum, the
+    WKV state after)."""
+    B, L, _ = xr.shape
+    hd = cfg.ssm.rwkv_head_dim
+    width = p["wr"]["w"].shape[1]
+    H = width // hd
+    cd = dt(cfg, "compute")
     r = apply_linear(p["wr"], xr, cd).reshape(B, L, H, hd)
     k = apply_linear(p["wk"], xk, cd).reshape(B, L, H, hd)
     v = apply_linear(p["wv"], xv, cd).reshape(B, L, H, hd)
     g = apply_linear(p["wg"], xg, cd)
     # data-dependent decay (the RWKV6 signature): w = exp(-exp(w0 + lora(xw)))
-    lora = xw.to(cd) @ p["w_lora_a"]["w"].to(cd)
-    lora = torch.tanh(lora) @ p["w_lora_b"]["w"].to(cd)
+    lora = lora_h @ p["w_lora_b"]["w"].to(cd)
     raw = p["w0"]["w"].float() + lora.float()
     decay_log = -torch.exp(torch.clamp(raw, -8.0, 4.0)).reshape(B, L, H, hd)
     u = p["u"]["w"].float().reshape(H, hd)
-    state = (cache["wkv"].float() if cache is not None else
-             torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device))
     y, S = rwkv_ops.wkv6(r.float(), k.float(), v.float(), decay_log, u,
                          state)
     # per-head group norm; jnp.var is the population variance
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
-    y_n = y.reshape(B, L, D) * p["ln_x"]["scale"].float()
-    out = apply_linear(p["wo"], y_n.to(cd) * F.silu(g), cd)
+    y_n = y.reshape(B, L, width) * ln_scale.float()
+    return apply_linear(p["wo"], y_n.to(cd) * F.silu(g), cd), S
+
+
+def rwkv_tm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
+    """Time-mix. x: [B,L,D]; ``cache`` ({"shift_tm", "wkv", ...}) in
+    decode, None in train/prefill, its ``shift_tm`` and ``wkv`` written in
+    place. Returns (out, cache or None)."""
+    B, _, D = x.shape
+    hd = cfg.ssm.rwkv_head_dim
+    H = D // hd
+    state = (cache["wkv"].float() if cache is not None else
+             torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device))
+    out, S = _rwkv_tm_heads(cfg, p, p["ln_x"]["scale"], *_rwkv_tm_inputs(
+        cfg, p, x, cache), state)
     if cache is not None:
         cache["shift_tm"].copy_(x[:, -1])
         cache["wkv"].copy_(S)
     return out, cache
 
 
+# the time-mix's leaves the rules leave whole: the mixes, the decay LoRA's
+# first half and the group norm's scale
+RWKV_TM_REPLICATED = ("mix", "w_lora_a", "ln_x")
+
+
+def rwkv_tm_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, **_
+                       ) -> torch.Tensor:
+    """The time-mix over the model axis, train mode: the token shift, the
+    five mixes and ``tanh(xw @ w_lora_a)`` once on the first slot, copied
+    out; shard m runs its H/mp heads (column shards of ``wr``, ``wk``,
+    ``wv``, ``wg`` and ``w_lora_b``, its parts of ``w0`` and ``u``) through
+    the WKV6 op, the group norm on them with its D/mp slice of ``ln_x``,
+    and its ``wo`` row shard; the partial outputs are summed in shard
+    order on the first slot. Run whole when the rules left a leaf
+    replicated or a shard would split a head."""
+    mp = sp.mp
+    H = cfg.d_model // cfg.ssm.rwkv_head_dim
+    if not sp.split(but=RWKV_TM_REPLICATED) or H % mp:
+        return rwkv_tm_forward(cfg, sp.whole(), x)[0]
+    B, _, D = x.shape
+    hd = cfg.ssm.rwkv_head_dim
+    w = D // mp
+    inputs = [copy_to_model(a, sp.devices)
+              for a in _rwkv_tm_inputs(cfg, sp.trees[0], x, None)]
+    scales = copy_to_model(sp.trees[0]["ln_x"]["scale"], sp.devices)
+    outs = []
+    for m, (t, dev) in enumerate(zip(sp.trees, sp.devices)):
+        state = torch.zeros((B, H // mp, hd, hd), dtype=torch.float32,
+                            device=dev)
+        outs.append(_rwkv_tm_heads(
+            cfg, t, scales[m][m * w:(m + 1) * w], *(a[m] for a in inputs),
+            state)[0])
+    return reduce_from_model(outs, x.device)
+
+
+def _rwkv_cm_mixes(p, x: torch.Tensor, cache):
+    xs = _token_shift(x, _prev_token(x, cache, "shift_cm"))
+    mix = p["mix"]["w"].to(x.dtype)
+    return x + (xs - x) * mix[0], x + (xs - x) * mix[1]
+
+
+def _rwkv_cm_value(p, xk: torch.Tensor, cd) -> torch.Tensor:
+    return apply_linear(p["wv"], torch.square(F.relu(
+        apply_linear(p["wk"], xk, cd))), cd)
+
+
 def rwkv_cm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
     """Channel-mix. x: [B,L,D]; ``cache`` ({"shift_cm", ...}) in decode,
     its ``shift_cm`` written in place. Returns (out, cache or None)."""
     cd = dt(cfg, "compute")
-    xs = _token_shift(x, _prev_token(x, cache, "shift_cm"))
-    mix = p["mix"]["w"].to(x.dtype)
-    xk, xr = x + (xs - x) * mix[0], x + (xs - x) * mix[1]
-    k = torch.square(F.relu(apply_linear(p["wk"], xk, cd)))
-    vv = apply_linear(p["wv"], k, cd)
+    xk, xr = _rwkv_cm_mixes(p, x, cache)
+    vv = _rwkv_cm_value(p, xk, cd)
     out = torch.sigmoid(apply_linear(p["wr"], xr, cd)) * vv
     if cache is not None:
         cache["shift_cm"].copy_(x[:, -1])
     return out, cache
+
+
+def rwkv_cm_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor
+                       ) -> torch.Tensor:
+    """The channel-mix over the model axis, train mode: the token shift and
+    mixes on the first slot; ``wk`` column shards and ``wv`` row shards by
+    ``mlp``, their partial values summed in shard order there, where the
+    replicated ``wr`` gates them. Run whole when the rules left ``wk`` or
+    ``wv`` replicated (an mp that does not divide d_ff)."""
+    if not sp.split(but=("mix", "wr")):
+        return rwkv_cm_forward(cfg, sp.whole(), x)[0]
+    cd = dt(cfg, "compute")
+    p0 = sp.trees[0]
+    xk, xr = _rwkv_cm_mixes(p0, x, None)
+    vv = reduce_from_model([_rwkv_cm_value(t, xm, cd) for t, xm in zip(
+        sp.trees, copy_to_model(xk, sp.devices))], x.device)
+    return torch.sigmoid(apply_linear(p0["wr"], xr, cd)) * vv

@@ -13,6 +13,8 @@ and a "collective" is a sum taken in a fixed order; across cards it is
   * ``reduce_from_model(partials, device)`` — the partial results of the
     model slots summed in slot order onto ``device``; its backward hands
     each partial the gradient of the sum (the identity).
+  * ``regroup_columns(parts, n_groups, devices)`` — the all-to-all that
+    turns a column split of grouped columns into a split of each group.
 
 Both take and give gradients in one autograd node, so a tensor used on
 several devices never has its gradients accumulated in arrival order
@@ -71,6 +73,27 @@ def reduce_from_model(partials, device) -> torch.Tensor:
     return _ReduceFromModel.apply(torch.device(device), *partials)
 
 
+def regroup_columns(parts, n_groups: int, devices) -> list[torch.Tensor]:
+    """The all-to-all of a column-split product whose columns are
+    ``n_groups`` equal groups (Mamba's ``in_proj``: x, then z). ``parts[s]``
+    holds the contiguous columns ``[s W/mp, (s + 1) W/mp)`` of the whole
+    (width W); shard m gets, on ``devices[m]``, the m-th of mp equal
+    blocks of each group, concatenated group by group. Each block goes
+    whole to one shard, so every gradient is a single term."""
+    mp = len(parts)
+    c = parts[0].shape[-1] // n_groups
+    out = []
+    for m, dev in enumerate(devices):
+        blocks = []
+        for j in range(n_groups):
+            b = j * mp + m
+            src = parts[b // n_groups]
+            blocks.append(src[..., (b % n_groups) * c:
+                              (b % n_groups + 1) * c].to(dev))
+        out.append(torch.cat(blocks, dim=-1))
+    return out
+
+
 def model_dims(layout, prefix: str = "params/") -> dict:
     """The tree of the dim each leaf under ``prefix`` is split along over
     the model axis in ``layout`` (a ``StateSpec``), ``None`` where it is
@@ -117,10 +140,12 @@ class ShardedParams:
                                for t in unbound], dims, self.devices)
                 for i in range(n)]
 
-    def split(self) -> bool:
+    def split(self, but=()) -> bool:
         """Whether every leaf of this subtree is split over the model axis
-        (the subtree can run tensor-parallel)."""
-        return all(d is not None for _, d in tree_leaves(self.dims))
+        (the subtree can run tensor-parallel), but those under the keys
+        ``but``, which the rules replicate by design."""
+        return all(d is not None for path, d in tree_leaves(self.dims)
+                   if path.split("/")[0] not in but)
 
     def whole(self) -> dict:
         """The subtree's whole tensors on the group's first slot: split
@@ -137,27 +162,3 @@ class ShardedParams:
                 leaves.append((path, torch.cat([t.to(lead) for _, t in parts],
                                                dim=d)))
         return tree_unflatten(leaves)
-
-
-def require_model_parallel(cfg, mp: int):
-    """Raise ``NotImplementedError`` for a model-parallel degree the port
-    cannot run ``cfg`` at: the RWKV6 mixers have no tensor-parallel form
-    yet (WKV6 at H/mp heads, ``ssm_inner`` column shards), nor have MoE
-    (experts split over the model axis), MLA (its heads) or Mamba (its
-    ``ssm_inner`` channels): ROADMAP A4c."""
-    if mp <= 1:
-        return
-    from repro_torch.models.blocks import layer_plan
-    mixers = {mixer for mixer, _ in layer_plan(cfg)}
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"model_parallel={mp} for {cfg.name} (the RWKV6 mixers) is not "
-            f"yet ported")
-    parts = [what for what, there in (
-        ("its MoE layers", cfg.moe is not None and cfg.moe.n_experts),
-        ("its MLA attention", cfg.attn_kind == "mla" and "attn" in mixers),
-        ("its Mamba mixers", "mamba" in mixers)) if there]
-    if parts:
-        raise NotImplementedError(
-            f"model_parallel={mp} for {cfg.name} ({', '.join(parts)}) is not "
-            f"yet ported (ROADMAP A4c)")

@@ -224,10 +224,14 @@ def test_virtual_workers_mismatch_raises(tmp_path):
         resume_from_checkpoint(t, str(tmp_path))
 
 
-def test_stop_resume_beyond_model_parallel_1_is_not_ported():
-    """RWKV6 has no tensor-parallel form yet: its stop-resume to mp = 2 is
-    refused before anything is torn down."""
-    with _trainer("rwkv6-1.6b") as t, \
-            pytest.raises(NotImplementedError, match="not yet ported"):
-        stop_resume_rescale(t, 1, target_mp=2)
-    assert t.state is not None and t.model_parallel == 1
+def test_stop_resume_to_model_parallel_2_runs_for_rwkv6():
+    """RWKV6's stop-resume to mp = 2: the job at (1, 1) is checkpointed,
+    torn down and resumed at (1, 2) with its state in two model shards,
+    and steps on with a finite loss."""
+    with _trainer("rwkv6-1.6b") as t:
+        t.step()
+        rec = stop_resume_rescale(t, 1, target_mp=2)
+        assert (rec.op, rec.to_mp, t.p, t.model_parallel) == (
+            "stop_resume", 2, 1, 2)
+        assert isinstance(t.state, list) and len(t.state) == 2
+        assert np.isfinite(t.step()["loss"])

@@ -1,6 +1,7 @@
 """The port's reshape package on the CPU: ``StateSpec.for_config`` and the
 planner against the JAX package's for every ``(dp, mp)`` pair of a
-4-slot budget (edl_paper and rwkv6 SMOKE), the twins of the fast
+4-slot budget (the SMOKEs of edl_paper, rwkv6, mixtral, deepseek and
+jamba), a mixtral plan onto the model axis, the twins of the fast
 properties of ``tests/test_reshape.py`` on the port's own train state, the
 live executor ``apply_plan`` on torch tensors against the numpy one, and
 the checkpoint saved at (2, 2) resuming at (4, 1)."""
@@ -30,7 +31,8 @@ from repro_torch.training.step import init_train_state, port_layout
 # every (dp, mp) shape that fits a 4-slot budget, incl. non-power-of-2
 SHAPES = [(dp, mp) for dp, mp in itertools.product((1, 2, 3, 4), repeat=2)
           if dp * mp <= 4]
-ARCHS = ("edl-paper", "rwkv6-1.6b", "deepseek-v2-236b", "jamba-v0.1-52b")
+ARCHS = ("edl-paper", "rwkv6-1.6b", "mixtral-8x7b", "deepseek-v2-236b",
+         "jamba-v0.1-52b")
 OPT = adamw(1e-3)
 
 
@@ -89,6 +91,35 @@ def test_plans_and_host_moves_match_the_reference(arch, src):
             assert g.keys() == w.keys()
             for k in w:
                 np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_mixtral_plan_onto_the_model_axis_splits_the_experts():
+    """The port's layouts of mixtral SMOKE from (2, 1) to (1, 2): each
+    expert leaf (params and both moments) is a slice, slot m keeping
+    experts [m E/2, (m + 1) E/2) of the replica it held, and the
+    replicated router is kept whole on both slots."""
+    cfg = get_config("mixtral-8x7b", smoke=True)
+    state, _ = _state("mixtral-8x7b")
+    src, dst = port_layout(cfg, OPT, 2, 1), port_layout(cfg, OPT, 1, 2)
+    plan = plan_reshard(src, dst)
+    got = apply_plan_host(plan, shard_state(src, state))
+    flat = flatten_tree(state)
+    E = cfg.moe.n_experts
+    experts = [k for k in flat if k.endswith(("ffn/wi_gate/w", "ffn/wi_up/w",
+                                              "ffn/wo/w"))]
+    routers = [k for k in flat if k.endswith("ffn/router/w")]
+    assert len(experts) == 9 and len(routers) == 3     # params, mu, nu
+    for k in experts:
+        move = plan.move(k)
+        assert (move.kind, move.bytes_moved) == ("slice", 0), (k, move)
+        for m in range(2):
+            np.testing.assert_array_equal(
+                got[m][k], flat[k][:, m * E // 2:(m + 1) * E // 2],
+                err_msg=k)
+    for k in routers:
+        assert plan.move(k).kind == "keep"
+        for m in range(2):
+            np.testing.assert_array_equal(got[m][k], flat[k], err_msg=k)
 
 
 # --------------------------------------- twins of tests/test_reshape.py

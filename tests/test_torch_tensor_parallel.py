@@ -148,6 +148,94 @@ def _module_case(module, mp):
     return want, got, leaves, rng
 
 
+# the zoo's tensor-parallel mixers and FFNs: (arch, n_experts at each mp
+# or None for the config's, the part of the first block, the leaves the
+# layout leaves whole, the dim it must split the expert leaves along at
+# each mp); each from the rescaled init of its SMOKE
+ZOO_MODULES = {
+    "rwkv_tm": ("rwkv6-1.6b", None, "mixer",
+                ("mix", "w_lora_a", "ln_x"), None),
+    "rwkv_cm": ("rwkv6-1.6b", None, "ffn", ("mix", "wr"), None),
+    "mamba": ("jamba-v0.1-52b", None, "mixer", (), None),
+    "mla": ("deepseek-v2-236b", None, "mixer",
+            ("wq_a", "q_norm", "wkv_a", "kv_norm"), None),
+    # mixtral's 4 experts split by experts at mp 2 and 4
+    "moe": ("mixtral-8x7b", None, "ffn", ("router",),
+            {2: 0, 4: 0}),
+    # deepseek's shared experts through the tensor-parallel MLP
+    "moe_shared": ("deepseek-v2-236b", None, "ffn", ("router",),
+                   {2: 0, 4: 0}),
+    # E = 3 at mp 2 and E = 6 at mp 4: the layout splits expert_mlp
+    "moe_expert_mlp": ("mixtral-8x7b", {2: 3, 4: 6}, "ffn",
+                       ("router",), {2: 2, 4: 2}),
+}
+
+
+def _zoo_module_case(module, mp):
+    """(mp = 1 output, tensor-parallel output, inputs to differentiate)
+    of one of the zoo's mixers or FFNs on seeded inputs, with its MoE aux
+    loss folded into the output's sum where it has one."""
+    import dataclasses
+    from repro_torch.models import blocks
+    arch, n_experts, part, whole, expert_dim = ZOO_MODULES[module]
+    cfg = get_config(arch, smoke=True)
+    if n_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=n_experts[mp]))
+    rng = np.random.default_rng(11)
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      bridge.params_from_numpy(_fan_in_scaled(
+                          bridge.to_numpy(M.init_params(
+                              cfg, torch.Generator().manual_seed(0),
+                              "cpu"))), "cpu"))
+    dims = model_dims(port_layout(cfg, OPT, 1, mp))
+    sp = ShardedParams(split_tree(params, dims, ["cpu"] * mp), dims,
+                       ("cpu",) * mp)
+    mixer, ffn = blocks.scan_plan(cfg)[0][0]
+    tp = sp["layers"].periods()[0]["slot0"][part]
+    assert tp.split(but=whole)
+    if expert_dim is not None:
+        assert tp.dims["wi_gate"]["w"] == expert_dim[mp], tp.dims
+    p1 = tree_map(lambda t: t[0], params["layers"]["slot0"][part])
+    x = _rng_tensor(rng, 2, SEQ, cfg.d_model).requires_grad_(True)
+    pos = torch.arange(SEQ).expand(2, SEQ)
+    if part == "mixer":
+        want = blocks.MIXERS[mixer][1](cfg, p1, x, positions=pos)[0]
+        got = blocks.MIXERS_TP[mixer](cfg, tp, x, positions=pos)
+        aux_want = aux_got = None
+    else:
+        want, aux_want = blocks.FFNS[ffn][1](cfg, p1, x)
+        got, aux_got = blocks.FFNS_TP[ffn](cfg, tp, x)
+    leaves = [x] + [t for _, t in tree_leaves(
+        params["layers"]["slot0"][part])]
+    return want, got, aux_want, aux_got, leaves, rng
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+@pytest.mark.parametrize("module", list(ZOO_MODULES))
+def test_zoo_tensor_parallel_module_matches_mp1(module, mp):
+    """Forward (and the MoE aux loss) and every gradient leaf of each of
+    the zoo's tensor-parallel mixers and FFNs against the port's mp = 1
+    module on the same inputs: RWKV6's time-mix on H/mp heads through the
+    WKV6 op and its channel-mix, Mamba's regrouped ``in_proj`` and
+    row-split ``x_proj``, MLA's heads against the whole compressed head,
+    MoE split by experts and by ``expert_mlp``."""
+    want, got, aux_want, aux_got, leaves, rng = _zoo_module_case(module, mp)
+    _close(got, want, f"{module} forward")
+    r = _rng_tensor(rng, *want.shape)
+    obj_want, obj_got = (want * r).sum(), (got * r).sum()
+    if aux_want is not None:
+        _close(aux_got, aux_want, f"{module} aux")
+        obj_want, obj_got = obj_want + aux_want, obj_got + aux_got
+    g_want = torch.autograd.grad(obj_want, leaves, retain_graph=True,
+                                 allow_unused=True)
+    g_got = torch.autograd.grad(obj_got, leaves, allow_unused=True)
+    for i, (a, b) in enumerate(zip(g_got, g_want)):
+        assert (a is None) == (b is None), i
+        if b is not None:
+            _close(a, b, f"{module} gradient {i}")
+
+
 @pytest.mark.parametrize("mp", [2, 4])
 @pytest.mark.parametrize("module", ["attention", "mlp", "embedding",
                                     "xent"])
@@ -233,9 +321,9 @@ def test_trajectory_at_model_parallel_matches_jax_trainer(p, mp):
     assert np.max(np.abs(frozen - want) / want) > UPDATE_MARGIN * TRAJ_RTOL
 
 
-_JAX_2X2 = r"""
+_JAX_TRAINER = r"""
 import json, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n_dev}"
 import jax
 import numpy as np
 sys.path.insert(0, {tests!r})
@@ -243,44 +331,62 @@ from test_torch_model import _fan_in_scaled
 from repro.configs import get_config
 from repro.core import ElasticTrainer
 
-jt = ElasticTrainer(get_config("edl-paper", smoke=True), global_batch={b},
-                    seq_len={s}, init_parallelism=2, model_parallel=2,
-                    n_samples={n}, d_partitions={d}, seed=0,
-                    devices=jax.devices(), use_aot=False)
-state = jax.tree.map(np.asarray, jt.state)
-state["params"] = _fan_in_scaled(state["params"])
-jt.state = jax.tree.map(lambda a, old: jax.device_put(a, old.sharding),
-                        state, jt.state)
-flat = {{}}
-def walk(t, pre):
-    for k, v in t.items():
-        if isinstance(v, dict):
-            walk(v, pre + k + "/")
-        else:
-            flat[pre + k] = np.asarray(v)
-walk(state, "")
-np.savez({out!r}, **flat)
-print(json.dumps([jt.step()["loss"] for _ in range(5)]))
+out = {{}}
+for arch in {archs!r}:
+    jt = ElasticTrainer(get_config(arch, smoke=True), global_batch={b},
+                        seq_len={s}, init_parallelism={p},
+                        model_parallel={mp}, n_samples={n}, d_partitions={d},
+                        seed=0, devices=jax.devices(), use_aot=False)
+    state = jax.tree.map(np.asarray, jt.state)
+    state["params"] = _fan_in_scaled(state["params"])
+    jt.state = jax.tree.map(lambda a, old: jax.device_put(a, old.sharding),
+                            state, jt.state)
+    flat = {{}}
+    def walk(t, pre):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, pre + k + "/")
+            else:
+                flat[pre + k] = np.asarray(v)
+    walk(state, "")
+    np.savez(os.path.join({out!r}, arch + ".npz"), **flat)
+    out[arch] = [jt.step()["loss"] for _ in range(5)]
+print(json.dumps(out))
 """
 
 
-def test_trajectory_at_2x2_matches_the_jax_trainer_at_2x2(tmp_path):
-    """The JAX trainer itself at (2, 2) on four forced host devices (its
-    GSPMD tensor-parallel step) against the port at (2, 2), from the same
-    rescaled state."""
-    out = str(tmp_path / "state.npz")
-    script = _JAX_2X2.format(tests=os.path.dirname(__file__), b=BATCH,
-                             s=SEQ, n=N_SAMPLES, d=D_PARTS, out=out)
+def jax_trainer_trajectories(archs, p, mp, batch, seq, n_samples, d_parts,
+                             out: str) -> dict:
+    """Each SMOKE arch's (rescaled initial numpy state, 5 losses) of the
+    JAX trainer itself at (p, mp) on p x mp forced host devices (its GSPMD
+    tensor-parallel step), all from one subprocess; the states are written
+    under ``out``."""
+    from repro_torch.reshape import unflatten_tree
+    script = _JAX_TRAINER.format(
+        n_dev=p * mp, tests=os.path.dirname(__file__), archs=tuple(archs),
+        b=batch, s=seq, p=p, mp=mp, n=n_samples, d=d_parts, out=out)
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
            "OMP_NUM_THREADS": "1"}
     env.pop("XLA_FLAGS", None)
     run = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=600)
     assert run.returncode == 0, run.stderr[-3000:]
-    want = np.array(json.loads(run.stdout.strip().splitlines()[-1]))
-    from repro_torch.reshape import unflatten_tree
-    with np.load(out) as z:
-        state = unflatten_tree({k: z[k] for k in z.files})
+    losses = json.loads(run.stdout.strip().splitlines()[-1])
+    trajectories = {}
+    for arch in archs:
+        with np.load(os.path.join(out, arch + ".npz")) as z:
+            trajectories[arch] = (unflatten_tree({k: z[k] for k in z.files}),
+                                  np.array(losses[arch]))
+    return trajectories
+
+
+def test_trajectory_at_2x2_matches_the_jax_trainer_at_2x2(tmp_path):
+    """The JAX trainer itself at (2, 2) on four forced host devices (its
+    GSPMD tensor-parallel step) against the port at (2, 2), from the same
+    rescaled state."""
+    state, want = jax_trainer_trajectories(
+        ("edl-paper",), 2, 2, BATCH, SEQ, N_SAMPLES, D_PARTS,
+        str(tmp_path))["edl-paper"]
     np.testing.assert_allclose(_port_losses(state, 2, 2), want,
                                rtol=TRAJ_RTOL)
 
@@ -417,17 +523,51 @@ def test_a_kill_at_mp2_moves_the_whole_group_to_the_tail():
         assert np.isfinite(t.step()["loss"])
 
 
-def test_rwkv6_beyond_model_parallel_1_is_refused():
+def test_rwkv6_runs_beyond_model_parallel_1():
+    """RWKV6 on the model axis: the trainer built at (1, 2) steps, and one
+    at (2, 1) reshapes live to (1, 2) and steps on, with finite losses."""
     rwkv = get_config("rwkv6-1.6b", smoke=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ElasticTrainer(rwkv, global_batch=4, seq_len=32, init_parallelism=1,
-                       model_parallel=2, n_samples=64, devices=["cpu"] * 2,
-                       device="cpu")
+    with ElasticTrainer(rwkv, global_batch=4, seq_len=32, init_parallelism=1,
+                        model_parallel=2, n_samples=64, devices=["cpu"] * 2,
+                        device="cpu") as t:
+        assert (t.p, t.model_parallel) == (1, 2)
+        assert np.isfinite(t.step()["loss"])
     with ElasticTrainer(rwkv, global_batch=4, seq_len=32, init_parallelism=2,
                         n_samples=64, devices=["cpu"] * 2, device="cpu") as t:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t.reshape(1, 2)
-        assert (t.p, t.model_parallel) == (2, 1)
+        t.step()
+        rec = t.reshape(1, 2, block=True)
+        assert (rec.op, t.p, t.model_parallel) == ("reshape", 1, 2)
+        assert np.isfinite(t.step()["loss"])
+
+
+@pytest.mark.parametrize("arch, remat_group", [("rwkv6-1.6b", 1),
+                                                ("jamba-v0.1-52b", 2)])
+def test_remat_wraps_the_tensor_parallel_blocks(arch, remat_group):
+    """Per-period remat (rwkv6) and grouped remat (jamba, two periods of
+    (mamba, mlp), (attn, moe) a group, four periods) around the
+    tensor-parallel blocks at (1, 2): one step's loss, aux and every
+    gradient leaf against the same blocks at (1, 2) without remat, at
+    MODULE_RTOL, from the rescaled init (remat recomputes the forward
+    that the blocks ran)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch, smoke=True), n_layers=8,
+                              remat=True, remat_group=remat_group)
+    plain = dataclasses.replace(cfg, remat=False, remat_group=1)
+    dims = model_dims(port_layout(cfg, OPT, 1, 2))
+    params = bridge.params_from_numpy(_fan_in_scaled(bridge.to_numpy(
+        M.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    (loss, parts, grads), (loss2, parts2, grads2) = (
+        group_loss_and_grads(c, split_tree(params, dims, ["cpu"] * 2), dims,
+                             ["cpu"] * 2, batch) for c in (plain, cfg))
+    _close(loss2, loss, "loss")
+    _close(parts2["aux"], parts["aux"], "aux")
+    for m in range(2):
+        for (k, a), (_, b) in zip(tree_leaves(grads2[m]),
+                                  tree_leaves(grads[m])):
+            _close(a, b, f"shard {m} {k}")
 
 
 def test_starcoder2_step_at_mp2_matches_mp1():
@@ -454,47 +594,54 @@ def test_starcoder2_step_at_mp2_matches_mp1():
         _close(whole[k], g, k)
 
 
-def test_moe_beyond_model_parallel_1_is_refused():
-    """MoE has no tensor-parallel form yet: mixtral SMOKE at mp = 2 is
-    refused by the trainer, by ``reshape`` and by a stop-resume to mp = 2,
-    before anything changes."""
+def test_moe_runs_beyond_model_parallel_1():
+    """MoE on the model axis: mixtral SMOKE built at (1, 2) steps, and one
+    at (2, 1) reshapes live to (1, 2) and then stop-resumes to (1, 2) from
+    (2, 1) again, stepping with finite losses at each shape."""
     from repro_torch.core.stop_resume import stop_resume_rescale
     mixtral = get_config("mixtral-8x7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="MoE layers"):
-        ElasticTrainer(mixtral, global_batch=4, seq_len=32,
-                       init_parallelism=1, model_parallel=2, n_samples=64,
-                       devices=["cpu"] * 2, device="cpu")
+    with ElasticTrainer(mixtral, global_batch=4, seq_len=32,
+                        init_parallelism=1, model_parallel=2, n_samples=64,
+                        devices=["cpu"] * 2, device="cpu") as t:
+        assert (t.p, t.model_parallel) == (1, 2)
+        assert np.isfinite(t.step()["loss"])
     with ElasticTrainer(mixtral, global_batch=4, seq_len=32,
                         init_parallelism=2, n_samples=64, devices=["cpu"] * 2,
                         device="cpu") as t:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t.reshape(1, 2)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            stop_resume_rescale(t, 1, target_mp=2)
-        assert (t.p, t.model_parallel) == (2, 1)
-        assert t.state is not None
+        t.step()
+        t.reshape(1, 2, block=True)
+        assert (t.p, t.model_parallel) == (1, 2)
+        assert np.isfinite(t.step()["loss"])
+        t.reshape(2, 1, block=True)
+        t.step()
+        rec = stop_resume_rescale(t, 1, target_mp=2)
+        assert (rec.op, t.p, t.model_parallel) == ("stop_resume", 1, 2)
+        assert isinstance(t.state, list) and len(t.state) == 2
+        assert np.isfinite(t.step()["loss"])
 
 
-
-@pytest.mark.parametrize("arch, mixer", [("deepseek-v2-236b", "MLA attention"),
-                                         ("jamba-v0.1-52b", "Mamba mixers")])
-def test_mla_and_mamba_beyond_model_parallel_1_are_refused(arch, mixer):
-    """MLA (its heads) and Mamba (its ``ssm_inner`` channels) have no
-    tensor-parallel form yet: refused by mixer, naming ROADMAP A4c, with
-    the MoE layers taken out of the config, by the trainer and by the
-    launcher's parse; at mp = 1 the trainer takes them."""
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b"])
+def test_mla_and_mamba_run_beyond_model_parallel_1(arch):
+    """MLA (its heads) and Mamba (its ``ssm_inner`` channels) on the model
+    axis, with the MoE layers taken out of the config: the trainer steps at
+    (1, 2) and at (1, 1); the launcher runs the whole config at
+    ``--model-parallel 2``."""
     import dataclasses
     cfg = dataclasses.replace(get_config(arch, smoke=True), moe=None)
-    with pytest.raises(NotImplementedError,
-                       match=f"its {mixer}\\) is not yet ported \\(ROADMAP "
-                             f"A4c\\)"):
-        ElasticTrainer(cfg, global_batch=4, seq_len=32, init_parallelism=1,
-                       model_parallel=2, n_samples=64, devices=["cpu"] * 2,
-                       device="cpu")
-    with pytest.raises(SystemExit) as e:
-        port_train.main(["--device", "cpu", "--smoke", "--arch", arch,
-                         "--model-parallel", "2"])
-    assert e.value.code == 2
-    with ElasticTrainer(cfg, global_batch=4, seq_len=32, init_parallelism=1,
-                        n_samples=64, devices=["cpu"], device="cpu") as t:
-        assert np.isfinite(t.step()["loss"])
+    for mp in (2, 1):
+        with ElasticTrainer(cfg, global_batch=4, seq_len=32,
+                            init_parallelism=1, model_parallel=mp,
+                            n_samples=64, devices=["cpu"] * 2,
+                            device="cpu") as t:
+            assert (t.p, t.model_parallel) == (1, mp)
+            assert np.isfinite(t.step()["loss"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert port_train.main([
+            "--device", "cpu", "--smoke", "--json", "--arch", arch,
+            "--model-parallel", "2", "--steps", "2", "--batch", "4",
+            "--seq", "32", "--devices", "2", "--init-p", "1",
+            "--n-samples", "64", "--d-partitions", "4"]) == 0
+    s = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert s["final_p"] == 1 and len(s["losses"]) == 2
+    assert all(np.isfinite(s["losses"]))
