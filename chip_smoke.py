@@ -104,9 +104,18 @@ Phases, in order; any failure exits non-zero:
    decode's logits over the wave's tokens against the train-mode
    forward's (teacher forcing), and prefill's against the decode's after
    the last prompt token, within ``SERVE_TF_TOL``; for rwkv6 an fp32
-   control at full width, four layers, within 1e-4. (b) Phase 3 holds and
+   control at full width, four layers, within 1e-4; phase 3 holds and
    times ``flash_attn_fwd`` at the prefill shape (L 64) and phase 7
    ``wkv6_fwd`` at a decode step's (L 1, nonzero s0, the same bits twice).
+   (b) Serving over the model axis: both at (1, 2) on two slots of the
+   card, at full width and depth, from a ``ShardedParams``: the same waves,
+   whose decode steps must launch one ``wkv6_fwd`` a layer a shard on H 16
+   (rwkv6) or no port kernel (edl_paper), give the same ids twice, and be
+   traced; ``prefill``, one ``flash_attn_fwd`` a layer a shard at B 8, H
+   6, L 64, D 64 (edl_paper) or ``wkv6_fwd`` at H 16 (rwkv6); and an fp32
+   control at four layers: prefill's and the teacher-forced decode's
+   logits at (1, 2) within 1e-4 of the largest of (1, 1)'s, from the same
+   params; phases 3 and 7 hold and time the two shard shapes.
    (c) ``ClusterExecutor`` on four slots: a full-width edl_paper live
    serving tenant (rates 4 for 8 rounds, 16 for 24, 4 for 8; cap 4, at
    most 3 replicas) beside a full-width edl_paper trainer under the
@@ -138,7 +147,17 @@ Phases, in order; any failure exits non-zero:
    at its shard shape (H 16, Hkv 4), and each takes one fp32 step at
    (1, 2) against (1, 1) within phase 6 (e)'s tolerances; deepseek's MLA
    block and one MoE FFN run forward and backward at (1, 2) in bf16, and
-   in fp32 against (1, 1) within the same tolerances.
+   in fp32 against (1, 1) within the same tolerances. (c) Serving over the
+   model axis: mixtral (2 layers), jamba (8) and deepseek (2) at (1, 2) in
+   bf16 in (a)'s waves, no port kernel in decode, ``prefill`` one
+   ``flash_attn_fwd`` a GQA layer a shard at B 4, H 16, Hkv 4, L 32, D 128
+   (mixtral 2, jamba 1, deepseek's MLA none), the same ids twice, and an
+   fp32 control against (1, 1) within 1e-4 (cast from bf16 and rescaled,
+   no claim dropped). Each of (a)'s training runs is also held against
+   ``repro_torch.launch.dryrun`` of its cut config at (1, 1) and 4 x 1024
+   on ``meta``: the predicted argument bytes within 1 % of what the
+   trainer's state and batch hold on the card, the predicted peak printed
+   beside the measured one.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -194,6 +213,9 @@ ATT_VW_CASE = ("vw_b1", 1, 12, 12, 1024, 1024, 64, True, 0, None, "float32")
 # edl_paper's prefill of a serving wave's prompt (phase 10): B 8, L 64
 ATT_PREFILL_CASE = ("prefill_l64", 8, 12, 12, 64, 64, 64, True, 0, None,
                     "float32")
+# the same prefill's model shard at (1, 2) (phase 10 (b)): H 6 a shard
+ATT_PREFILL_MP_CASE = ("prefill_l64_mp2", 8, 6, 6, 64, 64, 64, True, 0,
+                       None, "float32")
 # one model shard of the main case at mp = 2 and mp = 4 (H / mp heads)
 ATT_MP_CASES = [("main_mp2", 8, 6, 6, 1024, 1024, 64, True, 0, None,
                  "float32"),
@@ -227,6 +249,9 @@ ATT_ZOO_CASES = [
     # Hkv 8, D 128 whole), as phase 11 (b) trains mixtral at (1, 2)
     ("zoo_mixtral_jamba_mp2", ZOO_BATCH, 16, 4, ZOO_SEQ, ZOO_SEQ, 128, True,
      0, None, "bfloat16"),
+    # the same shard in a prefill at (1, 2), as phase 11 (c) serves them
+    ("zoo_mixtral_jamba_prefill_mp2", ZOO_SERVE_BATCH, 16, 4, ZOO_PROMPT,
+     ZOO_PROMPT, 128, True, 0, None, "bfloat16"),
 ]
 ATT_CASES = [
     ATT_MAIN_CASE,
@@ -234,6 +259,7 @@ ATT_CASES = [
     ATT_VW_CASE,
     *ATT_MP_CASES,
     ATT_PREFILL_CASE,
+    ATT_PREFILL_MP_CASE,
     ("gqa", 2, 8, 2, 512, 512, 64, True, 0, None, "float32"),
     ("window", 2, 4, 4, 1024, 1024, 64, True, 200, None, "float32"),
     ("ragged", 2, 4, 2, 1000, 1000, 64, True, 0, None, "float32"),
@@ -249,8 +275,13 @@ ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
 # the same bits
 DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa", "zoo_phi3")
 # the cases whose kernels are timed beside their bounds and SDPA
-TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0], ATT_PREFILL_CASE[0]) + \
+TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0], ATT_PREFILL_CASE[0],
+               ATT_PREFILL_MP_CASE[0]) + \
     tuple(c[0] for c in ATT_MP_CASES) + tuple(c[0] for c in ATT_ZOO_CASES)
+# the prefill shapes: a few microseconds of work, timed by the kernels' own
+# durations in a trace too
+DEVICE_TIMED_CASES = (ATT_PREFILL_CASE[0], ATT_PREFILL_MP_CASE[0],
+                      "zoo_mixtral_jamba_prefill_mp2")
 
 # name, B, L, H, hd, logw: "model" draws -exp(clip(2 N(0,1), -8, 4)), the
 # range the model's clip allows; a number sets every logw to it
@@ -271,8 +302,10 @@ WKV_CASES = [
     ("hd32", 2, 300, 8, 32, "model"),
     *WKV_MP_CASES,
 ]
-# one decode step of rwkv6 (phase 10): L = 1, the state carried in s0
-WKV_DECODE_CASE = ("decode_l1", 8, 1, 32, 64, "model")
+# one decode step of rwkv6 (phase 10): L = 1, the state carried in s0; and
+# one model shard of it at (1, 2) (phase 10 (b)): H 16
+WKV_DECODE_CASES = (("decode_l1", 8, 1, 32, 64, "model"),
+                    ("decode_l1_mp2", 8, 1, 16, 64, "model"))
 # fp32 kernels against fp32 plain versions that sum in another order: each
 # output within WKV_TOL of the plain output's largest entry
 WKV_TOL = 1e-4
@@ -640,7 +673,7 @@ def check_attention(torch, ops):
                   f"{HBM_BYTES_S / 1e12:g} TB/s), plain "
                   f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms",
                   flush=True)
-        if name == ATT_PREFILL_CASE[0]:
+        if name in DEVICE_TIMED_CASES:
             # a few microseconds of work: the kernels' own durations too
             records["flash_attn_fwd"].update(
                 device_ms=device_ms(torch, kern["flash_attn_fwd"]),
@@ -832,14 +865,16 @@ def check_wkv(torch, wops):
     return timed
 
 
-def check_wkv_decode(torch, wops) -> dict:
-    """Phase 7's decode case (``WKV_DECODE_CASE``): ``wkv6_fwd`` at L = 1
-    with a nonzero s0, the shape each decode step of rwkv6 gives it, held
-    against its plain version, run twice for the same bits, and timed
-    beside the plain version and its byte bound. Returns its record."""
-    name, B, L, H, hd, logw_kind = WKV_DECODE_CASE
-    r, k, v, logw, u, s0, _, _ = wkv_inputs(torch, B, L, H, hd, logw_kind,
-                                            len(WKV_CASES))
+def check_wkv_decode(torch, wops, case) -> dict:
+    """One of phase 7's decode cases (``WKV_DECODE_CASES``): ``wkv6_fwd``
+    at L = 1 with a nonzero s0, the shape each decode step of rwkv6 gives
+    it (whole, or one model shard's at (1, 2)), held against its plain
+    version, run twice for the same bits, and timed beside the plain
+    version and its byte bound. Returns its record."""
+    name, B, L, H, hd, logw_kind = case
+    r, k, v, logw, u, s0, _, _ = wkv_inputs(
+        torch, B, L, H, hd, logw_kind,
+        len(WKV_CASES) + WKV_DECODE_CASES.index(case))
     run = lambda: wops.wkv6_fwd_cuda(r, k, v, logw, u, s0)
     got = run()
     torch.cuda.synchronize()
@@ -1949,12 +1984,17 @@ def decode_profile(torch, cfg, params, decode, batch: int = SERVE_BATCH,
     position ``start`` under ``torch.profiler``: kernels, device busy ms and
     traced window ms a step, the idle share, and device ms by kernel group.
     Each step feeds back the ids of the one before; an ``embeds`` config
-    takes zero embeddings."""
-    from repro_torch.models.cache import init_cache
+    takes zero embeddings. ``params`` may be a ``ShardedParams``: the
+    cache is then split over its slots."""
+    from repro_torch.models.cache import init_cache, init_cache_shards
+    from repro_torch.parallel import ShardedParams
     n = SERVE_PROFILED_STEPS
     embeds = cfg.frontend == "embeds"
-    state = {"cache": init_cache(cfg, batch, start + n, pos=start,
-                                 device=DEVICE),
+    cache = (init_cache_shards(cfg, batch, start + n, params.devices,
+                               pos=start)
+             if isinstance(params, ShardedParams) else
+             init_cache(cfg, batch, start + n, pos=start, device=DEVICE))
+    state = {"cache": cache,
              "x": torch.zeros((batch, 1, cfg.d_model) if embeds
                               else (batch, 1), device=DEVICE,
                               dtype=torch.float32 if embeds else torch.int32)}
@@ -2343,6 +2383,12 @@ ZOO_MOE_GATED_SHARE = 0.9
 # largest of the weight gradients (q_norm's, kv_norm's), the input's
 # gradient 7.7e-3 and 7.9e-3, the output 6.1e-3 and 6.3e-3; so about 3x.
 ZOO_MLA_TOL = 2.5e-2
+# the dry-run (launch/dryrun.py) against each phase-11 (a) training run:
+# its arguments (state and batch) are counted from the same shapes and
+# dtypes as the trainer's, so only the batch's width differs (int32 there,
+# int64 on the card; bf16 embeddings there, fp32 on the card): a few
+# hundred KiB against GiBs
+DRYRUN_ARG_RTOL = 1e-2
 
 
 def moe_control(torch, cfg, params, served, prompt_len: int) -> dict:
@@ -2526,6 +2572,46 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float, *,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def dry_run_against_the_card(torch, cfg, state, batch: dict, peak: float,
+                             resident: float) -> dict:
+    """``launch/dryrun.py: dryrun`` of ``cfg`` at (1, 1) and ZOO_BATCH x
+    ZOO_SEQ, the trainer's step, on ``meta``: its ``arg_bytes`` within
+    ``DRYRUN_ARG_RTOL`` of the bytes the trainer's state and batch hold on
+    the card (the batch as the step places it: int64 ids, fp32
+    embeddings); its ``per_device_bytes`` recorded beside the measured
+    peak above the bytes allocated before the trainer (``peak`` and
+    ``resident``, bytes), not gated."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import dryrun
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.step import model_shards
+    t0 = time.monotonic()
+    pred = dryrun(cfg, InputShape("zoo_train", ZOO_SEQ, ZOO_BATCH, "train"),
+                  (1, 1), cost=False)
+    seconds = time.monotonic() - t0
+    held = sum(t.nbytes for shard in model_shards(state)
+               for _, t in tree_leaves(shard))
+    held += sum(v.size * (8 if v.dtype.kind in "iu" else v.itemsize)
+                for v in batch.values())
+    gap = abs(pred["arg_bytes"] - held) / held
+    measured = peak - resident
+    print(f"    dry-run at (1, 1), B {ZOO_BATCH} x {ZOO_SEQ} on meta "
+          f"({seconds:.1f} s): arg_bytes {pred['arg_bytes'] / 2 ** 30:.3f} "
+          f"GiB, the card holds {held / 2 ** 30:.3f} GiB (gap {gap:.2e}, "
+          f"tolerance {DRYRUN_ARG_RTOL:g}); per_device_bytes predicted "
+          f"{pred['per_device_bytes'] / 2 ** 30:.2f} GiB, measured peak "
+          f"{measured / 2 ** 30:.2f} GiB above the "
+          f"{resident / 2 ** 30:.2f} GiB allocated before (not gated)",
+          flush=True)
+    if not gap <= DRYRUN_ARG_RTOL:
+        fail(f"dry-run {cfg.name}: arg_bytes {pred['arg_bytes']} against "
+             f"{held} on the card")
+    return {"arg_bytes": pred["arg_bytes"], "card_bytes": held,
+            "arg_gap": gap, "per_device_bytes": pred["per_device_bytes"],
+            "temp_bytes": pred["temp_bytes"], "measured_peak_bytes": measured,
+            "resident_bytes": resident, "seconds": seconds}
+
+
 def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
               point: str = "init", lr: float = 1e-3,
               gated: bool = True, mp: int = 1) -> dict:
@@ -2550,6 +2636,7 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
                  "flash_attn_bwd_dq": n_gqa,
                  "flash_attn_bwd_dkdv": n_gqa} if n_gqa else {}
     init_s: list = []
+    resident = torch.cuda.memory_allocated()
     launches_of.reset()
     with timed_state_init(torch, init_s):
         t = ElasticTrainer(cfg, global_batch=ZOO_BATCH, seq_len=ZOO_SEQ,
@@ -2595,6 +2682,9 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
         steps = launches_of.snapshot()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         del m
+        dry = (dry_run_against_the_card(torch, cfg, t.state, batch,
+                                        peak * 2 ** 30, resident)
+               if mp == 1 and gated else None)
     del t
     gc.collect()
     torch.cuda.empty_cache()
@@ -2623,7 +2713,8 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
             "step_ms": [x * 1e3 for x in step_s], "median_step_ms": step_ms,
             "peak_gib": peak, "launches": {k: launches[k] for k in kernels},
             "warmup_launches": {k: warm[k] for k in kernels},
-            "launches_per_slot_step": per_step, "serve": serve}
+            "launches_per_slot_step": per_step, "serve": serve,
+            "dry_run": dry}
 
 
 def mla_block_check(torch, launches_of) -> dict:
@@ -2844,6 +2935,315 @@ def run_zoo_mp(torch, launches_of, kernels) -> dict:
     return rec
 
 
+# phase 10 (b) and 11 (c): serving over the model axis, at (1, SERVE_MP) on
+# SERVE_MP slots of the card, at the published widths. (b) edl_paper (fp32,
+# all 12 layers, H 6 a shard) and rwkv6-1.6b (bf16, all 24 layers, H 16 a
+# shard) in phase 10's waves; (c) mixtral (2 layers), jamba (8) and
+# deepseek (2) in bf16 in phase 11's. Each decode step must launch per
+# shard what (a) predicts for the whole (wkv6_fwd once a layer, at H/mp
+# heads; no port kernel for attention), and prefill one flash_attn_fwd a
+# GQA layer a shard at the shard's heads (edl_paper B 8, H 6, L 64, D 64;
+# mixtral and jamba B 4, H 16, Hkv 4, L 32, D 128). Each arch's control:
+# prefill's and the teacher-forced decode's logits at (1, SERVE_MP)
+# within SERVE_CONTROL_TOL of the largest logit of (1, 1)'s from the same
+# fp32 params, the same terms summed in another order: the phase-10 archs
+# cut to SERVE_CONTROL_LAYERS at the point their teacher forcing is gated
+# at (SERVE_TF_GATED: edl_paper at fan_in, where its fp32 forward is
+# well conditioned; at init the card read 6.0e-5 for this control, the
+# ill-conditioning of PERF.md section 6); the zoo's at their served depth,
+# cast from bf16 and rescaled to fan_in with capacity_factor E / K, as
+# their phase-11 (a) controls are (probe.fp32_control).
+SERVE_MP = 2
+ZOO_SERVE_MP_ARCHS = ("mixtral-8x7b", "jamba-v0.1-52b", "deepseek-v2-236b")
+
+
+def split_params(torch, cfg, params: dict, mp: int):
+    """``params`` as a ``ShardedParams`` over ``mp`` slots of the card by
+    the port's layout at (1, mp): each split leaf's parts (views where the
+    split is contiguous, else copies), each replicated leaf itself. The
+    whole leaves are taken out of ``params`` one by one, so a copy never
+    needs the whole model twice."""
+    from repro_torch.devices import slot_devices
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ShardedParams, model_dims
+    from repro_torch.training.step import port_layout
+    devices = tuple(s.device for s in slot_devices(mp, DEVICE))
+    dims = model_dims(port_layout(cfg, adamw(1e-3), 1, mp))
+    split = dict(tree_leaves(dims))
+    shards = [[] for _ in range(mp)]
+    for path in [p for p, _ in tree_leaves(params)]:
+        *parents, last = path.split("/")
+        node = params
+        for k in parents:
+            node = node[k]
+        t, d = node.pop(last), split[path]
+        for m, dev in enumerate(devices):
+            part = t if d is None else t.narrow(
+                d, m * (t.shape[d] // mp), t.shape[d] // mp).contiguous()
+            shards[m].append((path, part.to(dev)))
+        del t
+    return ShardedParams([tree_unflatten(s) for s in shards], dims, devices)
+
+
+@contextlib.contextmanager
+def launched_shapes(aops, wops):
+    """Within, the input shapes of each ``flash_attn_fwd`` launch ((q, k))
+    and ``wkv6_fwd`` launch (r), by kernel."""
+    shapes = {"flash_attn_fwd": set(), "wkv6_fwd": set()}
+    fa, wk = aops.flash_attn_fwd_cuda, wops.wkv6_fwd_cuda
+
+    def fa_rec(q, k, v, **kw):
+        shapes["flash_attn_fwd"].add((tuple(q.shape), tuple(k.shape)))
+        return fa(q, k, v, **kw)
+
+    def wk_rec(r, *args):
+        shapes["wkv6_fwd"].add(tuple(r.shape))
+        return wk(r, *args)
+    aops.flash_attn_fwd_cuda, wops.wkv6_fwd_cuda = fa_rec, wk_rec
+    try:
+        yield shapes
+    finally:
+        aops.flash_attn_fwd_cuda, wops.wkv6_fwd_cuda = fa, wk
+
+
+def served_logits(torch, cfg, params, tokens, prompt_len: int):
+    """``prefill``'s logits over the first ``prompt_len`` of ``tokens`` and
+    the decode's over all of them, fed one at a time from a fresh cache
+    (split over the slots where ``params`` is a ``ShardedParams``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.cache import init_cache, init_cache_shards
+    from repro_torch.parallel import ShardedParams
+    probe = serve_probe()
+    B, T = tokens.shape[:2]
+    with torch.inference_mode():
+        pre = M.prefill(cfg, params, probe.inputs(cfg, tokens[:, :prompt_len]))
+        cache = (init_cache_shards(cfg, B, T, params.devices)
+                 if isinstance(params, ShardedParams)
+                 else init_cache(cfg, B, T, device=tokens.device))
+        out = []
+        for t in range(T):
+            lg, cache = M.forward(cfg, params,
+                                  probe.inputs(cfg, tokens[:, t:t + 1]),
+                                  mode="decode", cache=cache)
+            out.append(lg[:, 0])
+    return pre, torch.stack(out, 1)
+
+
+def mp_control(torch, cfg, params: dict, tokens, prompt_len: int) -> dict:
+    """The control of phase 10 (b) and 11 (c): ``served_logits`` at (1, 1)
+    from ``params`` (fp32), then at (1, SERVE_MP) from the same params
+    split (``split_params``, which takes them), each gap over the largest
+    logit of (1, 1)'s; gated at SERVE_CONTROL_TOL."""
+    pre1, dec1 = served_logits(torch, cfg, params, tokens, prompt_len)
+    sp = split_params(torch, cfg, params, SERVE_MP)
+    pre, dec = served_logits(torch, cfg, sp, tokens, prompt_len)
+    del sp
+    gaps = {"prefill": float((pre - pre1).abs().max() / pre1.abs().max()),
+            "decode": float((dec - dec1).abs().max() / dec1.abs().max())}
+    print(f"    fp32 control, {cfg.n_layers} layers: (1, {SERVE_MP}) against "
+          f"(1, 1), prefill {gaps['prefill']:.3e}, teacher-forced decode "
+          f"over {tokens.shape[1]} tokens {gaps['decode']:.3e} of the "
+          f"largest logit; tolerance {SERVE_CONTROL_TOL:g}", flush=True)
+    if not max(gaps.values()) <= SERVE_CONTROL_TOL:
+        fail(f"serve {cfg.name} at (1, {SERVE_MP}): the fp32 control {gaps} "
+             f"beyond {SERVE_CONTROL_TOL:g}")
+    return dict(gaps, layers=cfg.n_layers, tolerance=SERVE_CONTROL_TOL)
+
+
+def serve_at_mp(torch, launches_of, aops, wops, cfg, sp, prompts, gen: int,
+                *, decode_shapes: dict, prefill_shapes: dict) -> dict:
+    """``serve_batch`` from ``sp`` at (1, SERVE_MP): a warm-up wave, then
+    SERVE_WAVES timed waves with the launch counts reset just before and
+    read just after, which must launch each kernel of ``decode_shapes``
+    once a layer a shard a decode step, at its shape there, and no other,
+    and give the warm-up's ids; a traced stretch of decode; ``prefill``,
+    which must launch each kernel of ``prefill_shapes`` once a layer of
+    its kind (``{kernel: (layers, shape)}``) a shard, at that shape.
+    Returns a record, the ids of the warm-up wave under ``"ids"``."""
+    from repro_torch.core import make_decode_fn, serve_batch
+    from repro_torch.kernels.launches import KERNELS
+    from repro_torch.models import model as M
+
+    def held(got, want):
+        return all(got[k] == ({want[k][1]} if k in want else set())
+                   for k in got)
+    B, P = prompts.shape
+    steps = P + gen
+    decode = make_decode_fn(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ids, _ = serve_batch(cfg, sp, prompts, gen, decode=decode)
+    warm_s = time.monotonic() - t0
+    launches_of.reset()
+    waves, wave_s = [], []
+    with launched_shapes(aops, wops) as dec_shapes:
+        for _ in range(SERVE_WAVES):
+            t0 = time.monotonic()
+            out, cache = serve_batch(cfg, sp, prompts, gen, decode=decode)
+            wave_s.append(time.monotonic() - t0)
+            waves.append(out)
+    launches = launches_of.snapshot()
+    per_shard = {k: launches[k] / (SERVE_WAVES * steps * SERVE_MP)
+                 for k in KERNELS}
+    want = {k: float(decode_shapes[k][0]) if k in decode_shapes else 0.0
+            for k in KERNELS}
+    if per_shard != want or not held(dec_shapes, decode_shapes):
+        fail(f"serve {cfg.name} at (1, {SERVE_MP}): launches a shard a "
+             f"decode step {per_shard} at {dec_shapes}, predicted {want} at "
+             f"{decode_shapes}")
+    if not all(torch.equal(w, ids) for w in waves) \
+            or int(cache.trees[0]["pos"]) != steps:
+        fail(f"serve {cfg.name} at (1, {SERVE_MP}): the waves gave other ids")
+    del cache
+    prof = decode_profile(torch, cfg, sp, decode, batch=B, start=P)
+    launches_of.reset()
+    with launched_shapes(aops, wops) as pre_shapes, torch.inference_mode():
+        M.prefill(cfg, sp, {"tokens": prompts})
+    torch.cuda.synchronize()
+    pre = launches_of.snapshot()
+    want_pre = {k: SERVE_MP * prefill_shapes[k][0] if k in prefill_shapes
+                else 0 for k in KERNELS}
+    if pre != want_pre or not held(pre_shapes, prefill_shapes):
+        fail(f"prefill {cfg.name} at (1, {SERVE_MP}): launches {pre} at "
+             f"{pre_shapes}, predicted {want_pre} at {prefill_shapes}")
+
+    def run_prefill():
+        with torch.inference_mode():
+            M.prefill(cfg, sp, {"tokens": prompts})
+    prefill_ms = cuda_ms(torch, run_prefill, reps=5, warm=1)
+    step_ms = 1e3 * min(wave_s) / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  ({cfg.name}) serve at (1, {SERVE_MP}), {cfg.n_layers} layers, "
+          f"{cfg.param_dtype}, B {B}, prompt {P}, gen {gen}: warm-up wave "
+          f"{warm_s:.2f} s; waves {[round(x * 1e3, 1) for x in wave_s]} ms, "
+          f"{step_ms:.2f} ms a decode step, {B * gen / min(wave_s):.1f} "
+          f"generated tok/s; the same ids each wave; launches a shard a "
+          f"decode step { {k: v for k, v in per_shard.items() if v} or 'none'}"
+          f" at {dec_shapes}; {prof['kernels_per_step']:.0f} kernels a "
+          f"decode step, device busy {prof['busy_ms_per_step']:.3f} ms of "
+          f"{prof['window_ms_per_step']:.3f} (idle {prof['idle_share']:.1%});"
+          f" prefill { {k: v for k, v in pre.items() if v} or 'none'} at "
+          f"{pre_shapes} ({prefill_ms:.2f} ms); peak {peak:.2f} GiB",
+          flush=True)
+    return {"mp": SERVE_MP, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+            "batch": B, "prompt": P, "gen": gen, "warmup_wave_s": warm_s,
+            "wave_ms": [x * 1e3 for x in wave_s],
+            "ms_per_decode_step": step_ms,
+            "generated_tok_per_s": B * gen / min(wave_s),
+            "launches": {k: launches[k] for k in KERNELS},
+            "launches_per_shard_decode_step": per_shard,
+            "prefill_launches": pre, "prefill_ms": prefill_ms,
+            "decode_shapes": {k: sorted(v) for k, v in dec_shapes.items()},
+            "prefill_shapes": {k: sorted(v) for k, v in pre_shapes.items()},
+            "decode_profile": prof, "peak_gib": peak, "ids": ids}
+
+
+def shard_shapes(cfg, B: int, L: int) -> dict:
+    """A model shard's forward-kernel shapes at (1, SERVE_MP) for B x L
+    tokens, by kernel, with the layers that launch it: ``wkv6_fwd``'s r
+    (every RWKV6 layer), ``flash_attn_fwd``'s q and k (every GQA layer;
+    none for MLA)."""
+    if cfg.family == "ssm":
+        hd = cfg.ssm.rwkv_head_dim
+        return {"wkv6_fwd": (cfg.n_layers,
+                             (B, L, cfg.d_model // hd // SERVE_MP, hd))}
+    n_gqa = gqa_layers(cfg)
+    if not n_gqa:
+        return {}
+    D = cfg.resolved_head_dim
+    return {"flash_attn_fwd": (n_gqa, (
+        (B, cfg.n_heads // SERVE_MP, L, D),
+        (B, cfg.n_kv_heads // SERVE_MP, L, D)))}
+
+
+def run_serve_mp(torch, launches_of, aops, wops, arch: str) -> dict:
+    """Phase 10 (b) for ``arch``: params from seed 0 drawn on the card and
+    split onto SERVE_MP slots; ``serve_at_mp`` on phase 10's prompts (one
+    ``wkv6_fwd`` a layer a shard a decode step for rwkv6, none for
+    edl_paper); then ``mp_control`` at SERVE_CONTROL_LAYERS in fp32 over
+    the wave's tokens. Returns a record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.monotonic()
+    params = M.init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    sp = split_params(torch, cfg, params, SERVE_MP)
+    del params
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32).cuda()
+    decode_shapes = {k: v for k, v in shard_shapes(
+        cfg, SERVE_BATCH, 1).items() if k == "wkv6_fwd"}
+    rec = serve_at_mp(torch, launches_of, aops, wops, cfg, sp, prompts,
+                      SERVE_GEN, decode_shapes=decode_shapes,
+                      prefill_shapes=shard_shapes(cfg, SERVE_BATCH,
+                                                  SERVE_PROMPT))
+    tokens = torch.cat([prompts, rec.pop("ids")], dim=1)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    control = dataclasses.replace(cfg, n_layers=SERVE_CONTROL_LAYERS,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+    params = M.init_params(control, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    point = SERVE_TF_GATED[arch][0]
+    if point == "fan_in":
+        params = serve_probe().fan_in_scaled(params)
+    rec["fp32_control"] = dict(mp_control(torch, control, params, tokens,
+                                          SERVE_PROMPT), point=point)
+    del params
+    rec["seconds"] = time.monotonic() - t_start
+    return rec
+
+
+def run_zoo_serve_mp(torch, launches_of, aops, wops, arch: str) -> dict:
+    """Phase 11 (c) for ``arch``: bf16 params from seed 0 drawn on the card
+    at its phase-11 serving depth and split onto SERVE_MP slots;
+    ``serve_at_mp`` at ZOO_SERVE_BATCH, ZOO_PROMPT, ZOO_GEN (no port
+    kernel in decode; one ``flash_attn_fwd`` a GQA layer a shard in
+    prefill); then the params drawn again, cast to fp32 and rescaled
+    (``probe.fp32_control``), and ``mp_control`` over the wave's tokens.
+    Returns a record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=ZOO_SERVE_LAYERS.get(arch, 2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.monotonic()
+
+    def draw():
+        return M.init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
+                             DEVICE)
+    sp = split_params(torch, cfg, draw(), SERVE_MP)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_SERVE_BATCH, ZOO_PROMPT),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32).to(DEVICE)
+    rec = serve_at_mp(torch, launches_of, aops, wops, cfg, sp, prompts,
+                      ZOO_GEN, decode_shapes={},
+                      prefill_shapes=shard_shapes(cfg, ZOO_SERVE_BATCH,
+                                                  ZOO_PROMPT))
+    tokens = torch.cat([prompts, rec.pop("ids")], dim=1)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctl, params = serve_probe().fp32_control(cfg, draw())
+    torch.cuda.empty_cache()
+    rec["fp32_control"] = mp_control(torch, ctl, params, tokens, ZOO_PROMPT)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.monotonic() - t_start
+    return rec
+
+
 def shape_record(r: dict) -> dict:
     """A kernel's record at one more timed shape, for its kernel entry."""
     return {**{k: r[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
@@ -2907,7 +3307,9 @@ def main() -> int:
     print("[7/12] WKV6 kernels against their plain versions", flush=True)
     wkv_timed = check_wkv(torch, wops)
     records.update(wkv_timed[WKV_MAIN_CASE[0]])
-    wkv_decode = check_wkv_decode(torch, wops)
+    wkv_decodes = {case[0]: check_wkv_decode(torch, wops, case)
+                   for case in WKV_DECODE_CASES}
+    wkv_decode = wkv_decodes[WKV_DECODE_CASES[0][0]]
 
     rwkv = get_config("rwkv6-1.6b")
     print("[8/12] rwkv6 path: python -m repro_torch.launch.train "
@@ -2995,10 +3397,22 @@ def main() -> int:
     serving = {arch: run_serve(torch, LAUNCHES, arch) for arch in SERVE_ARCHS}
     serving["tier"] = run_serving_tier(torch, LAUNCHES, aops.KERNELS,
                                        edl_shard)
+    print(f"[10/12] (b) serving over the model axis at (1, {SERVE_MP}) on "
+          f"{SERVE_MP} slots of the card: "
+          + ", ".join(SERVE_ARCHS) + " at full width", flush=True)
+    t0 = time.monotonic()
+    serving["model_parallel"] = {
+        arch: run_serve_mp(torch, LAUNCHES, aops, wops, arch)
+        for arch in SERVE_ARCHS}
+    serving["model_parallel"]["seconds"] = time.monotonic() - t0
+    print(f"  phase 10 (b) took {serving['model_parallel']['seconds']:.1f} s",
+          flush=True)
+    serve_mp = serving["model_parallel"]
     for entry in kernels:
         name = entry["name"]
         if name == "flash_attn_fwd":
             prefill = timed[ATT_PREFILL_CASE[0]][name]
+            prefill_mp = timed[ATT_PREFILL_MP_CASE[0]][name]
             entry["serving_path"] = {
                 "prefill_shape": {**shape_record(prefill), **{
                     k: prefill[k] for k in ("device_ms",
@@ -3008,8 +3422,17 @@ def main() -> int:
                 "decode_launches": serving["edl-paper"]["launches"][name],
                 "tier_launches": serving["tier"]["launches"][name],
                 "tier_warmup_launches": serving["tier"][
-                    "warmup_launches"][name]}
+                    "warmup_launches"][name],
+                # phase 10 (b): the prefill's shard at (1, 2), H 6
+                "prefill_shape_mp2": {**shape_record(prefill_mp), **{
+                    k: prefill_mp[k] for k in ("device_ms",
+                                               "library_device_ms")}},
+                "prefill_launches_mp2": serve_mp["edl-paper"][
+                    "prefill_launches"][name],
+                "decode_launches_mp2": serve_mp["edl-paper"]["launches"][
+                    name]}
         elif name == "wkv6_fwd":
+            decode_mp = wkv_decodes[WKV_DECODE_CASES[1][0]]
             entry["serving_path"] = {
                 "decode_shape": {**shape_record(wkv_decode), **{
                     k: wkv_decode[k] for k in ("max_rel_err", "device_ms")}},
@@ -3017,6 +3440,15 @@ def main() -> int:
                 "decode_launches_per_step": serving["rwkv6-1.6b"][
                     "launches_per_decode_step"][name],
                 "prefill_launches": serving["rwkv6-1.6b"][
+                    "prefill_launches"][name],
+                # phase 10 (b): a decode step's shard at (1, 2), H 16
+                "decode_shape_mp2": {**shape_record(decode_mp), **{
+                    k: decode_mp[k] for k in ("max_rel_err", "device_ms")}},
+                "decode_launches_mp2": serve_mp["rwkv6-1.6b"]["launches"][
+                    name],
+                "decode_launches_per_shard_step_mp2": serve_mp[
+                    "rwkv6-1.6b"]["launches_per_shard_decode_step"][name],
+                "prefill_launches_mp2": serve_mp["rwkv6-1.6b"][
                     "prefill_launches"][name]}
     print("[11/12] the zoo: each config at its published widths, bf16, "
           "its depth cut; an ElasticTrainer at (1, 1) and serving on one "
@@ -3038,6 +3470,14 @@ def main() -> int:
     zoo_mp = run_zoo_mp(torch, LAUNCHES, aops.KERNELS)
     zoo_mp_s = time.monotonic() - t0
     print(f"  phase 11 (b) took {zoo_mp_s:.1f} s", flush=True)
+    print(f"[11/12] (c) the zoo served at (1, {SERVE_MP}) on {SERVE_MP} slots "
+          f"of the card: " + ", ".join(ZOO_SERVE_MP_ARCHS) + ", bf16, each "
+          f"with an fp32 control against (1, 1)", flush=True)
+    t0 = time.monotonic()
+    zoo_serve_mp = {arch: run_zoo_serve_mp(torch, LAUNCHES, aops, wops, arch)
+                    for arch in ZOO_SERVE_MP_ARCHS}
+    zoo_serve_mp_s = time.monotonic() - t0
+    print(f"  phase 11 (c) took {zoo_serve_mp_s:.1f} s", flush=True)
     for entry in kernels:
         if entry["name"] in aops.KERNELS:
             entry["zoo_shapes"] = {case: shape_record(timed[case][entry[
@@ -3052,6 +3492,12 @@ def main() -> int:
                        "prefill_launches": run["serve"]["prefill_launches"][
                            entry["name"]]}
                 for arch, run in zoo.items()}
+            # phase 11 (c)'s prefills at (1, SERVE_MP)
+            entry["zoo_serving_mp_path"] = {
+                arch: {"prefill_launches": run["prefill_launches"][
+                           entry["name"]],
+                       "decode_launches": run["launches"][entry["name"]]}
+                for arch, run in zoo_serve_mp.items()}
             # phase 11 (b)'s training runs at (1, ZOO_MP)
             entry["zoo_mp_path"] = {
                 arch: {"launches": zoo_mp[arch]["launches"][entry["name"]],
@@ -3081,6 +3527,8 @@ def main() -> int:
                       "resident_gib_before": resident, "card": card}))
     print(json.dumps({"zoo_model_parallel": zoo_mp, "seconds": zoo_mp_s,
                       "card": card}))
+    print(json.dumps({"zoo_serving_model_parallel": zoo_serve_mp,
+                      "seconds": zoo_serve_mp_s, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -99,6 +99,26 @@ class ArchConfig:
         """True if long-context decode is supported (SSM/hybrid/SWA)."""
         return self.family in ("ssm", "hybrid") or self.window > 0
 
+    def param_count(self) -> int:
+        """Parameter count of the model's tree (the dry-run's
+        ``model_flops``)."""
+        import math
+        from repro_torch.models.model import param_spec_tree
+        from repro_torch.models.params import tree_leaves
+        return sum(math.prod(s.shape)
+                   for _, s in tree_leaves(param_spec_tree(self)))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: shared + top_k experts only)."""
+        if self.moe is None or self.moe.n_experts == 0:
+            return self.param_count()
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_ff_expert
+        n_moe_layers = sum(1 for i in range(self.n_layers)
+                           if self._layer_is_moe(i))
+        inactive = per_expert * (m.n_experts - m.top_k) * n_moe_layers
+        return self.param_count() - inactive
+
     def _layer_is_moe(self, i: int) -> bool:
         if self.moe is None or self.moe.n_experts == 0:
             return False

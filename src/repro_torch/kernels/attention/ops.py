@@ -10,16 +10,21 @@ kernel, or the call raises.
 
 Each kernel wrapper adds one to the port's launch count
 (``kernels/launches.py``) where it launches, so a run can show that its
-path went through the kernels.
+path went through the kernels. On ``meta`` tensors (the dry-run) the
+wrapper applies the CUDA path's checks and returns empty ``meta`` tensors
+of the kernels' output shapes, forward and backward, and never runs a
+plain version. Every call adds its kernels' work to ``COSTS``.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launches import FAMILIES, LAUNCHES
+from repro_torch.kernels.launches import COSTS, FAMILIES, LAUNCHES, \
+    RefusedType, RefusedValue
 
 NEG_INF = -1e30
 KERNELS = FAMILIES["attention"]
@@ -226,6 +231,44 @@ def flash_attn_bwd_cuda(q, k, v, o, lse, do, **opts):
     return dq, dk, dv
 
 
+# ------------------------------------------------------------------ costs
+def visible_pairs(Lq: int, Lk: int, causal: bool, window: int,
+                  kv_len: int) -> int:
+    """The (query, key) pairs the mask lets through, for one head of one
+    sequence: key k is visible to query i where k < kv_len, k <= i
+    (causal) and i - k < window (window > 0)."""
+    q = np.arange(Lq, dtype=np.int64)
+    hi = np.full(Lq, min(Lk, kv_len), dtype=np.int64)
+    if causal:
+        hi = np.minimum(hi, q + 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros_like(q)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_work(q, k, causal: bool, window: int, kv_len: int
+               ) -> dict[str, tuple[int, int]]:
+    """(flops, bytes) each flash kernel does on these inputs: the bounds'
+    formulas (``chip_smoke.py`` phase 3)."""
+    B, Hq, Lq, D = q.shape
+    Lk = k.shape[2]
+    esz = q.element_size()
+    n_qo = B * Hq * Lq * D * esz
+    n_kv = B * k.shape[1] * Lk * D * esz
+    n_row = B * Hq * Lq * 4
+    pairs = B * Hq * visible_pairs(Lq, Lk, causal, window, kv_len)
+    return {"flash_attn_fwd": (4 * D * pairs, 2 * n_qo + 2 * n_kv + n_row),
+            "flash_attn_bwd_dq": (6 * D * pairs,
+                                  4 * n_qo + 2 * n_kv + 2 * n_row),
+            "flash_attn_bwd_dkdv": (8 * D * pairs,
+                                    2 * n_qo + 4 * n_kv + 2 * n_row)}
+
+
+def _count(q, k, opts: dict, names):
+    work = flash_work(q, k, opts["causal"], opts["window"], opts["kv_len"])
+    for name in names:
+        COSTS.add(name, *work[name], where=q)
+
+
 # ---------------------------------------------------------------- wrapper
 def _check(q, k, v, window: int, kv_len: int):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -245,15 +288,19 @@ def _check(q, k, v, window: int, kv_len: int):
         raise ValueError("q, k and v must be on one device")
     if len({q.dtype, k.dtype, v.dtype}) != 1:
         raise ValueError("q, k and v must have one dtype")
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:      # meta: the dry-run holds the CUDA path
         if q.dtype not in _CUDA_DTYPES:
-            raise TypeError(f"the CUDA kernels take float32 or bfloat16, "
-                            f"not {q.dtype}")
+            raise RefusedType(f"the CUDA kernels take float32 or bfloat16, "
+                              f"not {q.dtype}")
         if D not in CUDA_HEAD_DIMS:
-            raise ValueError(f"the CUDA kernels take head_dim in "
-                             f"{CUDA_HEAD_DIMS}, not {D}")
+            raise RefusedValue(f"the CUDA kernels take head_dim in "
+                               f"{CUDA_HEAD_DIMS}, not {D}")
         if max(q.numel(), k.numel()) >= 2 ** 31:
-            raise ValueError("tensor too large for the kernels' int offsets")
+            raise RefusedValue(f"tensor too large for the kernels' int "
+                               f"offsets: q {tuple(q.shape)}, k "
+                               f"{tuple(k.shape)}, "
+                               f"{max(q.numel(), k.numel())} elements, the "
+                               f"limit 2**31")
     elif q.device.type == "cpu":
         if q.dtype not in _CPU_DTYPES:
             raise TypeError(f"unsupported dtype {q.dtype}")
@@ -266,16 +313,17 @@ class FlashAttnFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, kv_len):
-        if q.is_cuda:
-            o, lse = flash_attn_fwd_cuda(q, k, v, causal=causal, window=window,
-                                         scale=scale, kv_len=kv_len)
-        else:
-            o, lse = flash_attn_fwd_plain(q, k, v, causal=causal,
-                                          window=window, scale=scale,
-                                          kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(causal=causal, window=window, scale=scale,
                         kv_len=kv_len)
+        _count(q, k, ctx.opts, ("flash_attn_fwd",))
+        if q.is_cuda:
+            o, lse = flash_attn_fwd_cuda(q, k, v, **ctx.opts)
+        elif q.is_meta:
+            o = torch.empty_like(q)
+            lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+        else:
+            o, lse = flash_attn_fwd_plain(q, k, v, **ctx.opts)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.warming = LAUNCHES.is_warming()
         return o
 
@@ -283,10 +331,16 @@ class FlashAttnFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
+        _count(q, k, ctx.opts, ("flash_attn_bwd_dq", "flash_attn_bwd_dkdv"))
         if q.is_cuda:
             with LAUNCHES.warming(ctx.warming):
                 dq, dk, dv = flash_attn_bwd_cuda(q, k, v, o, lse, do,
                                                  **ctx.opts)
+        elif q.is_meta:
+            # dq and delta, then dk and dv, as the kernels write them
+            dq, delta = torch.empty_like(q), torch.empty_like(lse)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            del delta
         else:
             dq, dk, dv = flash_attn_bwd_plain(q, k, v, o, lse, do, **ctx.opts)
         return dq, dk, dv, None, None, None, None

@@ -27,7 +27,11 @@ identity, which equals w_t ⊙ rowsum(G_t ⊙ S_{t-1}). du is summed over t
 per (b, h) by ``wkv6_bwd_dr`` and over b by ``wkv6_bwd_dk``.
 
 Each kernel wrapper adds one to the port's launch count
-(``kernels/launches.py``) where it launches.
+(``kernels/launches.py``) where it launches. On ``meta`` tensors (the
+dry-run) the wrapper applies the CUDA path's checks and returns empty
+``meta`` tensors of the kernels' output shapes, forward and backward, and
+never runs a plain version. Every call adds its kernels' work to
+``COSTS``.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launches import FAMILIES, LAUNCHES
+from repro_torch.kernels.launches import COSTS, FAMILIES, LAUNCHES, \
+    RefusedType, RefusedValue
 
 KERNELS = FAMILIES["rwkv"]
 CUDA_HEAD_DIMS = (16, 32, 64)
@@ -236,6 +241,30 @@ def wkv6_bwd_cuda(r, k, v, logw, u, s0, dy, dsT):
     return dr, dk, dv, dlogw, du, ds0
 
 
+# ------------------------------------------------------------------ costs
+def wkv6_work(B: int, L: int, H: int, hd: int) -> dict[str, tuple[int, int]]:
+    """(flops, bytes) each WKV6 kernel does at these fp32 shapes: the
+    bounds' formulas (``chip_smoke.py: wkv_work``). Each scan does 5 hd^2
+    flops a (b, t, h): a matrix-vector product with the hd x hd state
+    (2 hd^2) and its update diag(w) S + x y^T (3 hd^2)."""
+    seq = B * L * H * hd * 4
+    st = B * H * hd * hd * 4
+    vec = B * H * hd * 4
+    u = H * hd * 4
+    scan = 5 * B * L * H * hd * hd
+    return {"wkv6_fwd": (scan, 5 * seq + 2 * st + u),
+            "wkv6_bwd_dr": (scan, 7 * seq + 2 * st + u + vec),
+            "wkv6_bwd_dk": (scan + (B - 1) * H * hd,
+                            8 * seq + 2 * st + 2 * u + vec),
+            "wkv6_bwd_dv": (scan, 5 * seq + st + u)}
+
+
+def _count(r, names):
+    work = wkv6_work(*r.shape)
+    for name in names:
+        COSTS.add(name, *work[name], where=r)
+
+
 # ---------------------------------------------------------------- wrapper
 def _check(r, k, v, logw, u, s0):
     if r.dim() != 4:
@@ -254,12 +283,13 @@ def _check(r, k, v, logw, u, s0):
         raise ValueError("wkv6's inputs must be on one device")
     if len({t.dtype for t in ts}) != 1:
         raise ValueError("wkv6's inputs must have one dtype")
-    if r.is_cuda:
+    if r.is_cuda or r.is_meta:      # meta: the dry-run holds the CUDA path
         if r.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernels take float32, not {r.dtype}")
+            raise RefusedType(f"the CUDA kernels take float32, not "
+                              f"{r.dtype}")
         if hd not in CUDA_HEAD_DIMS:
-            raise ValueError(f"the CUDA kernels take head_dim in "
-                             f"{CUDA_HEAD_DIMS}, not {hd}")
+            raise RefusedValue(f"the CUDA kernels take head_dim in "
+                               f"{CUDA_HEAD_DIMS}, not {hd}")
     elif r.device.type == "cpu":
         if r.dtype not in _CPU_DTYPES:
             raise TypeError(f"unsupported dtype {r.dtype}")
@@ -273,8 +303,11 @@ class WKV6Fn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, s0):
+        _count(r, ("wkv6_fwd",))
         if r.is_cuda:
             y, sT = wkv6_fwd_cuda(r, k, v, logw, u, s0)
+        elif r.is_meta:
+            y, sT = torch.empty_like(r), torch.empty_like(s0)
         else:
             y, sT = wkv6_fwd_plain(r, k, v, logw, u, s0)
         ctx.save_for_backward(r, k, v, logw, u, s0)
@@ -285,9 +318,18 @@ class WKV6Fn(torch.autograd.Function):
     def backward(ctx, dy, dsT):
         r, k, v, logw, u, s0 = ctx.saved_tensors
         dy, dsT = dy.contiguous(), dsT.contiguous()
+        _count(r, KERNELS[1:])
         if r.is_cuda:
             with LAUNCHES.warming(ctx.warming):
                 return wkv6_bwd_cuda(r, k, v, logw, u, s0, dy, dsT)
+        if r.is_meta:
+            # dr, a, du_part; then dk, dlogw, ds0, du; then dv
+            a, du_part = torch.empty_like(r), r.new_empty(s0.shape[:3])
+            out = (torch.empty_like(r), torch.empty_like(r),
+                   torch.empty_like(r), torch.empty_like(r),
+                   torch.empty_like(u), torch.empty_like(s0))
+            del a, du_part
+            return out
         return wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dsT)
 
 

@@ -11,7 +11,9 @@ prefill run ``chunked_attention``, the reference's chunked online softmax,
 as the reference runs it; over the model axis (``mla_forward_tp``) each
 shard runs its heads against the whole compressed head. Decode (one
 token against the cache) is ``decode_attention``, plain PyTorch, as the
-reference computes it outside any Pallas kernel. The window-pruned branch
+reference computes it outside any Pallas kernel; over the model axis GQA's
+shard m attends its heads against its heads of the split cache, and MLA's
+shards read the replicated compressed cache on the first slot. The window-pruned branch
 is not ported: windowed GQA runs the flash op's window mask.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.models.layers import apply_linear, apply_rmsnorm, \
     apply_rope, dt, linear_specs, rmsnorm_specs
 from repro_torch.models.params import ShardedInit, fit_chunk
 from repro_torch.parallel import ShardedParams, copy_to_model, \
-    reduce_from_model
+    reduce_from_model, whole_cache
 
 NEG_INF = -1e30
 
@@ -225,6 +227,33 @@ def _mla_scale(cfg) -> float:
     return (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim) ** -0.5
 
 
+def _mla_kv(cfg, ckv_n, krope_n, positions: torch.Tensor, cache):
+    """The keys ``[c_kv ; k_rope]`` and values ``c_kv`` MLA attends over,
+    in the compute dtype, and the tokens valid in them: this call's own in
+    train and prefill (``None``: the causal chunked form), or in decode
+    the cache's after this token's ``ckv`` and ``krope`` are written in
+    place at slot ``pos`` (``pos + 1`` valid)."""
+    cd = dt(cfg, "compute")
+    if cache is None:
+        return torch.cat([ckv_n.to(cd), krope_n], dim=-1), ckv_n.to(cd), None
+    pos = positions[0, 0]
+    slot = pos.long().reshape(1)
+    cache["ckv"].index_copy_(2, slot, ckv_n.to(cache["ckv"].dtype))
+    cache["krope"].index_copy_(2, slot, krope_n.to(cache["krope"].dtype))
+    c = cache["ckv"].to(cd)
+    return torch.cat([c, cache["krope"].to(cd)], dim=-1), c, pos + 1
+
+
+def _mla_attend(cfg, q_full, k_full, v, kv_valid):
+    """``decode_attention`` against the cache (``kv_valid`` given), else
+    the causal ``chunked_attention``."""
+    if kv_valid is not None:
+        return decode_attention(q_full, k_full, v, kv_valid,
+                                scale=_mla_scale(cfg))
+    return chunked_attention(q_full, k_full, v, causal=True,
+                             chunk=cfg.attn_chunk, scale=_mla_scale(cfg))
+
+
 def mla_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
                 cache=None, **_):
     """MLA as MQA over the compressed KV: k = [c_kv ; k_rope] (one head,
@@ -233,23 +262,11 @@ def mla_forward(cfg, p, x: torch.Tensor, *, positions: torch.Tensor,
     The scores scale by ``(qk_nope_dim + qk_rope_dim) ** -0.5``, not by the
     key's width. Decode writes this token's ``ckv`` and ``krope`` in place
     at slot ``pos``. Returns (out, cache or None)."""
-    cd = dt(cfg, "compute")
     q_lat, ckv_n, krope_n = _mla_latents(cfg, p, x, positions)
     q_full = _mla_query(cfg, p, q_lat, positions)
-    scale = _mla_scale(cfg)
-    if cache is not None:                                  # decode (L == 1)
-        pos = positions[0, 0]
-        slot = pos.long().reshape(1)
-        cache["ckv"].index_copy_(2, slot, ckv_n.to(cache["ckv"].dtype))
-        cache["krope"].index_copy_(2, slot, krope_n.to(cache["krope"].dtype))
-        c = cache["ckv"].to(cd)
-        k_full = torch.cat([c, cache["krope"].to(cd)], dim=-1)
-        out = decode_attention(q_full, k_full, c, pos + 1, scale=scale)
-    else:
-        k_full = torch.cat([ckv_n.to(cd), krope_n], dim=-1)
-        out = chunked_attention(q_full, k_full, ckv_n.to(cd), causal=True,
-                                chunk=cfg.attn_chunk, scale=scale)
-    return _mla_out(cfg, p, out), cache
+    k_full, v, kv_valid = _mla_kv(cfg, ckv_n, krope_n, positions, cache)
+    return _mla_out(cfg, p, _mla_attend(cfg, q_full, k_full, v,
+                                        kv_valid)), cache
 
 
 # MLA's leaves the rules leave whole (their axes are ``embed`` and
@@ -258,27 +275,30 @@ MLA_REPLICATED = ("wq_a", "q_norm", "wkv_a", "kv_norm")
 
 
 def mla_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """MLA over the model axis, train mode: the query latent and the
-    compressed ``ckv``/``krope`` head once on the first slot, copied out;
-    shard m takes H/mp heads (``wq_b`` columns, ``w_uk``/``w_uv`` rows)
-    against the whole compressed head and its ``wo`` row shard, the
-    partial outputs summed in shard order there. Run whole when the rules
-    left a head leaf replicated (an mp that does not divide H)."""
+                   positions: torch.Tensor, cache: ShardedParams | None = None
+                   ) -> torch.Tensor:
+    """MLA over the model axis: the query latent and the compressed
+    ``ckv``/``krope`` head once on the first slot (in decode written there
+    into the cache's replicated ``ckv`` and ``krope``, and read back whole
+    from it), copied out; shard m takes H/mp heads (``wq_b`` columns,
+    ``w_uk``/``w_uv`` rows) against the whole compressed head and its
+    ``wo`` row shard, the partial outputs summed in shard order there. Run
+    whole when the rules left a head leaf replicated (an mp that does not
+    divide H)."""
     if not sp.split(but=MLA_REPLICATED):
-        return mla_forward(cfg, sp.whole(), x, positions=positions)[0]
-    cd = dt(cfg, "compute")
+        return mla_forward(cfg, sp.whole(), x, positions=positions,
+                           cache=whole_cache(cache))[0]
     q_lat, ckv_n, krope_n = _mla_latents(cfg, sp.trees[0], x, positions)
-    k_full = torch.cat([ckv_n.to(cd), krope_n], dim=-1)
+    k_full, v, kv_valid = _mla_kv(cfg, ckv_n, krope_n, positions,
+                                  whole_cache(cache))
     outs = []
     for t, dev, q_m, k_m, v_m in zip(
             sp.trees, sp.devices, copy_to_model(q_lat, sp.devices),
-            copy_to_model(k_full, sp.devices),
-            copy_to_model(ckv_n.to(cd), sp.devices)):
+            copy_to_model(k_full, sp.devices), copy_to_model(v, sp.devices)):
         q_full = _mla_query(cfg, t, q_m, positions.to(dev))
-        out = chunked_attention(q_full, k_m, v_m, causal=True,
-                                chunk=cfg.attn_chunk, scale=_mla_scale(cfg))
-        outs.append(_mla_out(cfg, t, out))
+        outs.append(_mla_out(cfg, t, _mla_attend(
+            cfg, q_full, k_m, v_m,
+            None if kv_valid is None else kv_valid.to(dev))))
     return reduce_from_model(outs, x.device)
 
 
@@ -298,22 +318,29 @@ def attention_cache_spec(cfg, batch: int, max_seq: int) -> dict:
 
 
 def attention_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
-                         positions: torch.Tensor) -> torch.Tensor:
+                         positions: torch.Tensor,
+                         cache: ShardedParams | None = None) -> torch.Tensor:
     """Attention over the model axis. MLA goes to ``mla_forward_tp``. GQA:
     ``wq``/``wk``/``wv`` column shards by heads and kv_heads, so shard m
-    runs the flash kernels on its H/mp heads, and ``wo`` row shards by
-    heads, whose partial outputs are summed in shard order onto ``x``'s
-    device. Run whole when the rules left a leaf replicated or a shard
-    would split a KV group (Hkv % mp != 0)."""
+    runs its H/mp heads (in train and prefill through the flash kernels,
+    in decode against its Hkv/mp heads of the cache's ``k``/``v``, which
+    it writes in place), and ``wo`` row shards by heads, whose partial
+    outputs are summed in shard order onto ``x``'s device. Run whole when
+    the rules left a leaf replicated or a shard would split a KV group
+    (Hkv % mp != 0), against a whole cache."""
     if cfg.attn_kind == "mla":
-        return mla_forward_tp(cfg, sp, x, positions=positions)
+        return mla_forward_tp(cfg, sp, x, positions=positions, cache=cache)
     mp = sp.mp
     if not sp.split() or cfg.n_kv_heads % mp:
-        return gqa_forward(cfg, sp.whole(), x, positions=positions)[0]
+        return gqa_forward(cfg, sp.whole(), x, positions=positions,
+                           cache=whole_cache(cache))[0]
     shard_cfg = dataclasses.replace(
         cfg, n_heads=cfg.n_heads // mp, n_kv_heads=cfg.n_kv_heads // mp,
         head_dim=cfg.resolved_head_dim)
     xs = copy_to_model(x, sp.devices)
+    caches = [None] * mp if cache is None else cache.trees
     return reduce_from_model(
-        [gqa_forward(shard_cfg, t, xm, positions=positions.to(dev))[0]
-         for t, xm, dev in zip(sp.trees, xs, sp.devices)], x.device)
+        [gqa_forward(shard_cfg, t, xm, positions=positions.to(dev),
+                     cache=c)[0]
+         for t, xm, dev, c in zip(sp.trees, xs, sp.devices, caches)],
+        x.device)

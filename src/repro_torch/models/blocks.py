@@ -11,10 +11,12 @@ the residual stream's device, the mixer and the FFN at mp > 1 in their
 tensor-parallel forms (``MIXERS_TP``, ``FFNS_TP``: every mixer and FFN has
 one), each of which runs whole where the rules left its leaves
 replicated; at mp = 1 the plain ones (``MIXERS``, ``FFNS``), so the block
-is the plain one, op for op. With a decode cache (mp = 1 only) the mixer
-and the FFN write their parts of the block's cache in place. The block
-returns the FFN's auxiliary loss (MoE's load-balance loss; zero for the
-others).
+is the plain one, op for op. With a decode cache (the block's slice of
+it, a ``ShardedParams`` split as ``models/cache.py: cache_dims`` says)
+the mixer and the FFN write their parts of it in place, at every mp: each
+shard its part of a split leaf, the first slot the replicated ones. The
+block returns the FFN's auxiliary loss (MoE's load-balance loss; zero for
+the others).
 """
 from __future__ import annotations
 
@@ -91,38 +93,43 @@ def block_cache_spec(cfg, mixer: str, batch: int, max_seq: int) -> dict:
     return MIXER_CACHES[mixer](cfg, batch, max_seq)
 
 
-# over the model axis, train mode: mixer (cfg, sp, h, positions=) -> out;
-# ffn (cfg, sp, h) -> (out, aux loss or None)
+# over the model axis: mixer (cfg, sp, h, positions=, cache=) -> out; ffn
+# (cfg, sp, h, cache=) -> (out, aux loss or None); ``cache`` the block's
+# ShardedParams slice in decode, else None
 MIXERS_TP = {"attn": attention.attention_forward_tp,
              "mamba": ssm.mamba_forward_tp,
              "rwkv_tm": ssm.rwkv_tm_forward_tp}
-FFNS_TP = {"mlp": lambda cfg, sp, h: (apply_mlp_tp(sp, h,
-                                                   dt(cfg, "compute")), None),
-           "moe": moe.moe_forward_tp,
-           "rwkv_cm": lambda cfg, sp, h: (ssm.rwkv_cm_forward_tp(cfg, sp, h),
-                                          None)}
+FFNS_TP = {"mlp": lambda cfg, sp, h, cache=None: (
+               apply_mlp_tp(sp, h, dt(cfg, "compute")), None),
+           "moe": lambda cfg, sp, h, cache=None: moe.moe_forward_tp(
+               cfg, sp, h),
+           "rwkv_cm": lambda cfg, sp, h, cache=None: (
+               ssm.rwkv_cm_forward_tp(cfg, sp, h, cache=cache), None)}
 
 
 def block_forward(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
-                  ffn: str, positions: torch.Tensor, cache=None):
+                  ffn: str, positions: torch.Tensor,
+                  cache: ShardedParams | None = None):
     """One block over the model axis of a data group; ``x`` is the residual
-    stream on the group's first slot. At mp = 1, and against a decode
-    ``cache`` (mp = 1 only: the block's slice of it, written in place),
-    the mixer and the FFN run their plain forms there. Returns (x,
+    stream on the group's first slot. At mp = 1 the mixer and the FFN run
+    their plain forms there, against the one tree of a decode ``cache``;
+    at mp > 1 their tensor-parallel forms, against its shards. Returns (x,
     aux_loss)."""
-    tp = sp.mp > 1 and cache is None
+    tp = sp.mp > 1
     h = apply_rmsnorm(sp["norm1"].whole(), x, cfg.norm_eps)
+    one = None if cache is None else cache.trees[0]
     if tp:
-        mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions)
+        mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions,
+                                   cache=cache)
     else:
         mix_out, _ = MIXERS[mixer][1](cfg, sp["mixer"].whole(), h,
-                                      positions=positions, cache=cache)
+                                      positions=positions, cache=one)
     x = x + mix_out
     h = apply_rmsnorm(sp["norm2"].whole(), x, cfg.norm_eps)
     if tp:
-        f, aux = FFNS_TP[ffn](cfg, sp["ffn"], h)
+        f, aux = FFNS_TP[ffn](cfg, sp["ffn"], h, cache=cache)
     else:
-        f, aux = FFNS[ffn][1](cfg, sp["ffn"].whole(), h, cache=cache)
+        f, aux = FFNS[ffn][1](cfg, sp["ffn"].whole(), h, cache=one)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, aux

@@ -16,13 +16,19 @@ There is one path: ``forward_tp`` and ``loss_fn_tp`` run over the model
 axis of one data group (``parallel.ShardedParams``) — vocab-parallel
 embedding, tensor-parallel blocks, and a vocab-parallel unembedding and
 cross-entropy at the same ``loss_chunk`` — and each leaf the layout leaves
-whole runs its plain layer. ``forward`` and ``loss_fn`` call them on the
-one shard of mp = 1, where every leaf is whole. The prefill and decode
-modes run at mp = 1, where the reference's live serving engine runs; at
-mp > 1 they raise (ROADMAP A7). Decode hands period i a view of row i of
-each stacked cache leaf, which its blocks write in place, and advances
-``pos`` in place: a token moves its own slots of the cache, where the
-reference's scan returns a new one.
+whole runs its plain layer. ``forward``, ``prefill``, ``serve_step`` and
+``loss_fn`` take the params as one tree (the one shard of mp = 1, where
+every leaf is whole) or as a ``ShardedParams``. Prefill and decode run
+at any mp, as training does: decode takes the cache as one tree at mp = 1
+or split over the model axis
+(``models/cache.py: init_cache_shards``), hands period i a view of row i
+of each stacked cache leaf (each shard's part of it), which its blocks
+write in place, and advances ``pos`` (on the first slot) in place: a
+token moves its own slots of the cache, where the reference's scan
+returns a new one. Their logits come from the vocab-parallel unembedding:
+shard m forms its V/mp columns and ``gather_from_model`` puts them side by
+side on the first slot, [B, V] floats, where joining the ``[D, V]``
+matrix there (``whole()``) would move D/B times as many bytes every step.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from repro_torch.models.layers import apply_embed_tp, apply_linear, \
 from repro_torch.models.params import ShardedInit, fit_chunk, tree_leaves, \
     tree_map, tree_unflatten
 from repro_torch.parallel import ShardedParams, copy_to_model, \
-    reduce_from_model
+    gather_from_model, reduce_from_model, send
 
 
 # ------------------------------------------------------------------- specs
@@ -70,12 +76,20 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
 MODES = ("train", "prefill", "decode")
 
 
+def sharded(tree) -> ShardedParams:
+    """``tree`` as a ``ShardedParams``: itself if it is one, else the one
+    shard of mp = 1."""
+    return tree if isinstance(tree, ShardedParams) else ShardedParams.one(
+        tree)
+
+
 def forward(cfg, params, batch, *, mode: str = "train", cache=None):
     """mode 'train' -> (hidden [B,L,D], aux); 'prefill' -> (last-position
     logits [B,V] fp32, aux); 'decode' -> (logits [B,1,V] fp32, cache), the
-    cache updated in place: ``forward_tp`` on the one shard of mp = 1."""
-    return forward_tp(cfg, ShardedParams.one(params), batch, mode=mode,
-                      cache=cache)
+    cache updated in place: ``forward_tp`` on ``params``, one tree (the
+    one shard of mp = 1) or a ``ShardedParams``. The outputs lie on the
+    first slot."""
+    return forward_tp(cfg, sharded(params), batch, mode=mode, cache=cache)
 
 
 def prefill(cfg, params, batch):
@@ -85,7 +99,8 @@ def prefill(cfg, params, batch):
 
 
 def serve_step(cfg, params, batch, cache):
-    """ONE new token against the cache, which it updates in place. Returns
+    """ONE new token against the cache (one tree, or split over the model
+    axis as ``params`` is), which it updates in place. Returns
     (next_token_ids [B] int32, cache)."""
     logits, cache = forward(cfg, params, batch, mode="decode", cache=cache)
     return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
@@ -108,8 +123,8 @@ def chunked_xent(cfg, params, hidden: torch.Tensor, labels: torch.Tensor
 
 
 def loss_fn(cfg, params, batch):
-    """``loss_fn_tp`` on the one shard of mp = 1."""
-    return loss_fn_tp(cfg, ShardedParams.one(params), batch)
+    """``loss_fn_tp`` on ``params``, one tree or a ``ShardedParams``."""
+    return loss_fn_tp(cfg, sharded(params), batch)
 
 
 # ------------------------------------------------------- over the model axis
@@ -117,17 +132,18 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
                cache=None):
     """The forward over the model axis of one data group; ``batch`` lies on
     the group's first slot, which carries the residual stream. Returns
-    (hidden [B,L,D], aux) in train mode; prefill and decode (mp = 1 only)
-    as ``forward``. Remat applies in train mode only, as in the
-    reference."""
+    (hidden [B,L,D], aux) in train mode; prefill and decode as
+    ``forward``, decode against ``cache`` (one tree at mp = 1, or a
+    ``ShardedParams`` split over the group's slots). Remat applies in
+    train mode only, as in the reference."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
-    if mode != "train" and sp.mp > 1:
-        raise NotImplementedError(
-            f"{mode} at model_parallel={sp.mp} is not yet ported (ROADMAP "
-            f"A7); serving runs at mp = 1")
     if (mode == "decode") != (cache is not None):
         raise ValueError("decode takes a cache, and only decode does")
+    sc = None if cache is None else sharded(cache)
+    if sc is not None and sc.mp != sp.mp:
+        raise ValueError(f"a cache split {sc.mp} ways for params split "
+                         f"{sp.mp} ways")
     train = mode == "train"
     cd = dt(cfg, "compute")
     if cfg.frontend == "embeds":
@@ -136,12 +152,12 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
         x = apply_embed_tp(sp["embed"], batch["tokens"], cd)
     Bsz, L, _ = x.shape
     if mode == "decode":
-        positions = cache["pos"].expand(Bsz, 1)
+        positions = sc.trees[0]["pos"].expand(Bsz, 1)
     else:
         positions = torch.arange(L, device=x.device).expand(Bsz, L)
     slots, n_periods = B.scan_plan(cfg)
 
-    def period(x, p_i, c_i=None):
+    def period(x, p_i, c_i: ShardedParams | None = None):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, (mixer, ffn) in enumerate(slots):
             x, aux = B.block_forward(
@@ -174,10 +190,10 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
             auxes.append(aux)
         aux = torch.stack(auxes).mean() / g
     else:
+        rows = sc["layers"].periods() if mode == "decode" else None
         for i, p_i in enumerate(periods):
             if mode == "decode":
-                x, aux = period(x, p_i, tree_map(lambda a: a[i],
-                                                 cache["layers"]))
+                x, aux = period(x, p_i, rows[i])
             else:
                 x, aux = body(x, p_i)
             auxes.append(aux)
@@ -185,12 +201,22 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
     x = apply_rmsnorm(sp["final_norm"].whole(), x, cfg.norm_eps)
     if train:
         return x, aux
-    unembed = sp["unembed"].whole()
     if mode == "prefill":
-        return apply_linear(unembed, x[:, -1], torch.float32), aux
-    logits = apply_linear(unembed, x, torch.float32)
-    cache["pos"].add_(1)
+        return unembed_tp(sp["unembed"], x[:, -1]), aux
+    logits = unembed_tp(sp["unembed"], x)
+    sc.trees[0]["pos"].add_(1)
     return logits, cache
+
+
+def unembed_tp(u: ShardedParams, x: torch.Tensor) -> torch.Tensor:
+    """The fp32 logits of ``x`` on its slot (the first): vocab-parallel,
+    shard m's V/mp columns gathered in shard order, or the whole matrix
+    where the rules left it replicated."""
+    if not u.split():
+        return apply_linear(u.whole(), x, torch.float32)
+    return gather_from_model(
+        [apply_linear(t, xm, torch.float32)
+         for t, xm in zip(u.trees, copy_to_model(x, u.devices))], x.device)
 
 
 def chunked_xent_tp(cfg, sp: ShardedParams, hidden: torch.Tensor,
@@ -216,7 +242,8 @@ def chunked_xent_tp(cfg, sp: ShardedParams, hidden: torch.Tensor,
         lses, golds = [], []
         for m, (h, w, lab) in enumerate(zip(hs, ws, labels_m)):
             logits = h @ w
-            lses.append(torch.logsumexp(logits, dim=-1).to(lead))
+            lses.append(send(torch.logsumexp(logits, dim=-1), lead, m, 0,
+                             "xent_lse"))
             local = lab[:, c0:c0 + chunk] - m * cols
             own = (local >= 0) & (local < cols)
             gold = logits.gather(-1, local.clamp(0, cols - 1)[..., None])

@@ -24,7 +24,7 @@ from repro_torch.models.layers import apply_mlp, apply_mlp_tp, dt, \
     mlp_specs
 from repro_torch.models.params import ShardedInit
 from repro_torch.parallel import ShardedParams, copy_to_model, \
-    reduce_from_model
+    reduce_from_model, send
 
 GROUP_SIZE = 512
 
@@ -145,11 +145,11 @@ def moe_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor):
         parts = []
         for i, (t, xm, dev) in enumerate(zip(sp.trees, xs, sp.devices)):
             own = slice(i * n, (i + 1) * n)
-            exp_in = torch.einsum("gsec,gsd->gecd",
-                                  dispatch[:, :, own].to(dev, cd), xm)
-            parts.append(torch.einsum("gsec,gecd->gsd",
-                                      combine[:, :, own].to(dev, cd),
-                                      _experts(t, exp_in, cd)))
+            exp_in = torch.einsum("gsec,gsd->gecd", send(
+                dispatch[:, :, own].to(cd), dev, 0, i, "moe_dispatch"), xm)
+            parts.append(torch.einsum("gsec,gecd->gsd", send(
+                combine[:, :, own].to(cd), dev, 0, i, "moe_dispatch"),
+                _experts(t, exp_in, cd)))
     else:                                   # every expert, F/mp a shard
         exp_in = torch.einsum("gsec,gsd->gecd", dispatch.to(cd), xf.to(cd))
         parts = [torch.einsum("gsec,gecd->gsd", cm, _experts(t, em, cd))

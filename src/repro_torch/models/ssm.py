@@ -14,9 +14,12 @@ carries its state from the cache (Mamba's ``conv`` and ``ssm``, RWKV6's
 after) and writes it back in place, as it does RWKV6's token shifts
 ``shift_tm`` and ``shift_cm``. ``wkv6_scan`` and ``wkv6_chunked`` are the
 reference's plain forms, kept as the semantics the op is held to. Each
-mixer and the channel-mix has a train-mode form over the model axis
+mixer and the channel-mix has a form over the model axis
 (``mamba_forward_tp``, ``rwkv_tm_forward_tp``, ``rwkv_cm_forward_tp``),
-built from the same helpers as the plain form.
+built from the same helpers as the plain form, in every mode: in decode
+each shard carries its part of the split cache (its heads' ``wkv``, its
+channels' ``conv`` and ``ssm``) and the token shifts stay on the first
+slot.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from repro_torch.models.layers import apply_linear, dt, linear_specs, \
     rmsnorm_specs
 from repro_torch.models.params import ShardedInit, fit_chunk
 from repro_torch.parallel import ShardedParams, copy_to_model, \
-    reduce_from_model, regroup_columns
+    reduce_from_model, regroup_columns, whole_cache
 
 
 # ===================================================================== Mamba
@@ -157,9 +160,9 @@ def mamba_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
     return out, cache
 
 
-def mamba_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, **_
-                     ) -> torch.Tensor:
-    """Mamba over the model axis, train mode, di/mp channels a shard.
+def mamba_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
+                     cache: ShardedParams | None = None, **_) -> torch.Tensor:
+    """Mamba over the model axis, di/mp channels a shard.
     Shard m's ``in_proj`` columns are the contiguous ``[m 2di/mp, (m + 1)
     2di/mp)`` of the stored ``[D, 2 di]`` leaf (at mp = 2 all of x's half
     on shard 0 and all of z's on shard 1), so each shard forms its columns
@@ -167,30 +170,41 @@ def mamba_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, **_
     ``[m di/mp, (m + 1) di/mp)`` of both x and z. The conv, ``dt_proj``,
     A, the scan and ``D_skip`` run on them; ``x_proj`` is a row split whose
     partial dt_r, B and C are summed in shard order on the first slot and
-    copied back out; ``out_proj`` row shards are summed there. Run whole
-    when the rules left a leaf replicated (an mp that does not divide
-    di)."""
+    copied back out; ``out_proj`` row shards are summed there. In decode
+    shard m carries its channels of the cache's ``conv`` and ``ssm`` and
+    writes them back in place. Run whole when the rules left a leaf
+    replicated (an mp that does not divide di), against a whole cache."""
     if not sp.split():
-        return mamba_forward(cfg, sp.whole(), x)[0]
+        return mamba_forward(cfg, sp.whole(), x, cache=whole_cache(cache))[0]
     s = cfg.ssm
     B = x.shape[0]
     c = s.expand * cfg.d_model // sp.mp
     cd = dt(cfg, "compute")
+    caches = [None] * sp.mp if cache is None else cache.trees
     xz = regroup_columns([apply_linear(t["in_proj"], xm, cd) for t, xm in
                           zip(sp.trees, copy_to_model(x, sp.devices))], 2,
                          sp.devices)
     x_ins, zs = zip(*(part.chunk(2, dim=-1) for part in xz))
-    convs = [_mamba_conv(t, x_in, x_in.new_zeros((B, s.d_conv - 1, c)),
-                         cd)[0] for t, x_in in zip(sp.trees, x_ins)]
+    convs = []
+    for t, x_in, ch in zip(sp.trees, x_ins, caches):
+        pad = (ch["conv"].to(x_in.dtype) if ch is not None else
+               x_in.new_zeros((B, s.d_conv - 1, c)))
+        x_c, conv_state = _mamba_conv(t, x_in, pad, cd)
+        if ch is not None:
+            ch["conv"].copy_(conv_state)
+        convs.append(x_c)
     x_db = copy_to_model(reduce_from_model(
         [apply_linear(t["x_proj"], x_c, cd)
          for t, x_c in zip(sp.trees, convs)], x.device), sp.devices)
     outs = []
-    for t, x_c, z, x_db_m in zip(sp.trees, convs, zs, x_db):
-        h = torch.zeros((B, c, s.d_state), dtype=torch.float32,
-                        device=x_c.device)
-        outs.append(apply_linear(t["out_proj"], _mamba_scan(
-            cfg, t, x_c, z, x_db_m, h, cd)[0], cd))
+    for t, x_c, z, x_db_m, ch in zip(sp.trees, convs, zs, x_db, caches):
+        h = (ch["ssm"].float() if ch is not None else
+             torch.zeros((B, c, s.d_state), dtype=torch.float32,
+                         device=x_c.device))
+        y, h = _mamba_scan(cfg, t, x_c, z, x_db_m, h, cd)
+        if ch is not None:
+            ch["ssm"].copy_(h)
+        outs.append(apply_linear(t["out_proj"], y, cd))
     return reduce_from_model(outs, x.device)
 
 
@@ -361,33 +375,44 @@ def rwkv_tm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
 RWKV_TM_REPLICATED = ("mix", "w_lora_a", "ln_x")
 
 
-def rwkv_tm_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, **_
+def rwkv_tm_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
+                       cache: ShardedParams | None = None, **_
                        ) -> torch.Tensor:
-    """The time-mix over the model axis, train mode: the token shift, the
+    """The time-mix over the model axis: the token shift (in decode from
+    the cache's ``shift_tm`` on the first slot, written back there), the
     five mixes and ``tanh(xw @ w_lora_a)`` once on the first slot, copied
     out; shard m runs its H/mp heads (column shards of ``wr``, ``wk``,
     ``wv``, ``wg`` and ``w_lora_b``, its parts of ``w0`` and ``u``) through
-    the WKV6 op, the group norm on them with its D/mp slice of ``ln_x``,
-    and its ``wo`` row shard; the partial outputs are summed in shard
-    order on the first slot. Run whole when the rules left a leaf
-    replicated or a shard would split a head."""
+    the WKV6 op from its heads' ``wkv`` state (zeros, or in decode the
+    cache's, written back in place), the group norm on them with its D/mp
+    slice of ``ln_x``, and its ``wo`` row shard; the partial outputs are
+    summed in shard order on the first slot. Run whole when the rules left
+    a leaf replicated or a shard would split a head, against a whole
+    cache."""
     mp = sp.mp
     H = cfg.d_model // cfg.ssm.rwkv_head_dim
     if not sp.split(but=RWKV_TM_REPLICATED) or H % mp:
-        return rwkv_tm_forward(cfg, sp.whole(), x)[0]
+        return rwkv_tm_forward(cfg, sp.whole(), x,
+                               cache=whole_cache(cache))[0]
     B, _, D = x.shape
     hd = cfg.ssm.rwkv_head_dim
     w = D // mp
+    first = None if cache is None else cache.trees[0]
     inputs = [copy_to_model(a, sp.devices)
-              for a in _rwkv_tm_inputs(cfg, sp.trees[0], x, None)]
+              for a in _rwkv_tm_inputs(cfg, sp.trees[0], x, first)]
     scales = copy_to_model(sp.trees[0]["ln_x"]["scale"], sp.devices)
     outs = []
     for m, (t, dev) in enumerate(zip(sp.trees, sp.devices)):
-        state = torch.zeros((B, H // mp, hd, hd), dtype=torch.float32,
-                            device=dev)
-        outs.append(_rwkv_tm_heads(
-            cfg, t, scales[m][m * w:(m + 1) * w], *(a[m] for a in inputs),
-            state)[0])
+        state = (cache.trees[m]["wkv"].float() if cache is not None else
+                 torch.zeros((B, H // mp, hd, hd), dtype=torch.float32,
+                             device=dev))
+        out, S = _rwkv_tm_heads(cfg, t, scales[m][m * w:(m + 1) * w],
+                                *(a[m] for a in inputs), state)
+        if cache is not None:
+            cache.trees[m]["wkv"].copy_(S)
+        outs.append(out)
+    if first is not None:
+        first["shift_tm"].copy_(x[:, -1])
     return reduce_from_model(outs, x.device)
 
 
@@ -414,18 +439,23 @@ def rwkv_cm_forward(cfg, p, x: torch.Tensor, *, cache=None, **_):
     return out, cache
 
 
-def rwkv_cm_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor
-                       ) -> torch.Tensor:
-    """The channel-mix over the model axis, train mode: the token shift and
-    mixes on the first slot; ``wk`` column shards and ``wv`` row shards by
-    ``mlp``, their partial values summed in shard order there, where the
-    replicated ``wr`` gates them. Run whole when the rules left ``wk`` or
-    ``wv`` replicated (an mp that does not divide d_ff)."""
+def rwkv_cm_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor, *,
+                       cache: ShardedParams | None = None) -> torch.Tensor:
+    """The channel-mix over the model axis: the token shift (in decode from
+    the cache's ``shift_cm``, which is never split, on the first slot, and
+    written back there) and mixes on the first slot; ``wk`` column shards
+    and ``wv`` row shards by ``mlp``, their partial values summed in shard
+    order there, where the replicated ``wr`` gates them. Run whole when
+    the rules left ``wk`` or ``wv`` replicated (an mp that does not divide
+    d_ff)."""
+    first = None if cache is None else cache.trees[0]
     if not sp.split(but=("mix", "wr")):
-        return rwkv_cm_forward(cfg, sp.whole(), x)[0]
+        return rwkv_cm_forward(cfg, sp.whole(), x, cache=first)[0]
     cd = dt(cfg, "compute")
     p0 = sp.trees[0]
-    xk, xr = _rwkv_cm_mixes(p0, x, None)
+    xk, xr = _rwkv_cm_mixes(p0, x, first)
     vv = reduce_from_model([_rwkv_cm_value(t, xm, cd) for t, xm in zip(
         sp.trees, copy_to_model(xk, sp.devices))], x.device)
+    if first is not None:
+        first["shift_cm"].copy_(x[:, -1])
     return torch.sigmoid(apply_linear(p0["wr"], xr, cd)) * vv

@@ -46,7 +46,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import Optimizer
-from repro_torch.parallel import ShardedParams, model_dims
+from repro_torch.parallel import ShardedParams, model_dims, send
 from repro_torch.reshape.spec import StateSpec
 
 
@@ -72,8 +72,9 @@ def state_shapes(cfg, optimizer: Optimizer) -> dict:
 
 
 def shard_batch(batch: dict, p: int, devices) -> list[dict]:
-    """p equal shards of a host (numpy) batch, each on its slot's device.
-    Integer arrays become int64 (embedding and gather indices)."""
+    """p equal shards of a batch of host (numpy) arrays or tensors (the
+    dry-run's ``meta`` ones), each on its slot's device. Integer arrays
+    become int64 (embedding and gather indices)."""
     n = len(next(iter(batch.values())))
     if n % p:
         raise ValueError(f"global batch {n} not divisible by p={p}")
@@ -82,7 +83,9 @@ def shard_batch(batch: dict, p: int, devices) -> list[dict]:
     for s in range(p):
         shard = {}
         for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v[s * per:(s + 1) * per]))
+            t = v[s * per:(s + 1) * per]
+            if not isinstance(t, torch.Tensor):
+                t = torch.from_numpy(np.ascontiguousarray(t))
             if not t.is_floating_point():
                 t = t.long()
             shard[k] = t.to(devices[s])
@@ -172,14 +175,14 @@ def group_loss_and_grads(cfg, trees: list[dict], dims: dict, devices,
     wanted = [t for leaves in live for _, t in leaves if t.requires_grad]
     got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
     grads: list[dict] = []
-    for dev, leaves in zip(devices, live):
+    for m, (dev, leaves) in enumerate(zip(devices, live)):
         g = {}
         for k, t in leaves:
             if t.requires_grad:
                 gk = next(got)
                 g[k] = torch.zeros_like(t) if gk is None else gk
             else:
-                g[k] = grads[0][k].to(dev)
+                g[k] = send(grads[0][k], dev, 0, m, "replicated_grads")
         grads.append(g)
     return (loss.detach(), {k: v.detach() for k, v in parts.items()},
             [tree_unflatten(g.items()) for g in grads])

@@ -188,7 +188,9 @@ def test_launch_counter_tallies_warm_ups_per_thread():
     dict(q=(1, 2, 8, 16), k=(1, 2, 8, 16), kv_len=9),
     dict(q=(1, 2, 8, 16), k=(1, 2, 8, 16), window=-1),
     dict(q=(1, 2, 8, 16), k=(1, 2, 8, 16), dtype=torch.float16),
-    dict(q=(1, 2, 8, 16), k=(1, 2, 8, 16), device="meta"),
+    # meta (the dry-run) is held to the CUDA path: no float64
+    dict(q=(1, 2, 8, 16), k=(1, 2, 8, 16), dtype=torch.float64,
+         device="meta"),
 ])
 def test_wrapper_refuses_what_it_does_not_take(bad):
     dtype = bad.get("dtype", torch.float32)

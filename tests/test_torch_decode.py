@@ -308,20 +308,39 @@ def test_serve_batch_checks_its_lengths_and_frontend():
 # -------------------------------------------------------------- mp > 1
 @pytest.mark.parametrize("mode", ["decode", "prefill"])
 def test_serving_modes_at_mp_above_1_raise(mode):
-    """Prefill and decode run at mp = 1; over a model axis they raise,
-    naming the ROADMAP item that queues them."""
+    """Prefill and decode run over the model axis: the same ``forward_tp``
+    call at mp = 2 (its cache split over the two slots) equals mp = 1's
+    within MODULE_RTOL; ``forward`` still refuses a decode without a cache
+    and an unknown mode."""
+    from repro_torch.models.cache import init_cache_shards
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import model_dims
+    from repro_torch.training.step import port_layout, split_tree
+    module_rtol = 1e-5
     cfg = get_config("edl-paper", smoke=True)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    dims = {k: v for k, v in ShardedParams.one(params).dims.items()}
-    sp = ShardedParams([params, params], dims, ("cpu", "cpu"))
-    toks = torch.zeros((B, 1), dtype=torch.int32)
-    cache = init_cache(cfg, B, 4, device="cpu") if mode == "decode" else None
-    with pytest.raises(NotImplementedError, match="A7"):
-        M.forward_tp(cfg, sp, {"tokens": toks}, mode=mode, cache=cache)
+    dims = model_dims(port_layout(cfg, adamw(1e-3), 1, 2))
+    sp = ShardedParams(split_tree(params, dims, ["cpu"] * 2), dims,
+                       ("cpu", "cpu"))
+    toks = torch.from_numpy(_tokens(cfg, (B, 3), seed=7))
+    if mode == "decode":
+        c1 = init_cache(cfg, B, 4, device="cpu")
+        c2 = init_cache_shards(cfg, B, 4, ("cpu", "cpu"))
+    with torch.inference_mode():
+        for t in range(3 if mode == "decode" else 1):
+            batch = {"tokens": toks[:, t:t + 1] if mode == "decode" else toks}
+            want, _ = M.forward_tp(cfg, ShardedParams.one(params), batch,
+                                   mode=mode,
+                                   cache=c1 if mode == "decode" else None)
+            got, _ = M.forward_tp(cfg, sp, batch, mode=mode,
+                                  cache=c2 if mode == "decode" else None)
+            _assert_close(got, want, rtol=module_rtol)
+    if mode == "decode":
+        assert int(c2.trees[0]["pos"]) == int(c1["pos"]) == 3
     with pytest.raises(ValueError, match="decode takes a cache"):
-        M.forward(cfg, params, {"tokens": toks}, mode="decode")
+        M.forward(cfg, params, {"tokens": toks[:, :1]}, mode="decode")
     with pytest.raises(ValueError, match="mode must be one of"):
-        M.forward(cfg, params, {"tokens": toks}, mode="generate")
+        M.forward(cfg, params, {"tokens": toks[:, :1]}, mode="generate")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

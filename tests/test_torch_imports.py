@@ -41,6 +41,7 @@ MODULES = [
     "repro_torch.kernels.launches", "repro_torch.kernels.rwkv",
     "repro_torch.kernels.rwkv.ops",
     "repro_torch.launch", "repro_torch.launch.cluster",
+    "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
     "repro_torch.launch.train",
     "repro_torch.models", "repro_torch.models.attention",
     "repro_torch.models.blocks", "repro_torch.models.cache",

@@ -208,7 +208,7 @@ def test_launch_counter_names_every_kernel():
     dict(s0=(1, 2, 16, 8)),                             # s0 not hd x hd
     dict(r=(1, 0, 2, 16)),                              # no steps
     dict(dtype=torch.bfloat16),
-    dict(device="meta"),
+    dict(device="meta", dtype=torch.float64),    # meta: the CUDA path's
 ])
 def test_wrapper_refuses_what_it_does_not_take(bad):
     dtype = bad.get("dtype", torch.float32)

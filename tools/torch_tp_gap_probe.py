@@ -15,6 +15,16 @@ at (1, 2) (the JAX one jitted with the trainer's parameter shardings on a
 (1, 2) mesh): each package's worst leaf at (1, 2) against its (1, 1),
 norm-wise, and the same for ``w0``.
 
+``--part serve`` (the CPU; imports the JAX package): serving, where the
+refit's sums differ: rwkv6 SMOKE in fp32 at the reference's init, the
+prefill of 2 x 6 tokens from numpy seed 0 and 6 decode steps of them into
+a 16-slot cache (``test_torch_serve_tp.py``'s inputs), in the JAX package
+jitted at (1, 1) and at (1, 2) (params and cache by the trainer's
+shardings, on two forced host devices, one subprocess) and in the port at
+(1, 1) and (1, 2) from the same params. Prints each pair's largest gap
+over the largest logit (prefill and every decode step) and over the
+largest entry of the final ``wkv`` state.
+
 ``--part clamp`` (the card; ``--device cpu --smoke`` at SMOKE width): one
 forward of rwkv6-1.6b in fp32 at 4 layers on one batch of 8 x 1024
 tokens (phase 8 (e)'s step of ``chip_smoke.py``: params from seed 0
@@ -28,6 +38,7 @@ differs between the two.
 One JSON line per part. Run from the repo root:
 
     python3 tools/torch_tp_gap_probe.py --part refit
+    python3 tools/torch_tp_gap_probe.py --part serve
     python3 tools/torch_tp_gap_probe.py --part clamp [--device cpu --smoke]
 """
 import argparse
@@ -110,6 +121,50 @@ for mp in (1, 2):
 np.savez({grads_out!r}, **grads)
 print(json.dumps(losses))
 """
+
+
+_JAX_SERVE = r"""
+import json, os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax
+import numpy as np
+from repro.configs import get_config
+from repro.launch.mesh import make_mesh
+from repro.models import model as JM
+from repro.models.cache import init_cache
+from repro.training.step import cache_sharding, params_sharding
+
+B, T, S = {batch}, {steps}, {slots}
+cfg = get_config({arch!r}, smoke=True)
+params = JM.init_params(cfg, jax.random.PRNGKey(0))
+toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, T)).astype(
+    np.int32)
+out = {{"tokens": toks}}
+out.update({{"params/" + "/".join(str(getattr(k, "key", k)) for k in path):
+            np.asarray(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(params)}})
+for mp in (1, 2):
+    mesh = make_mesh(1, mp, devices=np.array(jax.devices()[:mp]))
+    p_sh, c_sh = params_sharding(cfg, mesh), cache_sharding(cfg, mesh, B, S)
+    ps = jax.device_put(params, p_sh)
+    with mesh:
+        pre = jax.jit(lambda p, b: JM.prefill(cfg, p, b),
+                      in_shardings=(p_sh, None))(ps, {{"tokens": toks}})
+        step = jax.jit(lambda p, b, c: JM.forward(cfg, p, b, mode="decode",
+                                                  cache=c),
+                       in_shardings=(p_sh, None, c_sh))
+        cache = jax.device_put(init_cache(cfg, B, S), c_sh)
+        logits = []
+        for t in range(T):
+            lg, cache = step(ps, {{"tokens": toks[:, t:t + 1]}}, cache)
+            logits.append(np.asarray(lg[:, 0]))
+    out[f"mp{{mp}}/prefill"] = np.asarray(pre)
+    out[f"mp{{mp}}/decode"] = np.stack(logits, 1)
+    out[f"mp{{mp}}/wkv"] = np.asarray(cache["layers"]["slot0"]["wkv"])
+np.savez({out!r}, **out)
+print("done")
+"""
+SERVE = dict(batch=2, steps=6, slots=16)
 
 
 def max_rel_gap(a, b) -> float:
@@ -195,6 +250,71 @@ def refit() -> dict:
                                                port_grads(state, 2))}
 
 
+def logit_gap(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def port_served(params: dict, tokens, mp: int) -> dict:
+    """The port's prefill logits, decode logits [B, T, V] and final ``wkv``
+    state at (1, mp) from ``params``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.cache import init_cache_shards
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ShardedParams, model_dims
+    from repro_torch.training.step import port_layout, split_tree
+    cfg = get_config(ARCH, smoke=True)
+    dims = model_dims(port_layout(cfg, adamw(1e-3), 1, mp))
+    devs = ("cpu",) * mp
+    sp = ShardedParams(split_tree(params, dims, devs), dims, devs)
+    toks = torch.from_numpy(tokens)
+    cache = init_cache_shards(cfg, toks.shape[0], SERVE["slots"], devs)
+    with torch.inference_mode():
+        pre = M.prefill(cfg, sp, {"tokens": toks})
+        logits = [M.forward(cfg, sp, {"tokens": toks[:, t:t + 1]},
+                            mode="decode", cache=cache)[0][:, 0]
+                  for t in range(toks.shape[1])]
+        wkv = cache.whole()["layers"]["slot0"]["wkv"]
+    return {"prefill": pre.numpy(), "decode": torch.stack(logits, 1).numpy(),
+            "wkv": wkv.numpy()}
+
+
+def serve() -> dict:
+    from repro_torch import bridge
+    from repro_torch.reshape import unflatten_tree
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "serve.npz")
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+               "JAX_PLATFORMS": "cpu"}
+        env.pop("XLA_FLAGS", None)
+        run = subprocess.run(
+            [sys.executable, "-c", _JAX_SERVE.format(arch=ARCH, out=npz,
+                                                     **SERVE)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=900)
+        if run.returncode:
+            raise RuntimeError(run.stderr[-3000:])
+        with np.load(npz) as z:
+            got = {k: z[k] for k in z.files}
+    params = bridge.params_from_numpy(unflatten_tree(
+        {k[len("params/"):]: v for k, v in got.items()
+         if k.startswith("params/")}), "cpu")
+    jax_ = {mp: {k: got[f"mp{mp}/{k}"] for k in ("prefill", "decode", "wkv")}
+            for mp in (1, 2)}
+    port = {mp: port_served(params, got["tokens"], mp) for mp in (1, 2)}
+
+    def gaps(a: dict, b: dict) -> dict:
+        return {k: logit_gap(a[k], b[k]) for k in ("prefill", "decode",
+                                                    "wkv")}
+    return {"part": "serve", "arch": ARCH, **SERVE, "point": "init",
+            "jax_1x2_vs_jax_1x1": gaps(jax_[2], jax_[1]),
+            "port_1x2_vs_port_1x1": gaps(port[2], port[1]),
+            "port_1x1_vs_jax_1x1": gaps(port[1], jax_[1]),
+            "port_1x2_vs_jax_1x2": gaps(port[2], jax_[2])}
+
+
 def clamp(args) -> dict:
     import dataclasses
 
@@ -262,12 +382,13 @@ def clamp(args) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("refit", "clamp"), required=True)
+    ap.add_argument("--part", choices=("refit", "serve", "clamp"),
+                    required=True)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--smoke", action="store_true")
     args = ap.parse_args()
-    print(json.dumps(refit() if args.part == "refit" else clamp(args)),
-          flush=True)
+    parts = {"refit": refit, "serve": serve, "clamp": lambda: clamp(args)}
+    print(json.dumps(parts[args.part]()), flush=True)
     return 0
 
 
