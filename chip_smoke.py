@@ -28,9 +28,20 @@ Phases, in order; any failure exits non-zero:
    with each bound at the peak of the inputs' type, and the backward
    pair against SDPA's backward under its default and under each backend
    that takes fp32 (``EFFICIENT_ATTENTION``, ``MATH``; the others are
-   recorded as refusing), naming the default's backend by its time;
+   recorded as refusing), naming the default's backend by its time; then
+   past 2**31 elements (``ATT_LARGE_CASES``: bf16, D 128, L 1024, MHA at
+   B 520 x H 32 and starcoder2's 48:4 at B 342), the forward and the
+   backward pair on the whole inputs, held against their plain versions
+   on the last batch rows, and timed beside their bounds and SDPA;
+   from phase 4 on, every ``ElasticTrainer`` built and every switch it
+   commits is checked on the card: each slot holds exactly its boxes of
+   the FSDP layout (``training/step.py: port_layout``, the reference's),
+   so its state bytes are its boxes' bytes (``SwitchWatch``);
 4. edl_paper path: ``repro_torch.launch.train.main`` trains the full-width
-   ``edl_paper`` decoder through a stop-free scale-out;
+   ``edl_paper`` decoder through a stop-free scale-out, whose state move
+   (1 -> 2 slots, every weight and moment split over the data axis) must
+   be staged behind the step with its bytes copied and recorded beside
+   the planner's;
 5. edl_paper virtual-worker path: ``repro_torch.launch.train.main`` with
    ``--virtual-workers 8`` on four slots of the card runs (a) static at
    p = 1, (b) 1 -> 4 -> 2, (c) p = 4 with a worker killed (detection
@@ -41,8 +52,9 @@ Phases, in order; any failure exits non-zero:
    ``repro_torch.launch.train.main`` at (p, mp) = (1, 2) through a
    stop-free scale-out to (2, 2); (b) an ``ElasticTrainer`` built directly
    and driven through ``reshape`` (the API the reference's cluster
-   executor calls): (4, 1) -> (2, 2) -> (1, 4), each switch stop-free, the
-   planner's bytes moved and kept recorded; (c) the same with
+   executor calls): (4, 1) -> (2, 2) -> (1, 4), each switch stop-free, its
+   record's bytes moved and kept equal to the planner's on the full-width
+   config; (c) the same with
    ``virtual_workers=8``, whose losses must equal phase 5's static run's
    bit for bit, step for step; (d) ``main`` with ``--virtual-workers 8
    --init-p 4 --schedule stop_resume_mp:2@5`` (checkpoint, tear down,
@@ -64,8 +76,9 @@ Phases, in order; any failure exits non-zero:
    kernel's outputs; ``du_part.sum(0)``, the one call that computes dk's
    du, is timed beside dk);
 8. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
-   ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, timing the
-   host-side init of its parameters; then the same trainer refits one batch
+   ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, staged with
+   its bytes copied as in phase 4, timing the host-side init of its
+   parameters; then the same trainer refits one batch
    four times, and its loss must fall at every step; a held-out batch's
    loss must stay above the tokens' entropy less a margin; and one slot
    shard's loss and gradients must be the same with remat on and off;
@@ -176,7 +189,10 @@ kernel launches layers x K times a step, and a prep warms one shard. Then
 print
 ``{"backward_pair": {...}}`` (the two backward kernels together against
 SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the
-serving path's record, the zoo's record, the card line, and last
+serving path's record, the zoo's record, the whole run's time,
+``{"fsdp": {...}}`` (the trainers checked at init, each phase's switches
+with their bytes copied behind the step, the planner's bytes and each
+slot's bytes after the switch), the card line, and last
 ``{"ok": true, "device": {...}}``.
 
 Peaks for the bounds are NVIDIA's published H100 SXM figures at 700 W.
@@ -271,6 +287,18 @@ ATT_CASES = [
 ]
 ATT_TOL = {"float32": {"fwd": 2e-5, "bwd": 1e-4},
            "bfloat16": {"fwd": 2e-2, "bwd": 2e-2}}
+# phase 3's cases past 2**31 elements: bf16 at D 128 and L 1024, MHA (H 32)
+# and starcoder2's 48:4, whose q holds 2.18e9 and 2.15e9 elements, so the
+# last batch rows start at element offsets that no 32-bit int reaches. The
+# plain versions' [B, H, L, L] scores do not fit beside them: each kernel is
+# held against its plain version on the last LARGE_ROWS batch rows alone,
+# the rows with the largest offsets.
+ATT_LARGE_CASES = [
+    ("large_mha", 520, 32, 32, 1024, 1024, 128, True, 0, None, "bfloat16"),
+    ("large_starcoder2", 342, 48, 4, 1024, 1024, 128, True, 0, None,
+     "bfloat16"),
+]
+LARGE_ROWS = 2
 # the forward and the backward pair run twice on these cases and must give
 # the same bits
 DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa", "zoo_phi3")
@@ -721,6 +749,130 @@ def check_attention(torch, ops):
     return timed, pair
 
 
+def attention_work(B, Hq, Hkv, Lq, Lk, D, esz, pairs) -> dict:
+    """(bytes: inputs read once + outputs written once, flops) of each
+    flash kernel on these inputs."""
+    n_qo = B * Hq * Lq * D * esz        # one [B,Hq,Lq,D] tensor
+    n_kv = B * Hkv * Lk * D * esz       # one [B,Hkv,Lk,D] tensor
+    n_row = B * Hq * Lq * 4             # lse or delta, fp32
+    return {"flash_attn_fwd": (2 * n_qo + 2 * n_kv + n_row, 4 * D * pairs),
+            "flash_attn_bwd_dq": (4 * n_qo + 2 * n_kv + 2 * n_row,
+                                  6 * D * pairs),
+            "flash_attn_bwd_dkdv": (2 * n_qo + 4 * n_kv + 2 * n_row,
+                                    8 * D * pairs)}
+
+
+def check_attention_large(torch, ops) -> dict:
+    """Phase 3's cases past 2**31 elements (``ATT_LARGE_CASES``): the
+    forward and the backward pair on the whole inputs, each output's last
+    ``LARGE_ROWS`` batch rows held against the plain versions on those
+    rows' inputs (the backward's on the kernels' own o, lse and delta, as
+    ``check_attention`` holds them); each kernel timed beside its bound
+    and ``F.scaled_dot_product_attention`` (null where SDPA's inputs and
+    graph do not fit beside the kernels'). Returns case: kernel: record."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (name, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len,
+         dname) in ATT_LARGE_CASES:
+        dtype = getattr(torch, dname)
+        kv_len = Lk if kv_len is None else kv_len
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=dtype)
+
+        q, do = rnd(B, Hq, Lq, D), rnd(B, Hq, Lq, D)
+        k, v = rnd(B, Hkv, Lk, D), rnd(B, Hkv, Lk, D)
+        opts = dict(causal=causal, window=window, scale=D ** -0.5,
+                    kv_len=kv_len)
+        o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
+        dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
+        dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
+        torch.cuda.synchronize()
+        r = slice(B - LARGE_ROWS, B)
+        o_p, lse_p = ops.flash_attn_fwd_plain(q[r], k[r], v[r], **opts)
+        dq_p, delta_p = ops.flash_attn_bwd_dq_plain(
+            q[r], k[r], v[r], o[r], lse[r], do[r], **opts)
+        dk_p, dv_p = ops.flash_attn_bwd_dkdv_plain(
+            q[r], k[r], v[r], lse[r], delta[r], do[r], **opts)
+        tol = ATT_TOL[dname]
+        errs = {"flash_attn_fwd": [excess(o[r], o_p, tol["fwd"]),
+                                   excess(lse[r], lse_p, tol["fwd"])],
+                "flash_attn_bwd_dq": [excess(dq[r], dq_p, tol["bwd"]),
+                                      excess(delta[r], delta_p, tol["bwd"])],
+                "flash_attn_bwd_dkdv": [excess(dk[r], dk_p, tol["bwd"]),
+                                        excess(dv[r], dv_p, tol["bwd"])]}
+        offset = (B - LARGE_ROWS) * Hq * Lq * D
+        records = out[name] = {}
+        for kname, pairs in errs.items():
+            t = tol["fwd" if kname == "flash_attn_fwd" else "bwd"]
+            err = max(e for e, _ in pairs)
+            ok = all(o_ for _, o_ in pairs)
+            print(f"  case {name:15s} {kname:20s} q {q.numel()} elements; "
+                  f"batch rows {B - LARGE_ROWS}.. (q offset {offset} on) "
+                  f"max_abs_err {err:.3e} tol {t:g} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{kname} disagrees with its plain version past 2**31 "
+                     f"elements in case {name}: max_abs_err {err:.3e}")
+            records[kname] = {"max_abs_err": err, "tolerance": t,
+                              "rows_held": [B - LARGE_ROWS, B],
+                              "q_elements": q.numel()}
+        del o_p, lse_p, dq_p, delta_p, dk_p, dv_p, dq, dk, dv
+        pairs = B * Hq * visible_pairs(torch, Lq, Lk, causal, window, kv_len)
+        work = attention_work(B, Hq, Hkv, Lq, Lk, D, q.element_size(), pairs)
+        kern = {
+            "flash_attn_fwd": lambda: ops.flash_attn_fwd_cuda(q, k, v,
+                                                              **opts),
+            "flash_attn_bwd_dq": lambda: ops.flash_attn_bwd_dq_cuda(
+                q, k, v, o, lse, do, **opts),
+            "flash_attn_bwd_dkdv": lambda: ops.flash_attn_bwd_dkdv_cuda(
+                q, k, v, lse, delta, do, **opts)}
+        for kname, fn in kern.items():
+            nbytes, flops = work[kname]
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            records[kname].update(
+                ms=cuda_ms(torch, fn, reps=3, warm=1), plain_ms=None,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                bytes=nbytes, flops=flops,
+                shape=dict(B=B, Hq=Hq, Hkv=Hkv, L=Lq, D=D, causal=causal,
+                           window=window, dtype=dname))
+        del o, lse, delta
+        lib = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None,
+               "flash_attn_bwd_dkdv": None}
+        try:
+            lib["flash_attn_fwd"] = cuda_ms(
+                torch, lambda: sdpa_call(torch, q, k, v, causal, window),
+                reps=3, warm=1)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            sdpa_out = sdpa_call(torch, ql, kl, vl, causal, window)
+            lib["flash_attn_bwd_dq"] = lib["flash_attn_bwd_dkdv"] = cuda_ms(
+                torch, lambda: torch.autograd.grad(
+                    sdpa_out, (ql, kl, vl), do, retain_graph=True),
+                reps=3, warm=1)
+            del sdpa_out, ql, kl, vl
+        except RuntimeError as e:   # out of memory beside the inputs
+            print(f"  case {name:15s} SDPA not timed: "
+                  f"{str(e).strip().splitlines()[0][:160]}", flush=True)
+        for kname, rec in records.items():
+            rec["library_ms"] = lib[kname]
+            lib_s = ("not timed" if lib[kname] is None
+                     else f"{lib[kname]:.1f} ms")
+            print(f"  case {name:15s} {kname:20s} {rec['ms']:.1f} ms, bound "
+                  f"{rec['bound_ms']:.2f} ms ({rec['bound_by']}), SDPA "
+                  f"{lib_s}; plain not timed (its scores do not fit)",
+                  flush=True)
+        del q, k, v, do
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def wkv_inputs(torch, B, L, H, hd, logw_kind, seed):
     """r, k, v, logw, u, s0, dy, dsT on the card, drawn on the CPU from a
     seeded generator."""
@@ -953,6 +1105,112 @@ def check_launches(name: str, launches: dict, warm: dict, kernels,
              f"{ {k: warm[k] for k in kernels} } (predicted {want_warm}), "
              f"per shard of a step {got} (predicted {per_shard})")
     return got
+
+
+def slot_boxes(torch, trainer, what: str) -> list:
+    """Fail unless each slot of ``trainer``'s state lies on the card and
+    holds exactly its boxes of the trainer's layout: every tensor of the
+    box's shape, on a storage no larger than itself (no slot keeps a view
+    of a larger tensor), so that the slot's state bytes are its boxes'
+    bytes. Returns each slot's bytes."""
+    from repro_torch.reshape import flatten_tree
+    layout = trainer.exec.layout
+    if len(trainer.state) != layout.n_devices:
+        fail(f"{what}: {len(trainer.state)} slot trees for the "
+             f"{layout.n_devices} slots of ({layout.dp}, {layout.mp})")
+    held = []
+    for i, slot in enumerate(trainer.state):
+        flat = flatten_tree(slot)
+        boxes = 0
+        for tl in layout.tensors:
+            x = flat[tl.path]
+            shape = tuple(hi - lo for lo, hi in tl.box(layout.dp, layout.mp,
+                                                       i))
+            boxes += math.prod(shape) * x.element_size()
+            if tuple(x.shape) != shape or not x.is_cuda or \
+                    x.untyped_storage().nbytes() > x.nbytes:
+                fail(f"{what}: slot {i}'s {tl.path} is {tuple(x.shape)} on "
+                     f"{x.device} on a storage of "
+                     f"{x.untyped_storage().nbytes()} bytes; its box is "
+                     f"{shape}")
+        got = sum(x.nbytes for x in flat.values())
+        if got != boxes:
+            fail(f"{what}: slot {i} holds {got} bytes, its boxes {boxes}")
+        held.append(got)
+    return held
+
+
+class SwitchWatch:
+    """While on, every ``ElasticTrainer`` built and every switch it
+    commits is checked with ``slot_boxes``, and each committed switch is
+    recorded: its bytes copied behind the step (``bytes_moved_overlapped``,
+    0 when the move ran in the stop), whether the move was staged, its
+    prep and stop, the planner's bytes moved and kept from the old layout
+    to the new, and each slot's state bytes after it. ``mark(name)``
+    starts a phase's list."""
+
+    def __init__(self, torch):
+        from repro_torch.core import elastic_runtime
+        from repro_torch.reshape import plan_reshard
+        self.phases: dict[str, list] = {}
+        self.current: list = []
+        self.inits = 0
+        cls = elastic_runtime.ElasticTrainer
+        init, commit = cls.__init__, cls._commit_switch
+        watch = self
+
+        def checked_init(trainer, *args, **kw):
+            init(trainer, *args, **kw)
+            slot_boxes(torch, trainer, f"{trainer.cfg.name} at init")
+            watch.inits += 1
+
+        def checked_commit(trainer):
+            src = trainer.exec.layout
+            rec = commit(trainer)
+            dst = trainer.exec.layout
+            plan = plan_reshard(src, dst)
+            held = slot_boxes(torch, trainer, f"{trainer.cfg.name} after "
+                              f"{rec.op}")
+            watch.current.append({
+                "arch": trainer.cfg.name, "op": rec.op,
+                "from": [src.dp, src.mp], "to": [dst.dp, dst.mp],
+                "bytes_copied_behind_step": rec.bytes_moved_overlapped,
+                "staged": rec.t_stage_end > 0.0,
+                "stage_s": rec.t_stage_end - rec.t_stage_start,
+                "prep_s": rec.prep_time, "stop_s": rec.stop_time,
+                "planner_bytes_moved": plan.bytes_moved,
+                "planner_bytes_kept": plan.bytes_kept,
+                "slot_bytes": held})
+            return rec
+
+        cls.__init__, cls._commit_switch = checked_init, checked_commit
+
+    def mark(self, name: str) -> list:
+        self.current = self.phases[name] = []
+        return self.current
+
+
+def scale_out_moves(phase: str, switches: list, n: int) -> list:
+    """Fail unless ``switches`` (a phase's ``SwitchWatch`` records) hold
+    ``n`` scale-outs, each staged behind the step with bytes copied and
+    stop-free; print them and return them."""
+    outs = [r for r in switches if r["op"] == "scale_out"]
+    for r in outs:
+        print(f"  {phase}: {r['arch']} scale_out {r['from']} -> {r['to']}: "
+              f"{r['bytes_copied_behind_step'] / 1e9:.3f} GB copied behind "
+              f"the step (staged {r['staged']}, {r['stage_s'] * 1e3:.1f} ms "
+              f"to issue), prep {r['prep_s']:.3f} s, stop "
+              f"{r['stop_s'] * 1e3:.2f} ms; the planner's "
+              f"{r['planner_bytes_moved'] / 1e9:.3f} GB moved, "
+              f"{r['planner_bytes_kept'] / 1e9:.3f} GB kept; slot bytes "
+              f"{[round(b / 1e9, 4) for b in r['slot_bytes']]} GB",
+              flush=True)
+    if len(outs) != n or not all(
+            r["staged"] and r["bytes_copied_behind_step"] > 0
+            and r["stop_s"] < r["prep_s"] for r in outs):
+        fail(f"{phase}: expected {n} scale-out(s), each staged behind the "
+             f"step with bytes copied and stop-free: {outs}")
+    return outs
 
 
 @contextlib.contextmanager
@@ -1204,6 +1462,19 @@ def run_reshape_path(torch, launches_of, kernels, per_shard: dict, *,
                                 "reshard_bytes_moved", "reshard_bytes_kept",
                                 "bytes_moved_overlapped")}
              for e in events]
+    # each reshape's record against the planner on the full-width config
+    from repro_torch.reshape import plan_reshard
+    from repro_torch.training.step import port_layout
+    cfg, opt = get_config(arch), adamw(1e-3)
+    for m in moves:
+        plan = plan_reshard(port_layout(cfg, opt, m["from_p"], m["from_mp"]),
+                            port_layout(cfg, opt, m["to_p"], m["to_mp"]))
+        m["planner_bytes_moved"] = plan.bytes_moved
+        m["planner_bytes_kept"] = plan.bytes_kept
+        if (m["reshard_bytes_moved"], m["reshard_bytes_kept"]) != (
+                plan.bytes_moved, plan.bytes_kept):
+            fail(f"{name}: the reshape's record {m} is not the planner's "
+                 f"{plan.bytes_moved} bytes moved, {plan.bytes_kept} kept")
     print(f"  ({name}) {init} -> " + " -> ".join(map(str, reshapes))
           + f": {steps} steps in {seconds:.2f} s, mean step {step_ms:.1f} ms"
           f" over the last {min(steps, 20)}, peak {peak_gib:.2f} GiB",
@@ -1460,7 +1731,8 @@ def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
 
         def held_loss():
             with torch.no_grad():
-                return float(M.loss_fn(cfg, t.state["params"], held_dev)[0])
+                return float(M.loss_fn(cfg, t.state[0]["params"],
+                                       held_dev)[0])
 
         held_before = held_loss()
         losses = []
@@ -1470,7 +1742,7 @@ def refit_and_hold_out(torch, arch: str, steps: int = 4) -> dict:
         held_after = held_loss()
         shard = {k: v[:MAIN_BATCH // 2] for k, v in held_dev.items()}
         outs = [loss_and_grads(dataclasses.replace(cfg, remat=remat),
-                               t.state["params"], shard)
+                               t.state[0]["params"], shard)
                 for remat in (True, False)]
         remat_err = max(
             float((b.float() - a.float()).norm() / a.float().norm())
@@ -2584,13 +2856,11 @@ def dry_run_against_the_card(torch, cfg, state, batch: dict, peak: float,
     from repro_torch.configs import InputShape
     from repro_torch.launch.dryrun import dryrun
     from repro_torch.models.params import tree_leaves
-    from repro_torch.training.step import model_shards
     t0 = time.monotonic()
     pred = dryrun(cfg, InputShape("zoo_train", ZOO_SEQ, ZOO_BATCH, "train"),
                   (1, 1), cost=False)
     seconds = time.monotonic() - t0
-    held = sum(t.nbytes for shard in model_shards(state)
-               for _, t in tree_leaves(shard))
+    held = sum(t.nbytes for slot in state for _, t in tree_leaves(slot))
     held += sum(v.size * (8 if v.dtype.kind in "iu" else v.itemsize)
                 for v in batch.values())
     gap = abs(pred["arg_bytes"] - held) / held
@@ -2649,7 +2919,8 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
     serve = None
     with t:
         if point == "fan_in" and mp == 1:
-            t.state["params"] = serve_probe().fan_in_scaled(t.state["params"])
+            t.state[0]["params"] = serve_probe().fan_in_scaled(
+                t.state[0]["params"])
         elif point == "fan_in":
             # rescale the whole matrices (a row shard's d_in is not the
             # matrix's), then lay them out again
@@ -2662,7 +2933,7 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
             del scaled
         if mp == 1 and serve_cfg.n_layers == cfg.n_layers:
             serve = zoo_serve(torch, launches_of, serve_cfg,
-                              t.state["params"], sum(init_s))
+                              t.state[0]["params"], sum(init_s))
         batch = t.dataset.read(0, ZOO_BATCH)
         batch.pop("sample_ids")
         # hand the warm-up's and the serving's cached blocks back, so that
@@ -3253,6 +3524,7 @@ def shape_record(r: dict) -> dict:
 
 
 def main() -> int:
+    t_run = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3283,23 +3555,35 @@ def main() -> int:
     print("[3/12] attention kernels against their plain versions", flush=True)
     timed, pair = check_attention(torch, aops)
     records = dict(timed[ATT_MAIN_CASE[0]])
+    print("[3/12] past 2**31 elements: " + ", ".join(
+        f"{c[0]} (B {c[1]}, H {c[2]}:{c[3]}, L {c[4]}, D {c[6]}, {c[10]})"
+        for c in ATT_LARGE_CASES), flush=True)
+    large = check_attention_large(torch, aops)
+
+    # from here on every trainer built and every switch committed is held
+    # to the FSDP layout on the card
+    watch = SwitchWatch(torch)
 
     edl = get_config("edl-paper")
     print("[4/12] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # forward, dq and dkdv once per layer and shard
     edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
+    watch.mark("4")
     paths = {"edl-paper": run_path(
         torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
+    scale_out_moves("phase 4", watch.phases["4"], 1)
 
     print("[5/12] edl_paper virtual-worker path: python -m "
           "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
+    watch.mark("5")
     vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
 
     print("[6/12] edl_paper model-parallel path on four slots of the card",
           flush=True)
+    watch.mark("6")
     mp = run_mp_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard,
                      paths["edl-paper"],
                      vw["runs"]["static"]["losses"][:VW_STEPS])
@@ -3319,16 +3603,20 @@ def main() -> int:
     rwkv_shard["wkv6_fwd"] = rwkv.n_layers * (2 if rwkv.remat else 1)
     # on fresh batches of noise tokens the loss rises from this init, in
     # the JAX trainer too: learning is checked by refit_and_hold_out
+    watch.mark("8")
     paths["rwkv6-1.6b"] = run_path(torch, LAUNCHES, train, RWKV_ARGS,
                                    wops.KERNELS, rwkv_shard,
                                    loss_must_fall=False)
+    scale_out_moves("phase 8", watch.phases["8"], 1)
     paths["rwkv6-1.6b"].update(refit_and_hold_out(torch, "rwkv6-1.6b"))
     print("[8/12] rwkv6 on the model axis: the WKV6 kernels on H/mp heads a "
           "slot shard", flush=True)
     t0 = time.monotonic()
+    watch.mark("8 (c)-(e)")
     rwkv_mp = run_rwkv_mp_path(torch, LAUNCHES, train, wops.KERNELS,
                                rwkv_shard)
     rwkv_mp["seconds"] = time.monotonic() - t0
+    scale_out_moves("phase 8 (c)", watch.phases["8 (c)-(e)"], 1)
 
     kernels = []
     for kernel_names, family, path in ((aops.KERNELS, ATT, "edl-paper"),
@@ -3381,6 +3669,7 @@ def main() -> int:
     print(f"[9/12] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
           f"ClusterExecutor with full-width edl_paper tenants, then "
           f"repro_torch.launch.cluster.main", flush=True)
+    watch.mark("9")
     cluster = run_cluster_path(torch, LAUNCHES, aops.KERNELS, edl_shard,
                                paths["edl-paper"]["mean_step_ms"])
     for entry in kernels:
@@ -3394,6 +3683,7 @@ def main() -> int:
     print("[10/12] the serving path: serve_batch at full width on one slot "
           "(edl_paper fp32, rwkv6-1.6b bf16), then a live serving tenant "
           "beside a trainer on four slots", flush=True)
+    watch.mark("10")
     serving = {arch: run_serve(torch, LAUNCHES, arch) for arch in SERVE_ARCHS}
     serving["tier"] = run_serving_tier(torch, LAUNCHES, aops.KERNELS,
                                        edl_shard)
@@ -3459,6 +3749,7 @@ def main() -> int:
     print(f"  {resident:.2f} GiB still allocated from the phases before",
           flush=True)
     t0 = time.monotonic()
+    watch.mark("11")
     zoo = {arch: run_zoo(torch, LAUNCHES, aops.KERNELS, arch)
            for arch in ZOO_ARCHS}
     zoo_s = time.monotonic() - t0
@@ -3480,6 +3771,14 @@ def main() -> int:
     print(f"  phase 11 (c) took {zoo_serve_mp_s:.1f} s", flush=True)
     for entry in kernels:
         if entry["name"] in aops.KERNELS:
+            entry["large_shapes"] = {
+                case: {**{k: r[k] for k in (
+                    "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "bytes", "flops", "library_ms", "shape",
+                    "rows_held", "q_elements")},
+                    "share_of_bound": r["bound_ms"] / r["ms"]}
+                for case, recs in large.items()
+                for r in (recs[entry["name"]],)}
             entry["zoo_shapes"] = {case: shape_record(timed[case][entry[
                 "name"]]) for case, *_ in ATT_ZOO_CASES}
             # each config's training run, counted from 0 just before it
@@ -3529,6 +3828,15 @@ def main() -> int:
                       "card": card}))
     print(json.dumps({"zoo_serving_model_parallel": zoo_serve_mp,
                       "seconds": zoo_serve_mp_s, "card": card}))
+    seconds = time.monotonic() - t_run
+    print(f"  the whole run took {seconds:.1f} s (the kernels' build "
+          f"included)", flush=True)
+    print(json.dumps({"fsdp": {
+        "layout": "training/step.py: port_layout, the reference's "
+                  "StateSpec.for_config at (p, mp)",
+        "trainers_checked_at_init": watch.inits,
+        "switches_by_phase": watch.phases,
+        "whole_run_s": seconds}, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,12 +14,14 @@ new card, allocator growth for the shape), in a background thread while the
 current handle keeps stepping. When it lands, the leader schedules the
 switch at mini-batch ``t_cur + k`` (k = ceil(T_allowance / T_batch),
 T_allowance = 500 ms — paper default); at that boundary the handle is
-swapped. Model shard m of the train state lives on slot m's device (the
-whole state on slot 0's at mp = 1). A data-axis switch moves a shard only
-when its slot's device changes (a failure hand-off that reorders the pool);
-a ``reshape(p, mp)`` moves the state along a ``reshape.plan_reshard`` plan
-(``reshape.apply_plan``). Either move is staged during the draining
-mini-batch on the devices' side streams, so the stop is the swap and the
+swapped. The train state is one tree per slot, slot i's boxes of every
+tensor on slot i's device, laid out FSDP-style over (p, mp) as the
+reference lays it out (``training.step.port_layout``). Every switch that
+changes the layout or the slots' devices (scale-out, scale-in, migrate,
+reshape, failure recovery) moves the state along a
+``reshape.plan_reshard`` plan from the old layout to the new
+(``reshape.apply_plan``), staged during the draining mini-batch on the
+devices' side streams, so the stop is the readiness wait, the swap and the
 bookkeeping. Scale-in (graceful exit) returns the exiting groups'
 partition remainders to the dynamic data pipeline.
 """
@@ -52,11 +54,10 @@ from repro_torch.models.model import param_spec_tree
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import Optimizer, adamw
 from repro_torch.parallel import model_dims
-from repro_torch.reshape import StateSpec, apply_plan, flatten_tree, \
-    place_state, plan_reshard, unflatten_tree
+from repro_torch.reshape import StateSpec, apply_plan, copied_bytes, \
+    flatten_tree, gather_state, place_state, plan_reshard, unflatten_tree
 from repro_torch.training.step import group_loss_and_grads, \
-    init_train_state, join_shards, make_train_step, model_shards, \
-    port_layout, split_tree
+    init_train_state, make_train_step, port_layout, split_tree
 
 TIME_ALLOWANCE_S = 0.5      # paper's T_a
 EXEC_CACHE_MAX = 8          # prepared topologies retained per job (LRU)
@@ -197,10 +198,11 @@ class ElasticTrainer:
 
         self.exec = self._build_exec(init_parallelism)
         gen = torch.Generator().manual_seed(seed)
-        state = init_train_state(cfg, self.optimizer, gen,
+        whole = init_train_state(cfg, self.optimizer, gen,
                                  self.devices[0].device)
-        self.state = join_shards(place_state(
-            self.exec.layout, state, self.exec.devices[:model_parallel]))
+        # one tree per slot, its boxes on its device
+        self.state = place_state(self.exec.layout, whole, self.exec.devices)
+        del whole
 
         self.step_idx = 0
         self.samples_seen = 0
@@ -565,8 +567,9 @@ class ElasticTrainer:
         commit the dead workers' data partitions return via
         ``pipeline.release(dead=True)`` (replay from the original offset)
         and the freed slots go to ``on_devices_released`` when ``release``
-        is set. A dead first group moves the train state's model shards to
-        the new first group's devices at the commit (the leader-kill path).
+        is set. At the commit the state moves onto the survivors' layout
+        along the planner, reading the dead groups' boxes too, as the
+        reference's ``device_put`` does (the leader-kill path included).
 
         Raises ``Busy`` while another operation is in flight (caller
         retries) and ``ValueError`` when no feasible survivor shape
@@ -680,8 +683,13 @@ class ElasticTrainer:
         return None
 
     def _home(self) -> torch.device:
-        """The device that holds model shard 0 of the train state."""
-        return tree_leaves(model_shards(self.state)[0])[0][1].device
+        """The device that holds slot 0's tree of the train state."""
+        return tree_leaves(self.state[0])[0][1].device
+
+    def whole_state(self, device="cpu") -> dict:
+        """The whole train state tree on ``device``, gathered from every
+        slot's boxes (a copy)."""
+        return gather_state(self.exec.layout, self.state, device)
 
     def _maybe_stage_switch(self):
         """Stage the state move when a ready switch commits at the current
@@ -694,34 +702,28 @@ class ElasticTrainer:
     def _state_for(self, handle: ExecHandle, record: ScalingRecord | None
                    ) -> tuple[object, int]:
         """The train state laid out for ``handle``, and the bytes the move
-        copies. A reshape goes through the planner (``record`` gets its
-        byte accounting) and ``apply_plan``; any other switch moves each
-        model shard whose slot's device changed, and hands the others over
-        as they are (the live state itself when none moves)."""
-        shards = model_shards(self.state)
-        homes = handle.devices[:handle.mp]
+        copies. The move follows the planner from the live layout to the
+        handle's (``apply_plan``): a box a slot already holds on its device
+        is handed over as it is, the rest is copied. A reshape's
+        ``record`` gets the plan's byte accounting, as the reference's. A
+        switch that changes neither the layout nor a slot's device hands
+        over the live state itself."""
+        src, dst = self.exec.layout, handle.layout
+        if src == dst and all(tree_leaves(s)[0][1].device == dev for s, dev
+                              in zip(self.state, handle.devices)):
+            return self.state, 0
+        rplan = plan_reshard(src, dst)
         if record is not None and record.op == "reshape":
-            src, dst = self.exec.layout, handle.layout
-            rplan = plan_reshard(src, dst)
             record.reshard_bytes_moved = rplan.bytes_moved
             record.reshard_bytes_kept = rplan.bytes_kept
-            flat = [flatten_tree(shards[i % src.mp])
-                    for i in range(src.n_devices)]
-            moved = [unflatten_tree(f) for f in apply_plan(rplan, flat, homes)]
-            return join_shards(moved), rplan.bytes_moved
-        moved, nbytes = [], 0
-        for shard, home in zip(shards, homes):
-            if tree_leaves(shard)[0][1].device != home:
-                nbytes += sum(t.numel() * t.element_size()
-                              for _, t in tree_leaves(shard))
-                shard = tree_map(lambda t: t.to(
-                    home, non_blocking=home.type == "cuda"), shard)
-            moved.append(shard)
-        return (join_shards(moved) if nbytes else self.state), nbytes
+        flat = [flatten_tree(s) for s in self.state]
+        moved = [unflatten_tree(f) for f in apply_plan(
+            rplan, flat, [torch.device(d) for d in handle.devices])]
+        return moved, copied_bytes(self.state, moved)
 
     def _state_devices(self, *states) -> list[torch.device]:
         return list(dict.fromkeys(t.device for state in states
-                                  for shard in model_shards(state)
+                                  for shard in state
                                   for _, t in tree_leaves(shard)))
 
     def _stage_switch(self, plan):
@@ -730,24 +732,23 @@ class ElasticTrainer:
         fresh buffers. The staged tensors are the double buffer: the live
         state keeps its own until the commit's pointer swap, so training is
         untouched if the commit never consumes the staging (it falls back
-        to the in-stop move). When no shard changes device and the switch
-        is not a reshape, nothing is copied and the staged state is the
-        live state."""
+        to the in-stop move). When neither the layout nor a slot's device
+        changes, nothing is copied and the staged state is the live
+        state."""
         if plan.staged_state is not None:
             return
         plan.record.t_stage_start = self.controller.clock()
         handle: ExecHandle = plan.exec_handle
-        devs = self._state_devices(self.state) + list(
-            handle.devices[:handle.mp])
+        devs = self._state_devices(self.state) + list(handle.devices)
         with self._on_side_streams(devs, after_main=True) as sides:
             staged, nbytes = self._state_for(handle, plan.record)
         if sides:
             side_of = {side.device: side for side in sides}
-            for shard in model_shards(self.state):
+            for shard in self.state:
                 for _, t in tree_leaves(shard):
                     if t.is_cuda:       # read on the side stream
                         t.record_stream(side_of[t.device])
-            for shard in model_shards(staged):
+            for shard in staged:
                 for _, t in tree_leaves(shard):
                     if t.is_cuda:       # used on the stepping stream
                         t.record_stream(torch.cuda.current_stream(t.device))
@@ -778,7 +779,7 @@ class ElasticTrainer:
                 self.leader_id = self.election.elect().leader_id
         while len(self.worker_ids) < handle.p:
             self._add_worker()
-        # model broadcast: model shard m lives on slot m's device
+        # the state's move onto the new layout
         if plan.staged_state is not None and plan.staged_from is self.state:
             if plan.staged_state is not self.state:
                 # the staged move: wait on the side streams only

@@ -20,7 +20,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.cache import init_cache, init_cache_shards
 from repro_torch.parallel import ShardedParams, model_dims
-from repro_torch.training.step import model_shards
+from repro_torch.training.step import gather_group
 
 
 def make_decode_fn(cfg):
@@ -40,12 +40,15 @@ def make_decode_fn(cfg):
 
 def trainer_params(trainer) -> ShardedParams:
     """The params of an ``ElasticTrainer``'s state as a ``ShardedParams``
-    over the model axis of its first data group, where the state's model
-    shards live: a tenant trained at (p, mp) serves at (1, mp) from them,
-    no copy made."""
+    over the model axis of its first data group: a tenant trained at
+    (p, mp) serves at (1, mp). Each model shard is gathered over the data
+    axis onto its slot of the first group, a copy where p > 1 (at p = 1
+    the slots' own tensors, no copy)."""
     ex = trainer.exec
-    return ShardedParams([s["params"] for s in model_shards(trainer.state)],
-                         model_dims(ex.layout), tuple(ex.devices[:ex.mp]))
+    group = tuple(ex.devices[:ex.mp])
+    return ShardedParams(
+        gather_group(ex.layout, [s["params"] for s in trainer.state], 0,
+                     group), model_dims(ex.layout), group)
 
 
 def serve_batch(cfg, params, prompts: torch.Tensor, gen_len: int, *,

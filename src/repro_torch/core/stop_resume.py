@@ -15,7 +15,8 @@ rescale baseline (the approach EDL replaces, §2.2).
 The npz holds whole arrays, whatever the writer's ``(dp, mp)``, so files
 stay interchangeable with the JAX package; the writer's layout rides along
 as its ``StateSpec``, and a restore onto another shape is planned from it
-(``meta["reshard"]``) before the arrays land on the trainer's model shards.
+(``meta["reshard"]``) before the arrays land on the trainer's slots, each
+slot its boxes.
 """
 from __future__ import annotations
 
@@ -27,10 +28,9 @@ import torch
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.scaling import Busy, Phase, ScalingRecord
-from repro_torch.reshape import StateSpec, flatten_tree, gather_state, \
-    place_state, plan_reshard
-from repro_torch.training.step import join_shards, model_shards, \
-    state_shapes
+from repro_torch.reshape import StateSpec, flatten_tree, place_state, \
+    plan_reshard
+from repro_torch.training.step import state_shapes
 
 
 def checkpoint_save(trainer, checkpoint_dir: str) -> None:
@@ -40,9 +40,9 @@ def checkpoint_save(trainer, checkpoint_dir: str) -> None:
     in-flight partition assignment back into the returned-work queue, so a
     restore resumes exactly-once data consumption. The metadata also
     records the writer's parallelization: ``(p, mp)`` plus its
-    ``StateSpec``; the arrays are written whole, gathered from the model
-    shards. Read-only with respect to the trainer."""
-    state = gather_state(trainer.exec.layout, model_shards(trainer.state))
+    ``StateSpec``; the arrays are written whole, gathered from every
+    slot's boxes. Read-only with respect to the trainer."""
+    state = trainer.whole_state()
     save_checkpoint(
         checkpoint_dir, state, step=trainer.step_idx,
         pipeline_state=trainer.pipeline.state_dict(),
@@ -98,7 +98,7 @@ def resume_from_checkpoint(trainer, checkpoint_dir: str) -> dict:
     this trainer's state tree (shapes and dtypes). A recorded spec plans
     the restore as a reshard from the writer's ``(dp, mp)`` onto the
     trainer's, reported under ``meta["reshard"]``; the whole arrays then
-    land on the trainer's model shards. Restores the data pipeline's progress and the step / sample counters,
+    land on the trainer's slots, each slot its boxes. Restores the data pipeline's progress and the step / sample counters,
     and invalidates the worker iterators' local buffers so the first draw
     after the resume fetches fresh assignments from the restored
     pipeline."""
@@ -129,9 +129,8 @@ def resume_from_checkpoint(trainer, checkpoint_dir: str) -> dict:
                           {t.path: t.shape for t in spec.tensors},
                           "checkpoint's state_spec")
         meta["reshard"] = plan_reshard(spec, layout).summary()
-    homes = trainer.exec.devices[:layout.mp]
-    trainer.state = join_shards(place_state(layout, restored, homes))
-    for dev in dict.fromkeys(homes):
+    trainer.state = place_state(layout, restored, trainer.exec.devices)
+    for dev in dict.fromkeys(trainer.exec.devices):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     trainer.pipeline.load_state_dict(meta["pipeline"])

@@ -295,12 +295,13 @@ def _check(q, k, v, window: int, kv_len: int):
         if D not in CUDA_HEAD_DIMS:
             raise RefusedValue(f"the CUDA kernels take head_dim in "
                                f"{CUDA_HEAD_DIMS}, not {D}")
-        if max(q.numel(), k.numel()) >= 2 ** 31:
-            raise RefusedValue(f"tensor too large for the kernels' int "
-                               f"offsets: q {tuple(q.shape)}, k "
-                               f"{tuple(k.shape)}, "
-                               f"{max(q.numel(), k.numel())} elements, the "
-                               f"limit 2**31")
+        # the kernels' element offsets are 64-bit, so a tensor may pass
+        # 2**31 elements; the grid is (B H, tiles of 64 rows), whose y
+        # extent CUDA caps at 65535
+        if B * Hq >= 2 ** 31 or max(Lq, k.shape[2]) > 65535 * 64:
+            raise RefusedValue(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
+                               f"exceed the kernels' grid: B H < 2**31 and "
+                               f"L <= {65535 * 64}")
     elif q.device.type == "cpu":
         if q.dtype not in _CPU_DTYPES:
             raise TypeError(f"unsupported dtype {q.dtype}")

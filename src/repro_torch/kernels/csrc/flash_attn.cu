@@ -16,6 +16,11 @@
 // skips whole blocks. The forward also writes lse = m + log(l), fp32, for the
 // backward, which recomputes P = exp(s - lse).
 //
+// Offsets: every element offset into a global tensor is formed in size_t
+// from a (batch, head) row (q_off, kv_off, the lse and delta rows, a row of
+// a tile), so q, k and v may hold 2^31 elements or more; the int values are
+// the dims themselves and the indices inside one tile.
+//
 // What bounds the forward on an H100: at the trainer's shapes (D = 64,
 // L = 1024, causal, fp32) attention does ~130 (forward, dQ) to ~170 (dK/dV)
 // flops per byte it must move, far above the fp32 ridge of 67 TFLOP/s over

@@ -5,11 +5,17 @@ Counterpart of the reference's ``launch/dryrun.py``. For one (architecture
 x input shape x layout ``(p, mp)``):
 
   A. One data group's state on ``meta``: ``training/step.py:
-     state_shapes`` (the params alone to serve) split by ``port_layout``
-     over the group's mp slots, and the group's batch, ``global_batch /
-     p`` (at least 1). Then the full config's real step runs, at full
-     width and depth: ``make_train_step`` for train, ``prefill`` for
-     prefill, ``serve_step`` against a cache split by ``cache_dims``
+     state_shapes`` laid out by ``port_layout`` at (p, mp), each of the
+     group's mp slots holding its boxes (FSDP over the data axis, split
+     over the model axis), or, to serve, the params split over the model
+     axis alone (whole over the data axis, as ``core/serving.py:
+     trainer_params`` gathers them); and the group's batch,
+     ``global_batch / p`` (at least 1). Then the full config's real step
+     runs, at full width and depth: for train, the group's share of the
+     default step (``group_train_step``: the all-gather of its params over
+     the data axis, forward and backward, the reduce-scatter of its
+     gradients and its slots' update), ``prefill`` for prefill,
+     ``serve_step`` against a cache split by ``cache_dims``
      (``init_cache_shards``) for decode. So every tensor-parallel shape
      of the step has to cohere, and every kernel's wrapper applies the
      CUDA path's checks (``kernels/*/ops.py``): a limit it hits ends the
@@ -21,7 +27,9 @@ x input shape x layout ``(p, mp)``):
      bytes of every aten op's operands and results (views and empty
      allocations aside: an unfused upper bound, each op reading and
      writing memory as if nothing were fused or cached), plus the
-     kernels'; the bytes the collectives send (``parallel.COLLECTIVES``).
+     kernels'; the bytes the collectives send (``parallel.COLLECTIVES``),
+     the data axis's (``all_gather_data``, ``reduce_scatter_data``) apart
+     from the model axis's.
      Eager mode runs every layer, so the counts need no depth
      extrapolation (the reference's XLA counts a loop body once).
 
@@ -38,7 +46,11 @@ and copies the tokens out inside the step). The batch is counted as the
 caller hands it in: int32 ids, as the reference's ``input_specs``, and
 fp32 embeddings, as the port's data pipeline gives them (the reference's
 specs say bf16). ``collective_bytes_per_slot``
-is the most any slot sends.
+is the most any slot sends, ``data_collective_bytes_per_slot`` the most
+it sends over the data axis. The model axis's bytes are priced at
+``mesh.NVLINK_BW``; the data axis's at ``mesh.data_link_bw(p, mp)``
+(``data_link``): NVLink while the layout fits one node, else one
+InfiniBand port a card.
 
 Record keys. Those of the reference where the meaning is the same
 (``arch``, ``shape``, ``status``, ``mesh``, ``mode``, ``arg_bytes``,
@@ -55,7 +67,8 @@ the step holds beyond its arguments, its outputs included as they are
 made (XLA's excludes them), so ``per_device_bytes`` = ``arg_bytes`` +
 ``temp_bytes`` is the slot's peak; ``fits`` compares it with
 ``mesh.HBM_BYTES``. New: ``group_batch``, ``group_temp_bytes``,
-``kernel_flops`` and ``kernel_bytes`` by kernel.
+``kernel_flops`` and ``kernel_bytes`` by kernel,
+``data_collective_bytes_per_slot`` and ``data_link``.
 
 The times are the port's arithmetic on the datasheet constants of
 ``launch/mesh.py`` (an ``H100 SXM5 80GB``), not measurements. The
@@ -95,10 +108,14 @@ from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.parallel import COLLECTIVES, ShardedParams, model_dims, \
     placing
-from repro_torch.training.step import join_shards, make_train_step, \
-    port_layout, split_tree, state_shapes
+from repro_torch.reshape import place_state
+from repro_torch.training.step import apply_update, gather_group, \
+    group_loss_and_grads, port_layout, scatter_group, shard_batch, \
+    split_tree, state_shapes
 
 META = torch.device("meta")
+# the data axis's collectives (``parallel.py``)
+DATA_AXIS = ("all_gather_data", "reduce_scatter_data")
 # allocations that write nothing: no bytes moved
 _EMPTY = {"empty", "empty_like", "empty_strided", "new_empty",
           "new_empty_strided"}
@@ -210,6 +227,27 @@ def _split(tree: dict, dims: dict, mp: int) -> list[dict]:
             for shard in split_tree(tree, dims, [META] * mp)]
 
 
+def group_train_step(cfg, optimizer, layout, slots: list[dict],
+                     batch: dict):
+    """Data group 0's share of the default train step
+    (``training/step.py: make_train_step``) at ``layout``'s (p, mp) on
+    ``meta``: ``slots`` are its mp slots' trees, and the gather, forward
+    and backward, reduce-scatter and update run as the step runs them for
+    one group. The boxes and the gradients of the other p - 1 groups,
+    which the two collectives read, are stand-ins of the same shapes: the
+    group's own, copied onto its slots as the real ones are."""
+    p, mp = layout.dp, layout.mp
+    devices = [META] * mp
+    (shard,) = shard_batch(batch, 1, devices[:1])
+    loss, parts, grads = group_loss_and_grads(
+        cfg, gather_group(layout, [s["params"] for s in slots] * p, 0,
+                          devices), model_dims(layout), devices, shard)
+    boxes = [tree_map(lambda g: g / p, box)
+             for box in scatter_group(layout, [grads] * p, 0, devices)]
+    return apply_update(optimizer, slots, boxes, layout, loss,
+                        parts["xent"], parts["aux"], slots=range(mp))
+
+
 def _prepare(cfg, shape: InputShape, p: int, mp: int):
     """The group's step on ``meta`` as a thunk, what each slot holds
     before it ({slot: [tensors]}) and the group's batch."""
@@ -228,13 +266,14 @@ def _prepare(cfg, shape: InputShape, p: int, mp: int):
     held = {m: [] for m in range(mp)}
     held[0] += list(specs.values())
     if shape.mode == "train":
-        shards = _split(_meta_tree(state_shapes(cfg, optimizer)),
-                        model_dims(layout, prefix=""), mp)
-        for m, shard in enumerate(shards):
-            held[m] += [t for _, t in tree_leaves(shard)]
-        state = join_shards(shards)
-        step = make_train_step(cfg, optimizer, devices, mp=mp)
-        return (lambda: step(state, specs)), held, group_batch
+        # group 0's slots' boxes, each a tensor of its own (a replicated
+        # leaf too, as each card holds its copy)
+        slots = [tree_map(torch.clone, s) for s in place_state(
+            layout, _meta_tree(state_shapes(cfg, optimizer)), devices)]
+        for m, tree in enumerate(slots):
+            held[m] += [t for _, t in tree_leaves(tree)]
+        return (lambda: group_train_step(cfg, optimizer, layout, slots,
+                                         specs)), held, group_batch
     dims = model_dims(layout)
     sp = ShardedParams(_split(_meta_tree(state_shapes(cfg, optimizer)[
         "params"]), dims, mp), dims, tuple(devices))
@@ -266,8 +305,7 @@ def _output_bytes(out) -> int:
         return ids.nbytes + _nbytes(t for _, t in tree_leaves(cache.trees[0]))
     if isinstance(out, tuple):
         state, metrics = out
-        first = state[0] if isinstance(state, list) else state
-        return _nbytes(t for _, t in tree_leaves(first)) + _nbytes(
+        return _nbytes(t for _, t in tree_leaves(state[0])) + _nbytes(
             metrics.values())
     return out.nbytes
 
@@ -309,10 +347,12 @@ def dryrun(cfg, shape: InputShape, layout: tuple[int, int], *,
     if not cost:
         return rec
     kernels = COSTS.snapshot()
-    sent = [0] * mp
+    sent, data_sent = [0] * mp, [0] * mp
     breakdown: dict[str, int] = {}
     for (kind, slot), n in COLLECTIVES.snapshot().items():
         sent[slot] += n
+        if kind in DATA_AXIS:
+            data_sent[slot] += n
         breakdown[kind] = breakdown.get(kind, 0) + n
     f_slot, b_slot = list(meter.flops), list(meter.bytes)
     for slot, (f, b) in kernels["by_slot"].items():
@@ -322,9 +362,11 @@ def dryrun(cfg, shape: InputShape, layout: tuple[int, int], *,
     if group_flops != sum(f_slot):
         raise RuntimeError(f"the slots' flops {sum(f_slot)} are not the "
                            f"step's {group_flops}")
+    data_bw = H.data_link_bw(p, mp)
     t = {"compute": max(f_slot) / H.PEAK_FLOPS[cfg.compute_dtype],
          "memory": max(b_slot) / H.HBM_BW,
-         "collective": max(sent) / H.NVLINK_BW}
+         "collective": max((n - dn) / H.NVLINK_BW + dn / data_bw
+                           for n, dn in zip(sent, data_sent))}
     active = cfg.active_param_count()
     tokens = shape.global_batch * (shape.seq_len if shape.mode != "decode"
                                    else 1)
@@ -334,6 +376,8 @@ def dryrun(cfg, shape: InputShape, layout: tuple[int, int], *,
         "bytes_per_slot": max(b_slot), "bytes_by_slot": b_slot,
         "collective_bytes_per_slot": max(sent),
         "collective_bytes_by_slot": sent,
+        "data_collective_bytes_per_slot": max(data_sent),
+        "data_link": "nvlink" if data_bw == H.NVLINK_BW else "infiniband",
         "collective_breakdown": breakdown,
         "kernel_flops": {k: n for k, n in kernels["flops"].items() if n},
         "kernel_bytes": {k: n for k, n in kernels["bytes"].items() if n},

@@ -17,8 +17,18 @@ HBM_BW = 3.35e12                # bytes/s a card (HBM3)
 HBM_BYTES = 80e9                # bytes a card
 NVLINK_BW = 450e9               # bytes/s a card, one direction (NVLink 4)
 NODE_CARDS = 8                  # cards joined all to all by NVLink
+IB_BW = 50e9                    # bytes/s a card, one direction: one 400
+#                                 Gb/s NDR InfiniBand port a card, between
+#                                 nodes (DGX H100)
 
 PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float32": PEAK_FLOPS_FP32}
+
+
+def data_link_bw(p: int, mp: int) -> float:
+    """Bytes/s a card of the link the data axis crosses at ``(p, mp)``:
+    NVLink while the p * mp cards fit one node, else InfiniBand (each
+    data group's mp cards sit in one node, its data peers in others)."""
+    return NVLINK_BW if p * mp <= NODE_CARDS else IB_BW
 
 
 def production_layout() -> tuple[int, int]:

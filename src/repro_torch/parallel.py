@@ -19,6 +19,15 @@ and a "collective" is a sum taken in a fixed order; across cards it is
     concatenated in shard order onto ``device`` (the vocab-parallel
     logits of prefill and decode).
 
+The data axis's two, over the p slots that hold one model shard's boxes
+(slot ``(d, m)`` for d = 0 .. p - 1), are plain copies and sums outside
+autograd (the step calls them on detached parameters and on gradients):
+
+  * ``all_gather_data(boxes, d, dim, device, slot)`` — a leaf's p data
+    boxes concatenated in data order onto data group d's slot;
+  * ``reduce_scatter_data(parts, d, dim, device, slot)`` — box d of the
+    sum over the data groups, in group order, of their gradients.
+
 The first two take and give gradients in one autograd node, so a tensor
 used on several devices never has its gradients accumulated in arrival
 order (autograd runs one worker thread per device, and arrival order can
@@ -26,7 +35,9 @@ differ from run to run): the sums are the same bits on every rerun.
 
 ``COLLECTIVES`` counts the bytes each of these sends, and those that
 ``ShardedParams.whole`` gathers, forward and backward, by the index of the
-slot in its group that sends them (``devices[m]`` is slot m; the tensor a
+slot in its group that sends them (the data axis's two under
+``all_gather_data`` and ``reduce_scatter_data``: slot (g, m) sends as
+index m) (``devices[m]`` is slot m; the tensor a
 ``copy_to_model`` copies out and the sums ``reduce_from_model`` and
 ``gather_from_model`` form lie on slot 0). The index, not the device,
 names the sender: on one card the copies are views and nothing moves, and
@@ -201,6 +212,43 @@ def gather_from_model(parts, device, dim: int = -1) -> torch.Tensor:
                       for m, p in enumerate(parts)], dim=dim)
 
 
+def all_gather_data(boxes, d: int, dim: int, device, slot: int
+                    ) -> torch.Tensor:
+    """One leaf of model shard ``slot`` whole over the data axis, on
+    ``device``, data group ``d``'s slot: ``boxes[g]``, slot (g, slot)'s
+    box, concatenated in g order along ``dim``. The boxes of the other
+    groups are counted as sent."""
+    parts = []
+    for g, box in enumerate(boxes):
+        if g != d:
+            COLLECTIVES.add("all_gather_data", slot, box.nbytes)
+        if g != d or box.device != torch.device(device):
+            box = _move(box, device, slot)
+        parts.append(box)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_data(parts, d: int, dim: int | None, device, slot: int
+                        ) -> torch.Tensor:
+    """Box ``d`` of a leaf's gradient summed over the data axis, on
+    ``device``: ``parts[g]`` is data group g's gradient of model shard
+    ``slot``'s leaf, and each gives its d-th of p equal slices along
+    ``dim`` (its whole where ``dim`` is None), summed in g order. The
+    slices of the other groups are counted as sent."""
+    p = len(parts)
+    acc = None
+    for g, x in enumerate(parts):
+        if dim is not None:
+            size = x.shape[dim] // p
+            x = x.narrow(dim, d * size, size)
+        if g != d:
+            COLLECTIVES.add("reduce_scatter_data", slot, x.nbytes)
+        if g != d or x.device != torch.device(device):
+            x = _move(x, device, slot)
+        acc = x if acc is None else acc + x
+    return acc
+
+
 def whole_cache(cache: "ShardedParams | None"):
     """The one tree of a cache that a form running whole reads and writes
     in place: its first slot's, which must hold every leaf whole."""
@@ -213,15 +261,26 @@ def whole_cache(cache: "ShardedParams | None"):
     return cache.trees[0]
 
 
-def model_dims(layout, prefix: str = "params/") -> dict:
+def axis_dims(layout, axis: str, prefix: str = "params/") -> dict:
     """The tree of the dim each leaf under ``prefix`` is split along over
-    the model axis in ``layout`` (a ``StateSpec``), ``None`` where it is
-    replicated — or where the split is one way (mp = 1)."""
+    ``axis`` (``"model"`` or ``"data"``) in ``layout`` (a ``StateSpec``),
+    ``None`` where it is replicated — or where the split is one way."""
+    ways = layout.mp if axis == "model" else layout.dp
     return tree_unflatten(
         (t.path[len(prefix):],
-         next((i for i, a in enumerate(t.axes) if a == "model"), None)
-         if layout.mp > 1 else None)
+         next((i for i, a in enumerate(t.axes) if a == axis), None)
+         if ways > 1 else None)
         for t in layout.tensors if t.path.startswith(prefix))
+
+
+def model_dims(layout, prefix: str = "params/") -> dict:
+    """``axis_dims`` over the model axis."""
+    return axis_dims(layout, "model", prefix)
+
+
+def data_dims(layout, prefix: str = "params/") -> dict:
+    """``axis_dims`` over the data axis."""
+    return axis_dims(layout, "data", prefix)
 
 
 @dataclasses.dataclass

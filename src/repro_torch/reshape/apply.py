@@ -8,16 +8,19 @@ Two of them, sharing the StateSpec box arithmetic:
     needs no device.
 
   * ``apply_plan(plan, shards, devices)`` — the LIVE path on torch tensors:
-    ``ElasticTrainer.reshape`` commits a topology switch by moving the
+    every ``ElasticTrainer`` switch that changes the layout or the slots
+    (a resize, a migration, a reshape, a recovery) commits by moving the
     per-slot shards of the train state onto the destination slots' devices,
     tensor by tensor. Each destination box is taken from the source shards
     in the cheapest way the boxes allow: a ``keep`` move hands over the
-    same tensor (no copy on the same device), a ``slice`` takes a view of
-    the one source shard that contains the box, and ``allgather`` and
-    ``reshard`` fill the box from the source boxes that overlap it, in box
-    order — which is the box of the global assembly, without assembling
-    it. ``place_state`` and ``gather_state`` are the same executor from and
-    to whole tensors (a restore from a checkpoint, a checkpoint save).
+    same tensor (no copy on the same device), a ``slice`` copies the box
+    out of the one source shard that contains it (a tensor of its own, so
+    the source's storage can go), and ``allgather`` and ``reshard`` fill
+    the box from the source boxes that overlap it, in box order — which is
+    the box of the global assembly, without assembling it.
+    ``copied_bytes`` counts what a move really copied. ``place_state``
+    and ``gather_state`` are the same executor from and to whole tensors
+    (a restore from a checkpoint, a checkpoint save).
 """
 from __future__ import annotations
 
@@ -107,12 +110,13 @@ def _take(layout: TensorLayout, spec: StateSpec, shards: list[dict], box,
                            shards[j][layout.path])
     if box in holders:                                      # keep
         return holders[box].to(device)
-    for held, t in holders.items():
-        if _intersect(held, box) == box:                    # slice
-            return t[_box_slices(box, held)].to(device).contiguous()
     ref = next(iter(holders.values()))
     out = torch.empty([hi - lo for lo, hi in box], dtype=ref.dtype,
                       device=device)
+    for held, t in holders.items():
+        if _intersect(held, box) == box:                    # slice
+            out.copy_(t[_box_slices(box, held)])
+            return out
     filled = 0
     for held, t in holders.items():                # allgather, reshard
         part = _intersect(held, box)
@@ -130,9 +134,8 @@ def apply_plan(plan: ReshardPlan, shards: list[dict], devices
     """Live executor: move per-slot shard dicts (``{path: tensor}``, one per
     slot of ``plan.src``) to the layout of ``plan.dst``. ``devices`` are the
     devices of the destination slots to fill, the first ``len(devices)`` of
-    ``plan.dst``'s (the port's trainer keeps the model shards of its first
-    data group: the data axis is replicated). The plan has validated the
-    collection; its moves carry the byte accounting the scaling record
+    ``plan.dst``'s (a trainer fills all of them). The plan has validated
+    the collection; its moves carry the byte accounting the scaling record
     reports."""
     if len(shards) != plan.src.n_devices:
         raise ValueError(f"got {len(shards)} shard dicts for a "
@@ -159,7 +162,8 @@ def _whole(spec: StateSpec) -> StateSpec:
 
 def place_state(spec: StateSpec, state: dict, devices) -> list[dict]:
     """A whole state tree of tensors as the shard trees of the first
-    ``len(devices)`` slots of ``spec``, each on its device."""
+    ``len(devices)`` slots of ``spec`` (a trainer's: all of them), each on
+    its device."""
     plan = plan_reshard(_whole(spec), spec)
     return [unflatten_tree(s) for s in
             apply_plan(plan, [flatten_tree(state)], devices)]
@@ -167,10 +171,18 @@ def place_state(spec: StateSpec, state: dict, devices) -> list[dict]:
 
 def gather_state(spec: StateSpec, shards: list[dict],
                  device="cpu") -> dict:
-    """The whole state tree on ``device`` from the shard trees of the
-    first ``spec.mp`` slots of ``spec`` (the model shards of one data
-    group, which hold every box of a data-replicated layout)."""
-    flat = [flatten_tree(shards[i % len(shards)])
-            for i in range(spec.n_devices)]
+    """The whole state tree on ``device`` from the shard trees of every
+    slot of ``spec``, each box read from a slot that holds it."""
     plan = plan_reshard(spec, _whole(spec))
-    return unflatten_tree(apply_plan(plan, flat, [device])[0])
+    return unflatten_tree(apply_plan(
+        plan, [flatten_tree(s) for s in shards], [device])[0])
+
+
+def copied_bytes(src: list[dict], dst: list[dict]) -> int:
+    """The bytes of the tensors of the shard trees ``dst`` that lie on no
+    storage of ``src``'s: what a move from ``src`` to ``dst`` copied."""
+    def leaves(shards):
+        return [t for s in shards for t in flatten_tree(s).values()]
+    held = {t.untyped_storage().data_ptr() for t in leaves(src)}
+    return sum(t.nbytes for t in leaves(dst)
+               if t.untyped_storage().data_ptr() not in held)

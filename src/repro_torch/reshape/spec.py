@@ -11,10 +11,9 @@ checkpoint written by the JAX package carries its spec in the same JSON.
 Devices are addressed by their *linear mesh index* ``d * mp + m``.
 
 ``for_config`` is the reference's layout rule exactly, so plans made from
-configs match the JAX package's. The port keeps the data axis replicated:
-its trainer's layout (``for_trainer``) is that rule with every ``"data"``
-entry replaced by ``None`` (``data_replicated``), and the model entries
-are the same.
+configs match the JAX package's, and it is the port's trainer's layout
+(``for_trainer``), data axis included: every weight and both AdamW
+moments are split over the data axis where the rules say so (FSDP).
 """
 from __future__ import annotations
 
@@ -163,15 +162,6 @@ class StateSpec:
             specs["opt"]["nu"] = params
         shapes = tree_map(lambda sd: sd[0], state_shapes(cfg, optimizer))
         return cls.from_shardings(dp, mp, specs, shapes)
-
-    def data_replicated(self) -> "StateSpec":
-        """This layout with the data axis replicated: every ``"data"`` entry
-        becomes ``None``, the model entries stay. The port's trainer keeps
-        this layout."""
-        return dataclasses.replace(self, tensors=tuple(
-            dataclasses.replace(t, axes=tuple(None if a == "data" else a
-                                              for a in t.axes))
-            for t in self.tensors))
 
     @classmethod
     def for_trainer(cls, trainer) -> "StateSpec":

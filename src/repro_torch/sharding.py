@@ -16,10 +16,9 @@ from __future__ import annotations
 from typing import Any, Mapping, Sequence
 
 # Logical axis -> tuple of mesh axes (tried in order; dropped if not
-# divisible). ``embed`` shards weights over the data axis (FSDP) in the
-# reference; the port keeps the data axis replicated (``StateSpec``'s
-# ``data_replicated``). ``heads``, ``kv_heads``, ``mlp`` and ``vocab`` go
-# on the model axis.
+# divisible). ``embed`` and ``fsdp2`` shard weights over the data axis
+# (FSDP), in the reference and the port alike; ``heads``, ``kv_heads``,
+# ``mlp`` and ``vocab`` go on the model axis.
 DEFAULT_RULES: dict[str | None, tuple[str, ...]] = {
     # activations
     "batch": ("pod", "data"),

@@ -1,39 +1,46 @@
 """Train state and the two train steps.
 
 TrainState = {"params": tree, "opt": {"count", "mu"[, "nu"]}, "step": i32},
-the reference's tree. At model-parallel degree mp > 1 the state is a list
-of mp such trees, one per model shard, laid out by the port's
-``StateSpec`` (``port_layout``: the reference's rules with the data axis
-replicated): shard m holds its box of every tensor (the whole of a
-replicated one) and lives on slot m's device. At mp = 1 it is the one tree,
-on slot 0's device. ``model_shards`` and ``join_shards`` convert.
+the reference's tree. A trainer's state is a list of p * mp such trees,
+one per slot, laid out by ``port_layout``: the reference's ``StateSpec``,
+data axis included. Slot ``d * mp + m`` holds its box of every tensor, in
+``reshape.shard_state``'s order, on the step's ``devices[d * mp + m]``: a
+weight and both its AdamW moments split 1/p over the data axis (FSDP,
+ZeRO-3 style) and 1/mp over the model axis where the rules say so, and a
+leaf the rules replicate (the scalars among them) whole on every slot.
+``reshape.gather_state`` gives the whole tree.
 
 Slot ``d * mp + m`` of the step's devices holds data shard d and model
 shard m; slots ``d * mp .. d * mp + mp - 1`` are data group d.
 
   * ``make_train_step(cfg, opt, devices, mp=M)`` — the default step: the
     global batch splits into p = len(devices) / mp equal shards, one per
-    data group; each group runs forward and backward on its slots' devices
-    against its replica of the params — tensor-parallel over its mp slots
-    (``models.model.loss_fn_tp``); the gradients are summed in
-    fixed group order onto each model shard's device and divided by p, and
-    the optimizer update runs shard by shard. Because the global batch is
-    constant, the step computes the same math at every (p, mp), up to fp32
-    summation order (the shard shapes follow p and mp).
+    data group; group d gathers its model shards' params whole over the
+    data axis (``gather_group``: boxes (0, m) .. (p - 1, m) in that order
+    onto slot (d, m)), runs forward and backward on its slots' devices,
+    tensor-parallel over its mp slots (``models.model.loss_fn_tp``), and
+    lets the gathered params go; box (d, m) of each gradient is then the
+    sum over the groups, in group order, of their d-th slices, on slot (d,
+    m), divided by p (``scatter_group``; a leaf that every data slot holds
+    whole is summed in the same order on each, so the copies stay the same
+    bits), and the optimizer update runs slot by slot on its boxes.
+    Because the global batch is constant, the step computes the same math
+    at every (p, mp), up to fp32 summation order (the shard shapes follow
+    p and mp).
   * ``make_train_step(cfg, opt, devices, mp=M, n_virtual=K,
     global_batch=...)`` — the DETERMINISTIC virtual-worker step: the
     global batch splits into K fixed slices; data group d runs virtual
     workers ``[d K/p, (d+1) K/p)`` one after another on its first slot,
-    against the whole params assembled there once (never tensor-parallel:
-    its reductions would follow mp), each at the same
-    ``(global_batch / K, seq)`` shape at every (p, mp); the K losses and
-    gradient trees are summed on slot 0's device in a fixed balanced binary
-    tree over the virtual axis (``vw_tree_reduce``, the reference's
-    ``_vw_tree_reduce`` pairing) — a function of K alone — and the summed
-    gradients are sliced into model shards for the elementwise update. So
-    every (p, mp) gives bitwise-identical updates. Per-virtual-worker RNG
-    only feeds dropout, which the port's configs refuse, so the step
-    threads no RNG.
+    against the whole params assembled on slot 0 once from every slot's
+    boxes (never tensor-parallel: its reductions would follow mp), each at
+    the same ``(global_batch / K, seq)`` shape at every (p, mp); the K
+    losses and gradient trees are summed on slot 0's device in a fixed
+    balanced binary tree over the virtual axis (``vw_tree_reduce``, the
+    reference's ``_vw_tree_reduce`` pairing) — a function of K alone — and
+    the summed gradients are split into the p * mp slots' boxes for the
+    elementwise update. So every (p, mp) gives bitwise-identical updates.
+    Per-virtual-worker RNG only feeds dropout, which the port's configs
+    refuse, so the step threads no RNG.
 """
 from __future__ import annotations
 
@@ -46,8 +53,10 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import Optimizer
-from repro_torch.parallel import ShardedParams, model_dims, send
-from repro_torch.reshape.spec import StateSpec
+from repro_torch.parallel import ShardedParams, all_gather_data, \
+    data_dims, model_dims, reduce_scatter_data, send
+from repro_torch.reshape.apply import place_state
+from repro_torch.reshape.spec import StateSpec, TensorLayout
 
 
 def init_train_state(cfg, optimizer: Optimizer, generator: torch.Generator,
@@ -128,19 +137,68 @@ def vw_tree_reduce(items: Iterable, add: Callable = operator.add):
 
 
 def port_layout(cfg, optimizer: Optimizer, p: int, mp: int) -> StateSpec:
-    """The port's layout of the train state at ``(p, mp)``: the
-    reference's rules with the data axis replicated."""
-    return StateSpec.for_config(cfg, optimizer, p, mp).data_replicated()
+    """The layout of the train state at ``(p, mp)``: the reference's
+    ``StateSpec.for_config``, data axis included."""
+    return StateSpec.for_config(cfg, optimizer, p, mp)
 
 
-def model_shards(state) -> list[dict]:
-    """The model shards of a train state: a one-tree state at mp = 1."""
-    return state if isinstance(state, list) else [state]
+def params_layout(layout: StateSpec) -> StateSpec:
+    """The params' part of a train state's layout, the paths under
+    ``params/`` (a gradient tree's layout)."""
+    return StateSpec(layout.dp, layout.mp, tuple(
+        TensorLayout(t.path[len("params/"):], t.shape, t.axes)
+        for t in layout.tensors if t.path.startswith("params/")))
 
 
-def join_shards(shards: list[dict]):
-    """The train state from its model shards (the tree itself at mp = 1)."""
-    return shards[0] if len(shards) == 1 else list(shards)
+def gather_group(layout: StateSpec, params: list[dict], d: int, group
+                 ) -> list[dict]:
+    """Data group ``d``'s model shards of the params whole over the data
+    axis: ``params`` holds one tree per slot of ``layout``, and model
+    shard m, on ``group[m]``, joins the boxes of slots (0, m) .. (p - 1, m)
+    (``all_gather_data``); a leaf without a data split is slot (d, m)'s
+    own. A copy where p > 1."""
+    mp = layout.mp
+    dims = dict(tree_leaves(data_dims(layout)))
+    out = []
+    for m, dev in enumerate(group):
+        own = params[d * mp + m]
+        if layout.dp == 1:
+            out.append(own)
+            continue
+        boxes = [dict(tree_leaves(params[g * mp + m]))
+                 for g in range(layout.dp)]
+        out.append(tree_unflatten(
+            (k, t if dims[k] is None else all_gather_data(
+                [b[k] for b in boxes], d, dims[k], dev, m))
+            for k, t in tree_leaves(own)))
+    return out
+
+
+def scatter_group(layout: StateSpec, grads: list[list[dict]], d: int,
+                  group) -> list[dict]:
+    """Data group ``d``'s boxes of the gradients summed over the data
+    axis, not yet divided by p: ``grads[g][m]`` is data group g's gradient
+    tree of model shard m, and box (d, m), on ``group[m]``, sums the d-th
+    slices of ``grads[0][m]`` .. ``grads[p - 1][m]`` in that order
+    (``reduce_scatter_data``)."""
+    dims = dict(tree_leaves(data_dims(layout)))
+    out = []
+    for m, dev in enumerate(group):
+        parts = [dict(tree_leaves(g[m])) for g in grads]
+        out.append(tree_unflatten(
+            (k, reduce_scatter_data([x[k] for x in parts], d, dims[k], dev,
+                                    m))
+            for k in parts[0]))
+    return out
+
+
+def whole_params(layout: StateSpec, params: list[dict], device) -> dict:
+    """The whole params on ``device``, assembled from every slot's boxes
+    (``params``: one tree per slot of ``layout``)."""
+    mp = layout.mp
+    shards = gather_group(layout, params, 0, [device] * mp)
+    return ShardedParams(shards, model_dims(layout),
+                         (torch.device(device),) * mp).whole()
 
 
 def split_tree(tree: dict, dims: dict, devices) -> list[dict]:
@@ -188,26 +246,33 @@ def group_loss_and_grads(cfg, trees: list[dict], dims: dict, devices,
             [tree_unflatten(g.items()) for g in grads])
 
 
-def _apply_update(optimizer: Optimizer, shards: list[dict],
-                  grads: list[dict], dims: dict, loss, xent, aux):
-    """The optimizer update of each model shard from its reduced
-    gradients, and the step's metrics. grad_norm is diagnostic only:
-    outside the virtual step's bitwise contract, as in the reference."""
+def apply_update(optimizer: Optimizer, state: list[dict],
+                 grads: list[dict], layout: StateSpec, loss, xent, aux,
+                 slots=None):
+    """The optimizer update of each slot of ``state`` from its boxes of
+    the reduced gradients, and the step's metrics. ``slots`` are the
+    slots' indices in ``layout`` (every slot by default). grad_norm counts
+    each element once, a box that several slots hold from the first; it
+    is diagnostic only, outside the virtual step's bitwise contract, as in
+    the reference."""
     new = []
-    for state, g in zip(shards, grads):
-        new_params, new_opt = optimizer.update(g, state["opt"],
-                                               state["params"])
+    for s, g in zip(state, grads):
+        new_params, new_opt = optimizer.update(g, s["opt"], s["params"])
         new.append({"params": new_params, "opt": new_opt,
-                    "step": state["step"] + 1})
-    d = dict(tree_leaves(dims))
+                    "step": s["step"] + 1})
     home = loss.device
-    flat = [dict(tree_leaves(g)) for g in grads]
-    gnorm = torch.sqrt(sum(
-        g.float().square().sum() if d[k] is None else
-        sum(f[k].float().square().sum().to(home) for f in flat)
-        for k, g in flat[0].items()))
-    metrics = {"loss": loss, "xent": xent, "aux": aux, "grad_norm": gnorm}
-    return join_shards(new), metrics
+    tensors = {t.path: t for t in params_layout(layout).tensors}
+    seen, total = set(), torch.zeros((), device=home)
+    for i, g in zip(slots if slots is not None else range(len(grads)),
+                    grads):
+        for k, t in tree_leaves(g):
+            box = (k, tensors[k].box(layout.dp, layout.mp, i))
+            if box not in seen:
+                seen.add(box)
+                total = total + t.float().square().sum().to(home)
+    metrics = {"loss": loss, "xent": xent, "aux": aux,
+               "grad_norm": torch.sqrt(total)}
+    return new, metrics
 
 
 def _add_flat(a: dict, b: dict) -> dict:
@@ -218,7 +283,7 @@ def make_train_step(cfg, optimizer: Optimizer, devices, *, mp: int = 1,
                     n_virtual: int = 0, global_batch: int = 0,
                     seed: int = 0) -> Callable:
     """The step over ``len(devices)`` slots, ``mp`` to a data group;
-    ``devices[m]`` holds model shard m of the state. With ``n_virtual > 0``
+    ``devices[i]`` holds slot i's tree of the state. With ``n_virtual > 0``
     (requires ``global_batch``) the deterministic virtual-worker step is
     built instead of the default step — see the module docstring.
     ``seed`` keys the reference's per-virtual-worker RNG, which only dropout
@@ -229,44 +294,44 @@ def make_train_step(cfg, optimizer: Optimizer, devices, *, mp: int = 1,
                          f"mp={mp}")
     p = len(devices) // mp
     groups = [devices[d * mp:(d + 1) * mp] for d in range(p)]
-    homes = groups[0]
-    dims = model_dims(port_layout(cfg, optimizer, p, mp))
+    layout = port_layout(cfg, optimizer, p, mp)
+    dims = model_dims(layout)
     if n_virtual:
         if not global_batch:
             raise ValueError("the virtual-worker step needs global_batch")
-        return _make_virtual_train_step(cfg, optimizer, groups, dims,
+        return _make_virtual_train_step(cfg, optimizer, groups, layout,
                                         n_virtual, global_batch)
+    home = devices[0]
 
     def train_step(state, batch: dict):
-        shards = model_shards(state)
-        params = [s["params"] for s in shards]
+        params = [s["params"] for s in state]
         outs = []
-        for group, shard in zip(groups, shard_batch(
-                batch, p, [g[0] for g in groups])):
-            replicas = [prm if dev == home else
-                        tree_map(lambda t, dev=dev: t.to(dev), prm)
-                        for prm, dev, home in zip(params, group, homes)]
-            outs.append(group_loss_and_grads(cfg, replicas, dims, group,
-                                             shard))
-        loss = sum(o[0].to(homes[0]) for o in outs) / p
-        xent = sum(o[1]["xent"].to(homes[0]) for o in outs) / p
-        aux = sum(o[1]["aux"].to(homes[0]) for o in outs) / p
-        grads = []
-        for m, home in enumerate(homes):
-            sums = dict(tree_leaves(outs[0][2][m]))
-            for o in outs[1:]:
-                for k, g in tree_leaves(o[2][m]):
-                    sums[k] = sums[k] + g.to(home)
-            grads.append(tree_unflatten((k, g / p) for k, g in sums.items()))
-        return _apply_update(optimizer, shards, grads, dims, loss, xent, aux)
+        for d, (group, shard) in enumerate(zip(groups, shard_batch(
+                batch, p, [g[0] for g in groups]))):
+            # the gathered params go when the group's backward is done
+            outs.append(group_loss_and_grads(
+                cfg, gather_group(layout, params, d, group), dims, group,
+                shard))
+        loss = sum(o[0].to(home) for o in outs) / p
+        xent = sum(o[1]["xent"].to(home) for o in outs) / p
+        aux = sum(o[1]["aux"].to(home) for o in outs) / p
+        grads = [o[2] for o in outs]
+        boxes = [tree_map(lambda g: g / p, box)
+                 for d, group in enumerate(groups)
+                 for box in scatter_group(layout, grads, d, group)]
+        del outs, grads
+        return apply_update(optimizer, state, boxes, layout, loss, xent,
+                            aux)
 
     return train_step
 
 
-def _make_virtual_train_step(cfg, optimizer: Optimizer, groups, dims,
-                             n_virtual: int, global_batch: int) -> Callable:
-    p, homes = len(groups), groups[0]
-    home = homes[0]
+def _make_virtual_train_step(cfg, optimizer: Optimizer, groups,
+                             layout: StateSpec, n_virtual: int,
+                             global_batch: int) -> Callable:
+    p = len(groups)
+    home = groups[0][0]
+    devices = [dev for g in groups for dev in g]
     if n_virtual % p:
         raise ValueError(f"n_virtual={n_virtual} not divisible by data "
                          f"parallelism {p}")
@@ -275,13 +340,13 @@ def _make_virtual_train_step(cfg, optimizer: Optimizer, groups, dims,
                          f"n_virtual={n_virtual}")
     local = n_virtual // p           # virtual workers per data group
     leads = [g[0] for g in groups]
+    grads_layout = params_layout(layout)
 
     def train_step(state, batch: dict):
-        shards = model_shards(state)
-        # the whole params, assembled once on slot 0 (the tree itself at
-        # mp = 1) and copied once to each other group's first slot
-        whole = {home: ShardedParams([s["params"] for s in shards], dims,
-                                     tuple(homes)).whole()}
+        # the whole params, assembled once on slot 0 from every slot's
+        # boxes and copied once to each other group's first slot
+        whole = {home: whole_params(layout, [s["params"] for s in state],
+                                    home)}
         # one shard per virtual worker, in virtual order; data group d
         # hosts the contiguous block [d * local, (d + 1) * local)
         vw_devs = [leads[vw // local] for vw in range(n_virtual)]
@@ -301,11 +366,13 @@ def _make_virtual_train_step(cfg, optimizer: Optimizer, groups, dims,
                 yield flat
 
         total = vw_tree_reduce(per_vw(), _add_flat)
+        whole.clear()
         loss, xent, aux = (total.pop(k) / n_virtual
                            for k in ("/loss", "/xent", "/aux"))
         grads = tree_unflatten((k, g / n_virtual) for k, g in total.items())
-        return _apply_update(optimizer, shards,
-                             split_tree(grads, dims, homes), dims, loss,
-                             xent, aux)
+        del total
+        return apply_update(optimizer, state,
+                            place_state(grads_layout, grads, devices),
+                            layout, loss, xent, aux)
 
     return train_step

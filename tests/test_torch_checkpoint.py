@@ -92,16 +92,16 @@ def test_round_trip_is_bit_exact(dtype, tmp_path):
         with np.load(tmp_path / "state.npz") as z:
             kinds = {z[k].dtype.str for k in z.files}
         want_next = t.step()["loss"]
-        saved = t.state
+        saved = t.whole_state()
     if dt == "bfloat16":
         assert "|V2" in kinds        # the reference's bf16 records
     with _trainer(cfg=cfg, virtual_workers=BATCH) as r:    # at its init
         resume_from_checkpoint(r, str(tmp_path))
         assert r.step_idx == 2
         state, _ = load_checkpoint(str(tmp_path))
-        _assert_same_state(r.state, state)
+        _assert_same_state(r.whole_state(), state)
         assert r.step()["loss"] == want_next
-        _assert_same_state(r.state, saved)
+        _assert_same_state(r.whole_state(), saved)
 
 
 def test_reads_a_jax_written_bf16_checkpoint_bit_exact(tmp_path):
@@ -144,7 +144,7 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
     jt = _jax_trainer()
     state = _scaled_jax_state(jt)
     with _trainer() as pt:
-        pt.state = bridge.params_from_numpy(state, "cpu")
+        pt.state = [bridge.params_from_numpy(state, "cpu")]
         pt.run(2)
         checkpoint_save(pt, str(tmp_path))
         want = [pt.step()["loss"] for _ in range(3)]
@@ -176,7 +176,7 @@ def test_jax_checkpoint_written_at_mp2_resumes(tmp_path):
     with _trainer() as pt:
         resume_from_checkpoint(pt, str(tmp_path))
         state, _ = load_checkpoint(str(tmp_path))
-        _assert_same_state(pt.state, state)
+        _assert_same_state(pt.whole_state(), state)
 
 
 def test_a_foreign_collection_is_refused(tmp_path):

@@ -290,7 +290,7 @@ def test_leader_kill_across_two_cards_stages_the_state_and_keeps_bits():
         assert rec.bytes_moved_overlapped > 0, "the state move was not staged"
         assert t._home() == torch.device("cuda:1")
         assert all(x.device == torch.device("cuda:1")
-                   for _, x in tree_leaves(t.state))
+                   for s in t.state for _, x in tree_leaves(s))
         assert t.leader_id != dead and dead not in t.worker_ids
     assert losses == static
 
@@ -337,6 +337,40 @@ def test_tensor_parallel_across_two_cards_keeps_bits():
         assert [str(tree_leaves(s)[0][1].device) for s in t.state] == \
             ["cuda:0", "cuda:1"]
     assert losses == static
+
+
+def test_fsdp_slots_on_two_cards_hold_half_the_state_each():
+    """At (2, 1) on two cards each card holds only its slot's boxes of the
+    FSDP layout: the bytes each card has allocated after the trainer's
+    init are about half of those the (1, 1) trainer's card holds, the
+    whole state (the replicated leaves, held whole by both, are a few
+    kilobytes of edl_paper SMOKE's megabytes)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the slots share one card otherwise")
+    from repro_torch.configs import get_config
+    from repro_torch.core import ElasticTrainer
+    from repro_torch.models.params import tree_leaves
+
+    def held(devices):
+        torch.cuda.synchronize()
+        before = [torch.cuda.memory_allocated(d) for d in devices]
+        t = ElasticTrainer(get_config("edl-paper", smoke=True),
+                           global_batch=4, seq_len=64,
+                           init_parallelism=len(devices), n_samples=256,
+                           d_partitions=16, seed=0, devices=devices,
+                           use_aot=False)
+        torch.cuda.synchronize()
+        got = [torch.cuda.memory_allocated(d) - b
+               for d, b in zip(devices, before)]
+        boxes = [sum(x.nbytes for _, x in tree_leaves(s)) for s in t.state]
+        t.close()
+        return got, boxes
+
+    (one,), (whole,) = held(["cuda:0"])
+    two, boxes = held(["cuda:0", "cuda:1"])
+    assert one >= whole > 0
+    for got, box in zip(two, boxes):
+        assert got >= box and abs(got - one / 2) <= 0.05 * one, (two, one)
 
 
 def test_two_full_width_tenants_loan_and_reclaim_on_two_slots(card):

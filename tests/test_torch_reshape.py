@@ -5,6 +5,7 @@ jamba), a mixtral plan onto the model axis, the twins of the fast
 properties of ``tests/test_reshape.py`` on the port's own train state, the
 live executor ``apply_plan`` on torch tensors against the numpy one, and
 the checkpoint saved at (2, 2) resuming at (4, 1)."""
+import dataclasses
 import functools
 import itertools
 import json
@@ -94,10 +95,12 @@ def test_plans_and_host_moves_match_the_reference(arch, src):
 
 
 def test_mixtral_plan_onto_the_model_axis_splits_the_experts():
-    """The port's layouts of mixtral SMOKE from (2, 1) to (1, 2): each
-    expert leaf (params and both moments) is a slice, slot m keeping
-    experts [m E/2, (m + 1) E/2) of the replica it held, and the
-    replicated router is kept whole on both slots."""
+    """The port's layouts of mixtral SMOKE from (2, 1) to (1, 2): at
+    (2, 1) slot d holds half of every expert's embed rows (FSDP), at
+    (1, 2) slot m holds experts [m E/2, (m + 1) E/2) whole, so each expert
+    leaf (params and both moments) is a reshard that keeps half of its
+    bytes and moves half; the router, split over the data axis at (2, 1),
+    is gathered whole onto both slots."""
     cfg = get_config("mixtral-8x7b", smoke=True)
     state, _ = _state("mixtral-8x7b")
     src, dst = port_layout(cfg, OPT, 2, 1), port_layout(cfg, OPT, 1, 2)
@@ -111,13 +114,16 @@ def test_mixtral_plan_onto_the_model_axis_splits_the_experts():
     assert len(experts) == 9 and len(routers) == 3     # params, mu, nu
     for k in experts:
         move = plan.move(k)
-        assert (move.kind, move.bytes_moved) == ("slice", 0), (k, move)
+        assert (move.kind, move.bytes_moved, move.bytes_kept) == (
+            "reshard", flat[k].nbytes // 2, flat[k].nbytes // 2), (k, move)
         for m in range(2):
             np.testing.assert_array_equal(
                 got[m][k], flat[k][:, m * E // 2:(m + 1) * E // 2],
                 err_msg=k)
     for k in routers:
-        assert plan.move(k).kind == "keep"
+        move = plan.move(k)
+        assert (move.kind, move.bytes_moved, move.bytes_kept) == (
+            "allgather", flat[k].nbytes, flat[k].nbytes), (k, move)
         for m in range(2):
             np.testing.assert_array_equal(got[m][k], flat[k], err_msg=k)
 
@@ -138,18 +144,20 @@ def test_state_spec_layouts_follow_the_sharding_rules():
         if t.path.startswith("params/"):
             mu = spec.layout("opt/mu/" + t.path[len("params/"):])
             assert mu.axes == t.axes
-    # the port's trainer keeps the data axis replicated, model entries equal
-    port = spec.data_replicated()
-    assert port == port_layout(get_config("edl-paper", smoke=True), OPT, 2,
+    # the port's trainer keeps the reference's layout, data axis included,
+    # and every weight with an embed dim is split over the data axis
+    assert spec == port_layout(get_config("edl-paper", smoke=True), OPT, 2,
                                2)
-    for a, b in zip(spec.tensors, port.tensors):
-        assert b.axes == tuple(None if x == "data" else x for x in a.axes)
+    assert any("data" in t.axes for t in spec.tensors
+               if t.path.startswith("params/"))
 
 
 def test_state_spec_json_round_trip():
     _, specs = _state("edl-paper")
     for spec in specs.values():
-        for s in (spec, spec.data_replicated()):
+        virtual = dataclasses.replace(spec, virtual={"n_virtual": 8,
+                                                     "seed": 0})
+        for s in (spec, virtual):
             assert StateSpec.from_json(json.loads(
                 json.dumps(s.to_json()))) == s
 
@@ -211,7 +219,8 @@ def test_reshard_round_trip_is_identity_for_every_shape_pair(layouts):
     torch executor on both the reference's and the port's own."""
     state, specs = _state("edl-paper")
     if layouts == "port":
-        specs = {k: s.data_replicated() for k, s in specs.items()}
+        cfg = get_config("edl-paper", smoke=True)
+        specs = {k: port_layout(cfg, OPT, *k) for k in specs}
     flat = flatten_tree(state)
     tflat = {k: torch.from_numpy(v) for k, v in flat.items()}
     for sa, sb in itertools.permutations(SHAPES, 2):
@@ -305,19 +314,19 @@ def test_apply_plan_fills_a_leading_subset_of_slots():
 
 
 def test_bridge_lands_a_numpy_state_on_the_model_shards():
-    """``bridge.shard_state_from_numpy`` puts a numpy state on the slots of
-    any (dp, mp), as ``place_state`` puts the same tensors."""
+    """``bridge.shard_state_from_numpy`` puts a numpy state on every slot
+    of any (dp, mp), as ``place_state`` puts the same tensors."""
     state, _ = _state("edl-paper")
     cfg = get_config("edl-paper", smoke=True)
     tstate = unflatten_tree({k: torch.from_numpy(v)
                              for k, v in flatten_tree(state).items()})
     for shape in SHAPES:
         spec = port_layout(cfg, OPT, *shape)
-        got = bridge.shard_state_from_numpy(state, spec, ["cpu"] * shape[1])
-        want = place_state(spec, tstate, ["cpu"] * shape[1])
-        shards = got if isinstance(got, list) else [got]
-        assert len(shards) == shape[1]
-        for g, w in zip(shards, want):
+        devices = ["cpu"] * spec.n_devices
+        got = bridge.shard_state_from_numpy(state, spec, devices)
+        want = place_state(spec, tstate, devices)
+        assert len(got) == len(want) == spec.n_devices
+        for g, w in zip(got, want):
             fg, fw = flatten_tree(g), flatten_tree(w)
             assert all(torch.equal(fg[k], fw[k]) for k in fw)
 

@@ -259,7 +259,7 @@ def test_loss_trajectory_matches_jax_trainer():
 
     def port_losses(**kw):
         with _trainer(**kw) as pt:
-            pt.state = bridge.params_from_numpy(state, "cpu")
+            pt.state = [bridge.params_from_numpy(state, "cpu")]
             return np.array([pt.step()["loss"] for _ in range(5)])
 
     np.testing.assert_allclose(port_losses(), want, rtol=TRAJ_RTOL)

@@ -63,7 +63,7 @@ def test_fresh_batch_loss_rises_in_jax_trainer_and_port():
                             optimizer=adamw(lr), devices=["cpu"],
                             device="cpu", time_allowance_s=0,
                             **TRAINER) as pt:
-            pt.state = bridge.params_from_numpy(state, "cpu")
+            pt.state = [bridge.params_from_numpy(state, "cpu")]
             return np.array([pt.step()["loss"] for _ in range(STEPS)])
 
     got, frozen = port_losses(LR), port_losses(0.0)

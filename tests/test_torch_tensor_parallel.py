@@ -304,8 +304,8 @@ def _jax_trajectory():
 def _port_losses(state, p, mp, **kw):
     with _trainer(init_parallelism=p, model_parallel=mp, **kw) as t:
         t.state = bridge.shard_state_from_numpy(
-            state, t.exec.layout, t.exec.devices[:mp])
-        assert isinstance(t.state, list) and len(t.state) == mp
+            state, t.exec.layout, t.exec.devices)
+        assert isinstance(t.state, list) and len(t.state) == p * mp
         return np.array([t.step()["loss"] for _ in range(5)])
 
 

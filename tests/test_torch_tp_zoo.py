@@ -55,7 +55,7 @@ def _port_losses(arch, state, **kw):
                         devices=["cpu"] * 2, device="cpu",
                         time_allowance_s=0, **kw) as t:
         t.state = bridge.shard_state_from_numpy(
-            state, t.exec.layout, t.exec.devices[:2])
+            state, t.exec.layout, t.exec.devices)
         assert isinstance(t.state, list) and len(t.state) == 2
         return np.array([t.step()["loss"] for _ in range(5)])
 

@@ -83,7 +83,7 @@ def test_loss_trajectory_matches_jax_trainer():
             assert a.keys() == b.keys()
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k])
-            pt.state = bridge.params_from_numpy(state, "cpu")
+            pt.state = [bridge.params_from_numpy(state, "cpu")]
             return np.array([pt.step()["loss"] for _ in range(5)])
 
     np.testing.assert_allclose(port_losses(), want, rtol=TRAJ_RTOL)

@@ -21,7 +21,9 @@ from repro_torch.configs import get_config
 from repro_torch.core import ElasticTrainer
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import adamw
-from repro_torch.training.step import make_train_step, vw_tree_reduce
+from repro_torch.reshape import gather_state
+from repro_torch.training.step import make_train_step, port_layout, \
+    vw_tree_reduce
 from test_torch_model import _fan_in_scaled
 
 BATCH, SEQ, K = 8, 32, 8
@@ -96,10 +98,14 @@ def _jax_step(arch, point):
 
 def _jax_step_and_port_step(arch, point, p):
     state, batch, jloss, want = _jax_step(arch, point)
-    pfn = make_train_step(get_config(arch, smoke=True), adamw(1e-3),
-                          ["cpu"] * p, n_virtual=4, global_batch=BATCH)
-    pstate, pm = pfn(bridge.params_from_numpy(state, "cpu"), batch)
-    got = {k: t.numpy() for k, t in tree_leaves(pstate)}
+    cfg, opt = get_config(arch, smoke=True), adamw(1e-3)
+    pfn = make_train_step(cfg, opt, ["cpu"] * p, n_virtual=4,
+                          global_batch=BATCH)
+    layout = port_layout(cfg, opt, p, 1)
+    pstate, pm = pfn(bridge.shard_state_from_numpy(state, layout,
+                                                   ["cpu"] * p), batch)
+    got = {k: t.numpy()
+           for k, t in tree_leaves(gather_state(layout, pstate))}
     return jloss, float(pm["loss"]), want, got
 
 

@@ -153,7 +153,7 @@ def test_smoke_train_step(arch):
         for _ in range(3):
             t.state, m = t.exec.step_fn(t.state, batch)
             losses.append(float(m["loss"]))
-        assert int(t.state["step"]) == 3
+        assert int(t.state[0]["step"]) == 3
     assert all(np.isfinite(losses))
     assert losses[-1] < losses[0]           # memorizing one batch
 

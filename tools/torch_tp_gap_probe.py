@@ -236,7 +236,7 @@ def refit() -> dict:
                             model_parallel=mp, devices=["cpu"] * mp,
                             device="cpu", time_allowance_s=0, **REFIT) as t:
             t.state = bridge.shard_state_from_numpy(
-                state, t.exec.layout, t.exec.devices[:mp])
+                state, t.exec.layout, t.exec.devices)
             port[str(mp)] = [float(t.step()["loss"]) for _ in range(STEPS)]
     return {"part": "refit", "arch": ARCH, **REFIT, "steps": STEPS,
             "jax": jax_losses, "port": port,
