@@ -170,7 +170,27 @@ Phases, in order; any failure exits non-zero:
    ``repro_torch.launch.dryrun`` of its cut config at (1, 1) and 4 x 1024
    on ``meta``: the predicted argument bytes within 1 % of what the
    trainer's state and batch hold on the card, the predicted peak printed
-   beside the measured one.
+   beside the measured one;
+12. the slice's own paths: (a) MoE routed over the whole batch: mixtral's
+   default step (``make_train_step``) at its published widths, phase
+   11's depth, in fp32 at the rescaled point, SGD, at (2, 1) on two slots
+   against (1, 1) from one state and batch, at B 4 x L 1024 (each routing
+   group in one data group) and B 4 x L 64 (one routing group spans
+   both): the loss within ``TP_LOSS_RTOL``, the aux loss within
+   ``MOE_AUX_RTOL``, each leaf's update and moment norm-wise within
+   ``TP_GRAD_RTOL``, the pre-pass's own check passing, each flash kernel
+   launched as predicted (the pre-pass's forward included); the same
+   step without the pre-pass (the control) must miss where a routing
+   group spans the groups; step ms with and without the pre-pass, the
+   pre-pass alone, the peak; (b) input dropout: ``edl_paper`` at full
+   width, dropout 0.1, K = 2 virtual workers, whose losses at p = 1 and
+   p = 2 must be equal bit for bit over 3 steps and differ from dropout
+   0's, and one worker's mask made on the card must equal the same
+   key's made on the CPU, bit for bit (timed); (c) the persistent
+   compile cache: a fresh process that calls ``enable_compile_cache`` on
+   a new directory must run nvcc for every source (it runs beside (a)
+   and (b)), and a second one on it must build nothing and load both
+   libraries from it.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -189,7 +209,8 @@ kernel launches layers x K times a step, and a prep warms one shard. Then
 print
 ``{"backward_pair": {...}}`` (the two backward kernels together against
 SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the
-serving path's record, the zoo's record, the whole run's time,
+serving path's record, the zoo's records, phase 12's record, the whole
+run's time,
 ``{"fsdp": {...}}`` (the trainers checked at init, each phase's switches
 with their bytes copied behind the step, the planner's bytes and each
 slot's bytes after the switch), the card line, and last
@@ -3523,6 +3544,362 @@ def shape_record(r: dict) -> dict:
             "share_of_bound": r["bound_ms"] / r["ms"]}
 
 
+# phase 12 (a): the default step of mixtral at its published widths and
+# phase 11's depth (ZOO_TRAIN_LAYERS), in fp32 at the rescaled point
+# ("fan_in") as phase 11 (b) holds its steps against (1, 1), at (2, 1) on
+# two slots of the card against (1, 1) from one state and batch (at the
+# reference's init, std 1 at one layer, the attention saturates and wq's
+# gradient is summation noise: 2.8e-2 apart with or without the
+# pre-pass): at B 4 x L 1024 each routing group of 512
+# tokens lies in one data group, at B 4 x L 64 the one group of 256 spans
+# both. SGD with momentum, so that after one step its moment is the
+# gradient itself: the loss within TP_LOSS_RTOL, the aux loss within
+# MOE_AUX_RTOL, each leaf's update and moment norm-wise within
+# TP_GRAD_RTOL. The same step without the routing pre-pass (the control)
+# must miss them where a routing group spans the data groups.
+MOE_ROUTE_CASES = ((4, 1024), (4, 64))
+MOE_AUX_RTOL = 1e-5
+MOE_ROUTE_REPS = 2
+# phase 12 (b): the virtual-worker step of edl_paper at full width with
+# input dropout, K workers, at p = 1 and p = 2 on the card
+DROPOUT_RATE, DROPOUT_K, DROPOUT_BATCH, DROPOUT_STEPS = 0.1, 2, 4, 3
+# phase 12 (c): a fresh process that points the build at the cache and
+# builds, then one that finds it built
+CACHE_PROBE = r"""
+import json, sys, time
+t0 = time.monotonic()
+sys.path.insert(0, {src!r})
+from repro_torch.cluster import enable_compile_cache
+from repro_torch.kernels import build
+enable_compile_cache({path!r})
+built = build.build_all()
+libs = {{n: build.load(n)._name for n in sorted(build.SOURCES)}}
+print(json.dumps({{"built": sorted(built), "libs": libs,
+                  "seconds": time.monotonic() - t0}}))
+"""
+
+
+def state_readings(layout, new: list, old: list, want: dict, start: dict,
+                   loss, aux, m1: dict) -> dict:
+    """A (p, mp) step's deviation from (1, 1)'s: the loss and aux loss
+    relative errors, and the worst leaf's norm-wise error over every slot's
+    box, of the params' update (against ``want`` less ``start``, the
+    whole trees by path before and after) and of the moments."""
+    from repro_torch.reshape import flatten_tree
+    news = [flatten_tree(s) for s in new]
+    olds = [flatten_tree(s) for s in old]
+    errs = {}
+    for k, w in want.items():
+        if not w.dim():
+            continue
+        num, seen = 0.0, set()
+        t = layout.layout(k)
+        for i, (n, o) in enumerate(zip(news, olds)):
+            box = t.box(layout.dp, layout.mp, i)
+            if box in seen:
+                continue
+            seen.add(box)
+            sl = tuple(slice(lo, hi) for lo, hi in box)
+            g, wk = n[k].float(), w[sl].float()
+            if k.startswith("params/"):
+                g, wk = g - o[k].float(), wk - start[k][sl].float()
+            num += float((g - wk).norm()) ** 2
+        ref = w.float() - start[k].float() if k.startswith("params/") \
+            else w.float()
+        errs[k] = math.sqrt(num) / max(float(ref.norm()), 1e-30)
+    worst = max(errs, key=errs.get)
+    return {"loss": float(loss), "aux": float(aux),
+            "loss_rel_err": abs(float(loss) - m1["loss"]) / abs(m1["loss"]),
+            "aux_rel_err": abs(float(aux) - m1["aux"]) / abs(m1["aux"]),
+            "worst_leaf": worst, "worst_leaf_rel_err": errs[worst]}
+
+
+def within_moe(r: dict) -> bool:
+    return (r["loss_rel_err"] <= TP_LOSS_RTOL
+            and r["aux_rel_err"] <= MOE_AUX_RTOL
+            and r["worst_leaf_rel_err"] <= TP_GRAD_RTOL)
+
+
+def timed_steps(torch, fn, state, batch, reps: int) -> float:
+    """The median wall ms of ``reps`` calls of the step ``fn`` on
+    ``state``, each synchronized."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        new, m = fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        out.append((time.monotonic() - t0) * 1e3)
+        del new, m
+    return sorted(out)[len(out) // 2]
+
+
+def moe_routing_case(torch, launches_of, kernels, cfg, opt, B: int,
+                     L: int) -> dict:
+    """One case of phase 12 (a); see MOE_ROUTE_CASES."""
+    from unittest import mock
+
+    import numpy as np
+    from repro_torch.models.blocks import scan_plan
+    from repro_torch.reshape import flatten_tree, place_state
+    from repro_torch.training import step as S
+    dev = torch.device(DEVICE)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, L + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    whole = S.init_train_state(cfg, opt, torch.Generator(dev).manual_seed(0),
+                               dev)
+    whole["params"] = serve_probe().fan_in_scaled(whole["params"])
+    start = {k: v for k, v in flatten_tree(whole).items()
+             if k.startswith("params/")}
+    new1, m = S.make_train_step(cfg, opt, [dev])([whole], batch)
+    m1 = {"loss": float(m["loss"]), "aux": float(m["aux"])}
+    want = {k: v for k, v in flatten_tree(new1[0]).items()
+            if k.startswith(("params/", "opt/mu/"))}
+    del new1, m
+    layout = S.port_layout(cfg, opt, 2, 1)
+    slots = place_state(layout, whole, [dev, dev])
+    del whole
+    gc.collect()
+    two = S.make_train_step(cfg, opt, [dev, dev])
+    plans = S.routing_prepass(cfg, layout, [s["params"] for s in slots],
+                              [[dev], [dev]], S.shard_batch(batch, 2,
+                                                            [dev, dev]))
+    slots_plan, n_periods = scan_plan(cfg)
+    n_moe = n_periods * sum(f == "moe" for _, f in slots_plan)
+    if [len(p) for p in plans] != [n_moe] * 2:
+        fail(f"phase 12 (a): the pre-pass planned {plans} for {n_moe} MoE "
+             f"layers a group")
+    del plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches_of.reset()
+    new2, m2 = two(slots, batch)
+    torch.cuda.synchronize()
+    launches = launches_of.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = state_readings(layout, new2, slots, want, start, m2["loss"],
+                         m2["aux"], m1)
+    del new2, m2
+    n_gqa = gqa_layers(cfg)
+    # each group: the pre-pass's forward, the forward (twice under remat)
+    # and the backward
+    per_step = {"flash_attn_fwd": 2 * n_gqa * (2 + cfg.remat),
+                "flash_attn_bwd_dq": 2 * n_gqa,
+                "flash_attn_bwd_dkdv": 2 * n_gqa}
+    if {k: launches[k] for k in kernels} != {k: per_step[k]
+                                             for k in kernels}:
+        fail(f"phase 12 (a) at B {B} x L {L}: launches "
+             f"{ {k: launches[k] for k in kernels} }, predicted {per_step}")
+    with_ms = timed_steps(torch, two, slots, batch, MOE_ROUTE_REPS)
+    prepass_ms = []
+    for _ in range(MOE_ROUTE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        S.routing_prepass(cfg, layout, [s["params"] for s in slots],
+                          [[dev], [dev]], S.shard_batch(batch, 2, [dev, dev]))
+        torch.cuda.synchronize()
+        prepass_ms.append((time.monotonic() - t0) * 1e3)
+    # the control: the same step with empty plans, each group routing its
+    # own shard as before the pre-pass
+    with mock.patch.object(S, "routing_prepass",
+                           lambda cfg, layout, params, groups, shards:
+                           [{}] * len(groups)):
+        new3, m3 = two(slots, batch)
+        control = state_readings(layout, new3, slots, want, start,
+                                 m3["loss"], m3["aux"], m1)
+        del new3, m3
+        without_ms = timed_steps(torch, two, slots, batch, MOE_ROUTE_REPS)
+    del slots, want, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    spans = (B * L // 2) % min(512, B * L) != 0
+    for name, r in (("(2, 1)", got), ("(2, 1) without the pre-pass", control)):
+        print(f"  (a) B {B} x L {L} ({'a routing group spans both data '
+              f'groups' if spans else 'each routing group in one data group'})"
+              f" {name} against (1, 1): loss {r['loss']!r} (rel err "
+              f"{r['loss_rel_err']:.3e}, tolerance {TP_LOSS_RTOL}), aux "
+              f"{r['aux']!r} (rel err {r['aux_rel_err']:.3e}, tolerance "
+              f"{MOE_AUX_RTOL}), worst leaf {r['worst_leaf']} "
+              f"{r['worst_leaf_rel_err']:.3e} (tolerance {TP_GRAD_RTOL})",
+              flush=True)
+    if not within_moe(got):
+        fail(f"phase 12 (a): the step at (2, 1) differs from (1, 1) at B {B}"
+             f" x L {L}: {got}")
+    if spans and within_moe(control):
+        fail(f"phase 12 (a): without the pre-pass the step still holds (1, 1)"
+             f" at B {B} x L {L}, so the check cannot tell: {control}")
+    print(f"  (a) B {B} x L {L}: step at (2, 1) {with_ms:.1f} ms with the "
+          f"pre-pass, {without_ms:.1f} ms without; the pre-pass alone "
+          f"{sorted(prepass_ms)[len(prepass_ms) // 2]:.1f} ms; peak "
+          f"{peak:.2f} GiB; launches {per_step}, as predicted", flush=True)
+    return {"batch": B, "seq": L, "routing_group_spans_data_groups": spans,
+            "loss_1_1": m1["loss"], "aux_1_1": m1["aux"], "at_2_1": got,
+            "without_prepass": control, "step_ms_with_prepass": with_ms,
+            "step_ms_without_prepass": without_ms,
+            "prepass_ms": sorted(prepass_ms)[len(prepass_ms) // 2],
+            "peak_gib": peak, "launches": per_step}
+
+
+def dropout_check(torch, launches_of, kernels) -> dict:
+    """Phase 12 (b): edl_paper at full width with dropout DROPOUT_RATE,
+    DROPOUT_K virtual workers, DROPOUT_STEPS steps from one state and
+    batches at p = 1 and p = 2 on the card: the losses ``==``, the
+    first not the one of dropout 0, each attention kernel launched K x
+    layers a step; one worker's mask made on the card equal to the same
+    key's made on the CPU, bit for bit, and timed."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.reshape import place_state
+    from repro_torch.training import step as S
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config("edl-paper"), dropout=DROPOUT_RATE)
+    opt = adamw(1e-3)
+    whole = S.init_train_state(cfg, opt, torch.Generator(dev).manual_seed(0),
+                               dev)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(DROPOUT_STEPS):
+        toks = rng.integers(0, cfg.vocab, (DROPOUT_BATCH, 1025))
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    runs, launches = {}, {}
+    for p, rate in ((1, DROPOUT_RATE), (2, DROPOUT_RATE), (1, 0.0)):
+        c = dataclasses.replace(cfg, dropout=rate)
+        fn = S.make_train_step(c, opt, [dev] * p, n_virtual=DROPOUT_K,
+                               global_batch=DROPOUT_BATCH, seed=0)
+        state = place_state(S.port_layout(c, opt, p, 1), whole, [dev] * p)
+        launches_of.reset()
+        losses = []
+        for b in batches[:DROPOUT_STEPS if rate else 1]:
+            state, m = fn(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        launches[(p, rate)] = launches_of.snapshot()
+        runs[(p, rate)] = losses
+        del state, m
+    on1, on2, off = (runs[(1, DROPOUT_RATE)], runs[(2, DROPOUT_RATE)],
+                     runs[(1, 0.0)])
+    if on1 != on2 or not all(map(math.isfinite, on1)):
+        fail(f"phase 12 (b): dropout losses differ across p: {on1} {on2}")
+    if off[0] == on1[0]:
+        fail(f"phase 12 (b): dropout {DROPOUT_RATE} left the loss at "
+             f"dropout 0's: {off[0]!r}")
+    per = DROPOUT_STEPS * DROPOUT_K * cfg.n_layers
+    for p in (1, 2):
+        got = {k: launches[(p, DROPOUT_RATE)][k] for k in kernels}
+        if got != dict.fromkeys(kernels, per):
+            fail(f"phase 12 (b): launches at p = {p} {got}, predicted {per} "
+                 f"each")
+    shape = (DROPOUT_BATCH // DROPOUT_K, 1024, cfg.d_model)
+    keep = 1.0 - DROPOUT_RATE
+
+    def key_on(d):
+        return prng.fold_in(prng.fold_in(prng.key(0, d), 1), torch.zeros(
+            (), dtype=torch.int32, device=d))
+    k_dev = key_on(dev)
+    on_card = prng.bernoulli(k_dev, keep, shape)
+    on_host = prng.bernoulli(key_on(torch.device("cpu")), keep, shape)
+    if not torch.equal(on_card.cpu(), on_host):
+        fail("phase 12 (b): the mask made on the card is not the CPU's")
+    mask_ms = cuda_ms(torch, lambda: prng.bernoulli(k_dev, keep, shape))
+    kept = float(on_host.float().mean())
+    del whole, on_card, on_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) edl_paper, dropout {DROPOUT_RATE}, K {DROPOUT_K}: losses at "
+          f"p = 1 and p = 2 equal bit for bit {on1}; dropout 0's first "
+          f"{off[0]!r}; worker 1's mask {list(shape)} the same bits on the "
+          f"card and the CPU ({kept:.4f} kept), {mask_ms:.3f} ms on the card;"
+          f" launches {per} of each attention kernel at each p, as predicted",
+          flush=True)
+    return {"losses": on1, "losses_p2": on2, "loss_dropout_0": off[0],
+            "mask_shape": list(shape), "mask_kept_share": kept,
+            "mask_ms": mask_ms, "launches_each": per}
+
+
+def start_cache_probe(path: str) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", CACHE_PROBE.format(
+            src=os.path.join(ROOT, "src"), path=path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cache_probe(proc: subprocess.Popen, t0: float) -> dict:
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"phase 12 (c): the cache probe failed: {err[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    rec["wall_s"] = time.monotonic() - t0
+    return rec
+
+
+def compile_cache_check(cold: subprocess.Popen, t_cold: float,
+                        path: str) -> dict:
+    """Phase 12 (c): the cold process (started before (a)) must have run
+    nvcc for every source into ``path``, a second process on the same path
+    must build nothing and load both libraries from there."""
+    from repro_torch.kernels import build
+    first = finish_cache_probe(cold, t_cold)
+    t0 = time.monotonic()
+    second = finish_cache_probe(start_cache_probe(path), t0)
+    if first["built"] != sorted(build.SOURCES):
+        fail(f"phase 12 (c): a fresh cache built {first['built']}")
+    if second["built"]:
+        fail(f"phase 12 (c): a warm cache rebuilt {second['built']}")
+    for rec in (first, second):
+        if sorted(rec["libs"]) != sorted(build.SOURCES) or any(
+                os.path.dirname(v) != path for v in rec["libs"].values()):
+            fail(f"phase 12 (c): libraries loaded from {rec['libs']}, not "
+                 f"{path}")
+    print(f"  (c) the compile cache: cold {first['seconds']:.2f} s in its "
+          f"process (nvcc for {first['built']}, beside (a) and (b)), warm "
+          f"{second['seconds']:.2f} s (built nothing, loaded "
+          f"{sorted(second['libs'])}); processes {first['wall_s']:.2f} / "
+          f"{second['wall_s']:.2f} s wall", flush=True)
+    return {"cold_s": first["seconds"], "warm_s": second["seconds"],
+            "cold_wall_s": first["wall_s"], "warm_wall_s": second["wall_s"],
+            "built_cold": first["built"], "built_warm": second["built"]}
+
+
+def run_phase12(torch, launches_of, kernels) -> dict:
+    """Phase 12: (a) MoE routed over the whole batch at (2, 1), (b) the
+    reference's dropout bits, (c) the persistent compile cache, whose cold
+    build runs in a process of its own beside (a) and (b)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import sgd
+    t_all = time.monotonic()
+    path = tempfile.mkdtemp(prefix="kernel_cache_")
+    t_cold = time.monotonic()
+    cold = start_cache_probe(path)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(
+            get_config("mixtral-8x7b"),
+            n_layers=ZOO_TRAIN_LAYERS["mixtral-8x7b"],
+            param_dtype="float32", compute_dtype="float32")
+        moe = {f"B{B}xL{L}": moe_routing_case(torch, launches_of, kernels,
+                                              cfg, sgd(1.0), B, L)
+               for B, L in MOE_ROUTE_CASES}
+        drop = dropout_check(torch, launches_of, kernels)
+        cache = compile_cache_check(cold, t_cold, path)
+    finally:
+        if cold.poll() is None:
+            cold.kill()
+            cold.wait()
+        shutil.rmtree(path, ignore_errors=True)
+    return {"moe_routing": moe, "dropout": drop, "compile_cache": cache,
+            "seconds": time.monotonic() - t_all}
+
+
 def main() -> int:
     t_run = time.monotonic()
     import torch
@@ -3537,12 +3914,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/12] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/13] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/12] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/13] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     if sorted(built) != sorted(build.SOURCES):
@@ -3552,10 +3929,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/12] attention kernels against their plain versions", flush=True)
+    print("[3/13] attention kernels against their plain versions", flush=True)
     timed, pair = check_attention(torch, aops)
     records = dict(timed[ATT_MAIN_CASE[0]])
-    print("[3/12] past 2**31 elements: " + ", ".join(
+    print("[3/13] past 2**31 elements: " + ", ".join(
         f"{c[0]} (B {c[1]}, H {c[2]}:{c[3]}, L {c[4]}, D {c[6]}, {c[10]})"
         for c in ATT_LARGE_CASES), flush=True)
     large = check_attention_large(torch, aops)
@@ -3565,7 +3942,7 @@ def main() -> int:
     watch = SwitchWatch(torch)
 
     edl = get_config("edl-paper")
-    print("[4/12] edl_paper path: python -m repro_torch.launch.train "
+    print("[4/13] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # forward, dq and dkdv once per layer and shard
     edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
@@ -3574,21 +3951,21 @@ def main() -> int:
         torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
     scale_out_moves("phase 4", watch.phases["4"], 1)
 
-    print("[5/12] edl_paper virtual-worker path: python -m "
+    print("[5/13] edl_paper virtual-worker path: python -m "
           "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
     watch.mark("5")
     vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
 
-    print("[6/12] edl_paper model-parallel path on four slots of the card",
+    print("[6/13] edl_paper model-parallel path on four slots of the card",
           flush=True)
     watch.mark("6")
     mp = run_mp_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard,
                      paths["edl-paper"],
                      vw["runs"]["static"]["losses"][:VW_STEPS])
 
-    print("[7/12] WKV6 kernels against their plain versions", flush=True)
+    print("[7/13] WKV6 kernels against their plain versions", flush=True)
     wkv_timed = check_wkv(torch, wops)
     records.update(wkv_timed[WKV_MAIN_CASE[0]])
     wkv_decodes = {case[0]: check_wkv_decode(torch, wops, case)
@@ -3596,7 +3973,7 @@ def main() -> int:
     wkv_decode = wkv_decodes[WKV_DECODE_CASES[0][0]]
 
     rwkv = get_config("rwkv6-1.6b")
-    print("[8/12] rwkv6 path: python -m repro_torch.launch.train "
+    print("[8/13] rwkv6 path: python -m repro_torch.launch.train "
           + " ".join(RWKV_ARGS), flush=True)
     # each kernel once per layer and shard; remat runs the forward again
     rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
@@ -3609,7 +3986,7 @@ def main() -> int:
                                    loss_must_fall=False)
     scale_out_moves("phase 8", watch.phases["8"], 1)
     paths["rwkv6-1.6b"].update(refit_and_hold_out(torch, "rwkv6-1.6b"))
-    print("[8/12] rwkv6 on the model axis: the WKV6 kernels on H/mp heads a "
+    print("[8/13] rwkv6 on the model axis: the WKV6 kernels on H/mp heads a "
           "slot shard", flush=True)
     t0 = time.monotonic()
     watch.mark("8 (c)-(e)")
@@ -3666,7 +4043,7 @@ def main() -> int:
                 name: {"launches": run["launches"][kname],
                        "warmup_launches": run["warmup_launches"][kname]}
                 for name, run in mp["runs"].items()}
-    print(f"[9/12] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
+    print(f"[9/13] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
           f"ClusterExecutor with full-width edl_paper tenants, then "
           f"repro_torch.launch.cluster.main", flush=True)
     watch.mark("9")
@@ -3680,14 +4057,14 @@ def main() -> int:
                        "warmup_launches":
                            run["warmup_launches"][entry["name"]]}
                 for name, run in cluster.items()}
-    print("[10/12] the serving path: serve_batch at full width on one slot "
+    print("[10/13] the serving path: serve_batch at full width on one slot "
           "(edl_paper fp32, rwkv6-1.6b bf16), then a live serving tenant "
           "beside a trainer on four slots", flush=True)
     watch.mark("10")
     serving = {arch: run_serve(torch, LAUNCHES, arch) for arch in SERVE_ARCHS}
     serving["tier"] = run_serving_tier(torch, LAUNCHES, aops.KERNELS,
                                        edl_shard)
-    print(f"[10/12] (b) serving over the model axis at (1, {SERVE_MP}) on "
+    print(f"[10/13] (b) serving over the model axis at (1, {SERVE_MP}) on "
           f"{SERVE_MP} slots of the card: "
           + ", ".join(SERVE_ARCHS) + " at full width", flush=True)
     t0 = time.monotonic()
@@ -3740,7 +4117,7 @@ def main() -> int:
                     "rwkv6-1.6b"]["launches_per_shard_decode_step"][name],
                 "prefill_launches_mp2": serve_mp["rwkv6-1.6b"][
                     "prefill_launches"][name]}
-    print("[11/12] the zoo: each config at its published widths, bf16, "
+    print("[11/13] the zoo: each config at its published widths, bf16, "
           "its depth cut; an ElasticTrainer at (1, 1) and serving on one "
           "slot", flush=True)
     gc.collect()
@@ -3754,14 +4131,14 @@ def main() -> int:
            for arch in ZOO_ARCHS}
     zoo_s = time.monotonic() - t0
     print(f"  phase 11 (a) took {zoo_s:.1f} s", flush=True)
-    print(f"[11/12] (b) the zoo on the model axis at (1, {ZOO_MP}) on "
+    print(f"[11/13] (b) the zoo on the model axis at (1, {ZOO_MP}) on "
           f"{ZOO_MP} slots of the card: mixtral and jamba train, deepseek's "
           f"MLA block and MoE FFN; each against (1, 1) in fp32", flush=True)
     t0 = time.monotonic()
     zoo_mp = run_zoo_mp(torch, LAUNCHES, aops.KERNELS)
     zoo_mp_s = time.monotonic() - t0
     print(f"  phase 11 (b) took {zoo_mp_s:.1f} s", flush=True)
-    print(f"[11/12] (c) the zoo served at (1, {SERVE_MP}) on {SERVE_MP} slots "
+    print(f"[11/13] (c) the zoo served at (1, {SERVE_MP}) on {SERVE_MP} slots "
           f"of the card: " + ", ".join(ZOO_SERVE_MP_ARCHS) + ", bf16, each "
           f"with an fp32 control against (1, 1)", flush=True)
     t0 = time.monotonic()
@@ -3805,8 +4182,21 @@ def main() -> int:
                        "launches_per_slot_step": zoo_mp[arch][
                            "launches_per_slot_step"].get(entry["name"], 0)}
                 for arch in ZOO_MP_TRAIN}
+    print("[12/13] MoE routed over the whole batch at (2, 1) against (1, 1) "
+          "(mixtral, published widths, phase 11's depth, fp32, B 4 x L 1024 "
+          "and B 4 x L 64), the reference's dropout bits (edl_paper, K = 2, "
+          "p = 1 and 2), the persistent compile cache", flush=True)
+    phase12 = run_phase12(torch, LAUNCHES, aops.KERNELS)
+    print(f"  phase 12 took {phase12['seconds']:.1f} s", flush=True)
+    for entry in kernels:
+        if entry["name"] in aops.KERNELS:
+            # phase 12's runs, counted from 0 just before each
+            entry["moe_routing_path"] = {
+                case: run["launches"][entry["name"]]
+                for case, run in phase12["moe_routing"].items()}
+            entry["dropout_path"] = phase12["dropout"]["launches_each"]
     print(f"  {card}", flush=True)
-    print("[12/12] results; library_ms is F.scaled_dot_product_attention for "
+    print("[13/13] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd, its whole "
           "backward for both backward kernels) and null for the WKV6 "
           "kernels, whose outputs no single PyTorch call computes; "
@@ -3828,6 +4218,7 @@ def main() -> int:
                       "card": card}))
     print(json.dumps({"zoo_serving_model_parallel": zoo_serve_mp,
                       "seconds": zoo_serve_mp_s, "card": card}))
+    print(json.dumps({"phase12": phase12, "card": card}))
     seconds = time.monotonic() - t_run
     print(f"  the whole run took {seconds:.1f} s (the kernels' build "
           f"included)", flush=True)

@@ -81,6 +81,24 @@ from repro_torch.devices import as_slots, default_pool
 from repro_torch.sched.base import normalize_target
 
 
+def enable_compile_cache(path: str) -> str:
+    """Opt-in persistent cache of what the port compiles, its CUDA kernel
+    libraries (``kernels/build.py``): they are built into ``path`` (created
+    here) and looked up there from now on, so they survive preempt/re-admit
+    teardowns, fresh checkouts and whole reruns, where the default
+    ``build/kernels`` lives in the checkout. A library is rebuilt only when
+    the hash of its source and nvcc flags, which its file name carries,
+    changes. The port compiles nothing per topology (the reference's cache
+    holds XLA executables; a topology's prep here warms the kernels), so
+    that is all the cache holds. Returns ``str(path)``."""
+    import os
+
+    from repro_torch.kernels import build
+    os.makedirs(path, exist_ok=True)
+    build.set_build_dir(path)
+    return str(path)
+
+
 def default_trainer_factory(spec: JobSpec, devices: list, *,
                             smoke: bool = True):
     """Build the live engine owning exactly ``devices``: an ElasticTrainer
@@ -211,10 +229,7 @@ class ClusterExecutor:
         # span trees, and the round loop drives its metrics sampling
         self.obs = obs
         if compile_cache:
-            raise ValueError(
-                "compile_cache: the port has no persistent compilation "
-                "cache (the reference's is XLA's); its preps warm kernels "
-                "built once per checkout under build/kernels")
+            enable_compile_cache(compile_cache)
         if devices is None:
             devices = default_pool(1)
         elif any(isinstance(d, (str, torch.device)) for d in devices):

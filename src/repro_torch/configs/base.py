@@ -72,8 +72,9 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     max_seq: int = 131072
-    # input (embedding) dropout rate; the port's train step threads no RNG
-    # into the loss yet, so only dropout == 0 configs are on its path
+    # input (embedding) dropout rate: the virtual-worker step drops the
+    # embedded input with the reference's threefry bits (repro_torch.prng);
+    # the default step drops nothing, as the reference's does not
     dropout: float = 0.0
     # runtime knobs
     param_dtype: str = "bfloat16"

@@ -3,7 +3,10 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout. A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and an unchanged one is reused. Builds run at
+so an edited source is rebuilt and an unchanged one is reused. The build
+directory is read at each call, so ``set_build_dir`` (the cluster
+executor's ``enable_compile_cache``) can point it at a persistent cache
+that outlives the checkout's tree. Builds run at
 first use, under a lock (the trainer's prep thread and the main thread can
 both get there first); ``build_all`` starts one nvcc for each source at once.
 A failed build raises: there is no fallback.
@@ -40,6 +43,14 @@ def nvcc_path() -> str:
             return c
     raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
                        "kernels must be built before a CUDA tensor can use them")
+
+
+def set_build_dir(path) -> Path:
+    """Build and look up the libraries under ``path`` from now on (the
+    default is ``build/kernels`` at the root of the checkout)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    return BUILD_DIR
 
 
 def library_path(name: str) -> Path:

@@ -65,8 +65,10 @@ lull loans its slots to training and a spike reclaims them stop-free:
       --jobs "api=resnet50:1:12:serve=4/4/4/16/16/16/16/16/16/4/4/4:cap=4\
 :max=3@0,t=resnet50:1:40@0"
 
-Not ported, and refused: ``--compile-cache`` (the reference's persistent
-XLA cache has no counterpart).
+``--compile-cache DIR`` builds the port's CUDA kernel libraries into DIR
+and reuses them from there (``cluster.executor.enable_compile_cache``): the
+port compiles nothing per topology, so the libraries are all the cache
+holds.
 """
 import argparse
 import json
@@ -227,9 +229,9 @@ def main(argv=None):
                          "once its measured curve is this many rounds old "
                          "(default: sweep each job at most once)")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="not ported: the reference's persistent XLA "
-                         "compilation cache has no counterpart, and the "
-                         "option is refused")
+                    help="persistent cache of the CUDA kernel libraries: "
+                         "built into DIR once, reused across rounds, "
+                         "preemptions and reruns")
     ap.add_argument("--prefetch-shapes", action="store_true",
                     help="speculatively compile each job's likely-next "
                          "shapes (sched.base.likely_next_shapes) on idle "
@@ -274,9 +276,6 @@ def main(argv=None):
     ap.add_argument("--max-rounds", type=int, default=500)
     ap.add_argument("--json", action="store_true", help="machine output")
     args = ap.parse_args(argv)
-    if args.compile_cache:
-        ap.error("--compile-cache is not ported: the reference's persistent "
-                 "XLA compilation cache has no counterpart in the port")
     try:
         if args.workload:
             specs = parse_workload(args.workload, devices=args.devices,
@@ -329,6 +328,7 @@ def main(argv=None):
                          prefetch_shapes=args.prefetch_shapes,
                          compile_workers=args.compile_workers,
                          serialize_prep=args.serialize_prep or None,
+                         compile_cache=args.compile_cache,
                          faults=faults, obs=obs)
     try:
         stats = ex.run(max_rounds=args.max_rounds)

@@ -235,13 +235,22 @@ def group_train_step(cfg, optimizer, layout, slots: list[dict],
     and backward, reduce-scatter and update run as the step runs them for
     one group. The boxes and the gradients of the other p - 1 groups,
     which the two collectives read, are stand-ins of the same shapes: the
-    group's own, copied onto its slots as the real ones are."""
+    group's own, copied onto its slots as the real ones are. An MoE config
+    at p > 1 first walks the group's routing pre-pass
+    (``M.route_globally``), the other groups' claims stand-ins too."""
     p, mp = layout.dp, layout.mp
     devices = [META] * mp
     (shard,) = shard_batch(batch, 1, devices[:1])
+    params = [s["params"] for s in slots] * p
+    dims = model_dims(layout)
+    plan = None
+    if cfg.moe and p > 1:
+        (plan,) = M.route_globally(cfg, [ShardedParams(
+            gather_group(layout, params, 0, devices), dims,
+            tuple(devices))], [shard], p)
     loss, parts, grads = group_loss_and_grads(
-        cfg, gather_group(layout, [s["params"] for s in slots] * p, 0,
-                          devices), model_dims(layout), devices, shard)
+        cfg, gather_group(layout, params, 0, devices), dims, devices, shard,
+        routing=plan)
     boxes = [tree_map(lambda g: g / p, box)
              for box in scatter_group(layout, [grads] * p, 0, devices)]
     return apply_update(optimizer, slots, boxes, layout, loss,

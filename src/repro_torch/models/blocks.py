@@ -67,15 +67,17 @@ MIXERS = {
 MIXER_CACHES = {"attn": attention.attention_cache_spec,
                 "mamba": ssm.mamba_cache_spec,
                 "rwkv_tm": ssm.rwkv_cache_spec}
-# ffn: (specs, forward (cfg, p, h, cache=None) -> (out, aux loss or None))
+# ffn: (specs, forward (cfg, p, h, cache=None, share=None) -> (out, aux
+# loss or None)); ``share`` is MoE's part of the global routing
 FFNS = {
     "mlp": (lambda cfg: mlp_specs(cfg.d_model, cfg.d_ff),
-            lambda cfg, p, h, cache=None: (
+            lambda cfg, p, h, cache=None, share=None: (
                 apply_mlp(p, h, dt(cfg, "compute")), None)),
     "moe": (moe.moe_specs,
-            lambda cfg, p, h, cache=None: moe.moe_forward(cfg, p, h)),
+            lambda cfg, p, h, cache=None, share=None: moe.moe_forward(
+                cfg, p, h, share)),
     "rwkv_cm": (ssm.rwkv_cm_specs,
-                lambda cfg, p, h, cache=None: (
+                lambda cfg, p, h, cache=None, share=None: (
                     ssm.rwkv_cm_forward(cfg, p, h, cache=cache)[0], None)),
 }
 
@@ -94,42 +96,62 @@ def block_cache_spec(cfg, mixer: str, batch: int, max_seq: int) -> dict:
 
 
 # over the model axis: mixer (cfg, sp, h, positions=, cache=) -> out; ffn
-# (cfg, sp, h, cache=) -> (out, aux loss or None); ``cache`` the block's
-# ShardedParams slice in decode, else None
+# (cfg, sp, h, cache=, share=) -> (out, aux loss or None); ``cache`` the
+# block's ShardedParams slice in decode, else None
 MIXERS_TP = {"attn": attention.attention_forward_tp,
              "mamba": ssm.mamba_forward_tp,
              "rwkv_tm": ssm.rwkv_tm_forward_tp}
-FFNS_TP = {"mlp": lambda cfg, sp, h, cache=None: (
+FFNS_TP = {"mlp": lambda cfg, sp, h, cache=None, share=None: (
                apply_mlp_tp(sp, h, dt(cfg, "compute")), None),
-           "moe": lambda cfg, sp, h, cache=None: moe.moe_forward_tp(
-               cfg, sp, h),
-           "rwkv_cm": lambda cfg, sp, h, cache=None: (
+           "moe": lambda cfg, sp, h, cache=None, share=None:
+               moe.moe_forward_tp(cfg, sp, h, share),
+           "rwkv_cm": lambda cfg, sp, h, cache=None, share=None: (
                ssm.rwkv_cm_forward_tp(cfg, sp, h, cache=cache), None)}
+
+
+def block_mix(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
+              positions: torch.Tensor, cache: ShardedParams | None = None):
+    """A block's first half over the model axis of a data group: ``x``
+    plus the mixer's output, and the FFN's input, its norm. Returns (x,
+    h)."""
+    h = apply_rmsnorm(sp["norm1"].whole(), x, cfg.norm_eps)
+    if sp.mp > 1:
+        mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions,
+                                   cache=cache)
+    else:
+        mix_out, _ = MIXERS[mixer][1](
+            cfg, sp["mixer"].whole(), h, positions=positions,
+            cache=None if cache is None else cache.trees[0])
+    x = x + mix_out
+    return x, apply_rmsnorm(sp["norm2"].whole(), x, cfg.norm_eps)
+
+
+def block_ffn(cfg, sp: ShardedParams, h: torch.Tensor, *, ffn: str,
+              cache: ShardedParams | None = None,
+              share: "moe.Share | None" = None):
+    """A block's FFN on its input ``h``, with MoE's ``share`` of the global
+    routing where one is given. Returns (out, aux_loss)."""
+    if sp.mp > 1:
+        f, aux = FFNS_TP[ffn](cfg, sp["ffn"], h, cache=cache, share=share)
+    else:
+        f, aux = FFNS[ffn][1](
+            cfg, sp["ffn"].whole(), h,
+            cache=None if cache is None else cache.trees[0], share=share)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return f, aux
 
 
 def block_forward(cfg, sp: ShardedParams, x: torch.Tensor, *, mixer: str,
                   ffn: str, positions: torch.Tensor,
-                  cache: ShardedParams | None = None):
+                  cache: ShardedParams | None = None,
+                  share: "moe.Share | None" = None):
     """One block over the model axis of a data group; ``x`` is the residual
     stream on the group's first slot. At mp = 1 the mixer and the FFN run
     their plain forms there, against the one tree of a decode ``cache``;
-    at mp > 1 their tensor-parallel forms, against its shards. Returns (x,
-    aux_loss)."""
-    tp = sp.mp > 1
-    h = apply_rmsnorm(sp["norm1"].whole(), x, cfg.norm_eps)
-    one = None if cache is None else cache.trees[0]
-    if tp:
-        mix_out = MIXERS_TP[mixer](cfg, sp["mixer"], h, positions=positions,
-                                   cache=cache)
-    else:
-        mix_out, _ = MIXERS[mixer][1](cfg, sp["mixer"].whole(), h,
-                                      positions=positions, cache=one)
-    x = x + mix_out
-    h = apply_rmsnorm(sp["norm2"].whole(), x, cfg.norm_eps)
-    if tp:
-        f, aux = FFNS_TP[ffn](cfg, sp["ffn"], h, cache=cache)
-    else:
-        f, aux = FFNS[ffn][1](cfg, sp["ffn"].whole(), h, cache=one)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    at mp > 1 their tensor-parallel forms, against its shards. ``share``
+    is an MoE FFN's part of the global routing. Returns (x, aux_loss)."""
+    x, h = block_mix(cfg, sp, x, mixer=mixer, positions=positions,
+                     cache=cache)
+    f, aux = block_ffn(cfg, sp, h, ffn=ffn, cache=cache, share=share)
     return x + f, aux

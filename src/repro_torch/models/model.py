@@ -29,13 +29,21 @@ returns a new one. Their logits come from the vocab-parallel unembedding:
 shard m forms its V/mp columns and ``gather_from_model`` puts them side by
 side on the first slot, [B, V] floats, where joining the ``[D, V]``
 matrix there (``whole()``) would move D/B times as many bytes every step.
+
+In train mode with an ``rng`` key and ``cfg.dropout > 0`` the embedded
+input is dropped as the reference drops it, with its threefry bits
+(``prng.bernoulli``). With a ``routing`` plan (``route_globally``) each MoE
+layer routes its part of the global batch as the reference routes the
+whole (``models/moe.py: Share``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels.launches import remat
 from repro_torch.models import blocks as B
+from repro_torch.models import moe
 from repro_torch.models.layers import apply_embed_tp, apply_linear, \
     apply_rmsnorm, dt, embed_specs, rmsnorm_specs, unembed_specs
 from repro_torch.models.params import ShardedInit, fit_chunk, tree_leaves, \
@@ -83,13 +91,15 @@ def sharded(tree) -> ShardedParams:
         tree)
 
 
-def forward(cfg, params, batch, *, mode: str = "train", cache=None):
+def forward(cfg, params, batch, *, mode: str = "train", cache=None,
+            rng=None, routing=None):
     """mode 'train' -> (hidden [B,L,D], aux); 'prefill' -> (last-position
     logits [B,V] fp32, aux); 'decode' -> (logits [B,1,V] fp32, cache), the
     cache updated in place: ``forward_tp`` on ``params``, one tree (the
     one shard of mp = 1) or a ``ShardedParams``. The outputs lie on the
     first slot."""
-    return forward_tp(cfg, sharded(params), batch, mode=mode, cache=cache)
+    return forward_tp(cfg, sharded(params), batch, mode=mode, cache=cache,
+                      rng=rng, routing=routing)
 
 
 def prefill(cfg, params, batch):
@@ -122,20 +132,43 @@ def chunked_xent(cfg, params, hidden: torch.Tensor, labels: torch.Tensor
     return total / (Bsz * L)
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, *, rng=None, routing=None):
     """``loss_fn_tp`` on ``params``, one tree or a ``ShardedParams``."""
-    return loss_fn_tp(cfg, sharded(params), batch)
+    return loss_fn_tp(cfg, sharded(params), batch, rng=rng, routing=routing)
 
 
 # ------------------------------------------------------- over the model axis
+def embed_tp(cfg, sp: ShardedParams, batch, rng=None) -> torch.Tensor:
+    """The model's input [B, L, D] in the compute dtype on the first slot:
+    the ``embeds`` as given, or the vocab-parallel embedding of the
+    ``tokens``; with an ``rng`` key and ``cfg.dropout > 0``, dropped as the
+    reference drops it (``where(mask, x / keep, 0)`` in x's dtype, the mask
+    ``bernoulli(rng, keep)``)."""
+    cd = dt(cfg, "compute")
+    if cfg.frontend == "embeds":
+        x = batch["embeds"].to(cd)
+    else:
+        x = apply_embed_tp(sp["embed"], batch["tokens"], cd)
+    if rng is not None and cfg.dropout > 0.0:
+        keep = 1.0 - cfg.dropout
+        mask = prng.bernoulli(rng.to(x.device), keep, tuple(x.shape))
+        x = torch.where(mask, x / torch.tensor(keep, dtype=x.dtype,
+                                               device=x.device),
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+    return x
+
+
 def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
-               cache=None):
+               cache=None, rng=None, routing: dict | None = None):
     """The forward over the model axis of one data group; ``batch`` lies on
     the group's first slot, which carries the residual stream. Returns
     (hidden [B,L,D], aux) in train mode; prefill and decode as
     ``forward``, decode against ``cache`` (one tree at mp = 1, or a
     ``ShardedParams`` split over the group's slots). Remat applies in
-    train mode only, as in the reference."""
+    train mode only, as in the reference. In train mode ``rng`` keys the
+    input's dropout and ``routing`` (``route_globally``'s plan of this
+    group: an ``moe.Share`` by (period, slot)) routes each MoE layer over
+    the global batch."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     if (mode == "decode") != (cache is not None):
@@ -145,11 +178,8 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
         raise ValueError(f"a cache split {sc.mp} ways for params split "
                          f"{sp.mp} ways")
     train = mode == "train"
-    cd = dt(cfg, "compute")
-    if cfg.frontend == "embeds":
-        x = batch["embeds"].to(cd)
-    else:
-        x = apply_embed_tp(sp["embed"], batch["tokens"], cd)
+    x = embed_tp(cfg, sp, batch, rng if train else None)
+    routing = (routing or {}) if train else {}
     Bsz, L, _ = x.shape
     if mode == "decode":
         positions = sc.trees[0]["pos"].expand(Bsz, 1)
@@ -157,24 +187,25 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
         positions = torch.arange(L, device=x.device).expand(Bsz, L)
     slots, n_periods = B.scan_plan(cfg)
 
-    def period(x, p_i, c_i: ShardedParams | None = None):
+    def period(x, p_i, i: int, c_i: ShardedParams | None = None):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, (mixer, ffn) in enumerate(slots):
             x, aux = B.block_forward(
                 cfg, p_i[f"slot{j}"], x, mixer=mixer, ffn=ffn,
                 positions=positions,
-                cache=None if c_i is None else c_i[f"slot{j}"])
+                cache=None if c_i is None else c_i[f"slot{j}"],
+                share=routing.get((i, j)))
             aux_total = aux_total + aux
         return x, aux_total
 
-    def body(x, p_i):
-        return remat(period, x, p_i) if train and cfg.remat else \
-            period(x, p_i)
+    def body(x, p_i, i: int):
+        return remat(period, x, p_i, i) if train and cfg.remat else \
+            period(x, p_i, i)
 
-    def group(x, *p_group):
+    def group(x, g0: int, *p_group):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p_i in p_group:
-            x, aux = body(x, p_i)
+        for k, p_i in enumerate(p_group):
+            x, aux = body(x, p_i, g0 + k)
             aux_total = aux_total + aux
         return x, aux_total
 
@@ -186,16 +217,16 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
         # grouped remat, the reference's condition and aux: the mean over
         # groups of each group's summed aux, over g
         for g0 in range(0, n_periods, g):
-            x, aux = remat(group, x, *periods[g0:g0 + g])
+            x, aux = remat(group, x, g0, *periods[g0:g0 + g])
             auxes.append(aux)
         aux = torch.stack(auxes).mean() / g
     else:
         rows = sc["layers"].periods() if mode == "decode" else None
         for i, p_i in enumerate(periods):
             if mode == "decode":
-                x, aux = period(x, p_i, rows[i])
+                x, aux = period(x, p_i, i, rows[i])
             else:
-                x, aux = body(x, p_i)
+                x, aux = body(x, p_i, i)
             auxes.append(aux)
         aux = torch.stack(auxes).mean()
     x = apply_rmsnorm(sp["final_norm"].whole(), x, cfg.norm_eps)
@@ -253,9 +284,67 @@ def chunked_xent_tp(cfg, sp: ShardedParams, hidden: torch.Tensor,
     return total / (Bsz * L)
 
 
-def loss_fn_tp(cfg, sp: ShardedParams, batch):
-    """The loss over the model axis of one data group."""
-    hidden, aux = forward_tp(cfg, sp, batch)
+def loss_fn_tp(cfg, sp: ShardedParams, batch, *, rng=None, routing=None):
+    """The loss over the model axis of one data group (``rng`` and
+    ``routing`` as in ``forward_tp``)."""
+    hidden, aux = forward_tp(cfg, sp, batch, rng=rng, routing=routing)
     loss = chunked_xent_tp(cfg, sp, hidden, batch["labels"])
     aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     return loss + aux_w * aux, {"xent": loss, "aux": aux}
+
+
+# ------------------------------------------- MoE routed over the data axis
+def route_globally(cfg, groups: list[ShardedParams], batches: list[dict],
+                   p: int) -> list[dict]:
+    """Each data group's plan for routing every MoE layer over the global
+    batch as the reference does (``moe.Share`` by (period, slot)), from a
+    forward of the groups in lockstep without autograd: at each MoE layer
+    every group routes its part (``moe.route``), ``moe.share_out`` fills
+    the shares from all their claims, and each group runs the layer with
+    its share before any goes on, since the claims a layer drops shape the
+    next layer's input. It ends after the last MoE layer. ``groups`` and
+    ``batches`` are data groups 0 .. len(groups) - 1 of ``p`` (their
+    params, and their shards of the batch on their first slots); the claims
+    of the groups past them are stand-ins of their shapes, all zero (the
+    dry-run walks group 0 alone)."""
+    slots, n_periods = B.scan_plan(cfg)
+    at = [(i, j) for i in range(n_periods)
+          for j, (_, ffn) in enumerate(slots) if ffn == "moe"]
+    plans: list[dict] = [{} for _ in groups]
+    if not at:
+        return plans
+    with torch.no_grad():
+        xs = [embed_tp(cfg, sp, b) for sp, b in zip(groups, batches)]
+        n = xs[0].shape[0] * xs[0].shape[1]
+        home = xs[0].device
+        positions = [torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[0], x.shape[1]) for x in xs]
+        periods = [sp["layers"].periods() for sp in groups]
+        for i in range(n_periods):
+            for j, (mixer, ffn) in enumerate(slots):
+                blocks = [per[i][f"slot{j}"] for per in periods]
+                hs = []
+                for d, blk in enumerate(blocks):
+                    xs[d], h = B.block_mix(cfg, blk, xs[d], mixer=mixer,
+                                           positions=positions[d])
+                    hs.append(h)
+                shares = [None] * len(blocks)
+                if ffn == "moe":
+                    shares = [moe.Share(n * p, d * n) for d in range(p)]
+                    claims = [moe.route(cfg, blk["ffn"].trees[0], h,
+                                        sh)["claims"]
+                              for blk, h, sh in zip(blocks, hs, shares)]
+                    K, E = claims[0].shape[1:]
+                    claims += [torch.zeros((sh.groups(n)[2], K, E),
+                                           dtype=torch.int32, device=home)
+                               for sh in shares[len(blocks):]]
+                    moe.share_out(shares, claims, home)
+                    for plan, sh in zip(plans, shares):
+                        plan[(i, j)] = sh
+                    if (i, j) == at[-1]:
+                        return plans
+                for d, blk in enumerate(blocks):
+                    xs[d] = xs[d] + B.block_ffn(cfg, blk, hs[d], ffn=ffn,
+                                                share=shares[d])[0]
+    return plans
+

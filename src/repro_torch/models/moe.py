@@ -14,8 +14,22 @@ of this outside any Pallas kernel, so the products stay library matmuls.
 Over the model axis (``moe_forward_tp``) the expert leaves ``[E, D, F]``
 split as the layout splits them: by experts where mp divides E, else by
 ``expert_mlp``.
+
+Over the data axis the reference routes the whole global batch at once
+(its default step is one GSPMD program), while the port's default step
+runs each data group's shard apart. A ``Share`` hands one data group its
+part of the global routing: its tokens sit at their global places in the
+reference's routing groups (``route`` pads a group that the shard fills
+only in part, and the padding claims nothing), each claim's queue position
+adds ``before``, the claims that other data groups' parts of the same
+routing group put ahead of it, and the aux loss takes the global
+choice-0 fractions ``frac``. ``share_out`` fills both from every group's
+``claims`` at one layer; ``models/model.py: route_globally`` walks the
+groups' forwards in lockstep to get them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -50,33 +64,110 @@ def _capacity(group_size: int, n_experts: int, top_k: int, cf: float) -> int:
     return max(4, -(-c // 4) * 4)           # round up to multiple of 4, min 4
 
 
-def route(cfg, p, x: torch.Tensor) -> dict:
+@dataclasses.dataclass
+class Share:
+    """One data group's part of an MoE layer's routing over the global
+    batch: ``total`` tokens in all (B·L of the global batch, flattened
+    batch-major), the group's first at index ``first``. Filled by
+    ``share_out``: ``before`` [G, K, E] int32, for each of the routing
+    groups the part touches, choice and expert, the claims ahead of the
+    part's own in that expert's queue; ``frac`` [E], the choice-0
+    fractions of all ``total`` tokens; ``claims``, the part's own counts
+    as ``share_out`` was given them. A ``route`` that finds other counts
+    appends True to ``mismatches`` (a device flag, read once by the
+    step)."""
+    total: int
+    first: int
+    before: torch.Tensor | None = None
+    frac: torch.Tensor | None = None
+    claims: torch.Tensor | None = None
+    mismatches: list = dataclasses.field(default_factory=list)
+
+    def groups(self, n: int) -> tuple[int, int, int]:
+        """(S, lead, G) for a part of ``n`` tokens: the routing groups' size,
+        the place of its first token in its routing group, and the number
+        of routing groups it touches."""
+        S = min(GROUP_SIZE, self.total)
+        lead = self.first % S
+        return S, lead, -(-(lead + n) // S)
+
+
+def route(cfg, p, x: torch.Tensor, share: Share | None = None) -> dict:
     """The routing of ``x`` [B, L, D] in groups: ``xf`` [G, S, D], the
     router's ``probs`` [G, S, E] (fp32), the renormalised top-k ``gate``
     values and ``expert`` ids [G, S, K], their ``onehot`` [G, S, K, E], each
-    claim's position ``pos`` in its expert's queue [G, S, K] and the
-    capacity ``C``: a claim is kept where ``pos < C``."""
+    claim's position ``pos`` in its expert's queue [G, S, K], the capacity
+    ``C``, the ``claims`` [G, K, E] made, and the ``span`` (lead, n) of
+    ``x``'s tokens in ``xf``: a claim is kept where ``pos < C``. With a
+    ``share``, ``x`` is that part of the global batch: its tokens take
+    their global places in the routing groups it touches, zero rows filling
+    the rest (they claim nothing), and ``pos`` counts ``share.before``."""
     m = cfg.moe
     B, L, D = x.shape
     E, K = m.n_experts, m.top_k
-    N = B * L
-    S = min(GROUP_SIZE, N)
-    G = N // S
-    if G * S != N:      # where the reference's reshape fails
-        raise ValueError(f"{N} tokens do not split into groups of {S}")
-    xf = x.reshape(G, S, D)
+    n = B * L
+    share = share or Share(n, 0)
+    S, lead, G = share.groups(n)
+    if share.total % S:     # where the reference's reshape fails
+        raise ValueError(f"{share.total} tokens do not split into groups "
+                         f"of {S}")
+    pad = G * S - n
+    xf = x.reshape(n, D)
+    if pad:
+        xf = F.pad(xf, (0, 0, lead, pad - lead))
+    xf = xf.reshape(G, S, D)
     logits = torch.einsum("gsd,de->gse", xf.float(), p["router"]["w"].float())
     probs = torch.softmax(logits, dim=-1)
     gate, expert = torch.topk(probs, K, dim=-1)             # [G,S,K]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     onehot = F.one_hot(expert, E).to(torch.int32)           # [G,S,K,E]
+    if pad:
+        ours = torch.zeros(G * S, dtype=torch.int32, device=x.device)
+        ours[lead:lead + n] = 1
+        onehot = onehot * ours.view(G, S, 1, 1)
     # claims ordered by (k, s): cumulative count of prior claims per expert
     oh_ks = onehot.transpose(1, 2).reshape(G, K * S, E)
-    pos_ks = torch.cumsum(oh_ks, dim=1, dtype=torch.int32) - oh_ks
-    pos = pos_ks.reshape(G, K, S, E).transpose(1, 2)        # [G,S,K,E]
+    pos_ks = (torch.cumsum(oh_ks, dim=1, dtype=torch.int32) - oh_ks
+              ).reshape(G, K, S, E)
+    claims = oh_ks.reshape(G, K, S, E).sum(2, dtype=torch.int32)
+    if share.before is not None:
+        pos_ks = pos_ks + share.before[:, :, None]
+    if share.claims is not None:
+        share.mismatches.append((claims != share.claims).any())
+    pos = pos_ks.transpose(1, 2)                            # [G,S,K,E]
     return {"xf": xf, "probs": probs, "gate": gate, "expert": expert,
             "onehot": onehot, "pos": (pos * onehot).sum(-1),
-            "C": _capacity(S, E, K, m.capacity_factor)}
+            "C": _capacity(S, E, K, m.capacity_factor), "claims": claims,
+            "span": (lead, n), "frac": share.frac}
+
+
+def share_out(shares: list[Share], claims: list[torch.Tensor], home
+              ) -> None:
+    """Fill each data group's ``Share`` of one MoE layer from every group's
+    ``claims`` [G_d, K, E] (``route``'s, on the group's device): the
+    claims of choice < k to an expert by the other groups' parts of a
+    routing group, and those of choice k by the earlier groups' parts, come
+    before a part's own claims of choice k, as the reference orders them
+    (by choice, then token); ``frac`` counts choice 0 over every token.
+    Integer sums on ``home``, sent back to each group's device."""
+    total = shares[0].total
+    S = min(GROUP_SIZE, total)
+    K, E = claims[0].shape[1:]
+    table = torch.zeros((len(shares), total // S, K, E), dtype=torch.int32,
+                        device=home)
+    spans = []
+    for d, (sh, c) in enumerate(zip(shares, claims)):
+        g0 = sh.first // S
+        spans.append(slice(g0, g0 + c.shape[0]))
+        table[d, spans[-1]] = c.to(home)
+    others = table.sum(0, keepdim=True, dtype=torch.int32) - table
+    before = (torch.cumsum(others, 2, dtype=torch.int32) - others
+              + torch.cumsum(table, 0, dtype=torch.int32) - table)
+    frac = table[:, :, 0].sum((0, 1)).float() / total
+    for d, (sh, c, span) in enumerate(zip(shares, claims, spans)):
+        sh.before = before[d, span].to(c.device)
+        sh.frac = frac.to(c.device)
+        sh.claims = c
 
 
 def _dispatch(r: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -101,28 +192,47 @@ def _experts(p, exp_in: torch.Tensor, cd) -> torch.Tensor:
 
 def _aux_loss(r: dict, n_experts: int) -> torch.Tensor:
     """The switch aux loss: E * sum_e(frac_tokens_e * mean_prob_e), on
-    choice 0."""
-    frac = r["onehot"][:, :, 0].float().mean(dim=(0, 1))   # [E]
-    mean_p = r["probs"].mean(dim=(0, 1))
+    choice 0; for a share of the global batch, its tokens' mean prob
+    against the global ``frac``."""
+    if r["frac"] is None:
+        frac = r["onehot"][:, :, 0].float().mean(dim=(0, 1))   # [E]
+        mean_p = r["probs"].mean(dim=(0, 1))
+    else:
+        lead, n = r["span"]
+        frac = r["frac"]
+        mean_p = r["probs"].reshape(-1, n_experts)[lead:lead + n].mean(0)
     return n_experts * (frac * mean_p).sum()
 
 
-def moe_forward(cfg, p, x: torch.Tensor):
-    """x: [B, L, D] -> (out [B, L, D], aux_loss 0-d fp32)."""
+def _tokens(r: dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out`` [G, S, D] back at ``x``'s shape: its rows of ``x``'s
+    tokens."""
+    lead, n = r["span"]
+    out = out.reshape(-1, out.shape[-1])
+    if out.shape[0] != n:
+        out = out[lead:lead + n]
+    return out.reshape(x.shape)
+
+
+def moe_forward(cfg, p, x: torch.Tensor, share: Share | None = None):
+    """x: [B, L, D] -> (out [B, L, D], aux_loss 0-d fp32); ``x`` a data
+    group's ``share`` of the global batch where one is given."""
     m = cfg.moe
     cd = dt(cfg, "compute")
-    r = route(cfg, p, x)
+    r = route(cfg, p, x, share)
     xf = r["xf"]
     dispatch, combine = _dispatch(r, x.device)
     exp_in = torch.einsum("gsec,gsd->gecd", dispatch.to(cd), xf.to(cd))
     out = torch.einsum("gsec,gecd->gsd", combine.to(cd),
                        _experts(p, exp_in, cd))
+    out = _tokens(r, out, x)
     if m.n_shared:
-        out = out + apply_mlp(p["shared"], xf, cd)
-    return out.reshape(x.shape), _aux_loss(r, m.n_experts)
+        out = out + apply_mlp(p["shared"], x, cd)
+    return out, _aux_loss(r, m.n_experts)
 
 
-def moe_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor):
+def moe_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor,
+                   share: Share | None = None):
     """MoE over the model axis: the replicated router runs once on the
     first slot (top-k, capacity and aux loss unchanged). Where the layout
     splits ``experts`` (mp divides E), shard m takes the dispatch and
@@ -131,12 +241,13 @@ def moe_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor):
     columns (``wo`` rows) from one dispatch. Each shard's partial output
     is summed in shard order on the first slot; the shared experts run as
     the tensor-parallel MLP. Run whole when the rules left an expert leaf
-    replicated. Returns (out, aux_loss)."""
+    replicated. ``share`` as in ``moe_forward``. Returns (out,
+    aux_loss)."""
     if not sp.split(but=("router", "shared")):
-        return moe_forward(cfg, sp.whole(), x)
+        return moe_forward(cfg, sp.whole(), x, share)
     m = cfg.moe
     cd = dt(cfg, "compute")
-    r = route(cfg, sp.trees[0], x)
+    r = route(cfg, sp.trees[0], x, share)
     xf = r["xf"]
     dispatch, combine = _dispatch(r, x.device)
     if sp.dims["wi_gate"]["w"] == 0:        # E/mp experts a shard
@@ -157,7 +268,7 @@ def moe_forward_tp(cfg, sp: ShardedParams, x: torch.Tensor):
                                       copy_to_model(exp_in, sp.devices),
                                       copy_to_model(combine.to(cd),
                                                     sp.devices))]
-    out = reduce_from_model(parts, x.device)
+    out = _tokens(r, reduce_from_model(parts, x.device), x)
     if m.n_shared:
-        out = out + apply_mlp_tp(sp["shared"], xf, cd)
-    return out.reshape(x.shape), _aux_loss(r, m.n_experts)
+        out = out + apply_mlp_tp(sp["shared"], x, cd)
+    return out, _aux_loss(r, m.n_experts)

@@ -26,7 +26,13 @@ shard m; slots ``d * mp .. d * mp + mp - 1`` are data group d.
     bits), and the optimizer update runs slot by slot on its boxes.
     Because the global batch is constant, the step computes the same math
     at every (p, mp), up to fp32 summation order (the shard shapes follow
-    p and mp).
+    p and mp). For an MoE config at p > 1 that holds because a routing
+    pre-pass (``models/model.py: route_globally``, a forward of the groups
+    in lockstep without autograd) first gives each group its share of
+    every MoE layer's routing over the global batch, as the reference's one
+    program routes it: the queue positions and the aux loss's choice-0
+    fractions of all tokens. At the step's end a flag, read once, checks
+    that each gradded pass routed the claims the pre-pass planned.
   * ``make_train_step(cfg, opt, devices, mp=M, n_virtual=K,
     global_batch=...)`` — the DETERMINISTIC virtual-worker step: the
     global batch splits into K fixed slices; data group d runs virtual
@@ -39,8 +45,11 @@ shard m; slots ``d * mp .. d * mp + mp - 1`` are data group d.
     reference's ``_vw_tree_reduce`` pairing) — a function of K alone — and
     the summed gradients are split into the p * mp slots' boxes for the
     elementwise update. So every (p, mp) gives bitwise-identical updates.
-    Per-virtual-worker RNG only feeds dropout, which the port's configs
-    refuse, so the step threads no RNG.
+    Virtual worker vw's dropout is keyed ``fold_in(fold_in(key(seed), vw),
+    step)`` with the reference's threefry bits (``prng``), the state's
+    step before the update, so its masks follow the worker and not the
+    slot that hosts it. MoE routes each worker's batch apart, as the
+    reference does.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import Optimizer
@@ -102,12 +112,12 @@ def shard_batch(batch: dict, p: int, devices) -> list[dict]:
     return out
 
 
-def loss_and_grads(cfg, params: dict, batch: dict):
+def loss_and_grads(cfg, params: dict, batch: dict, rng=None):
     """(loss, parts, grads) of ``loss_fn`` at ``params``: the one shard of
-    mp = 1."""
+    mp = 1; ``rng`` keys dropout."""
     sp = ShardedParams.one(params)
     loss, parts, (grads,) = group_loss_and_grads(cfg, sp.trees, sp.dims,
-                                                 sp.devices, batch)
+                                                 sp.devices, batch, rng=rng)
     return loss, parts, grads
 
 
@@ -220,16 +230,17 @@ def split_tree(tree: dict, dims: dict, devices) -> list[dict]:
 
 
 def group_loss_and_grads(cfg, trees: list[dict], dims: dict, devices,
-                         batch: dict):
+                         batch: dict, *, rng=None, routing=None):
     """(loss, parts, grads per model shard) of one data group, its batch on
     ``devices[0]``. A replicated leaf is read from shard 0 and every shard
-    gets its gradient, on its device."""
+    gets its gradient, on its device. ``rng`` keys dropout; ``routing`` is
+    the group's plan from ``route_globally``."""
     d = dict(tree_leaves(dims))
     live = [[(k, p.detach().requires_grad_(m == 0 or d[k] is not None))
              for k, p in tree_leaves(t)] for m, t in enumerate(trees)]
     sp = ShardedParams([tree_unflatten(leaves) for leaves in live], dims,
                        tuple(devices))
-    loss, parts = M.loss_fn_tp(cfg, sp, batch)
+    loss, parts = M.loss_fn_tp(cfg, sp, batch, rng=rng, routing=routing)
     wanted = [t for leaves in live for _, t in leaves if t.requires_grad]
     got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
     grads: list[dict] = []
@@ -286,8 +297,8 @@ def make_train_step(cfg, optimizer: Optimizer, devices, *, mp: int = 1,
     ``devices[i]`` holds slot i's tree of the state. With ``n_virtual > 0``
     (requires ``global_batch``) the deterministic virtual-worker step is
     built instead of the default step — see the module docstring.
-    ``seed`` keys the reference's per-virtual-worker RNG, which only dropout
-    reads; the port's configs refuse dropout, so no step reads it yet."""
+    ``seed`` keys the virtual workers' dropout, as in the reference; the
+    default step drops nothing, as the reference's does not."""
     devices = [torch.device(d) for d in devices]
     if len(devices) % mp:
         raise ValueError(f"{len(devices)} slots do not form groups of "
@@ -300,18 +311,19 @@ def make_train_step(cfg, optimizer: Optimizer, devices, *, mp: int = 1,
         if not global_batch:
             raise ValueError("the virtual-worker step needs global_batch")
         return _make_virtual_train_step(cfg, optimizer, groups, layout,
-                                        n_virtual, global_batch)
+                                        n_virtual, global_batch, seed)
     home = devices[0]
 
     def train_step(state, batch: dict):
         params = [s["params"] for s in state]
+        shards = shard_batch(batch, p, [g[0] for g in groups])
+        plans = routing_prepass(cfg, layout, params, groups, shards)
         outs = []
-        for d, (group, shard) in enumerate(zip(groups, shard_batch(
-                batch, p, [g[0] for g in groups]))):
+        for d, (group, shard) in enumerate(zip(groups, shards)):
             # the gathered params go when the group's backward is done
             outs.append(group_loss_and_grads(
                 cfg, gather_group(layout, params, d, group), dims, group,
-                shard))
+                shard, routing=plans[d]))
         loss = sum(o[0].to(home) for o in outs) / p
         xent = sum(o[1]["xent"].to(home) for o in outs) / p
         aux = sum(o[1]["aux"].to(home) for o in outs) / p
@@ -320,15 +332,51 @@ def make_train_step(cfg, optimizer: Optimizer, devices, *, mp: int = 1,
                  for d, group in enumerate(groups)
                  for box in scatter_group(layout, grads, d, group)]
         del outs, grads
+        check_routing(plans)
         return apply_update(optimizer, state, boxes, layout, loss, xent,
                             aux)
 
     return train_step
 
 
+def routing_prepass(cfg, layout: StateSpec, params: list[dict], groups,
+                    shards: list[dict]) -> list[dict]:
+    """Each data group's plan of its MoE layers' routing over the global
+    batch (``models/model.py: route_globally``), for an MoE config at
+    p > 1; empty plans otherwise, where a group's own routing is the
+    reference's. The groups' params are gathered as the step gathers them,
+    once for groups on the same devices (all of them on one card), and go
+    when the plans are made."""
+    p = len(groups)
+    if not cfg.moe or p == 1:
+        return [{}] * p
+    dims = model_dims(layout)
+    gathered: dict = {}
+    sps = []
+    for d, group in enumerate(groups):
+        on = tuple(group)
+        if on not in gathered:
+            gathered[on] = ShardedParams(gather_group(layout, params, d,
+                                                      group), dims, on)
+        sps.append(gathered[on])
+    return M.route_globally(cfg, sps, shards, p)
+
+
+def check_routing(plans: list[dict]):
+    """Raise where an MoE layer routed other claims than its plan, in the
+    pre-pass or a gradded pass since (the shares' device flags, read in
+    one host sync a step; none where there is no plan)."""
+    flags = [f for plan in plans for sh in plan.values()
+             for f in sh.mismatches]
+    if flags and bool(torch.stack([f.to(flags[0].device)
+                                   for f in flags]).any()):
+        raise RuntimeError("an MoE layer's gradded pass routed other claims "
+                           "than the routing pre-pass planned for it")
+
+
 def _make_virtual_train_step(cfg, optimizer: Optimizer, groups,
                              layout: StateSpec, n_virtual: int,
-                             global_batch: int) -> Callable:
+                             global_batch: int, seed: int) -> Callable:
     p = len(groups)
     home = groups[0][0]
     devices = [dev for g in groups for dev in g]
@@ -351,14 +399,19 @@ def _make_virtual_train_step(cfg, optimizer: Optimizer, groups,
         # hosts the contiguous block [d * local, (d + 1) * local)
         vw_devs = [leads[vw // local] for vw in range(n_virtual)]
         batches = shard_batch(batch, n_virtual, vw_devs)
+        # the reference's per-(virtual worker, step) keys, from the state's
+        # step before the update, on the device (no host sync)
+        root = prng.key(seed, home) if cfg.dropout > 0.0 else None
 
         def per_vw():
             # one virtual worker at a time: its loss, parts and gradients,
             # flattened and moved to slot 0's device
-            for dev, vb in zip(vw_devs, batches):
+            for vw, (dev, vb) in enumerate(zip(vw_devs, batches)):
                 if dev not in whole:
                     whole[dev] = tree_map(lambda t: t.to(dev), whole[home])
-                loss, parts, grads = loss_and_grads(cfg, whole[dev], vb)
+                rng = None if root is None else prng.fold_in(
+                    prng.fold_in(root, vw), state[0]["step"].to(home))
+                loss, parts, grads = loss_and_grads(cfg, whole[dev], vb, rng)
                 flat = {k: g.to(home) for k, g in tree_leaves(grads)}
                 flat.update({"/loss": loss.to(home),
                              "/xent": parts["xent"].to(home),

@@ -18,6 +18,7 @@ the reference's ``repro.cluster``.
 import dataclasses
 import importlib
 import json
+import os
 import types
 
 import pytest
@@ -233,10 +234,38 @@ def test_plan_actions_equal_reference(alloc):
     assert plan(PORT) == plan(REF)
 
 
-def test_compile_cache_is_refused():
-    with pytest.raises(ValueError, match="compile_cache"):
-        ClusterExecutor([JobSpec("a", 1, 2)], make_policy("static"),
-                        devices=list(range(2)), compile_cache="x")
+@pytest.fixture
+def build_dir():
+    """The kernels' build directory, restored after the test."""
+    from repro_torch.kernels import build
+    old = build.BUILD_DIR
+    try:
+        yield build
+    finally:
+        build.set_build_dir(old)
+
+
+def test_compile_cache_option_configures_the_build_dir(tmp_path, build_dir):
+    """The counterpart of the reference's ``enable_compile_cache`` test:
+    the directory is made, returned, and becomes the kernels' build
+    directory, read at each call."""
+    from repro_torch.cluster import enable_compile_cache
+    path = enable_compile_cache(str(tmp_path / "cc"))
+    assert path == str(tmp_path / "cc") and os.path.isdir(path)
+    assert build_dir.BUILD_DIR == tmp_path / "cc"
+    assert {build_dir.library_path(n).parent for n in build_dir.SOURCES} \
+        == {tmp_path / "cc"}
+
+
+def test_compile_cache_is_accepted(tmp_path, build_dir):
+    """The executor's ``compile_cache=`` makes the directory the kernel
+    libraries' build directory, as the reference's points XLA's cache."""
+    path = tmp_path / "cc"
+    ex = ClusterExecutor([JobSpec("a", 1, 2)], make_policy("static"),
+                         devices=list(range(2)), compile_cache=str(path))
+    ex.close()
+    assert build_dir.BUILD_DIR == path and path.is_dir()
+    assert build_dir.library_path("wkv6").parent == path
 
 
 # --------------------------------------------------------- slot identity
@@ -431,10 +460,17 @@ def test_parse_workload_equals_reference(text):
         [dataclasses.asdict(s) for s in ref_parse(text, **kw)]
 
 
-def test_launcher_refuses_compile_cache_and_missing_card():
+def test_launcher_accepts_compile_cache_and_refuses_missing_card(
+        tmp_path, build_dir, capsys):
     from repro_torch.launch import cluster
-    with pytest.raises(SystemExit):
-        cluster.main(["--device", "cpu", "--compile-cache", "x"])
+    path = tmp_path / "cc"
+    assert cluster.main(["--device", "cpu", "--devices", "1",
+                         "--compile-cache", str(path), "--jobs",
+                         "a=resnet50:1:2@0", "--batch", "4", "--seq", "16",
+                         "--n-samples", "16", "--d-partitions", "2",
+                         "--max-rounds", "20"]) == 0
+    assert build_dir.BUILD_DIR == path and path.is_dir()
+    assert "device conservation: OK" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cluster.main(["--device", "cuda", "--jobs", "a=resnet50:1:2@0"])

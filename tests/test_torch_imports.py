@@ -11,6 +11,7 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 MODULES = [
     "repro_torch", "repro_torch.bridge", "repro_torch.devices",
+    "repro_torch.prng",
     "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
     "repro_torch.chaos", "repro_torch.chaos.inject",
     "repro_torch.chaos.plan",

@@ -145,8 +145,8 @@ def moe_routes(records: list):
     from repro_torch.models import blocks, moe
     specs, forward = blocks.FFNS["moe"]
 
-    def recorded(cfg, p, h, cache=None):
-        r = moe.route(cfg, p, h)
+    def recorded(cfg, p, h, cache=None, share=None):
+        r = moe.route(cfg, p, h, share)
         B, L = h.shape[:2]
         lost = (r["pos"] >= r["C"]).reshape(B, L, -1).any(-1)
         records.append({
@@ -154,7 +154,7 @@ def moe_routes(records: list):
             "experts": r["expert"].reshape(B, L, -1).sort(dim=-1).values.cpu(),
             "lost": lost.cpu(),
             "kept": int((r["pos"] < r["C"]).sum()), "made": r["pos"].numel()})
-        return forward(cfg, p, h, cache)
+        return forward(cfg, p, h, cache, share)
     blocks.FFNS["moe"] = (specs, recorded)
     try:
         yield
