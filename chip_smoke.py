@@ -20,9 +20,14 @@ Phases, in order; any failure exits non-zero:
    to 12: a training slot shard, B 4 x L 1024, and a prefill, B 4 x L 32;
    window 4096 at B 1, L 5120; mixtral's and jamba's model shard at
    mp = 2, H 16, Hkv 4), and hold it against its
-   plain PyTorch version on the same inputs; run the forward and the
-   backward pair twice on the main, mp = 2, GQA and D 96 cases and
-   require the same bits; time kernel, plain version and
+   plain PyTorch version on the same inputs; the kernels are those of the
+   inputs' dtype (``ops.kernel_names``): fp32 runs ``flash_attn_fwd``,
+   ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv``, bf16 the
+   tensor-core ``flash_attn_fwd_tc`` and ``flash_attn_bwd_dkdv_tc`` with
+   ``flash_attn_bwd_dq``, and each line names the kernel that ran; run
+   the forward and the backward pair twice on the main, mp = 2 and GQA
+   cases and on every bf16 case and require the same bits; time kernel,
+   plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
    calls it) at the main, virtual-worker, tensor-parallel and zoo shapes,
    with each bound at the peak of the inputs' type, and the backward
@@ -32,7 +37,8 @@ Phases, in order; any failure exits non-zero:
    past 2**31 elements (``ATT_LARGE_CASES``: bf16, D 128, L 1024, MHA at
    B 520 x H 32 and starcoder2's 48:4 at B 342), the forward and the
    backward pair on the whole inputs, held against their plain versions
-   on the last batch rows, and timed beside their bounds and SDPA;
+   on the last batch rows, run twice for the same bits, and timed beside
+   their bounds and SDPA;
    from phase 4 on, every ``ElasticTrainer`` built and every switch it
    commits is checked on the card: each slot holds exactly its boxes of
    the FSDP layout (``training/step.py: port_layout``, the reference's),
@@ -141,8 +147,10 @@ Phases, in order; any failure exits non-zero:
    widths in bf16, the depth cut (``ZOO_TRAIN_LAYERS``,
    ``ZOO_SERVE_LAYERS``): an ``ElasticTrainer`` at (1, 1) on one slot
    takes ``ZOO_STEPS`` steps on one batch of 4 x 1024, each loss finite
-   and below the one before, with one ``flash_attn_fwd`` a GQA layer (two
-   under remat) and one of each backward kernel a GQA layer per step, its
+   and below the one before, with one ``flash_attn_fwd_tc`` a GQA layer
+   (two under remat), one ``flash_attn_bwd_dq`` and one
+   ``flash_attn_bwd_dkdv_tc`` a GQA layer per step and none of the fp32
+   kernels (an fp32 run: ``flash_attn_fwd``, ``flash_attn_bwd_dkdv``), its
    context prep's warm-ups apart (jamba trains its first layer, Mamba and
    a dense MLP, with no port kernel; deepseek does not train on the card,
    and its MLA block runs forward and backward at B 4 x L 1024 within
@@ -150,7 +158,7 @@ Phases, in order; any failure exits non-zero:
    32 generated: ``serve_batch`` (the ``embeds`` configs: ``serve_step``)
    in a warm-up and two timed waves that give the same ids and launch no
    port kernel, a traced stretch of decode, ``prefill`` with one
-   ``flash_attn_fwd`` a GQA layer (jamba's 8 layers: 1; deepseek's MLA:
+   ``flash_attn_fwd_tc`` a GQA layer (jamba's 8 layers: 1; deepseek's MLA:
    none), and teacher forcing within ``ZOO_TF_TOL`` at the rescaled point
    (a MoE config where its teacher-forced pass routed every token as the
    decode did); and for each MoE config an fp32 control that drops no
@@ -163,7 +171,7 @@ Phases, in order; any failure exits non-zero:
    in fp32 against (1, 1) within the same tolerances. (c) Serving over the
    model axis: mixtral (2 layers), jamba (8) and deepseek (2) at (1, 2) in
    bf16 in (a)'s waves, no port kernel in decode, ``prefill`` one
-   ``flash_attn_fwd`` a GQA layer a shard at B 4, H 16, Hkv 4, L 32, D 128
+   ``flash_attn_fwd_tc`` a GQA layer a shard at B 4, H 16, Hkv 4, L 32, D 128
    (mixtral 2, jamba 1, deepseek's MLA none), the same ids twice, and an
    fp32 control against (1, 1) within 1e-4 (cast from bf16 and rescaled,
    no claim dropped). Each of (a)'s training runs is also held against
@@ -234,11 +242,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
 # the peak for the inputs' type: the bound of a bf16 case is reckoned at the
-# bf16 rate, though the kernels compute in fp32 on the CUDA cores
+# bf16 rate, which the tensor-core forward and dK/dV run at (the bf16 dQ
+# computes in fp32 on the CUDA cores)
 PEAK_FLOPS = {"float32": FP32_FLOPS, "bfloat16": BF16_FLOPS}
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 ATT = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu",
        "replaces": "src/repro/kernels/attention/kernel.py:85"}
+# bf16's forward and dK/dV on the tensor cores (ops.kernel_names)
+ATT_TC = {"source": "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
+          "replaces": "src/repro/kernels/attention/kernel.py:85"}
+# the bf16 case whose records the kernel line gives for the tensor-core
+# kernels: phase 11's training shape of nemo, llava and mixtral
+ATT_TC_MAIN_CASE = "zoo_nemo_llava_mixtral"
 WKV = {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
        "replaces": "src/repro/kernels/rwkv/kernel.py:73"}
 
@@ -320,13 +335,17 @@ ATT_LARGE_CASES = [
      "bfloat16"),
 ]
 LARGE_ROWS = 2
-# the forward and the backward pair run twice on these cases and must give
-# the same bits
-DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa", "zoo_phi3")
-# the cases whose kernels are timed beside their bounds and SDPA
+# the forward and the backward pair run twice on these cases, and on every
+# bf16 case (the tensor-core forward, and dq + dkdv_tc), and must give the
+# same bits
+DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa") + tuple(
+    c[0] for c in ATT_CASES if c[10] == "bfloat16")
+# the cases whose kernels are timed beside their bounds and SDPA: every
+# bf16 case among them
 TIMED_CASES = (ATT_MAIN_CASE[0], ATT_VW_CASE[0], ATT_PREFILL_CASE[0],
                ATT_PREFILL_MP_CASE[0]) + \
-    tuple(c[0] for c in ATT_MP_CASES) + tuple(c[0] for c in ATT_ZOO_CASES)
+    tuple(c[0] for c in ATT_MP_CASES) + ("d128_bf16", "bf16") + \
+    tuple(c[0] for c in ATT_ZOO_CASES)
 # the prefill shapes: a few microseconds of work, timed by the kernels' own
 # durations in a trace too
 DEVICE_TIMED_CASES = (ATT_PREFILL_CASE[0], ATT_PREFILL_MP_CASE[0],
@@ -607,6 +626,9 @@ def check_attention(torch, ops):
         k, v = rnd(B, Hkv, Lk, D), rnd(B, Hkv, Lk, D)
         scale = D ** -0.5
         opts = dict(causal=causal, window=window, scale=scale, kv_len=kv_len)
+        # the kernels this dtype launches: flash_attn_fwd_tc and
+        # flash_attn_bwd_dkdv_tc for bf16
+        fwd_n, dq_n, kv_n = ops.kernel_names(dtype)
         o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
         dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
         dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
@@ -619,22 +641,20 @@ def check_attention(torch, ops):
                                                    **opts)
         tol = ATT_TOL[dname]
         errs = {
-            "flash_attn_fwd": [excess(o, o_p, tol["fwd"]),
-                               excess(lse, lse_p, tol["fwd"])],
-            "flash_attn_bwd_dq": [excess(dq, dq_p, tol["bwd"]),
-                                  excess(delta, delta_p, tol["bwd"])],
-            "flash_attn_bwd_dkdv": [excess(dk, dk_p, tol["bwd"]),
-                                    excess(dv, dv_p, tol["bwd"])],
+            fwd_n: [excess(o, o_p, tol["fwd"]),
+                    excess(lse, lse_p, tol["fwd"])],
+            dq_n: [excess(dq, dq_p, tol["bwd"]),
+                   excess(delta, delta_p, tol["bwd"])],
+            kv_n: [excess(dk, dk_p, tol["bwd"]),
+                   excess(dv, dv_p, tol["bwd"])],
         }
-        mags = {"flash_attn_fwd": o_p.abs().max(),
-                "flash_attn_bwd_dq": dq_p.abs().max(),
-                "flash_attn_bwd_dkdv": torch.maximum(dk_p.abs().max(),
-                                                     dv_p.abs().max())}
+        mags = {fwd_n: o_p.abs().max(), dq_n: dq_p.abs().max(),
+                kv_n: torch.maximum(dk_p.abs().max(), dv_p.abs().max())}
         for kname, pairs in errs.items():
-            t = tol["fwd" if kname == "flash_attn_fwd" else "bwd"]
+            t = tol["fwd" if kname == fwd_n else "bwd"]
             err = max(e for e, _ in pairs)
             ok = all(o_ for _, o_ in pairs)
-            print(f"  case {name:15s} {kname:20s} max_abs_err {err:.3e} "
+            print(f"  case {name:15s} {kname:22s} max_abs_err {err:.3e} "
                   f"tol {t:g} (|a-b| <= tol(1+|b|)) {'ok' if ok else 'FAIL'}"
                   f" max|plain| {float(mags[kname]):.3g}", flush=True)
             if not ok:
@@ -648,9 +668,9 @@ def check_attention(torch, ops):
                 torch, lambda: ops.flash_attn_fwd_cuda(q, k, v, **opts))
             bwd_same = same_bits_twice(torch, lambda: backward_pair(
                 ops, q, k, v, o, lse, do, opts))
-            print(f"  case {name:15s} run twice: forward o and lse "
-                  f"{'bit-identical' if fwd_same else 'DIFFER'}; backward "
-                  f"pair dq, dk, dv and delta "
+            print(f"  case {name:15s} run twice: forward ({fwd_n}) o and "
+                  f"lse {'bit-identical' if fwd_same else 'DIFFER'}; "
+                  f"backward pair ({dq_n} + {kv_n}) dq, dk, dv and delta "
                   f"{'bit-identical' if bwd_same else 'DIFFER'}", flush=True)
             if not (fwd_same and bwd_same):
                 fail(f"the {'forward' if not fwd_same else 'backward pair'} "
@@ -668,29 +688,25 @@ def check_attention(torch, ops):
         pairs = B * Hq * visible_pairs(torch, Lq, Lk, causal, window, kv_len)
         work = {   # (bytes: inputs read once + outputs written once, flops)
             # q, k, v -> o, lse; matmuls S = QK^T, O = PV
-            "flash_attn_fwd": (2 * n_qo + 2 * n_kv + n_row, 4 * D * pairs),
+            fwd_n: (2 * n_qo + 2 * n_kv + n_row, 4 * D * pairs),
             # q, o, dO, k, v, lse -> dq, delta; S, dP, dQ
-            "flash_attn_bwd_dq": (4 * n_qo + 2 * n_kv + 2 * n_row,
-                                  6 * D * pairs),
+            dq_n: (4 * n_qo + 2 * n_kv + 2 * n_row, 6 * D * pairs),
             # q, dO, k, v, lse, delta -> dk, dv; S, dP, dV, dK
-            "flash_attn_bwd_dkdv": (2 * n_qo + 4 * n_kv + 2 * n_row,
-                                    8 * D * pairs),
+            kv_n: (2 * n_qo + 4 * n_kv + 2 * n_row, 8 * D * pairs),
         }
         kern = {
-            "flash_attn_fwd": lambda: ops.flash_attn_fwd_cuda(q, k, v,
-                                                              **opts),
-            "flash_attn_bwd_dq": lambda: ops.flash_attn_bwd_dq_cuda(
-                q, k, v, o, lse, do, **opts),
-            "flash_attn_bwd_dkdv": lambda: ops.flash_attn_bwd_dkdv_cuda(
-                q, k, v, lse, delta, do, **opts),
+            fwd_n: lambda: ops.flash_attn_fwd_cuda(q, k, v, **opts),
+            dq_n: lambda: ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do,
+                                                     **opts),
+            kv_n: lambda: ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta,
+                                                       do, **opts),
         }
         plain = {
-            "flash_attn_fwd": lambda: ops.flash_attn_fwd_plain(q, k, v,
-                                                               **opts),
-            "flash_attn_bwd_dq": lambda: ops.flash_attn_bwd_dq_plain(
-                q, k, v, o, lse, do, **opts),
-            "flash_attn_bwd_dkdv": lambda: ops.flash_attn_bwd_dkdv_plain(
-                q, k, v, lse, delta, do, **opts),
+            fwd_n: lambda: ops.flash_attn_fwd_plain(q, k, v, **opts),
+            dq_n: lambda: ops.flash_attn_bwd_dq_plain(q, k, v, o, lse, do,
+                                                      **opts),
+            kv_n: lambda: ops.flash_attn_bwd_dkdv_plain(q, k, v, lse, delta,
+                                                        do, **opts),
         }
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
@@ -700,8 +716,7 @@ def check_attention(torch, ops):
         lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
             sdpa_out, (ql, kl, vl), do, retain_graph=True))
         del sdpa_out, ql, kl, vl
-        library = {"flash_attn_fwd": lib_fwd, "flash_attn_bwd_dq": lib_bwd,
-                   "flash_attn_bwd_dkdv": lib_bwd}
+        library = {fwd_n: lib_fwd, dq_n: lib_bwd, kv_n: lib_bwd}
         for kname in kern:
             nbytes, flops = work[kname]
             t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -716,7 +731,7 @@ def check_attention(torch, ops):
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, L=Lq, D=D, causal=causal,
                            window=window, dtype=dname))
             r = records[kname]
-            print(f"  case {name:15s} {kname:20s} {r['ms']:.3f} ms, bound "
+            print(f"  case {name:15s} {kname:22s} {r['ms']:.3f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
                   f"{PEAK_FLOPS[dname] / 1e12:g} TFLOP/s, "
                   f"{HBM_BYTES_S / 1e12:g} TB/s), plain "
@@ -724,15 +739,15 @@ def check_attention(torch, ops):
                   flush=True)
         if name in DEVICE_TIMED_CASES:
             # a few microseconds of work: the kernels' own durations too
-            records["flash_attn_fwd"].update(
-                device_ms=device_ms(torch, kern["flash_attn_fwd"]),
+            records[fwd_n].update(
+                device_ms=device_ms(torch, kern[fwd_n]),
                 library_device_ms=device_ms(
                     torch, lambda: sdpa_call(torch, q, k, v, causal, window)))
-            print(f"  case {name:15s} flash_attn_fwd       "
-                  f"{records['flash_attn_fwd']['ms'] * 1e3:.2f} us back to "
-                  f"back, {records['flash_attn_fwd']['device_ms'] * 1e3:.2f}"
+            print(f"  case {name:15s} {fwd_n:22s} "
+                  f"{records[fwd_n]['ms'] * 1e3:.2f} us back to "
+                  f"back, {records[fwd_n]['device_ms'] * 1e3:.2f}"
                   f" us of device time; SDPA {lib_fwd * 1e3:.2f} us, "
-                  f"{records['flash_attn_fwd']['library_device_ms'] * 1e3:.2f}"
+                  f"{records[fwd_n]['library_device_ms'] * 1e3:.2f}"
                   f" us", flush=True)
         if name != ATT_MAIN_CASE[0]:
             continue
@@ -770,17 +785,17 @@ def check_attention(torch, ops):
     return timed, pair
 
 
-def attention_work(B, Hq, Hkv, Lq, Lk, D, esz, pairs) -> dict:
+def attention_work(names, B, Hq, Hkv, Lq, Lk, D, esz, pairs) -> dict:
     """(bytes: inputs read once + outputs written once, flops) of each
-    flash kernel on these inputs."""
+    flash kernel on these inputs, by ``names`` (forward, dQ, dK/dV:
+    ``ops.kernel_names``)."""
     n_qo = B * Hq * Lq * D * esz        # one [B,Hq,Lq,D] tensor
     n_kv = B * Hkv * Lk * D * esz       # one [B,Hkv,Lk,D] tensor
     n_row = B * Hq * Lq * 4             # lse or delta, fp32
-    return {"flash_attn_fwd": (2 * n_qo + 2 * n_kv + n_row, 4 * D * pairs),
-            "flash_attn_bwd_dq": (4 * n_qo + 2 * n_kv + 2 * n_row,
-                                  6 * D * pairs),
-            "flash_attn_bwd_dkdv": (2 * n_qo + 4 * n_kv + 2 * n_row,
-                                    8 * D * pairs)}
+    fwd_n, dq_n, kv_n = names
+    return {fwd_n: (2 * n_qo + 2 * n_kv + n_row, 4 * D * pairs),
+            dq_n: (4 * n_qo + 2 * n_kv + 2 * n_row, 6 * D * pairs),
+            kv_n: (2 * n_qo + 4 * n_kv + 2 * n_row, 8 * D * pairs)}
 
 
 def check_attention_large(torch, ops) -> dict:
@@ -808,6 +823,7 @@ def check_attention_large(torch, ops) -> dict:
         k, v = rnd(B, Hkv, Lk, D), rnd(B, Hkv, Lk, D)
         opts = dict(causal=causal, window=window, scale=D ** -0.5,
                     kv_len=kv_len)
+        names = fwd_n, dq_n, kv_n = ops.kernel_names(dtype)
         o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
         dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
         dk, dv = ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
@@ -819,19 +835,19 @@ def check_attention_large(torch, ops) -> dict:
         dk_p, dv_p = ops.flash_attn_bwd_dkdv_plain(
             q[r], k[r], v[r], lse[r], delta[r], do[r], **opts)
         tol = ATT_TOL[dname]
-        errs = {"flash_attn_fwd": [excess(o[r], o_p, tol["fwd"]),
-                                   excess(lse[r], lse_p, tol["fwd"])],
-                "flash_attn_bwd_dq": [excess(dq[r], dq_p, tol["bwd"]),
-                                      excess(delta[r], delta_p, tol["bwd"])],
-                "flash_attn_bwd_dkdv": [excess(dk[r], dk_p, tol["bwd"]),
-                                        excess(dv[r], dv_p, tol["bwd"])]}
+        errs = {fwd_n: [excess(o[r], o_p, tol["fwd"]),
+                        excess(lse[r], lse_p, tol["fwd"])],
+                dq_n: [excess(dq[r], dq_p, tol["bwd"]),
+                       excess(delta[r], delta_p, tol["bwd"])],
+                kv_n: [excess(dk[r], dk_p, tol["bwd"]),
+                       excess(dv[r], dv_p, tol["bwd"])]}
         offset = (B - LARGE_ROWS) * Hq * Lq * D
         records = out[name] = {}
         for kname, pairs in errs.items():
-            t = tol["fwd" if kname == "flash_attn_fwd" else "bwd"]
+            t = tol["fwd" if kname == fwd_n else "bwd"]
             err = max(e for e, _ in pairs)
             ok = all(o_ for _, o_ in pairs)
-            print(f"  case {name:15s} {kname:20s} q {q.numel()} elements; "
+            print(f"  case {name:15s} {kname:22s} q {q.numel()} elements; "
                   f"batch rows {B - LARGE_ROWS}.. (q offset {offset} on) "
                   f"max_abs_err {err:.3e} tol {t:g} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -842,15 +858,29 @@ def check_attention_large(torch, ops) -> dict:
                               "rows_held": [B - LARGE_ROWS, B],
                               "q_elements": q.numel()}
         del o_p, lse_p, dq_p, delta_p, dk_p, dv_p, dq, dk, dv
+        # the forward and the pair run twice: the same bits
+        fwd_same = same_bits_twice(
+            torch, lambda: ops.flash_attn_fwd_cuda(q, k, v, **opts))
+        bwd_same = same_bits_twice(torch, lambda: backward_pair(
+            ops, q, k, v, o, lse, do, opts))
+        print(f"  case {name:15s} run twice: forward ({fwd_n}) "
+              f"{'bit-identical' if fwd_same else 'DIFFER'}; backward pair "
+              f"({dq_n} + {kv_n}) {'bit-identical' if bwd_same else 'DIFFER'}",
+              flush=True)
+        if not (fwd_same and bwd_same):
+            fail(f"the {'forward' if not fwd_same else 'backward pair'} is "
+                 f"not deterministic past 2**31 elements in case {name}")
+        for rec in records.values():
+            rec["same_bits_twice"] = True
         pairs = B * Hq * visible_pairs(torch, Lq, Lk, causal, window, kv_len)
-        work = attention_work(B, Hq, Hkv, Lq, Lk, D, q.element_size(), pairs)
+        work = attention_work(names, B, Hq, Hkv, Lq, Lk, D, q.element_size(),
+                              pairs)
         kern = {
-            "flash_attn_fwd": lambda: ops.flash_attn_fwd_cuda(q, k, v,
-                                                              **opts),
-            "flash_attn_bwd_dq": lambda: ops.flash_attn_bwd_dq_cuda(
-                q, k, v, o, lse, do, **opts),
-            "flash_attn_bwd_dkdv": lambda: ops.flash_attn_bwd_dkdv_cuda(
-                q, k, v, lse, delta, do, **opts)}
+            fwd_n: lambda: ops.flash_attn_fwd_cuda(q, k, v, **opts),
+            dq_n: lambda: ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do,
+                                                     **opts),
+            kv_n: lambda: ops.flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta,
+                                                       do, **opts)}
         for kname, fn in kern.items():
             nbytes, flops = work[kname]
             t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -863,16 +893,15 @@ def check_attention_large(torch, ops) -> dict:
                 shape=dict(B=B, Hq=Hq, Hkv=Hkv, L=Lq, D=D, causal=causal,
                            window=window, dtype=dname))
         del o, lse, delta
-        lib = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None,
-               "flash_attn_bwd_dkdv": None}
+        lib = dict.fromkeys(names)
         try:
-            lib["flash_attn_fwd"] = cuda_ms(
+            lib[fwd_n] = cuda_ms(
                 torch, lambda: sdpa_call(torch, q, k, v, causal, window),
                 reps=3, warm=1)
             ql, kl, vl = (t.detach().clone().requires_grad_(True)
                           for t in (q, k, v))
             sdpa_out = sdpa_call(torch, ql, kl, vl, causal, window)
-            lib["flash_attn_bwd_dq"] = lib["flash_attn_bwd_dkdv"] = cuda_ms(
+            lib[dq_n] = lib[kv_n] = cuda_ms(
                 torch, lambda: torch.autograd.grad(
                     sdpa_out, (ql, kl, vl), do, retain_graph=True),
                 reps=3, warm=1)
@@ -884,7 +913,7 @@ def check_attention_large(torch, ops) -> dict:
             rec["library_ms"] = lib[kname]
             lib_s = ("not timed" if lib[kname] is None
                      else f"{lib[kname]:.1f} ms")
-            print(f"  case {name:15s} {kname:20s} {rec['ms']:.1f} ms, bound "
+            print(f"  case {name:15s} {kname:22s} {rec['ms']:.1f} ms, bound "
                   f"{rec['bound_ms']:.2f} ms ({rec['bound_by']}), SDPA "
                   f"{lib_s}; plain not timed (its scores do not fit)",
                   flush=True)
@@ -2348,7 +2377,7 @@ def run_serve(torch, launches_of, arch: str) -> dict:
         waves.append(ids)
     launches = launches_of.snapshot()
     per_step = {k: launches[k] / (SERVE_WAVES * steps) for k in KERNELS}
-    fwd = "wkv6_fwd" if cfg.family == "ssm" else "flash_attn_fwd"
+    fwd = "wkv6_fwd" if cfg.family == "ssm" else attn_names(cfg)[0]
     want = dict.fromkeys(KERNELS, 0.0)
     if cfg.family == "ssm":
         want["wkv6_fwd"] = float(cfg.n_layers)
@@ -2734,6 +2763,15 @@ def zoo_decode_fn(torch, cfg):
     return decode
 
 
+def attn_names(cfg) -> tuple:
+    """The attention kernels (forward, dQ, dK/dV) that ``cfg``'s compute
+    dtype launches: ``ops.kernel_names``, the tensor-core forward and dK/dV
+    for bf16."""
+    import torch
+    from repro_torch.kernels.attention import ops
+    return ops.kernel_names(getattr(torch, cfg.compute_dtype))
+
+
 def gqa_layers(cfg) -> int:
     """The layers of ``cfg``'s plan that run GQA attention, the flash
     kernels' layers: MLA and the Mamba and RWKV6 mixers run none."""
@@ -2748,7 +2786,8 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float, *,
     the served inputs (a warm-up wave for a tokens config), then two timed
     waves with the launch counts reset just before and read just after,
     which must launch no port kernel and give the warm-up's ids; a traced
-    stretch of decode; ``prefill``, one ``flash_attn_fwd`` a GQA layer;
+    stretch of decode; ``prefill``, one forward a GQA layer (its dtype's:
+    ``flash_attn_fwd_tc`` in bf16);
     and teacher forcing at "init" and "fan_in", gated at "fan_in". A MoE
     config's fp32 control comes last and turns ``params`` (which must be
     ``owned``, the caller's to give up) into its own."""
@@ -2798,7 +2837,8 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float, *,
         M.prefill(cfg, params, probe.inputs(cfg, served[:, :P]))
     torch.cuda.synchronize()
     pre = launches_of.snapshot()
-    want_pre = {**dict.fromkeys(KERNELS, 0), "flash_attn_fwd": gqa_layers(cfg)}
+    want_pre = {**dict.fromkeys(KERNELS, 0),
+                attn_names(cfg)[0]: gqa_layers(cfg)}
     if pre != want_pre:
         fail(f"prefill {cfg.name}: launches {pre}, predicted {want_pre}")
 
@@ -2826,7 +2866,7 @@ def zoo_serve(torch, launches_of, cfg, params, init_s: float, *,
           f"{prof['kernels_per_step']:.0f} kernels a decode step, device "
           f"busy {prof['busy_ms_per_step']:.3f} ms of "
           f"{prof['window_ms_per_step']:.3f} (idle {prof['idle_share']:.1%});"
-          f" prefill {pre['flash_attn_fwd']} flash_attn_fwd; peak "
+          f" prefill {pre[attn_names(cfg)[0]]} {attn_names(cfg)[0]}; peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     for point, r in gaps.items():
         extra = ""
@@ -2913,19 +2953,21 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
     training depth (mp = 1 only); then ZOO_STEPS steps on one batch with
     the counts reset just before and read just after: each loss finite and
     (if ``gated``) below the one before, and the launches a slot shard of a
-    step one ``flash_attn_fwd`` a GQA layer (two under remat) and one of
-    each backward kernel a GQA layer; with no GQA layer, no port kernel at
-    all. Returns a record."""
+    step one forward a GQA layer (two under remat) and one of each backward
+    kernel a GQA layer, the kernels of its dtype (``attn_names``:
+    ``flash_attn_fwd_tc``, ``flash_attn_bwd_dq`` and
+    ``flash_attn_bwd_dkdv_tc`` in bf16) and no other; with no GQA layer, no
+    port kernel at all. Returns a record."""
     from repro_torch.core import ElasticTrainer
     from repro_torch.devices import slot_devices
     from repro_torch.optim import adamw
     from repro_torch.parallel import ShardedParams, model_dims
     from repro_torch.training.step import split_tree
     n_gqa = gqa_layers(cfg)
-    path_kernels = kernels if n_gqa else ()
-    per_shard = {"flash_attn_fwd": n_gqa * (2 if cfg.remat else 1),
-                 "flash_attn_bwd_dq": n_gqa,
-                 "flash_attn_bwd_dkdv": n_gqa} if n_gqa else {}
+    fwd_n, dq_n, kv_n = attn_names(cfg)
+    path_kernels = (fwd_n, dq_n, kv_n) if n_gqa else ()
+    per_shard = {fwd_n: n_gqa * (2 if cfg.remat else 1), dq_n: n_gqa,
+                 kv_n: n_gqa} if n_gqa else {}
     init_s: list = []
     resident = torch.cuda.memory_allocated()
     launches_of.reset()
@@ -3233,7 +3275,7 @@ def run_zoo_mp(torch, launches_of, kernels) -> dict:
 # shard) in phase 10's waves; (c) mixtral (2 layers), jamba (8) and
 # deepseek (2) in bf16 in phase 11's. Each decode step must launch per
 # shard what (a) predicts for the whole (wkv6_fwd once a layer, at H/mp
-# heads; no port kernel for attention), and prefill one flash_attn_fwd a
+# heads; no port kernel for attention), and prefill one forward a
 # GQA layer a shard at the shard's heads (edl_paper B 8, H 6, L 64, D 64;
 # mixtral and jamba B 4, H 16, Hkv 4, L 32, D 128). Each arch's control:
 # prefill's and the teacher-forced decode's logits at (1, SERVE_MP)
@@ -3280,13 +3322,17 @@ def split_params(torch, cfg, params: dict, mp: int):
 
 @contextlib.contextmanager
 def launched_shapes(aops, wops):
-    """Within, the input shapes of each ``flash_attn_fwd`` launch ((q, k))
-    and ``wkv6_fwd`` launch (r), by kernel."""
-    shapes = {"flash_attn_fwd": set(), "wkv6_fwd": set()}
+    """Within, the input shapes of each attention forward launch ((q, k),
+    under the kernel its dtype launches: ``flash_attn_fwd`` or
+    ``flash_attn_fwd_tc``) and ``wkv6_fwd`` launch (r), by kernel."""
+    import torch
+    shapes = {aops.kernel_names(torch.float32)[0]: set(),
+              aops.kernel_names(torch.bfloat16)[0]: set(), "wkv6_fwd": set()}
     fa, wk = aops.flash_attn_fwd_cuda, wops.wkv6_fwd_cuda
 
     def fa_rec(q, k, v, **kw):
-        shapes["flash_attn_fwd"].add((tuple(q.shape), tuple(k.shape)))
+        shapes[aops.kernel_names(q.dtype)[0]].add((tuple(q.shape),
+                                                   tuple(k.shape)))
         return fa(q, k, v, **kw)
 
     def wk_rec(r, *args):
@@ -3434,8 +3480,8 @@ def serve_at_mp(torch, launches_of, aops, wops, cfg, sp, prompts, gen: int,
 def shard_shapes(cfg, B: int, L: int) -> dict:
     """A model shard's forward-kernel shapes at (1, SERVE_MP) for B x L
     tokens, by kernel, with the layers that launch it: ``wkv6_fwd``'s r
-    (every RWKV6 layer), ``flash_attn_fwd``'s q and k (every GQA layer;
-    none for MLA)."""
+    (every RWKV6 layer), the attention forward's q and k (every GQA layer;
+    none for MLA), under its dtype's kernel (``attn_names``)."""
     if cfg.family == "ssm":
         hd = cfg.ssm.rwkv_head_dim
         return {"wkv6_fwd": (cfg.n_layers,
@@ -3444,7 +3490,7 @@ def shard_shapes(cfg, B: int, L: int) -> dict:
     if not n_gqa:
         return {}
     D = cfg.resolved_head_dim
-    return {"flash_attn_fwd": (n_gqa, (
+    return {attn_names(cfg)[0]: (n_gqa, (
         (B, cfg.n_heads // SERVE_MP, L, D),
         (B, cfg.n_kv_heads // SERVE_MP, L, D)))}
 
@@ -3498,7 +3544,7 @@ def run_zoo_serve_mp(torch, launches_of, aops, wops, arch: str) -> dict:
     """Phase 11 (c) for ``arch``: bf16 params from seed 0 drawn on the card
     at its phase-11 serving depth and split onto SERVE_MP slots;
     ``serve_at_mp`` at ZOO_SERVE_BATCH, ZOO_PROMPT, ZOO_GEN (no port
-    kernel in decode; one ``flash_attn_fwd`` a GQA layer a shard in
+    kernel in decode; one ``flash_attn_fwd_tc`` a GQA layer a shard in
     prefill); then the params drawn again, cast to fp32 and rescaled
     (``probe.fp32_control``), and ``mp_control`` over the wave's tokens.
     Returns a record."""
@@ -3682,13 +3728,13 @@ def moe_routing_case(torch, launches_of, kernels, cfg, opt, B: int,
                          m2["aux"], m1)
     del new2, m2
     n_gqa = gqa_layers(cfg)
+    fwd_n, dq_n, kv_n = attn_names(cfg)
     # each group: the pre-pass's forward, the forward (twice under remat)
-    # and the backward
-    per_step = {"flash_attn_fwd": 2 * n_gqa * (2 + cfg.remat),
-                "flash_attn_bwd_dq": 2 * n_gqa,
-                "flash_attn_bwd_dkdv": 2 * n_gqa}
-    if {k: launches[k] for k in kernels} != {k: per_step[k]
-                                             for k in kernels}:
+    # and the backward; no attention kernel of the other dtype
+    per_step = {**dict.fromkeys(kernels, 0),
+                fwd_n: 2 * n_gqa * (2 + cfg.remat), dq_n: 2 * n_gqa,
+                kv_n: 2 * n_gqa}
+    if {k: launches[k] for k in kernels} != per_step:
         fail(f"phase 12 (a) at B {B} x L {L}: launches "
              f"{ {k: launches[k] for k in kernels} }, predicted {per_step}")
     with_ms = timed_steps(torch, two, slots, batch, MOE_ROUTE_REPS)
@@ -3789,11 +3835,14 @@ def dropout_check(torch, launches_of, kernels) -> dict:
         fail(f"phase 12 (b): dropout {DROPOUT_RATE} left the loss at "
              f"dropout 0's: {off[0]!r}")
     per = DROPOUT_STEPS * DROPOUT_K * cfg.n_layers
+    # each of the fp32 attention kernels, and no other
+    per_kernel = {**dict.fromkeys(kernels, 0),
+                  **dict.fromkeys(attn_names(cfg), per)}
     for p in (1, 2):
         got = {k: launches[(p, DROPOUT_RATE)][k] for k in kernels}
-        if got != dict.fromkeys(kernels, per):
-            fail(f"phase 12 (b): launches at p = {p} {got}, predicted {per} "
-                 f"each")
+        if got != per_kernel:
+            fail(f"phase 12 (b): launches at p = {p} {got}, predicted "
+                 f"{per_kernel}")
     shape = (DROPOUT_BATCH // DROPOUT_K, 1024, cfg.d_model)
     keep = 1.0 - DROPOUT_RATE
 
@@ -3818,7 +3867,7 @@ def dropout_check(torch, launches_of, kernels) -> dict:
           flush=True)
     return {"losses": on1, "losses_p2": on2, "loss_dropout_0": off[0],
             "mask_shape": list(shape), "mask_kept_share": kept,
-            "mask_ms": mask_ms, "launches_each": per}
+            "mask_ms": mask_ms, "launches_each": per_kernel}
 
 
 def start_cache_probe(path: str) -> subprocess.Popen:
@@ -3944,11 +3993,13 @@ def main() -> int:
     edl = get_config("edl-paper")
     print("[4/13] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
-    # forward, dq and dkdv once per layer and shard
-    edl_shard = dict.fromkeys(aops.KERNELS, edl.n_layers)
+    # fp32: forward, dq and dkdv of flash_attn.cu once per layer and shard,
+    # and no tensor-core kernel
+    f32_att = attn_names(edl)
+    edl_shard = dict.fromkeys(f32_att, edl.n_layers)
     watch.mark("4")
     paths = {"edl-paper": run_path(
-        torch, LAUNCHES, train, EDL_ARGS, aops.KERNELS, edl_shard)}
+        torch, LAUNCHES, train, EDL_ARGS, f32_att, edl_shard)}
     scale_out_moves("phase 4", watch.phases["4"], 1)
 
     print("[5/13] edl_paper virtual-worker path: python -m "
@@ -3956,12 +4007,12 @@ def main() -> int:
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
     watch.mark("5")
-    vw = run_vw_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard)
+    vw = run_vw_path(torch, LAUNCHES, train, f32_att, edl_shard)
 
     print("[6/13] edl_paper model-parallel path on four slots of the card",
           flush=True)
     watch.mark("6")
-    mp = run_mp_path(torch, LAUNCHES, train, aops.KERNELS, edl_shard,
+    mp = run_mp_path(torch, LAUNCHES, train, f32_att, edl_shard,
                      paths["edl-paper"],
                      vw["runs"]["static"]["losses"][:VW_STEPS])
 
@@ -3996,7 +4047,7 @@ def main() -> int:
     scale_out_moves("phase 8 (c)", watch.phases["8 (c)-(e)"], 1)
 
     kernels = []
-    for kernel_names, family, path in ((aops.KERNELS, ATT, "edl-paper"),
+    for kernel_names, family, path in ((f32_att, ATT, "edl-paper"),
                                        (wops.KERNELS, WKV, "rwkv6-1.6b")):
         run = paths[path]
         for kname in kernel_names:
@@ -4047,10 +4098,10 @@ def main() -> int:
           f"ClusterExecutor with full-width edl_paper tenants, then "
           f"repro_torch.launch.cluster.main", flush=True)
     watch.mark("9")
-    cluster = run_cluster_path(torch, LAUNCHES, aops.KERNELS, edl_shard,
+    cluster = run_cluster_path(torch, LAUNCHES, f32_att, edl_shard,
                                paths["edl-paper"]["mean_step_ms"])
     for entry in kernels:
-        if entry["name"] in aops.KERNELS:
+        if entry["name"] in f32_att:
             # each phase-9 run's launches, counted from 0 just before it
             entry["cluster_path"] = {
                 name: {"launches": run["launches"][entry["name"]],
@@ -4062,7 +4113,7 @@ def main() -> int:
           "beside a trainer on four slots", flush=True)
     watch.mark("10")
     serving = {arch: run_serve(torch, LAUNCHES, arch) for arch in SERVE_ARCHS}
-    serving["tier"] = run_serving_tier(torch, LAUNCHES, aops.KERNELS,
+    serving["tier"] = run_serving_tier(torch, LAUNCHES, f32_att,
                                        edl_shard)
     print(f"[10/13] (b) serving over the model axis at (1, {SERVE_MP}) on "
           f"{SERVE_MP} slots of the card: "
@@ -4146,6 +4197,30 @@ def main() -> int:
                     for arch in ZOO_SERVE_MP_ARCHS}
     zoo_serve_mp_s = time.monotonic() - t0
     print(f"  phase 11 (c) took {zoo_serve_mp_s:.1f} s", flush=True)
+    # bf16's tensor-core kernels: their main path is phase 11 (a)'s
+    # training runs (each counted from 0 just before it), their records
+    # phase 3's at ATT_TC_MAIN_CASE
+    trained = [run for run in zoo.values() if "launches" in run]
+    for kname in aops.KERNELS:
+        if kname in f32_att:
+            continue
+        r = timed[ATT_TC_MAIN_CASE][kname]
+        kernels.append({
+            "name": kname, "route": "cuda", **ATT_TC,
+            "launches": sum(run["launches"][kname] for run in trained),
+            "warmup_launches": sum(run["warmup_launches"][kname]
+                                   for run in trained),
+            "launches_per_slot_step": {
+                run_arch: run["launches_per_slot_step"].get(kname, 0)
+                for run_arch, run in zoo.items() if "launches" in run},
+            "path": "zoo", "case": ATT_TC_MAIN_CASE,
+            **{k: r[k] for k in ("max_abs_err", "tolerance",
+                                 "tolerance_scale", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "bytes", "flops",
+                                 "library_ms", "shape")},
+            "share_of_bound": r["bound_ms"] / r["ms"], "card": card})
+        if kernels[-1]["launches"] <= 0:
+            fail(f"{kname} was not launched on phase 11's training runs")
     for entry in kernels:
         if entry["name"] in aops.KERNELS:
             entry["large_shapes"] = {
@@ -4154,10 +4229,13 @@ def main() -> int:
                     "bound_by", "bytes", "flops", "library_ms", "shape",
                     "rows_held", "q_elements")},
                     "share_of_bound": r["bound_ms"] / r["ms"]}
-                for case, recs in large.items()
+                for case, recs in large.items() if entry["name"] in recs
                 for r in (recs[entry["name"]],)}
-            entry["zoo_shapes"] = {case: shape_record(timed[case][entry[
-                "name"]]) for case, *_ in ATT_ZOO_CASES}
+            # the bf16 shapes that launch this kernel (none for the fp32
+            # forward and dK/dV)
+            entry["zoo_shapes"] = {
+                case: shape_record(timed[case][entry["name"]])
+                for case, *_ in ATT_ZOO_CASES if entry["name"] in timed[case]}
             # each config's training run, counted from 0 just before it
             # (null where the config does not train on the card)
             entry["zoo_path"] = {
@@ -4194,11 +4272,13 @@ def main() -> int:
             entry["moe_routing_path"] = {
                 case: run["launches"][entry["name"]]
                 for case, run in phase12["moe_routing"].items()}
-            entry["dropout_path"] = phase12["dropout"]["launches_each"]
+            entry["dropout_path"] = phase12["dropout"]["launches_each"][
+                entry["name"]]
     print(f"  {card}", flush=True)
     print("[13/13] results; library_ms is F.scaled_dot_product_attention for "
-          "the attention kernels (its forward for flash_attn_fwd, its whole "
-          "backward for both backward kernels) and null for the WKV6 "
+          "the attention kernels (its forward for flash_attn_fwd and "
+          "flash_attn_fwd_tc, its whole backward for the backward kernels) "
+          "and null for the WKV6 "
           "kernels, whose outputs no single PyTorch call computes; "
           "wkv6_bwd_dk's du_library_ms is du_part.sum(0), the one call that "
           "computes its du", flush=True)

@@ -2,11 +2,21 @@
 versions, and the differentiable wrapper the model calls.
 
 Counterpart of ``repro/kernels/attention/{kernel,ops,ref}.py``. The kernels
-(``kernels/csrc/flash_attn.cu``) take CUDA tensors; a tensor on the CPU goes
-to the plain versions in this module, which follow the reference's
-``attention_ref`` (including ``kv_len``) and write out the backward's
-formulas. A CUDA tensor never reaches a plain version: it launches the
-kernel, or the call raises.
+take CUDA tensors; a tensor on the CPU goes to the plain versions in this
+module, which follow the reference's ``attention_ref`` (including
+``kv_len``) and write out the backward's formulas. A CUDA tensor never
+reaches a plain version: it launches the kernel, or the call raises.
+
+Which kernel a CUDA call launches is a rule by dtype (``kernel_names``),
+not a fallback: float32 goes to the CUDA-core kernels of
+``kernels/csrc/flash_attn.cu`` (``flash_attn_fwd``, ``flash_attn_bwd_dq``,
+``flash_attn_bwd_dkdv``); bfloat16 to the tensor-core kernels of
+``kernels/csrc/flash_attn_tc.cu`` for the forward and dK/dV
+(``flash_attn_fwd_tc``, ``flash_attn_bwd_dkdv_tc``) and to
+``flash_attn_bwd_dq`` for dQ, which runs first and writes the delta that
+dK/dV reads. The tensor-core kernels load 16-byte chunks, so their wrappers
+copy any bf16 input that does not start on a 16-byte boundary to a fresh
+(aligned) tensor first.
 
 Each kernel wrapper adds one to the port's launch count
 (``kernels/launches.py``) where it launches, so a run can show that its
@@ -143,6 +153,14 @@ def flash_attn_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 # ------------------------------------------------------------ CUDA kernels
+def kernel_names(dtype: torch.dtype) -> tuple[str, str, str]:
+    """The kernels that compute the forward, dQ and dK/dV of inputs of
+    ``dtype`` on the card (and whose work ``COSTS`` books on ``meta``)."""
+    if dtype == torch.bfloat16:
+        return "flash_attn_fwd_tc", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv_tc"
+    return "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv"
+
+
 _SIGNATURES = {
     # q, k, v, o, lse; B, Hq, Hkv, Lq, Lk, D, kv_len, causal, window; scale;
     # dtype; stream
@@ -155,32 +173,46 @@ _SIGNATURES = {
     "flash_attn_bwd_dkdv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
+# csrc/flash_attn_tc.cu: the same interfaces, bf16 only
+TC_SIGNATURES = {"flash_attn_fwd_tc": _SIGNATURES["flash_attn_fwd"],
+                 "flash_attn_bwd_dkdv_tc": _SIGNATURES["flash_attn_bwd_dkdv"]}
+_LIBRARIES = {"flash_attn": _SIGNATURES, "flash_attn_tc": TC_SIGNATURES}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attn")
+def _lib(source: str) -> ctypes.CDLL:
+    lib = build.load(source)
     if not getattr(lib, "_typed", False):
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in _LIBRARIES[source].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.flash_attn_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attn_error_string.restype = ctypes.c_char_p
+        err_string = getattr(lib, f"{source}_error_string")
+        err_string.argtypes = [ctypes.c_int]
+        err_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
 def _launch(name: str, device: torch.device, ptrs, ints, scale: float,
             dtype: torch.dtype):
-    lib = _lib()
+    source = "flash_attn_tc" if name in TC_SIGNATURES else "flash_attn"
+    lib = _lib(source)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(*ptrs, *ints, float(scale),
                                  _CUDA_DTYPES[dtype], stream)
     if err != 0:
-        msg = lib.flash_attn_error_string(err).decode()
+        msg = getattr(lib, f"{source}_error_string")(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
     LAUNCHES.add(name)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its data starts on a 16-byte boundary, else a contiguous
+    copy of it (a fresh allocation, which does): the tensor-core kernels'
+    16-byte loads need that."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format)
 
 
 def _dims(q, k, kv_len, causal, window):
@@ -190,11 +222,15 @@ def _dims(q, k, kv_len, causal, window):
 
 
 def flash_attn_fwd_cuda(q, k, v, *, causal, window, scale, kv_len):
-    """Launch ``flash_attn_fwd``. Returns (o, lse)."""
+    """Launch the forward of ``kernel_names(q.dtype)``: ``flash_attn_fwd``
+    (fp32) or ``flash_attn_fwd_tc`` (bf16). Returns (o, lse)."""
     B, Hq, Lq, _ = q.shape
+    name = kernel_names(q.dtype)[0]
+    if name in TC_SIGNATURES:
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
-    _launch("flash_attn_fwd", q.device,
+    _launch(name, q.device,
             [t.data_ptr() for t in (q, k, v, o, lse)],
             _dims(q, k, kv_len, causal, window), scale, q.dtype)
     return o, lse
@@ -214,18 +250,24 @@ def flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, *, causal, window, scale,
 
 def flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, *, causal, window,
                              scale, kv_len):
-    """Launch ``flash_attn_bwd_dkdv``. Returns (dk, dv)."""
+    """Launch the dK/dV kernel of ``kernel_names(q.dtype)``:
+    ``flash_attn_bwd_dkdv`` (fp32) or ``flash_attn_bwd_dkdv_tc`` (bf16).
+    Returns (dk, dv)."""
+    name = kernel_names(q.dtype)[2]
+    if name in TC_SIGNATURES:
+        q, k, v, do = (aligned16(t) for t in (q, k, v, do))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_attn_bwd_dkdv", q.device,
+    _launch(name, q.device,
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
             _dims(q, k, kv_len, causal, window), scale, q.dtype)
     return dk, dv
 
 
 def flash_attn_bwd_cuda(q, k, v, o, lse, do, **opts):
-    """``flash_attn_bwd_dq`` (which also writes delta), then
-    ``flash_attn_bwd_dkdv`` on the same stream. Returns (dq, dk, dv)."""
+    """``flash_attn_bwd_dq`` (which also writes delta), then the dK/dV
+    kernel of ``kernel_names(q.dtype)`` on the same stream. Returns (dq,
+    dk, dv)."""
     dq, delta = flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
     dk, dv = flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
     return dq, dk, dv
@@ -248,7 +290,8 @@ def visible_pairs(Lq: int, Lk: int, causal: bool, window: int,
 def flash_work(q, k, causal: bool, window: int, kv_len: int
                ) -> dict[str, tuple[int, int]]:
     """(flops, bytes) each flash kernel does on these inputs: the bounds'
-    formulas (``chip_smoke.py`` phase 3)."""
+    formulas (``chip_smoke.py`` phase 3). A tensor-core kernel does the
+    work of the kernel it stands in for."""
     B, Hq, Lq, D = q.shape
     Lk = k.shape[2]
     esz = q.element_size()
@@ -256,11 +299,12 @@ def flash_work(q, k, causal: bool, window: int, kv_len: int
     n_kv = B * k.shape[1] * Lk * D * esz
     n_row = B * Hq * Lq * 4
     pairs = B * Hq * visible_pairs(Lq, Lk, causal, window, kv_len)
-    return {"flash_attn_fwd": (4 * D * pairs, 2 * n_qo + 2 * n_kv + n_row),
+    fwd = (4 * D * pairs, 2 * n_qo + 2 * n_kv + n_row)
+    dkdv = (8 * D * pairs, 2 * n_qo + 4 * n_kv + 2 * n_row)
+    return {"flash_attn_fwd": fwd, "flash_attn_fwd_tc": fwd,
             "flash_attn_bwd_dq": (6 * D * pairs,
                                   4 * n_qo + 2 * n_kv + 2 * n_row),
-            "flash_attn_bwd_dkdv": (8 * D * pairs,
-                                    2 * n_qo + 4 * n_kv + 2 * n_row)}
+            "flash_attn_bwd_dkdv": dkdv, "flash_attn_bwd_dkdv_tc": dkdv}
 
 
 def _count(q, k, opts: dict, names):
@@ -316,7 +360,7 @@ class FlashAttnFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale, kv_len):
         ctx.opts = dict(causal=causal, window=window, scale=scale,
                         kv_len=kv_len)
-        _count(q, k, ctx.opts, ("flash_attn_fwd",))
+        _count(q, k, ctx.opts, kernel_names(q.dtype)[:1])
         if q.is_cuda:
             o, lse = flash_attn_fwd_cuda(q, k, v, **ctx.opts)
         elif q.is_meta:
@@ -332,7 +376,7 @@ class FlashAttnFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        _count(q, k, ctx.opts, ("flash_attn_bwd_dq", "flash_attn_bwd_dkdv"))
+        _count(q, k, ctx.opts, kernel_names(q.dtype)[1:])
         if q.is_cuda:
             with LAUNCHES.warming(ctx.warming):
                 dq, dk, dv = flash_attn_bwd_cuda(q, k, v, o, lse, do,

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"flash_attn": "flash_attn.cu", "wkv6": "wkv6.cu"}
+SOURCES = {"flash_attn": "flash_attn.cu", "flash_attn_tc": "flash_attn_tc.cu",
+           "wkv6": "wkv6.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

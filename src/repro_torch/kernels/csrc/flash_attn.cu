@@ -69,6 +69,9 @@
 //   while step t computes. bf16 inputs, and fp32 inputs that do not start on
 //   a 16-byte boundary, are converted and stored by the threads instead, at
 //   the same point of the loop, so they stay correct without the overlap.
+//   Of the bf16 products only dQ runs here: the bf16 forward and dK/dV are
+//   the tensor-core kernels of flash_attn_tc.cu, and the entry points below
+//   refuse bf16 for those two.
 // - One block barrier a step in both kernels, after the wait for the step's
 //   tiles (it also frees the other stage and the score buffers of the step
 //   before), and one barrier of the two warps that share score rows after
@@ -859,6 +862,21 @@ cudaError_t bwd_dkdv(const void* q, const void* k, const void* v, const void* do
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 16, 32, 64, 96 or 128. Every
 // tensor is contiguous; the caller checks shapes. Returns a cudaError_t.
+// FA_DISPATCH_F32 takes float32 only: bf16's forward and dK/dV are
+// flash_attn_tc.cu's, on the tensor cores, so no bf16 call of those two
+// products can land on a CUDA-core kernel.
+#define FA_DISPATCH_F32(FN, ...)                                              \
+  do {                                                                        \
+    if (dtype != 0) return (int)cudaErrorInvalidValue;                        \
+    switch (head_dim) {                                                       \
+      case 16: return (int)FN<float, 16>(__VA_ARGS__);                        \
+      case 32: return (int)FN<float, 32>(__VA_ARGS__);                        \
+      case 64: return (int)FN<float, 64>(__VA_ARGS__);                        \
+      case 96: return (int)FN<float, 96>(__VA_ARGS__);                        \
+      case 128: return (int)FN<float, 128>(__VA_ARGS__);                      \
+      default: return (int)cudaErrorInvalidValue;                             \
+    }                                                                         \
+  } while (0)
 #define FA_DISPATCH(FN, ...)                                                  \
   do {                                                                        \
     if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;          \
@@ -882,7 +900,7 @@ extern "C" {
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                    int Hq, int Hkv, int Lq, int Lk, int head_dim, int kv_len, int causal,
                    int window, float scale, int dtype, void* stream) {
-  FA_DISPATCH(fwd, q, k, v, o, (float*)lse, B, Hq, Hkv, Lq, Lk, kv_len, causal, window, scale,
+  FA_DISPATCH_F32(fwd, q, k, v, o, (float*)lse, B, Hq, Hkv, Lq, Lk, kv_len, causal, window, scale,
               (cudaStream_t)stream);
 }
 
@@ -898,7 +916,7 @@ int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void*
                         const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
                         int Hkv, int Lq, int Lk, int head_dim, int kv_len, int causal,
                         int window, float scale, int dtype, void* stream) {
-  FA_DISPATCH(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, B, Hq,
+  FA_DISPATCH_F32(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, B, Hq,
               Hkv, Lq, Lk, kv_len, causal, window, scale, (cudaStream_t)stream);
 }
 

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels' sources, run on the CPU.
 
 ``flash_attn_fwd``, ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv`` of
-``src/repro_torch/kernels/csrc/flash_attn.cu`` and the WKV6 forward and
+``src/repro_torch/kernels/csrc/flash_attn.cu`` (and, for the bf16 cases,
+the forward and dK/dV of ``flash_attn_tc.cu``, as ``ops.kernel_names``
+picks them) and the WKV6 forward and
 backward kernels of ``src/repro_torch/kernels/csrc/wkv6.cu`` are
 translated into C++
 (each CUDA thread a ``std::thread``; ``__syncthreads``, the 64-thread
@@ -14,7 +16,9 @@ to 64, extreme decays and a nonzero s0 and dsT; for both rows that are not 16-by
 aligned, and two runs that must give the same bits. It checks the kernels'
 indexing and synchronisation, not their speed, and knows only the CUDA
 features those sources use: a new asm construct there needs a stand-in in
-``REWRITES``.
+``REWRITES``. The stand-ins for ``wgmma`` (``flash_attn_tc.cu``) are
+here too; ``test_torch_cuda_emulate_tc.py`` holds those kernels at more
+shapes.
 Run from the repo root:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_emulate.py
@@ -44,6 +48,8 @@ CUDA_RUNTIME_H = r"""// CPU emulation of the CUDA features the kernels use: one 
 #include <cstdint>
 #include <cstring>
 #include <algorithm>
+#include <cstdio>
+#include <cstdlib>
 #include <thread>
 #include <vector>
 #include <memory>
@@ -97,7 +103,10 @@ inline void emu_bar_sync(int id, int n) {
   b->arrive_and_wait();
 }
 inline void __syncwarp() { emu_blk->warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
-inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+// a shared-memory address is the offset into the block's shared memory
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return (size_t)((const char*)p - (const char*)emu_smem());
+}
 inline void emu_cp(void* d, const void* s, int n) {
 #ifdef EMU_COPY_AT_ISSUE
   std::memcpy(d, s, n);
@@ -110,10 +119,96 @@ inline void emu_wait() {
   for (auto& c : emu_pending) std::memcpy(c.d, c.s, c.n);
   emu_pending.clear();
 }
+// wgmma (flash_attn_tc.cu): fence, commit and wait as barriers of the
+// warpgroup; mma_async computes each thread's accumulator elements in the
+// layout of the PTX ISA (warp w, lane 4 g + t: element e is row 16 w + g +
+// 8 ((e / 2) & 1), column 8 (e / 4) + 2 t + (e & 1)) from the operands that
+// its descriptors address (start, leading and stride byte offsets, the
+// 128-byte swizzle) and, for A in registers, from the other lanes'
+// fragments through a per-block scratch. The product is formed at the wait
+// (reading shared memory and the A registers then, and leaving the
+// accumulators alone until then), or at the issue with EMU_COPY_AT_ISSUE.
+inline uint32_t emu_wg_a[1024][4];
+struct EmuWgOp { int n; const uint32_t* a; float* d; uint64_t da, db; int acc; };
+inline thread_local std::vector<EmuWgOp> emu_wg_ops;
+inline void emu_wg_bar() { emu_bar_sync(100 + (int)threadIdx.x / 128, 128); }
+[[noreturn]] inline void emu_fail(const char* what) { std::fprintf(stderr, "wgmma: %s\n", what); std::abort(); }
+inline float emu_bf16(uint16_t u) { uint32_t x = (uint32_t)u << 16; float f; std::memcpy(&f, &x, 4); return f; }
+inline float emu_smem_bf16(uint32_t off) {
+  if (off % 2 || off + 2 > emu_blk->smem.size() * sizeof(float4)) emu_fail("operand outside shared memory");
+  uint16_t u; std::memcpy(&u, (const char*)emu_smem() + off, 2); return emu_bf16(u);
+}
+inline void emu_desc_check(uint64_t desc) {
+  if ((desc >> 62) != 1) emu_fail("layout type is not the 128-byte swizzle");
+  if ((desc >> 49) & 7) emu_fail("base offset is not 0");
+}
+inline uint32_t emu_sw128(uint32_t off) { return off ^ (((off >> 7) & 7u) << 4); }
+// element (row r, column k) of a K-major operand: rows in groups of 8 of
+// 128-byte rows, the groups SBO apart
+inline uint32_t emu_kmajor(uint64_t desc, int r, int k) {
+  const uint32_t start = (uint32_t)(desc & 0x3fff) << 4, sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
+  return emu_sw128(start + (r / 8) * sbo + (r % 8) * 128 + k * 2);
+}
+// element (k, n) of an MN-major operand: n along a 128-byte row, 64 a row
+// and the next 64 LBO on; k in groups of 8 rows, the groups SBO apart
+inline uint32_t emu_mnmajor(uint64_t desc, int k, int n) {
+  const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3fff) << 4, sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
+  return emu_sw128(start + (n / 64) * lbo + (k / 8) * sbo + (k % 8) * 128 + (n % 64) * 2);
+}
+inline void emu_wg_run(const EmuWgOp& op) {
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
+  float A[2][16];
+  if (op.a) {   // rows g and g + 8 of the warp from the fragments of lanes 4 g .. 4 g + 3
+    for (int i = 0; i < 4; ++i) emu_wg_a[threadIdx.x][i] = op.a[i];
+    emu_wg_bar();
+    for (int tt = 0; tt < 4; ++tt) {
+      const uint32_t* f = emu_wg_a[threadIdx.x - lane + 4 * g + tt];
+      for (int i = 0; i < 8; ++i) {   // element i: register i / 2, half i % 2
+        const uint16_t u = (uint16_t)(f[i / 2] >> (16 * (i % 2)));
+        A[(i / 2) % 2][8 * (i / 4) + 2 * tt + i % 2] = emu_bf16(u);
+      }
+    }
+    emu_wg_bar();
+  } else {
+    for (int h = 0; h < 2; ++h)
+      for (int k = 0; k < 16; ++k) A[h][k] = emu_smem_bf16(emu_kmajor(op.da, 16 * w + g + 8 * h, k));
+  }
+  for (int e = 0; e < op.n / 2; ++e) {
+    const int h = (e / 2) % 2, col = 8 * (e / 4) + 2 * q + e % 2;
+    float sum = 0.f;
+    for (int k = 0; k < 16; ++k)
+      sum += A[h][k] * emu_smem_bf16(op.a ? emu_mnmajor(op.db, k, col) : emu_kmajor(op.db, col, k));
+    op.d[e] = op.acc ? op.d[e] + sum : sum;
+  }
+}
+inline void emu_wg_issue(const EmuWgOp& op) {
+  if (op.da) emu_desc_check(op.da);
+  emu_desc_check(op.db);
+#ifdef EMU_COPY_AT_ISSUE
+  emu_wg_run(op);
+#else
+  emu_wg_ops.push_back(op);
+#endif
+}
+template <int N> void emu_wgmma_ss(float* d, uint64_t da, uint64_t db, int acc) {
+  emu_wg_issue({N, nullptr, d, da, db, acc});
+}
+template <int N> void emu_wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+  emu_wg_issue({N, a, d, 0, db, acc});
+}
+inline void emu_wg_fence() { emu_wg_bar(); }
+inline void emu_wg_commit() { emu_wg_bar(); }
+inline void emu_wg_wait() {
+  for (auto& op : emu_wg_ops) emu_wg_run(op);
+  emu_wg_ops.clear();
+  emu_wg_bar();
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 2,
-       cudaFuncAttributePreferredSharedMemoryCarveout = 3, cudaSharedmemCarveoutMaxShared = 100 };
+       cudaFuncAttributePreferredSharedMemoryCarveout = 3, cudaSharedmemCarveoutMaxShared = 100,
+       cudaErrorMisalignedAddress = 716 };
 template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 template <typename K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 1; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -151,7 +246,12 @@ struct __nv_bfloat16 { uint16_t x; };
 inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 16; float f; std::memcpy(&f, &u, 4); return f; }
 inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fff + ((u >> 16) & 1); return {(uint16_t)(u >> 16)}; }
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)}; }
 """
+
+# the rest of one asm statement: text that does not start another
+_REST = r"(?:(?!asm volatile).)*?"
 
 # CUDA constructs of the sources and their C++ stand-ins. A static
 # __shared__ array becomes a static one: blocks run one at a time.
@@ -165,6 +265,19 @@ REWRITES = [
     (r'asm volatile\("cp\.async\.wait_group.*?"memory"\);', "emu_wait();"),
     (r"extern __shared__ (float4?) (\w+)\[\];", r"\1* \2 = (\1*)emu_smem();"),
     (r"__shared__ float ", "static float "),
+    # flash_attn_tc.cu: wgmma, the proxy fence, and the compiler's fences on
+    # the registers a wgmma in flight holds
+    (r'asm volatile\("fence\.proxy\.async\.shared::cta;\\n" ::: "memory"\);', "(void)0;"),
+    (r'asm volatile\("wgmma\.fence\.sync\.aligned;\\n" ::: "memory"\);', "emu_wg_fence();"),
+    (r'asm volatile\("wgmma\.commit_group\.sync\.aligned;\\n" ::: "memory"\);',
+     "emu_wg_commit();"),
+    (r'asm volatile\("wgmma\.wait_group\.sync\.aligned 0;\\n" ::: "memory"\);',
+     "emu_wg_wait();"),
+    (r'asm volatile\("" : "\+[fr]"\(([^()]*)\)::"memory"\);', r"(void)\1;"),
+    (r"asm volatile\(" + _REST + r"m64n(\d+)k16\.f32\.bf16\.bf16" + _REST
+     + r"p, 1, 1, 0, 0;" + _REST + r"\);", r"emu_wgmma_ss<\1>(d, da, db, acc);"),
+    (r"asm volatile\(" + _REST + r"m64n(\d+)k16\.f32\.bf16\.bf16" + _REST
+     + r"p, 1, 1, 1;" + _REST + r"\);", r"emu_wgmma_rs<\1>(d, a, db, acc);"),
 ]
 
 
@@ -199,9 +312,27 @@ def load(request, tmp_path_factory, source: str, signatures: dict):
     return lib
 
 
+class AttentionLibs:
+    """The translated ``flash_attn.cu`` and, built at the first call of one
+    of its entry points, ``flash_attn_tc.cu``: ``libs.<entry point>``."""
+
+    def __init__(self, request, tmp_path_factory):
+        self._args = (request, tmp_path_factory)
+        self._fa = load(request, tmp_path_factory, "flash_attn",
+                        ops._SIGNATURES)
+        self._tc = None
+
+    def __getattr__(self, name):
+        if name not in ops.TC_SIGNATURES:
+            return getattr(self._fa, name)
+        if self._tc is None:
+            self._tc = load(*self._args, "flash_attn_tc", ops.TC_SIGNATURES)
+        return getattr(self._tc, name)
+
+
 @pytest.fixture(scope="module", params=["copy_at_wait", "copy_at_issue"])
 def emu(request, tmp_path_factory):
-    return load(request, tmp_path_factory, "flash_attn", ops._SIGNATURES)
+    return AttentionLibs(request, tmp_path_factory)
 
 
 @pytest.fixture(scope="module", params=["copy_at_wait", "copy_at_issue"])
@@ -253,8 +384,11 @@ def run(lib, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype, tol,
     dims = [B, Hq, Hkv, Lq, Lk, D, kv_len, int(causal), window]
     dq, delta = torch.empty_like(q), torch.empty(B, Hq, Lq)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    for fn, ts in (("flash_attn_bwd_dq", (q, k, v, o, do, lse, dq, delta)),
-                   ("flash_attn_bwd_dkdv", (q, k, v, do, lse, delta, dk, dv))):
+    _, dq_name, dkdv_name = ops.kernel_names(dtype)
+    if dkdv_name in ops.TC_SIGNATURES:   # as the wrapper hands them over
+        q, k, v, do = (ops.aligned16(t) for t in (q, k, v, do))
+    for fn, ts in ((dq_name, (q, k, v, o, do, lse, dq, delta)),
+                   (dkdv_name, (q, k, v, do, lse, delta, dk, dv))):
         err = getattr(lib, fn)(*[t.data_ptr() for t in ts], *dims, scale,
                                DTYPES[dtype], None)
         assert err == 0, f"{fn} returned {err}"
@@ -278,11 +412,14 @@ def run_fwd(lib, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype,
     k, v = (randn(gen, (B, Hkv, Lk, D), dtype, offset) for _ in range(2))
     kv_len = Lk if kv_len is None else kv_len
     scale = D ** -0.5
+    name = ops.kernel_names(dtype)[0]
+    if name in ops.TC_SIGNATURES:   # as the wrapper hands them over
+        q, k, v = (ops.aligned16(t) for t in (q, k, v))
     o, lse = torch.empty_like(q), torch.empty(B, Hq, Lq)
-    err = lib.flash_attn_fwd(*[t.data_ptr() for t in (q, k, v, o, lse)], B, Hq,
-                             Hkv, Lq, Lk, D, kv_len, int(causal), window,
+    err = getattr(lib, name)(*[t.data_ptr() for t in (q, k, v, o, lse)], B,
+                             Hq, Hkv, Lq, Lk, D, kv_len, int(causal), window,
                              scale, DTYPES[dtype], None)
-    assert err == 0, f"flash_attn_fwd returned {err}"
+    assert err == 0, f"{name} returned {err}"
     o_p, lse_p = ops.flash_attn_fwd_plain(q, k, v, causal=causal,
                                           window=window, scale=scale,
                                           kv_len=kv_len)

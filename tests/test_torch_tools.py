@@ -25,6 +25,7 @@ def load_tool(name: str):
 
 WKV_NS = "_ZN39_GLOBAL__N__f32662c3_7_wkv6_cu_wkv6_fwd"
 ATT_NS = "_ZN46_GLOBAL__N__e2cf8434_13_flash_attn_cu_cd4330bb"
+TC_NS = "_ZN49_GLOBAL__N__b3b75d5a_16_flash_attn_tc_cu_fed10b6a"
 # kernel names as nvcc 12.8 gave them for sm_90a, and as c++filt prints them
 NAMES = [
     (WKV_NS + "15wkv6_fwd_kernelILi64EEEvPKfS2_S2_S2_S2_S2_PfS3_iii", "wkv6_fwd"),
@@ -43,6 +44,18 @@ NAMES = [
     ("void (anonymous namespace)::fwd_kernel<float, 64>(float const*, float const*, "
      "float const*, float*, float*, int, int, int, int, int, int, int, float, int)",
      "flash_attn_fwd"),
+    # flash_attn_tc.cu's, for sm_90a
+    (TC_NS + "13fwd_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiiiif",
+     "flash_attn_fwd_tc"),
+    (TC_NS + "18bwd_dkdv_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_"
+     "PS1_S6_iiiiiiif", "flash_attn_bwd_dkdv_tc"),
+    ("void (anonymous namespace)::fwd_tc_kernel<128>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, "
+     "int, int, int, int, int, int, float)", "flash_attn_fwd_tc"),
+    ("void (anonymous namespace)::bwd_dkdv_tc_kernel<96>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "float const*, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, "
+     "int, int, int, int, int, float)", "flash_attn_bwd_dkdv_tc"),
     ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x256_8x4_nt_align1>("
      "cutlass_80_simt_sgemm_128x256_8x4_nt_align1::Params)", "matmul"),
 ]

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Time the port's hand-written kernels on the card against an earlier source.
 
-Builds ``src/repro_torch/kernels/csrc/{flash_attn,wkv6}.cu`` with the flags
-of ``kernels/build.py`` and, with ``--baseline-rev REV``, the same files at
-git revision REV (read with ``git show``, and kept under
+Builds ``src/repro_torch/kernels/csrc/{flash_attn,flash_attn_tc,wkv6}.cu``
+with the flags of ``kernels/build.py`` and, with ``--baseline-rev REV``,
+the same files at git revision REV (read with ``git show``, and kept under
 ``build/kernel_bench/src-REV/`` so that a copy of the checkout without its
-git history finds them there), plus any ``--variant NAME=FILE`` (a
-``flash_attn*.cu`` or ``wkv6*.cu`` to try), one nvcc per source, all
+git history finds them there; a source that REV does not have is left
+out), plus any ``--variant NAME=FILE`` (a ``flash_attn*.cu``,
+``flash_attn_tc*.cu`` or ``wkv6*.cu`` to try), one nvcc per source, all
 started together. Prints each kernel's registers and spills from
-``-Xptxas -v`` and the blocks per SM that each build reports. Each build is
+``-Xptxas -v``, the blocks per SM that each build reports, and the
+``HGMMA`` instructions that ``cuobjdump -sass`` finds in each tensor-core
+kernel. Each build is
 checked against the plain versions (and for the same bits on two runs) at
 the main shapes, then ``flash_attn_fwd``, the backward pair (dq then dkdv),
 ``wkv6_fwd``, ``wkv6_bwd_dr``, ``wkv6_bwd_dk`` and ``wkv6_bwd_dv`` are
@@ -18,7 +21,17 @@ so that they share the card's state, beside
 inputs (a yardstick; the port never calls it). Shapes: one slot shard of
 the edl_paper path (B 8 at p = 1, 4 at p = 2; H 12, L 1024, D 64, fp32,
 causal) and of the rwkv6 path (B 8 / 4, L 1024, H 32, hd 64, fp32), where
-each WKV6 kernel's bound by bytes is printed beside its times. A build
+each WKV6 kernel's bound by bytes is printed beside its times. In bf16,
+at the zoo's five training shapes (B 4, L 1024, causal: phi3, nemo /
+llava / mixtral, qwen2.5, starcoder2, musicgen), each build's bf16
+forward and dK/dV (the tensor-core ``flash_attn_fwd_tc`` and
+``flash_attn_bwd_dkdv_tc`` where a build has them, else its
+``flash_attn_fwd`` and ``flash_attn_bwd_dkdv`` at dtype 1) are held
+against the plain versions on the same inputs, their worst errors
+printed side by side (dK/dV on the delta of this checkout's bf16
+``flash_attn_bwd_dq``), the new ones run twice for the same bits, and all
+timed in turns beside SDPA's forward and whole backward and the bf16
+bound (4 D and 8 D flops a visible pair at 989 TFLOP/s). A build
 from before du was folded into dk (it has a ``wkv6_bwd_du`` kernel, as at
 ec2815a) is driven through its own interface: its dk is timed alone and,
 as ``wkv6_bwd_dk+du``, followed by its du kernel, the work that the folded
@@ -27,6 +40,7 @@ record, which it also writes to ``--out``. Run from the repo root on a
 machine with a card:
 
     python3 tools/torch_kernel_bench.py [--baseline-rev REV] [--variant NAME=FILE] [--reps 20]
+        [--parts fp32,bf16,wkv]
 """
 import argparse
 import ctypes
@@ -40,8 +54,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-FAMILIES = {"flash_attn": "flash_attn.cu", "wkv6": "wkv6.cu"}
+FAMILIES = {"flash_attn": "flash_attn.cu", "flash_attn_tc": "flash_attn_tc.cu",
+            "wkv6": "wkv6.cu"}
 ATT_SHAPES = {"edl_p1": (8, 12, 1024, 64), "edl_p2": (4, 12, 1024, 64)}
+# the zoo's bf16 training shapes (chip_smoke.py's ZOO_SHAPES): Hq, Hkv, D at
+# B 4, L 1024, causal
+ZOO_SHAPES = {"phi3": (32, 32, 96), "nemo_llava_mixtral": (32, 8, 128),
+              "qwen": (40, 8, 128), "starcoder2": (48, 4, 128),
+              "musicgen": (24, 24, 64)}
+ZOO_B, ZOO_L = 4, 1024
+BF16_TOL = 2e-2                       # chip_smoke.py's bf16 tolerance
+BF16_FLOPS = 989e12                   # H100 SXM, bf16 tensor cores, dense
 WKV_SHAPES = {"rwkv_p1": (8, 1024, 32, 64), "rwkv_p2": (4, 1024, 32, 64)}
 ATT_TOL = {"fwd": 2e-5, "bwd": 1e-4}   # chip_smoke.py's fp32 tolerances
 WKV_TOL = 1e-4                        # of the plain output's largest entry
@@ -54,7 +77,14 @@ SPLIT_DU_SIGNATURES = {"wkv6_bwd_dk": [_P] * 11 + [_I] * 4 + [_P],
                        "wkv6_bwd_du": [_P] * 2 + [_I] * 3 + [_P]}
 # the kernels whose registers are reported: fp32 at head dim 64
 PTXAS_KERNELS = {"flash_attn": ("fwd_kernelIfLi64E", "bwd_dq_kernelIfLi64E",
-                                "bwd_dkdv_kernelIfLi64E"),
+                                "bwd_dkdv_kernelIfLi64E",
+                                # the bf16 instances a baseline may have
+                                *(f"{k}_kernelI13__nv_bfloat16Li{d}E"
+                                  for k in ("fwd", "bwd_dq", "bwd_dkdv")
+                                  for d in (64, 96, 128))),
+                 "flash_attn_tc": tuple(f"{k}_tc_kernelILi{d}E"
+                                        for k in ("fwd", "bwd_dkdv")
+                                        for d in (16, 32, 64, 96, 128)),
                  "wkv6": ("wkv6_fwd_kernelILi64E", "wkv6_bwd_dr_kernelILi64E",
                           "wkv6_bwd_dk_kernelILi64E", "wkv6_bwd_dv_kernelILi64E")}
 
@@ -63,15 +93,24 @@ def baseline_sources(rev: str) -> dict:
     """{family: path} of the sources at ``rev``, from git or from the copy
     an earlier run kept."""
     keep = ROOT / "build" / "kernel_bench" / f"src-{rev}"
+    known = subprocess.run(["git", "-C", str(ROOT), "rev-parse", "--verify",
+                            "--quiet", f"{rev}^{{commit}}"],
+                           capture_output=True, text=True).returncode == 0
     out = {}
     for fam, fname in FAMILIES.items():
-        path = keep / fname
+        path, absent = keep / fname, keep / f"{fname}.absent"
         got = subprocess.run(["git", "-C", str(ROOT), "show",
                               f"{rev}:src/repro_torch/kernels/csrc/{fname}"],
                              capture_output=True, text=True)
         if got.returncode == 0:
             keep.mkdir(parents=True, exist_ok=True)
             path.write_text(got.stdout)
+        elif known:             # the revision has no such source
+            keep.mkdir(parents=True, exist_ok=True)
+            absent.write_text("")
+            continue
+        elif absent.exists():
+            continue
         elif not path.exists():
             raise SystemExit(f"no {fname} at {rev}: no git history here and "
                              f"no copy in {keep} (run once with git to keep it)")
@@ -79,9 +118,29 @@ def baseline_sources(rev: str) -> dict:
     return out
 
 
+def sass_hgmma(lib: Path, marks) -> dict:
+    """{kernel mark: HGMMA instructions} in ``cuobjdump -sass`` of a built
+    library."""
+    from repro_torch.kernels import build as kbuild
+    tool = Path(kbuild.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = next((k for k in marks if k in m.group(1)), None)
+            if entry:
+                out[entry] = 0
+        elif entry and "HGMMA" in line:
+            out[entry] += 1
+    return out
+
+
 def ptxas_summary(log: str, marks) -> dict:
     """{kernel mark: {"registers", "spill_stores", "spill_loads"}} from
-    nvcc's ``-Xptxas -v`` log."""
+    nvcc's ``-Xptxas -v`` log, with ``"notes"``: the lines where ptxas
+    reports a performance loss (wgmma serialised, say)."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -90,6 +149,9 @@ def ptxas_summary(log: str, marks) -> dict:
             continue
         if entry is None:
             continue
+        if "Performance Loss" in line or "serialized" in line:
+            out.setdefault(entry, {}).setdefault("notes", []).append(
+                line.strip())
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             out.setdefault(entry, {}).update(spill_stores=int(m.group(1)),
@@ -121,7 +183,7 @@ def build_all(builds: dict) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {name} {fam}:\n{log[-4000:]}")
         libs[name][fam] = (ctypes.CDLL(str(lib)),
-                           ptxas_summary(log, PTXAS_KERNELS[fam]))
+                           ptxas_summary(log, PTXAS_KERNELS[fam]), lib)
     return libs
 
 
@@ -135,6 +197,11 @@ def typed(lib, fam):
     from repro_torch.kernels.rwkv import ops as wops
     if fam == "flash_attn":
         sigs = aops._SIGNATURES
+    elif fam == "flash_attn_tc":
+        sigs = aops.TC_SIGNATURES
+        lib.flash_attn_tc_blocks_per_sm.argtypes = [_I] + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.flash_attn_tc_blocks_per_sm.restype = ctypes.c_int
     else:
         sigs = {**wops._SIGNATURES,
                 **(SPLIT_DU_SIGNATURES if split_du(lib) else {})}
@@ -154,8 +221,20 @@ OCCUPANCY = {"flash_attn": (("flash_attn_blocks_per_sm", ("fwd", "dq", "dkdv")),
 
 def blocks_per_sm(lib, fam) -> dict | None:
     """What the build's occupancy entry points report: the first of the
-    attention family's that it has, every one of the WKV6 family's."""
+    attention family's that it has, every one of the WKV6 family's, the
+    tensor-core kernels' at the zoo's head dims."""
     out = {}
+    if fam == "flash_attn_tc":
+        for d in sorted({D for _, _, D in ZOO_SHAPES.values()}):
+            n = [ctypes.c_int() for _ in range(2)]
+            err = lib.flash_attn_tc_blocks_per_sm(d, *(ctypes.byref(x)
+                                                       for x in n))
+            if err:
+                raise RuntimeError(f"flash_attn_tc_blocks_per_sm: cudaError "
+                                   f"{err}")
+            out.update({f"fwd_tc_d{d}": n[0].value,
+                        f"dkdv_tc_d{d}": n[1].value})
+        return out
     for fn, keys in OCCUPANCY[fam]:
         if not hasattr(lib, fn) or (fam == "flash_attn" and out):
             continue
@@ -173,12 +252,130 @@ def call(lib, fn, *args):
         raise RuntimeError(f"{fn}: cudaError {err}")
 
 
+def bf16_entries(fams: dict):
+    """A build's bf16 forward and dK/dV: ((lib, entry), (lib, entry)), the
+    tensor-core kernels where it has them; None where it has neither."""
+    if "flash_attn_tc" in fams:
+        lib = fams["flash_attn_tc"][0]
+        return (lib, "flash_attn_fwd_tc"), (lib, "flash_attn_bwd_dkdv_tc")
+    if "flash_attn" in fams:
+        lib = fams["flash_attn"][0]
+        return (lib, "flash_attn_fwd"), (lib, "flash_attn_bwd_dkdv")
+    return None
+
+
+def bench_bf16(torch, libs, order, timed, stream, result) -> bool:
+    """The bf16 forward and dK/dV of each build at the zoo's shapes: held
+    against the plain versions (the worst error of each build on the same
+    inputs), the same bits twice, and timed in turns beside SDPA and the
+    bf16 bound. dK/dV reads the delta of this checkout's bf16
+    ``flash_attn_bwd_dq``. False where a check fails."""
+    from repro_torch.kernels.attention import ops as aops
+    F = torch.nn.functional
+    builds = {n: e for n in libs for e in (bf16_entries(libs[n]),) if e}
+    dq_lib = libs["new"]["flash_attn"][0]
+    for sname, (Hq, Hkv, D) in ZOO_SHAPES.items():
+        B, L = ZOO_B, ZOO_L
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+        q, do = rnd(B, Hq, L, D), rnd(B, Hq, L, D)
+        k, v = rnd(B, Hkv, L, D), rnd(B, Hkv, L, D)
+        scale = D ** -0.5
+        opts = dict(causal=True, window=0, scale=scale, kv_len=L)
+        dims = [B, Hq, Hkv, L, L, D, L, 1, 0]
+        o, lse = torch.empty_like(q), torch.empty((B, Hq, L), device="cuda")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((B, Hq, L), device="cuda")
+        o_p, lse_p = aops.flash_attn_fwd_plain(q, k, v, **opts)
+        # the same o, lse and delta for every build's dK/dV
+        o_in = o_p.to(torch.bfloat16)
+        call(dq_lib, "flash_attn_bwd_dq", *[t.data_ptr() for t in (
+            q, k, v, o_in, do, lse_p, dq, delta)], *dims, scale, 1, stream)
+        torch.cuda.synchronize()
+        dk_p, dv_p = aops.flash_attn_bwd_dkdv_plain(q, k, v, lse_p, delta, do,
+                                                    **opts)
+
+        def fwd(entry):
+            call(*entry, *[t.data_ptr() for t in (q, k, v, o, lse)], *dims,
+                 scale, 1, stream)
+
+        def dkdv(entry):
+            call(*entry, *[t.data_ptr() for t in (
+                q, k, v, do, lse_p, delta, dk, dv)], *dims, scale, 1, stream)
+
+        errs = {}
+        for name, (f_entry, kv_entry) in builds.items():
+            runs = []
+            for _ in range(2):
+                fwd(f_entry)
+                dkdv(kv_entry)
+                torch.cuda.synchronize()
+                runs.append([t.clone() for t in (o, lse, dk, dv)])
+            errs[name] = {}
+            for kname, got, want in (("fwd", runs[0][:2], (o_p, lse_p)),
+                                     ("dkdv", runs[0][2:], (dk_p, dv_p))):
+                pairs = [(a.float(), b.float()) for a, b in zip(got, want)]
+                err = max(float((a - b).abs().max()) for a, b in pairs)
+                if not all(bool(((a - b).abs() <= BF16_TOL * (1 + b.abs())).all())
+                           for a, b in pairs):
+                    print(f"{name} bf16 {kname} at {sname} disagrees with its "
+                          f"plain version: max_abs_err {err:.3e}",
+                          file=sys.stderr)
+                    return False
+                errs[name][kname] = err
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                print(f"{name}: two bf16 runs at {sname} differ",
+                      file=sys.stderr)
+                return False
+        del runs, o_p, dk_p, dv_p
+        pairs = B * Hq * aops.visible_pairs(L, L, True, 0, L)
+        work = aops.flash_work(q, k, True, 0, L)
+        bound = {kn: max(f / BF16_FLOPS, b / HBM_BYTES_S) * 1e3
+                 for kn, (f, b) in (("fwd", work["flash_attn_fwd_tc"]),
+                                    ("dkdv", work["flash_attn_bwd_dkdv_tc"]))}
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                             enable_gqa=Hq != Hkv)
+        times = {n: {"fwd": [], "dkdv": []} for n in builds}
+        sdpa = {"fwd": [], "bwd": []}
+        for name in order:
+            if name not in builds:
+                continue
+            f_entry, kv_entry = builds[name]
+            times[name]["fwd"].append(timed(lambda: fwd(f_entry)))
+            times[name]["dkdv"].append(timed(lambda: dkdv(kv_entry)))
+            sdpa["fwd"].append(timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=Hq != Hkv)))
+            sdpa["bwd"].append(timed(lambda: torch.autograd.grad(
+                out, (ql, kl, vl), do, retain_graph=True)))
+        del out, ql, kl, vl
+        rec = result["shapes"][f"bf16_{sname}"] = {
+            "B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "D": D, "pairs": pairs,
+            "kernels": {n: [e[1] for e in builds[n]] for n in builds},
+            "ms": {n: {w: sum(x) / len(x) for w, x in t.items()}
+                   for n, t in times.items()},
+            "ms_each_turn": times, "max_abs_err": errs,
+            "bound_ms": bound,
+            "sdpa_ms": {w: sum(x) / len(x) for w, x in sdpa.items()},
+            "sdpa_ms_each_turn": sdpa}
+        print(json.dumps({f"bf16_{sname}": rec["ms"], "max_abs_err": errs,
+                          "bound_ms": bound, "sdpa_ms": rec["sdpa_ms"]}),
+              flush=True)
+    return True
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-rev", help="git revision whose sources to time")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=FILE: another flash_attn*.cu or wkv6*.cu")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parts", default="fp32,bf16,wkv",
+                    help="which of fp32 (edl_paper attention), bf16 (the "
+                         "zoo's attention) and wkv to run")
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_bench.json"))
     args = ap.parse_args(argv)
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -187,7 +384,8 @@ def main(argv=None) -> int:
         builds["base"] = baseline_sources(args.baseline_rev)
     for v in args.variant:
         name, path = v.split("=", 1)
-        fam = next(f for f in FAMILIES if Path(path).name.startswith(f))
+        fam = next(f for f in sorted(FAMILIES, key=len, reverse=True)
+                   if Path(path).name.startswith(f))
         builds[name] = {fam: Path(path).resolve()}
     import torch
     if not torch.cuda.is_available():
@@ -207,14 +405,19 @@ def main(argv=None) -> int:
     result = {"card": card, "reps": args.reps, "baseline_rev": args.baseline_rev,
               "sources": {n: {f: str(p) for f, p in b.items()}
                           for n, b in builds.items()},
-              "ptxas": {}, "blocks_per_sm": {}, "max_err": {}, "shapes": {}}
+              "ptxas": {}, "blocks_per_sm": {}, "hgmma": {}, "max_err": {},
+              "shapes": {}}
+    parts = set(args.parts.split(","))
     for name, fams in libs.items():
-        for fam, (lib, ptx) in fams.items():
+        for fam, (lib, ptx, path) in fams.items():
             typed(lib, fam)
             result["ptxas"].setdefault(name, {}).update(ptx)
             result["blocks_per_sm"].setdefault(name, {})[fam] = blocks_per_sm(lib, fam)
+            if fam == "flash_attn_tc":
+                result["hgmma"][name] = sass_hgmma(path, PTXAS_KERNELS[fam])
         print(f"  {name}: ptxas {result['ptxas'][name]}; blocks per SM "
-              f"{result['blocks_per_sm'][name]}", flush=True)
+              f"{result['blocks_per_sm'][name]}; HGMMA in the tensor-core "
+              f"kernels {result['hgmma'].get(name)}", flush=True)
 
     def timed(fn) -> float:
         for _ in range(3):
@@ -233,7 +436,7 @@ def main(argv=None) -> int:
     order = list(libs) + list(libs)[::-1]
     for sname, (B, H, L, D) in ATT_SHAPES.items():
         att = [n for n in libs if "flash_attn" in libs[n]]
-        if not att:
+        if not att or "fp32" not in parts:
             break
         gen = torch.Generator(device="cuda").manual_seed(0)
         q, k, v, do = (torch.randn((B, H, L, D), generator=gen, device="cuda")
@@ -314,9 +517,13 @@ def main(argv=None) -> int:
                           "sdpa_ms": result["shapes"][sname]["sdpa_ms"]}),
               flush=True)
 
+    if "bf16" in parts and not bench_bf16(torch, libs, order, timed, stream,
+                                          result):
+        return 1
+
     for sname, (B, L, H, hd) in WKV_SHAPES.items():
         wkv = [n for n in libs if "wkv6" in libs[n]]
-        if not wkv:
+        if not wkv or "wkv" not in parts:
             break
         gen = torch.Generator().manual_seed(0)
 

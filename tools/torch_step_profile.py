@@ -2,8 +2,9 @@
 """Where a training step of the PyTorch port goes on the card.
 
 Builds the port's ``ElasticTrainer`` on a full-width architecture
-(``--arch``: ``edl-paper`` or ``rwkv6-1.6b``; batch 8, sequence 1024,
-AdamW) at model-parallel degree ``--model-parallel M`` (default 1), then
+(``--arch``: ``edl-paper``, ``rwkv6-1.6b`` or a zoo config, its depth cut
+to ``--layers N`` as ``chip_smoke.py`` phase 11 cuts it; batch 8, sequence
+1024, AdamW) at model-parallel degree ``--model-parallel M`` (default 1), then
 at (p, mp) = (1, M) and again after a blocking scale-out to (2, M) (all
 2 M slots on one card):
 
@@ -23,9 +24,10 @@ Prints one JSON line per parallelism and writes the traces under
 ``build/profile/``. Run from the repo root on a machine with a card:
 
     python3 tools/torch_step_profile.py [--arch rwkv6-1.6b] [--steps 6] \
-        [--virtual-workers 8] [--model-parallel 2]
+        [--virtual-workers 8] [--model-parallel 2] [--layers 2 --batch 4]
 """
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -40,6 +42,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 GROUPS = (("wkv6_fwd", "wkv6_fwd_kernel"), ("wkv6_bwd_dr", "wkv6_bwd_dr_kernel"),
           ("wkv6_bwd_dk", "wkv6_bwd_dk_kernel"),
           ("wkv6_bwd_dv", "wkv6_bwd_dv_kernel"),
+          ("flash_attn_fwd_tc", "fwd_tc_kernel"),
+          ("flash_attn_bwd_dkdv_tc", "bwd_dkdv_tc_kernel"),
           ("flash_attn_fwd", "fwd_kernel"), ("flash_attn_bwd_dq",
                                              "bwd_dq_kernel"),
           ("flash_attn_bwd_dkdv", "bwd_dkdv_kernel"))
@@ -103,6 +107,8 @@ def main() -> int:
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--virtual-workers", type=int, default=0, metavar="K")
     ap.add_argument("--model-parallel", type=int, default=1, metavar="M")
+    ap.add_argument("--layers", type=int, default=0, metavar="N",
+                    help="cut the depth to N layers (0: the config's own)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
 
@@ -119,6 +125,8 @@ def main() -> int:
                           text=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mp = args.model_parallel
     with ElasticTrainer(cfg, global_batch=args.batch, seq_len=args.seq,
                         init_parallelism=1, model_parallel=mp,
