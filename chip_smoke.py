@@ -23,8 +23,8 @@ Phases, in order; any failure exits non-zero:
    plain PyTorch version on the same inputs; the kernels are those of the
    inputs' dtype (``ops.kernel_names``): fp32 runs ``flash_attn_fwd``,
    ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv``, bf16 the
-   tensor-core ``flash_attn_fwd_tc`` and ``flash_attn_bwd_dkdv_tc`` with
-   ``flash_attn_bwd_dq``, and each line names the kernel that ran; run
+   tensor-core ``flash_attn_fwd_tc``, ``flash_attn_bwd_dq_tc`` and
+   ``flash_attn_bwd_dkdv_tc``, and each line names the kernel that ran; run
    the forward and the backward pair twice on the main, mp = 2 and GQA
    cases and on every bf16 case and require the same bits; time kernel,
    plain version and
@@ -148,9 +148,10 @@ Phases, in order; any failure exits non-zero:
    ``ZOO_SERVE_LAYERS``): an ``ElasticTrainer`` at (1, 1) on one slot
    takes ``ZOO_STEPS`` steps on one batch of 4 x 1024, each loss finite
    and below the one before, with one ``flash_attn_fwd_tc`` a GQA layer
-   (two under remat), one ``flash_attn_bwd_dq`` and one
+   (two under remat), one ``flash_attn_bwd_dq_tc`` and one
    ``flash_attn_bwd_dkdv_tc`` a GQA layer per step and none of the fp32
-   kernels (an fp32 run: ``flash_attn_fwd``, ``flash_attn_bwd_dkdv``), its
+   kernels (``flash_attn_fwd``, ``flash_attn_bwd_dq``,
+   ``flash_attn_bwd_dkdv``), its
    context prep's warm-ups apart (jamba trains its first layer, Mamba and
    a dense MLP, with no port kernel; deepseek does not train on the card,
    and its MLA block runs forward and backward at B 4 x L 1024 within
@@ -242,13 +243,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
 # the peak for the inputs' type: the bound of a bf16 case is reckoned at the
-# bf16 rate, which the tensor-core forward and dK/dV run at (the bf16 dQ
-# computes in fp32 on the CUDA cores)
+# bf16 rate, which its three tensor-core kernels run at
 PEAK_FLOPS = {"float32": FP32_FLOPS, "bfloat16": BF16_FLOPS}
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 ATT = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu",
        "replaces": "src/repro/kernels/attention/kernel.py:85"}
-# bf16's forward and dK/dV on the tensor cores (ops.kernel_names)
+# bf16's forward, dQ and dK/dV on the tensor cores (ops.kernel_names)
 ATT_TC = {"source": "src/repro_torch/kernels/csrc/flash_attn_tc.cu",
           "replaces": "src/repro/kernels/attention/kernel.py:85"}
 # the bf16 case whose records the kernel line gives for the tensor-core
@@ -336,8 +336,8 @@ ATT_LARGE_CASES = [
 ]
 LARGE_ROWS = 2
 # the forward and the backward pair run twice on these cases, and on every
-# bf16 case (the tensor-core forward, and dq + dkdv_tc), and must give the
-# same bits
+# bf16 case (the tensor-core forward, and dq_tc + dkdv_tc), and must give
+# the same bits
 DETERMINISM_CASES = ("main_p1", "main_mp2", "gqa") + tuple(
     c[0] for c in ATT_CASES if c[10] == "bfloat16")
 # the cases whose kernels are timed beside their bounds and SDPA: every
@@ -626,8 +626,8 @@ def check_attention(torch, ops):
         k, v = rnd(B, Hkv, Lk, D), rnd(B, Hkv, Lk, D)
         scale = D ** -0.5
         opts = dict(causal=causal, window=window, scale=scale, kv_len=kv_len)
-        # the kernels this dtype launches: flash_attn_fwd_tc and
-        # flash_attn_bwd_dkdv_tc for bf16
+        # the kernels this dtype launches: flash_attn_fwd_tc,
+        # flash_attn_bwd_dq_tc and flash_attn_bwd_dkdv_tc for bf16
         fwd_n, dq_n, kv_n = ops.kernel_names(dtype)
         o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
         dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
@@ -2765,8 +2765,8 @@ def zoo_decode_fn(torch, cfg):
 
 def attn_names(cfg) -> tuple:
     """The attention kernels (forward, dQ, dK/dV) that ``cfg``'s compute
-    dtype launches: ``ops.kernel_names``, the tensor-core forward and dK/dV
-    for bf16."""
+    dtype launches: ``ops.kernel_names``, the tensor-core kernels for
+    bf16."""
     import torch
     from repro_torch.kernels.attention import ops
     return ops.kernel_names(getattr(torch, cfg.compute_dtype))
@@ -2955,7 +2955,7 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
     (if ``gated``) below the one before, and the launches a slot shard of a
     step one forward a GQA layer (two under remat) and one of each backward
     kernel a GQA layer, the kernels of its dtype (``attn_names``:
-    ``flash_attn_fwd_tc``, ``flash_attn_bwd_dq`` and
+    ``flash_attn_fwd_tc``, ``flash_attn_bwd_dq_tc`` and
     ``flash_attn_bwd_dkdv_tc`` in bf16) and no other; with no GQA layer, no
     port kernel at all. Returns a record."""
     from repro_torch.core import ElasticTrainer

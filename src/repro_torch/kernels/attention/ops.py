@@ -10,13 +10,12 @@ reaches a plain version: it launches the kernel, or the call raises.
 Which kernel a CUDA call launches is a rule by dtype (``kernel_names``),
 not a fallback: float32 goes to the CUDA-core kernels of
 ``kernels/csrc/flash_attn.cu`` (``flash_attn_fwd``, ``flash_attn_bwd_dq``,
-``flash_attn_bwd_dkdv``); bfloat16 to the tensor-core kernels of
-``kernels/csrc/flash_attn_tc.cu`` for the forward and dK/dV
-(``flash_attn_fwd_tc``, ``flash_attn_bwd_dkdv_tc``) and to
-``flash_attn_bwd_dq`` for dQ, which runs first and writes the delta that
-dK/dV reads. The tensor-core kernels load 16-byte chunks, so their wrappers
-copy any bf16 input that does not start on a 16-byte boundary to a fresh
-(aligned) tensor first.
+``flash_attn_bwd_dkdv``), bfloat16 to the tensor-core kernels of
+``kernels/csrc/flash_attn_tc.cu`` (``flash_attn_fwd_tc``,
+``flash_attn_bwd_dq_tc``, ``flash_attn_bwd_dkdv_tc``). In both the dQ
+kernel runs first and writes the delta that dK/dV reads. The tensor-core
+kernels load 16-byte chunks, so their wrappers copy any bf16 input that
+does not start on a 16-byte boundary to a fresh (aligned) tensor first.
 
 Each kernel wrapper adds one to the port's launch count
 (``kernels/launches.py``) where it launches, so a run can show that its
@@ -157,7 +156,8 @@ def kernel_names(dtype: torch.dtype) -> tuple[str, str, str]:
     """The kernels that compute the forward, dQ and dK/dV of inputs of
     ``dtype`` on the card (and whose work ``COSTS`` books on ``meta``)."""
     if dtype == torch.bfloat16:
-        return "flash_attn_fwd_tc", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv_tc"
+        return ("flash_attn_fwd_tc", "flash_attn_bwd_dq_tc",
+                "flash_attn_bwd_dkdv_tc")
     return "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv"
 
 
@@ -175,6 +175,7 @@ _SIGNATURES = {
 }
 # csrc/flash_attn_tc.cu: the same interfaces, bf16 only
 TC_SIGNATURES = {"flash_attn_fwd_tc": _SIGNATURES["flash_attn_fwd"],
+                 "flash_attn_bwd_dq_tc": _SIGNATURES["flash_attn_bwd_dq"],
                  "flash_attn_bwd_dkdv_tc": _SIGNATURES["flash_attn_bwd_dkdv"]}
 _LIBRARIES = {"flash_attn": _SIGNATURES, "flash_attn_tc": TC_SIGNATURES}
 
@@ -238,11 +239,16 @@ def flash_attn_fwd_cuda(q, k, v, *, causal, window, scale, kv_len):
 
 def flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, *, causal, window, scale,
                            kv_len):
-    """Launch ``flash_attn_bwd_dq``. Returns (dq, delta)."""
+    """Launch the dQ kernel of ``kernel_names(q.dtype)``:
+    ``flash_attn_bwd_dq`` (fp32) or ``flash_attn_bwd_dq_tc`` (bf16).
+    Returns (dq, delta)."""
     B, Hq, Lq, _ = q.shape
+    name = kernel_names(q.dtype)[1]
+    if name in TC_SIGNATURES:
+        q, k, v, o, do = (aligned16(t) for t in (q, k, v, o, do))
     dq = torch.empty_like(q)
     delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
-    _launch("flash_attn_bwd_dq", q.device,
+    _launch(name, q.device,
             [t.data_ptr() for t in (q, k, v, o, do, lse, dq, delta)],
             _dims(q, k, kv_len, causal, window), scale, q.dtype)
     return dq, delta
@@ -265,9 +271,9 @@ def flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, *, causal, window,
 
 
 def flash_attn_bwd_cuda(q, k, v, o, lse, do, **opts):
-    """``flash_attn_bwd_dq`` (which also writes delta), then the dK/dV
-    kernel of ``kernel_names(q.dtype)`` on the same stream. Returns (dq,
-    dk, dv)."""
+    """The dQ kernel of ``kernel_names(q.dtype)`` (which also writes
+    delta), then its dK/dV kernel on the same stream. Returns (dq, dk,
+    dv)."""
     dq, delta = flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
     dk, dv = flash_attn_bwd_dkdv_cuda(q, k, v, lse, delta, do, **opts)
     return dq, dk, dv
@@ -300,10 +306,10 @@ def flash_work(q, k, causal: bool, window: int, kv_len: int
     n_row = B * Hq * Lq * 4
     pairs = B * Hq * visible_pairs(Lq, Lk, causal, window, kv_len)
     fwd = (4 * D * pairs, 2 * n_qo + 2 * n_kv + n_row)
+    dq = (6 * D * pairs, 4 * n_qo + 2 * n_kv + 2 * n_row)
     dkdv = (8 * D * pairs, 2 * n_qo + 4 * n_kv + 2 * n_row)
     return {"flash_attn_fwd": fwd, "flash_attn_fwd_tc": fwd,
-            "flash_attn_bwd_dq": (6 * D * pairs,
-                                  4 * n_qo + 2 * n_kv + 2 * n_row),
+            "flash_attn_bwd_dq": dq, "flash_attn_bwd_dq_tc": dq,
             "flash_attn_bwd_dkdv": dkdv, "flash_attn_bwd_dkdv_tc": dkdv}
 
 

@@ -1,5 +1,6 @@
-// Flash attention for Hopper (sm_90a): forward, and the backward as two
-// kernels (dQ, then dK/dV). fp32 accumulation on the CUDA cores.
+// Flash attention for Hopper (sm_90a) in fp32: forward, and the backward as
+// two kernels (dQ, then dK/dV), on the CUDA cores. bf16 inputs go to
+// flash_attn_tc.cu.
 //
 // Replaces: src/repro/kernels/attention/kernel.py, flash_attention_bhld
 // (pallas_call body _flash_kernel), the TPU flash-attention forward. The
@@ -27,7 +28,7 @@
 // 3.35 TB/s = 20, so the bound is the fp32 CUDA-core rate, not HBM (TF32 is
 // off). The forward is built from the backward's parts below: a block of 4
 // warps owns a 64-row q tile and streams K and V through the two-stage
-// cp.async ring (threads' own staging for bf16 and unaligned fp32), one
+// cp.async ring (threads' own staging for unaligned rows), one
 // block barrier a kv tile, heaviest q tiles first. A warp owns 16 whole q
 // rows (lanes 4 x 8, a 4 x 8 score micro-tile a thread), so the online
 // softmax's row max and row sum are three xor-shuffles over the 8 lanes of
@@ -66,12 +67,11 @@
 //   different bank groups, and takes an immediate offset.
 // - A two-stage ring filled with cp.async (16 bytes, .cg): the streamed
 //   tiles (K, V for dQ; Q, dO, lse, delta for dK/dV) of step t + 1 load
-//   while step t computes. bf16 inputs, and fp32 inputs that do not start on
-//   a 16-byte boundary, are converted and stored by the threads instead, at
-//   the same point of the loop, so they stay correct without the overlap.
-//   Of the bf16 products only dQ runs here: the bf16 forward and dK/dV are
-//   the tensor-core kernels of flash_attn_tc.cu, and the entry points below
-//   refuse bf16 for those two.
+//   while step t computes. Inputs that do not start on a 16-byte boundary
+//   are stored by the threads instead, at the same point of the loop, so
+//   they stay correct without the overlap. These kernels take fp32 only:
+//   every bf16 product is a tensor-core kernel of flash_attn_tc.cu, and the
+//   entry points below refuse bf16.
 // - One block barrier a step in both kernels, after the wait for the step's
 //   tiles (it also frees the other stage and the score buffers of the step
 //   before), and one barrier of the two warps that share score rows after
@@ -95,7 +95,6 @@
 // ptxas (sm_90a, fp32, D = 64): bwd_dq 240 registers, bwd_dkdv 230, no
 // spills; 2 and 1 blocks an SM (flash_attn_blocks_per_sm).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -109,17 +108,6 @@ constexpr int BQ = 64;     // q rows per tile
 constexpr int BK = 64;     // kv rows per tile
 
 static_assert(BQ == BK, "the score tiles are 64 columns wide in every kernel");
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool visible(int qp, int kp, int kv_len, int causal, int window) {
   bool ok = kp < kv_len;
@@ -220,32 +208,28 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
-template <typename T> struct is_f32 { static constexpr bool value = false; };
-template <> struct is_f32<float> { static constexpr bool value = true; };
-
 // Rows [r0, r0 + ROWS) of a row-major [L, D] matrix into a tile;
 // rows at or past L are zero. Thread t copies chunks t + NTH m, whose places
-// do not depend on r0. fp32 with 16-byte aligned rows goes by cp.async (the
-// caller commits and waits); anything else is converted and stored by the
-// threads.
-template <typename T, int D, int ROWS, int NTH, int SH>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src, int r0, int L, bool async_ok) {
+// do not depend on r0. 16-byte aligned rows go by cp.async (the caller
+// commits and waits); others are stored by the threads.
+template <int D, int ROWS, int NTH, int SH>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int r0, int L,
+                                           bool async_ok) {
   constexpr int C4 = D / 4, N = ROWS * C4 / NTH;
   static_assert(ROWS * C4 % NTH == 0, "every thread copies the same number of chunks");
-  const T* base = src + (size_t)r0 * D;
+  const float* base = src + (size_t)r0 * D;
   const bool whole = r0 + ROWS <= L;
 #pragma unroll
   for (int m = 0; m < N; ++m) {
     const int idx = threadIdx.x + NTH * m, r = idx / C4, c4 = idx % C4;
     float* d = dst + sw<D, SH>(r, c4);
-    const T* s = base + r * D + c4 * 4;
+    const float* s = base + r * D + c4 * 4;
     if (!whole && r0 + r >= L) {
       *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else if (is_f32<T>::value && async_ok) {
+    } else if (async_ok) {
       cp_async16(d, s);
     } else {
-      *reinterpret_cast<float4*>(d) = make_float4(to_f<T>(s[0]), to_f<T>(s[1]), to_f<T>(s[2]),
-                                                  to_f<T>(s[3]));
+      *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
     }
   }
 }
@@ -435,11 +419,11 @@ __device__ __forceinline__ void fwd_product(const float* Ps, const float* Vs, in
 // at NEG_INF as they are (so a row that has seen no visible key yet weighs
 // its masked keys alike, as the plain version does), and lse is written in
 // natural units.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FWD_NT, 2) fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, int Hq, int Hkv, int Lq, int Lk, int kv_len, int causal, int window,
-    float scale, int async_ok) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Lq, int Lk, int kv_len,
+    int causal, int window, float scale, int async_ok) {
   constexpr int MR = FWD_MR, NO = D / 8, NTH = FWD_NT, TILE = BQ * D;
   extern __shared__ float4 fwd_tiles[];
   float* Qs = reinterpret_cast<float*>(fwd_tiles);  // [BQ][D]
@@ -457,10 +441,10 @@ __global__ void __launch_bounds__(FWD_NT, 2) fwd_kernel(
 
   int lo, hi;
   kv_tiles(q0, kv_len, causal, window, lo, hi);
-  stage_tile<T, D, BQ, NTH, 2>(Qs, q + q_off, q0, Lq, async_ok);
+  stage_tile<D, BQ, NTH, 2>(Qs, q + q_off, q0, Lq, async_ok);
   if (lo < hi) {
-    stage_tile<T, D, BK, NTH, 2>(KVs, k + kv_off, lo * BK, Lk, async_ok);
-    stage_tile<T, D, BK, NTH, 2>(KVs + TILE, v + kv_off, lo * BK, Lk, async_ok);
+    stage_tile<D, BK, NTH, 2>(KVs, k + kv_off, lo * BK, Lk, async_ok);
+    stage_tile<D, BK, NTH, 2>(KVs + TILE, v + kv_off, lo * BK, Lk, async_ok);
   }
   cp_async_commit();
 
@@ -481,8 +465,8 @@ __global__ void __launch_bounds__(FWD_NT, 2) fwd_kernel(
     __syncthreads();  // tile t is in; every thread is done with tile t - 1
     if (t + 1 < hi) {
       float* nxt = KVs + ((t + 1 - lo) & 1) * 2 * TILE;
-      stage_tile<T, D, BK, NTH, 2>(nxt, k + kv_off, k0 + BK, Lk, async_ok);
-      stage_tile<T, D, BK, NTH, 2>(nxt + TILE, v + kv_off, k0 + BK, Lk, async_ok);
+      stage_tile<D, BK, NTH, 2>(nxt, k + kv_off, k0 + BK, Lk, async_ok);
+      stage_tile<D, BK, NTH, 2>(nxt + TILE, v + kv_off, k0 + BK, Lk, async_ok);
     }
     cp_async_commit();
 
@@ -533,7 +517,7 @@ __global__ void __launch_bounds__(FWD_NT, 2) fwd_kernel(
     const float lm = fmaxf(li, 1e-30f);
 #pragma unroll
     for (int e = 0; e < NO; ++e)
-      o[q_off + (size_t)qp * D + fwd_col<D>(tx, e)] = from_f<T>(acc[i][e] / lm);
+      o[q_off + (size_t)qp * D + fwd_col<D>(tx, e)] = acc[i][e] / lm;
     if (tx == 0) lse[(size_t)bh * Lq + qp] = (m[i] == NEG_INF ? NEG_INF : m[i] * LN2) + logf(li);
   }
 }
@@ -543,11 +527,11 @@ __global__ void __launch_bounds__(FWD_NT, 2) fwd_kernel(
 // through the ring. A thread owns q rows r0 + i, the score columns of chunk
 // ox and dQ columns out_col(ox, e). Also writes delta = rowsum(dO * O),
 // which the dK/dV kernel (launched after it on the same stream) reads.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BwdCfg<D>::DQ_NT, 1) bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
-    T* __restrict__ dq, float* __restrict__ delta, int Hq, int Hkv, int Lq, int Lk, int kv_len,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ dq, float* __restrict__ delta, int Hq, int Hkv, int Lq, int Lk, int kv_len,
     int causal, int window, float scale, int async_ok) {
   using C = BwdCfg<D>;
   constexpr int MR = C::MR, SH = C::SH, NO = C::NO, NTH = C::DQ_NT, TILE = BQ * D;
@@ -569,11 +553,11 @@ __global__ void __launch_bounds__(BwdCfg<D>::DQ_NT, 1) bwd_dq_kernel(
 
   int lo, hi;
   kv_tiles(q0, kv_len, causal, window, lo, hi);
-  stage_tile<T, D, BQ, NTH, SH>(Qs, q + q_off, q0, Lq, async_ok);
-  stage_tile<T, D, BQ, NTH, SH>(dOs, dout + q_off, q0, Lq, async_ok);
+  stage_tile<D, BQ, NTH, SH>(Qs, q + q_off, q0, Lq, async_ok);
+  stage_tile<D, BQ, NTH, SH>(dOs, dout + q_off, q0, Lq, async_ok);
   if (lo < hi) {
-    stage_tile<T, D, BK, NTH, 2>(KVs, k + kv_off, lo * BK, Lk, async_ok);
-    stage_tile<T, D, BK, NTH, 2>(KVs + TILE, v + kv_off, lo * BK, Lk, async_ok);
+    stage_tile<D, BK, NTH, 2>(KVs, k + kv_off, lo * BK, Lk, async_ok);
+    stage_tile<D, BK, NTH, 2>(KVs + TILE, v + kv_off, lo * BK, Lk, async_ok);
   }
   cp_async_commit();
 
@@ -589,7 +573,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::DQ_NT, 1) bwd_dq_kernel(
 #pragma unroll
       for (int e = 0; e < NO; ++e) {
         const int c = out_col<D>(pl.ox, e);
-        x = fmaf(to_f<T>(dout[row + c]), to_f<T>(o[row + c]), x);
+        x = fmaf(dout[row + c], o[row + c], x);
       }
     }
     for (int m = 4; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
@@ -614,8 +598,8 @@ __global__ void __launch_bounds__(BwdCfg<D>::DQ_NT, 1) bwd_dq_kernel(
     __syncthreads();  // tile t is in; every thread is done with tile t - 1
     if (t + 1 < hi) {
       float* nxt = KVs + ((t + 1 - lo) & 1) * 2 * TILE;
-      stage_tile<T, D, BK, NTH, 2>(nxt, k + kv_off, k0 + BK, Lk, async_ok);
-      stage_tile<T, D, BK, NTH, 2>(nxt + TILE, v + kv_off, k0 + BK, Lk, async_ok);
+      stage_tile<D, BK, NTH, 2>(nxt, k + kv_off, k0 + BK, Lk, async_ok);
+      stage_tile<D, BK, NTH, 2>(nxt + TILE, v + kv_off, k0 + BK, Lk, async_ok);
     }
     cp_async_commit();
 
@@ -655,7 +639,7 @@ __global__ void __launch_bounds__(BwdCfg<D>::DQ_NT, 1) bwd_dq_kernel(
     if (qp >= Lq) continue;
 #pragma unroll
     for (int e = 0; e < NO; ++e)
-      dq[q_off + (size_t)qp * D + out_col<D>(pl.ox, e)] = from_f<T>(acc[i][e] * scale);
+      dq[q_off + (size_t)qp * D + out_col<D>(pl.ox, e)] = acc[i][e] * scale;
   }
 }
 
@@ -665,11 +649,11 @@ __global__ void __launch_bounds__(BwdCfg<D>::DQ_NT, 1) bwd_dq_kernel(
 // lse and delta through the ring. A thread owns key rows r0 + i, the score
 // columns (queries) of chunk ox and dK/dV columns out_col(ox, e): it sums
 // over every query that sees its keys, so no atomics.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BwdCfg<D>::KV_NT, 1) bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int Lq, int Lk, int kv_len,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv, int Lq, int Lk, int kv_len,
     int causal, int window, float scale, int async_ok) {
   using C = BwdCfg<D>;
   constexpr int MR = C::MR, SH = C::SH, NO = C::NO, NTH = C::KV_NT, KR = C::KR;
@@ -698,8 +682,8 @@ __global__ void __launch_bounds__(BwdCfg<D>::KV_NT, 1) bwd_dkdv_kernel(
     const int bh = b * Hq + hk * G + it / n_u, q0 = (lo + it % n_u) * BQ;
     const size_t q_off = (size_t)bh * Lq * D;
     float* dst = QdO + st * 2 * QT;
-    stage_tile<T, D, BQ, NTH, 2>(dst, q + q_off, q0, Lq, async_ok);
-    stage_tile<T, D, BQ, NTH, 2>(dst + QT, dout + q_off, q0, Lq, async_ok);
+    stage_tile<D, BQ, NTH, 2>(dst, q + q_off, q0, Lq, async_ok);
+    stage_tile<D, BQ, NTH, 2>(dst + QT, dout + q_off, q0, Lq, async_ok);
     if (tid < 2 * BQ) {
       const int r = tid % BQ;
       float* d = rows + st * 2 * BQ + tid;
@@ -709,8 +693,8 @@ __global__ void __launch_bounds__(BwdCfg<D>::KV_NT, 1) bwd_dkdv_kernel(
     }
   };
 
-  stage_tile<T, D, KR, NTH, SH>(Ks, k + kv_off, k0, Lk, async_ok);
-  stage_tile<T, D, KR, NTH, SH>(Vs, v + kv_off, k0, Lk, async_ok);
+  stage_tile<D, KR, NTH, SH>(Ks, k + kv_off, k0, Lk, async_ok);
+  stage_tile<D, KR, NTH, SH>(Vs, v + kv_off, k0, Lk, async_ok);
   if (n_it > 0) stage_step(0, 0);
   cp_async_commit();
 
@@ -773,8 +757,8 @@ __global__ void __launch_bounds__(BwdCfg<D>::KV_NT, 1) bwd_dkdv_kernel(
 #pragma unroll
     for (int e = 0; e < NO; ++e) {
       const size_t idx = kv_off + (size_t)kp * D + out_col<D>(pl.ox, e);
-      dk[idx] = from_f<T>(dka[i][e] * scale);
-      dv[idx] = from_f<T>(dva[i][e]);
+      dk[idx] = dka[i][e] * scale;
+      dv[idx] = dva[i][e];
     }
   }
 }
@@ -804,10 +788,9 @@ cudaError_t prepare_max_shared(K kern, size_t smem) {
 
 // cp.async copies 16-byte chunks of fp32 rows: every streamed tensor must
 // start on a 16-byte boundary (rows of D floats then do too).
-template <typename T>
 int can_copy_async(const void* a, const void* b, const void* c, const void* d) {
   const uintptr_t any = (uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d;
-  return is_f32<T>::value && (any & 15) == 0;
+  return (any & 15) == 0;
 }
 
 template <int D>
@@ -815,82 +798,67 @@ constexpr size_t fwd_smem() { return sizeof(float) * (5 * BQ * D + BQ * BK); }
 static_assert(fwd_smem<128>() <= 232448 && fwd_smem<96>() <= 232448,
               "a forward block fits in the 227 KB of shared memory a block can use");
 
-template <typename T, int D>
+template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
                 int Hkv, int Lq, int Lk, int kv_len, int causal, int window, float scale,
                 cudaStream_t st) {
   const size_t smem = fwd_smem<D>();
-  cudaError_t e = prepare_max_shared(fwd_kernel<T, D>, smem);
+  cudaError_t e = prepare_max_shared(fwd_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid = tile_grid((Lq + BQ - 1) / BQ, B * Hq);
-  fwd_kernel<T, D><<<grid, FWD_NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                               lse, Hq, Hkv, Lq, Lk, kv_len, causal, window,
-                                               scale, can_copy_async<T>(q, k, v, q));
+  fwd_kernel<D><<<grid, FWD_NT, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                            (float*)o, lse, Hq, Hkv, Lq, Lk, kv_len, causal,
+                                            window, scale, can_copy_async(q, k, v, q));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, void* dq, float* delta, int B, int Hq, int Hkv, int Lq,
                    int Lk, int kv_len, int causal, int window, float scale, cudaStream_t st) {
   const size_t smem = bwd_dq_smem<D>();
-  cudaError_t e = prepare_max_shared(bwd_dq_kernel<T, D>, smem);
+  cudaError_t e = prepare_max_shared(bwd_dq_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid = tile_grid((Lq + BQ - 1) / BQ, B * Hq);
-  bwd_dq_kernel<T, D><<<grid, BwdCfg<D>::DQ_NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, (T*)dq, delta, Hq,
-      Hkv, Lq, Lk, kv_len, causal, window, scale, can_copy_async<T>(q, k, v, dout));
+  bwd_dq_kernel<D><<<grid, BwdCfg<D>::DQ_NT, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o, (const float*)dout,
+      lse, (float*)dq, delta, Hq, Hkv, Lq, Lk, kv_len, causal, window, scale,
+      can_copy_async(q, k, v, dout));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dk, void* dv, int B, int Hq,
                      int Hkv, int Lq, int Lk, int kv_len, int causal, int window, float scale,
                      cudaStream_t st) {
   const size_t smem = bwd_dkdv_smem<D>();
-  cudaError_t e = prepare_max_shared(bwd_dkdv_kernel<T, D>, smem);
+  cudaError_t e = prepare_max_shared(bwd_dkdv_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid = tile_grid((Lk + BwdCfg<D>::KR - 1) / BwdCfg<D>::KR, B * Hkv);
-  bwd_dkdv_kernel<T, D><<<grid, BwdCfg<D>::KV_NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, Hq, Hkv,
-      Lq, Lk, kv_len, causal, window, scale, can_copy_async<T>(q, k, v, dout));
+  bwd_dkdv_kernel<D><<<grid, BwdCfg<D>::KV_NT, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dk, (float*)dv, Hq, Hkv, Lq, Lk, kv_len, causal, window, scale,
+      can_copy_async(q, k, v, dout));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 16, 32, 64, 96 or 128. Every
-// tensor is contiguous; the caller checks shapes. Returns a cudaError_t.
-// FA_DISPATCH_F32 takes float32 only: bf16's forward and dK/dV are
-// flash_attn_tc.cu's, on the tensor cores, so no bf16 call of those two
-// products can land on a CUDA-core kernel.
+// dtype: 0 = float32, the only type these kernels take: every bf16 product
+// is flash_attn_tc.cu's, on the tensor cores, so no bf16 call can land on a
+// CUDA-core kernel (1 = bfloat16 is refused). head_dim: 16, 32, 64, 96 or
+// 128. Every tensor is contiguous; the caller checks shapes. Returns a
+// cudaError_t.
 #define FA_DISPATCH_F32(FN, ...)                                              \
   do {                                                                        \
     if (dtype != 0) return (int)cudaErrorInvalidValue;                        \
     switch (head_dim) {                                                       \
-      case 16: return (int)FN<float, 16>(__VA_ARGS__);                        \
-      case 32: return (int)FN<float, 32>(__VA_ARGS__);                        \
-      case 64: return (int)FN<float, 64>(__VA_ARGS__);                        \
-      case 96: return (int)FN<float, 96>(__VA_ARGS__);                        \
-      case 128: return (int)FN<float, 128>(__VA_ARGS__);                      \
-      default: return (int)cudaErrorInvalidValue;                             \
-    }                                                                         \
-  } while (0)
-#define FA_DISPATCH(FN, ...)                                                  \
-  do {                                                                        \
-    if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;          \
-    switch (head_dim) {                                                       \
-      case 16: return (int)(dtype ? FN<__nv_bfloat16, 16>(__VA_ARGS__)        \
-                                  : FN<float, 16>(__VA_ARGS__));              \
-      case 32: return (int)(dtype ? FN<__nv_bfloat16, 32>(__VA_ARGS__)        \
-                                  : FN<float, 32>(__VA_ARGS__));              \
-      case 64: return (int)(dtype ? FN<__nv_bfloat16, 64>(__VA_ARGS__)        \
-                                  : FN<float, 64>(__VA_ARGS__));              \
-      case 96: return (int)(dtype ? FN<__nv_bfloat16, 96>(__VA_ARGS__)        \
-                                  : FN<float, 96>(__VA_ARGS__));              \
-      case 128: return (int)(dtype ? FN<__nv_bfloat16, 128>(__VA_ARGS__)      \
-                                   : FN<float, 128>(__VA_ARGS__));            \
+      case 16: return (int)FN<16>(__VA_ARGS__);                               \
+      case 32: return (int)FN<32>(__VA_ARGS__);                               \
+      case 64: return (int)FN<64>(__VA_ARGS__);                               \
+      case 96: return (int)FN<96>(__VA_ARGS__);                               \
+      case 128: return (int)FN<128>(__VA_ARGS__);                             \
       default: return (int)cudaErrorInvalidValue;                             \
     }                                                                         \
   } while (0)
@@ -900,24 +868,24 @@ extern "C" {
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                    int Hq, int Hkv, int Lq, int Lk, int head_dim, int kv_len, int causal,
                    int window, float scale, int dtype, void* stream) {
-  FA_DISPATCH_F32(fwd, q, k, v, o, (float*)lse, B, Hq, Hkv, Lq, Lk, kv_len, causal, window, scale,
-              (cudaStream_t)stream);
+  FA_DISPATCH_F32(fwd, q, k, v, o, (float*)lse, B, Hq, Hkv, Lq, Lk, kv_len, causal, window,
+                  scale, (cudaStream_t)stream);
 }
 
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
                       int Hkv, int Lq, int Lk, int head_dim, int kv_len, int causal, int window,
                       float scale, int dtype, void* stream) {
-  FA_DISPATCH(bwd_dq, q, k, v, o, dout, (const float*)lse, dq, (float*)delta, B, Hq, Hkv, Lq,
-              Lk, kv_len, causal, window, scale, (cudaStream_t)stream);
+  FA_DISPATCH_F32(bwd_dq, q, k, v, o, dout, (const float*)lse, dq, (float*)delta, B, Hq, Hkv,
+                  Lq, Lk, kv_len, causal, window, scale, (cudaStream_t)stream);
 }
 
 int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
                         int Hkv, int Lq, int Lk, int head_dim, int kv_len, int causal,
                         int window, float scale, int dtype, void* stream) {
-  FA_DISPATCH_F32(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, B, Hq,
-              Hkv, Lq, Lk, kv_len, causal, window, scale, (cudaStream_t)stream);
+  FA_DISPATCH_F32(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, B,
+                  Hq, Hkv, Lq, Lk, kv_len, causal, window, scale, (cudaStream_t)stream);
 }
 
 const char* flash_attn_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -925,18 +893,18 @@ const char* flash_attn_error_string(int code) { return cudaGetErrorString((cudaE
 // Blocks of each kernel that fit on one SM at once, fp32 at head_dim 64 (the
 // edl_paper path): the occupancy the design counts on.
 int flash_attn_blocks_per_sm(int* fwd_blocks, int* dq_blocks, int* dkdv_blocks) {
-  cudaError_t e = prepare_max_shared(fwd_kernel<float, 64>, fwd_smem<64>());
-  if (e == cudaSuccess) e = prepare_max_shared(bwd_dq_kernel<float, 64>, bwd_dq_smem<64>());
-  if (e == cudaSuccess) e = prepare_max_shared(bwd_dkdv_kernel<float, 64>, bwd_dkdv_smem<64>());
+  cudaError_t e = prepare_max_shared(fwd_kernel<64>, fwd_smem<64>());
+  if (e == cudaSuccess) e = prepare_max_shared(bwd_dq_kernel<64>, bwd_dq_smem<64>());
+  if (e == cudaSuccess) e = prepare_max_shared(bwd_dkdv_kernel<64>, bwd_dkdv_smem<64>());
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(fwd_blocks, fwd_kernel<float, 64>, FWD_NT,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(fwd_blocks, fwd_kernel<64>, FWD_NT,
                                                       fwd_smem<64>());
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dq_blocks, bwd_dq_kernel<float, 64>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(dq_blocks, bwd_dq_kernel<64>,
                                                       BwdCfg<64>::DQ_NT, bwd_dq_smem<64>());
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        dkdv_blocks, bwd_dkdv_kernel<float, 64>, BwdCfg<64>::KV_NT, bwd_dkdv_smem<64>());
+        dkdv_blocks, bwd_dkdv_kernel<64>, BwdCfg<64>::KV_NT, bwd_dkdv_smem<64>());
   return (int)e;
 }
 

@@ -1,15 +1,14 @@
 // Flash attention in bf16 on Hopper's tensor cores (sm_90a): the forward and
-// the dK/dV half of the backward, every product a wgmma with fp32
-// accumulation.
+// the backward as two kernels (dQ, then dK/dV), every product a wgmma with
+// fp32 accumulation.
 //
 // Replaces, for bf16 inputs: src/repro/kernels/attention/kernel.py,
 // flash_attention_bhld (pallas_call body _flash_kernel), the TPU
-// flash-attention forward; and the dK/dV kernel of the backward the port
-// adds to it (the reference has no backward kernel: the gradient is held
-// against jax.vjp of its attention in the tests). fp32 inputs and the bf16
-// dQ stay with the CUDA-core kernels of flash_attn.cu; the dK/dV kernel here
-// reads the delta that the bf16 flash_attn_bwd_dq writes, launched before it
-// on the same stream.
+// flash-attention forward; and the dQ and dK/dV kernels of the backward the
+// port adds to it (the reference has no backward kernel: the gradient is
+// held against jax.vjp of its attention in the tests). fp32 inputs stay with
+// the CUDA-core kernels of flash_attn.cu. The dK/dV kernel reads the delta
+// that the dQ kernel writes, launched before it on the same stream.
 //
 // What it computes is what flash_attn.cu computes: q [B,Hq,Lq,D], k/v
 // [B,Hkv,Lk,D], q head h reads kv head h / (Hq/Hkv); scores (q.k) * scale,
@@ -17,29 +16,33 @@
 // finite NEG_INF = -1e30; the online (m, l, acc) softmax over kv tiles; out
 // = acc / max(l, 1e-30) in bf16 and lse = m + log(l) in fp32. Kv tiles
 // past the causal frontier or before the window are skipped whole, and the
-// heaviest causal tiles are dispatched first. dK/dV recomputes P^T =
-// exp(S^T - lse) and dS^T = P^T (dP^T - delta) and sums dV = P^T dO and
+// heaviest causal tiles are dispatched first. dQ writes delta =
+// rowsum(dO O), recomputes P = exp(S - lse) and dS = P (dP - delta) and sums
+// dQ = scale dS K over the kv tiles that its rows see. dK/dV recomputes P^T
+// = exp(S^T - lse) and dS^T = P^T (dP^T - delta) and sums dV = P^T dO and
 // dK = scale dS^T Q over the G q heads of its kv head and every q tile that
 // sees its keys.
 //
 // Rounding, a deliberate difference from the reference (which upcasts both
 // operands of both products to fp32, kernel.py:54-56): the second product's
-// A operand, P in the forward and P^T, dS^T in dK/dV, is rounded to bf16
-// in registers, as every tensor-core flash attention does. Scores, the
-// softmax statistics and all sums stay fp32; l sums the unrounded P.
+// A operand, P in the forward, dS in dQ and P^T, dS^T in dK/dV, is rounded
+// to bf16 in registers, as every tensor-core flash attention does. Scores,
+// the softmax statistics, delta and all sums stay fp32; l sums the
+// unrounded P.
 //
 // The bound: the bf16 tensor-core rate, 989 TFLOP/s dense on an H100 SXM.
 // The forward does 4 D flops a visible (query, key) pair (S = Q K^T and
-// O += P V), dK/dV 8 D (S^T, dP^T, dV, dK). At the zoo's shapes (B 4, L
-// 1024, causal) the forward does 250-470 flops a byte it must move and
-// dK/dV 340-870, against the bf16 ridge of 989e12 / 3.35e12 = 295: the
-// products bound every dK/dV and the GQA forwards (the MHA forwards, phi3
-// and musicgen, sit at the ridge, bound by bytes), and only wgmma reaches
-// that rate. What the design does about it:
+// O += P V), dQ 6 D (S, dP, dQ), dK/dV 8 D (S^T, dP^T, dV, dK). At the
+// zoo's shapes (B 4, L 1024, causal) the forward does 250-470 flops a byte
+// it must move, dQ 250-370 and dK/dV 340-870, against the bf16 ridge of
+// 989e12 / 3.35e12 = 295: the products bound every dK/dV and the GQA
+// forwards and dQs (the MHA ones, phi3 and musicgen, sit at the ridge or
+// below, bound by bytes), and only wgmma reaches that rate. What the design
+// does about it:
 // - Every product is a warpgroup wgmma (m64nNk16, N = 16 to 64, fp32
 //   accumulators in registers). The first product reads both operands from
 //   shared memory through descriptors; the second reads its A operand from
-//   registers: P (or P^T, dS^T) is converted from the accumulator layout to
+//   registers: P (or dS, P^T, dS^T) is converted from the accumulator layout to
 //   wgmma's bf16 A-fragment layout in place (the two layouts agree for
 //   16-bit types: accumulator elements (8j .. 8j + 7) of a thread are the
 //   A fragment of k-slice j), so no score tile goes through shared memory.
@@ -47,13 +50,13 @@
 //   bytes, 16-byte chunk c of row r at chunk c ^ (r & 7): the 128-byte
 //   swizzle that the descriptors name (layout type 1). D 96 is a whole panel
 //   and half of a second; D 16 and 32 fill part of one. The first product
-//   reads its operands K-major (rows along d); the second reads V, dO or Q
-//   MN-major (the same tile, its rows as the contraction), one instruction a
+//   reads its operands K-major (rows along d); the second reads V, K, dO or
+//   Q MN-major (the same tile, its rows as the contraction), one instruction a
 //   panel so that N <= 64 and one 128-byte row spans an instruction's N.
-// - cp.async (16 bytes) fills a two-stage ring: the next kv tile (forward)
-//   or q tile (dK/dV) loads while this one computes. After the copies land,
-//   fence.proxy.async makes them visible to wgmma, which reads shared memory
-//   through the async proxy. The wrapper hands the kernels 16-byte aligned
+// - cp.async (16 bytes) fills a two-stage ring: the next kv tile (forward,
+//   dQ) or q tile (dK/dV) loads while this one computes. After the copies
+//   land, fence.proxy.async makes them visible to wgmma, which reads shared
+//   memory through the async proxy. The wrapper hands the kernels 16-byte aligned
 //   tensors (ops.py copies any that are not); the entry points refuse the
 //   rest.
 // - The online softmax runs in the accumulator's own layout: a row of S is
@@ -73,6 +76,16 @@
 //   its output rows, so no atomics: two runs give the same bits. 64-key
 //   tiles give 256 blocks at starcoder2's B 4 x Hkv 4 x L 1024, two an SM
 //   (255 registers a thread at D 128).
+// - dQ blocks: as the forward's, two warpgroups own 128 q rows of one (b, q
+//   head), Q and dO stay in shared memory and each K and V tile is shared;
+//   a thread's two rows are fixed, so lse and delta are two registers each.
+//   32 keys a tile (DQ_BN): at D 128, 97 KB of shared memory and 126
+//   registers (launch bounds (256, 2)), two blocks an SM. 64-key tiles (129
+//   KB, 167 registers, one block an SM) took 1.07-1.17x as long at the
+//   zoo's shapes (tools/torch_kernel_bench.py --variant, in turns, on an H100
+//   80GB HBM3 at 700 W). delta is summed first, from O in global memory and
+//   the staged dO, over each row's quad in a fixed order; every block owns
+//   its rows, so two runs give the same bits.
 // TMA and warp specialisation are left out: the loads are the threads' own
 // cp.async, and each warpgroup waits for its products before the softmax.
 //
@@ -91,10 +104,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int WG = 128;            // threads of a warpgroup
 constexpr int FWD_WGS = 2;         // warpgroups of a forward block
-constexpr int BM = 64 * FWD_WGS;   // q rows of a forward block
+constexpr int BM = 64 * FWD_WGS;   // q rows of a forward or dQ block
 constexpr int FWD_BN = 64;         // keys of a forward kv tile
 constexpr int BN = 64;             // q rows of a dK/dV q tile
 constexpr int KT = 64;             // keys of a dK/dV block
+constexpr int DQ_WGS = FWD_WGS;    // warpgroups of a dQ block, 64 of its BM rows each
+constexpr int DQ_BN = 32;          // keys of a dQ kv tile
+// dQ blocks an SM that the launch bounds hold registers for: two at 32-key
+// tiles (97 KB of shared memory at D 128), one at 64 (129 KB)
+constexpr int DQ_MIN_BLOCKS = DQ_BN <= 32 ? 2 : 1;
 
 using bf16 = __nv_bfloat16;
 
@@ -623,7 +641,172 @@ __global__ void __launch_bounds__(WG, 2) bwd_dkdv_tc_kernel(
   }
 }
 
-static_assert(fwd_tc_smem<128>() <= 232448 && bwd_dkdv_tc_smem<128>() <= 232448,
+// ------------------------------------------------------------ backward: dQ
+template <int D>
+constexpr size_t bwd_dq_tc_smem() {
+  return 1024 + (size_t)Panels<D>::N * 128 * (2 * BM + 4 * DQ_BN);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_WGS * WG, DQ_MIN_BLOCKS) bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    bf16* __restrict__ dq, float* __restrict__ delta, int Hq, int Hkv, int Lq, int Lk,
+    int kv_len, int causal, int window, float scale) {
+  using P = Panels<D>;
+  constexpr int NTH = DQ_WGS * WG, QB = P::N * 128 * BM, KB = P::N * 128 * DQ_BN;
+  constexpr int NS = DQ_BN / 2;    // score registers of a thread
+  extern __shared__ float4 fa_tc_smem[];
+  char* Qs = smem_1k(fa_tc_smem);  // [BM][D]
+  char* dOs = Qs + QB;             // [BM][D]
+  char* KVs = dOs + QB;            // 2 stages of [DQ_BN][D] K, [DQ_BN][D] V
+  const uint32_t Qa = smem_u32(Qs), dOa = smem_u32(dOs), KVa = smem_u32(KVs);
+  const int tid = threadIdx.x, wg = tid / WG, w = (tid % WG) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const float scale_log2 = scale * LOG2E;
+  int u, bh;
+  tile_block((Lq + BM - 1) / BM, causal != 0, u, bh);
+  const int q0 = u * BM;
+  const int b = bh / Hq, h = bh % Hq, G = Hq / Hkv;
+  const size_t q_off = (size_t)bh * Lq * D;
+  const size_t kv_off = ((size_t)b * Hkv + h / G) * Lk * D;
+  // this thread's two q rows, fixed for the whole block, and their rows in
+  // the block's tiles
+  const int rloc[2] = {64 * wg + 16 * w + g, 64 * wg + 16 * w + g + 8};
+  const int qrow[2] = {q0 + rloc[0], q0 + rloc[1]};
+
+  // kv tiles [lo, hi) that some row of the block sees
+  int hi = (kv_len + DQ_BN - 1) / DQ_BN;
+  if (causal) hi = min(hi, (q0 + BM - 1) / DQ_BN + 1);
+  const int lo = window > 0 ? ceil_div_pos(q0 - window + 2 - DQ_BN, DQ_BN) : 0;
+
+  stage_rows<D, BM, NTH>(Qs, q + q_off, q0, Lq, tid);
+  stage_rows<D, BM, NTH>(dOs, dout + q_off, q0, Lq, tid);
+  if (lo < hi) {
+    stage_rows<D, DQ_BN, NTH>(KVs, k + kv_off, lo * DQ_BN, Lk, tid);
+    stage_rows<D, DQ_BN, NTH>(KVs + KB, v + kv_off, lo * DQ_BN, Lk, tid);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(dO * O) over each of the thread's rows: its columns 8 j +
+  // 2 t4 and 8 j + 2 t4 + 1 (the ones it stores dQ at), O from global memory
+  // and dO from the staged tile, then over the row's quad in a fixed order;
+  // lse in log2 units
+  float dl[2], lse2[2];
+  {
+    __nv_bfloat162 ov[2][D / 8];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const bf16* orow = o + q_off + (size_t)qrow[hf] * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        ov[hf][j] = qrow[hf] < Lq ? *reinterpret_cast<const __nv_bfloat162*>(orow + 8 * j)
+                                  : __floats2bfloat162_rn(0.f, 0.f);
+      lse2[hf] = qrow[hf] < Lq ? lse[(size_t)bh * Lq + qrow[hf]] * LOG2E : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // Q, dO and kv tile lo are in
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const __nv_bfloat162 a =
+            *reinterpret_cast<const __nv_bfloat162*>(dOs + chunk_off<BM>(rloc[hf], j) + 4 * t4);
+        x = fmaf(__bfloat162float(a.x), __bfloat162float(ov[hf][j].x), x);
+        x = fmaf(__bfloat162float(a.y), __bfloat162float(ov[hf][j].y), x);
+      }
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      dl[hf] = x;
+      if (t4 == 0 && qrow[hf] < Lq) delta[(size_t)bh * Lq + qrow[hf]] = x;
+    }
+  }
+
+  float dq0[P::W0 / 2], dq1[P::R1];
+#pragma unroll
+  for (int e = 0; e < P::W0 / 2; ++e) dq0[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < P::R1; ++e) dq1[e] = 0.f;
+
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * DQ_BN, st = (t - lo) & 1;
+    const uint32_t Ka = KVa + st * 2 * KB, Va = Ka + KB;
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile t is in; every warpgroup is done with tile t - 1
+    if (t + 1 < hi) {
+      char* nxt = KVs + (st ^ 1) * 2 * KB;
+      stage_rows<D, DQ_BN, NTH>(nxt, k + kv_off, k0 + DQ_BN, Lk, tid);
+      stage_rows<D, DQ_BN, NTH>(nxt + KB, v + kv_off, k0 + DQ_BN, Lk, tid);
+    }
+    cp_async_commit();
+
+    // S = Q K^T and dP = dO V^T over d
+    float s[NS], dp[NS];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wgmma_ss(s, desc_k<BM>(Qa, 64 * wg, j), desc_k<DQ_BN>(Ka, 0, j), j > 0);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wgmma_ss(dp, desc_k<BM>(dOa, 64 * wg, j), desc_k<DQ_BN>(Va, 0, j), j > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(S - lse), dS = P (dP - delta); no mask inside the tile: every
+    // key before every query, none past kv_len
+    const bool full =
+        (!causal || k0 + DQ_BN - 1 <= q0) && window <= 0 && k0 + DQ_BN <= kv_len;
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      const int hf = acc_half(e);
+      const bool vis = full || visible(qrow[hf], k0 + acc_col(e, t4), kv_len, causal, window);
+      const float p = exp2f(vis ? fmaf(s[e], scale_log2, -lse2[hf]) : NEG_INF);
+      dp[e] = p * (dp[e] - dl[hf]);
+    }
+
+    // dQ += dS K over the tile's keys, dS in bf16 from registers, K read
+    // MN-major
+    uint32_t da[NS / 8][4];
+    to_a_frags(dp, da);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NS / 8; ++j) wgmma_rs(dq0, da[j], desc_mn<DQ_BN>(Ka, 16 * j, 0), 1);
+    if constexpr (P::W1 > 0) {
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) wgmma_rs(dq1, da[j], desc_mn<DQ_BN>(Ka, 16 * j, 1), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dq0);
+    fence_regs(dq1);
+    fence_regs(da);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qp = qrow[hf];
+    if (qp >= Lq) continue;
+    bf16* row = dq + q_off + (size_t)qp * D;
+#pragma unroll
+    for (int e = 2 * hf; e < P::W0 / 2; e += 4)
+      *reinterpret_cast<uint32_t*>(row + acc_col(e, t4)) =
+          pack_bf16(dq0[e] * scale, dq0[e + 1] * scale);
+    if constexpr (P::W1 > 0) {
+#pragma unroll
+      for (int e = 2 * hf; e < P::R1; e += 4)
+        *reinterpret_cast<uint32_t*>(row + 64 + acc_col(e, t4)) =
+            pack_bf16(dq1[e] * scale, dq1[e + 1] * scale);
+    }
+  }
+}
+
+static_assert(fwd_tc_smem<128>() <= 232448 && bwd_dkdv_tc_smem<128>() <= 232448 &&
+                  bwd_dq_tc_smem<128>() <= 232448,
               "a block fits in the 227 KB of shared memory a block can use");
 
 template <typename K>
@@ -656,6 +839,22 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o, float* 
   fwd_tc_kernel<D><<<grid, FWD_WGS * WG, smem, st>>>((const bf16*)q, (const bf16*)k,
                                                       (const bf16*)v, (bf16*)o, lse, Hq, Hkv,
                                                       Lq, Lk, kv_len, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, void* dq, float* delta, int B, int Hq,
+                      int Hkv, int Lq, int Lk, int kv_len, int causal, int window, float scale,
+                      cudaStream_t st) {
+  if (!aligned16(q, k, v, o, dout, dq)) return cudaErrorMisalignedAddress;
+  const size_t smem = bwd_dq_tc_smem<D>();
+  cudaError_t e = prepare_max_shared(bwd_dq_tc_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid = tile_grid((Lq + BM - 1) / BM, B * Hq);
+  bwd_dq_tc_kernel<D><<<grid, DQ_WGS * WG, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout, lse,
+      (bf16*)dq, delta, Hq, Hkv, Lq, Lk, kv_len, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -703,6 +902,14 @@ int flash_attn_fwd_tc(const void* q, const void* k, const void* v, void* o, void
                  scale, (cudaStream_t)stream);
 }
 
+int flash_attn_bwd_dq_tc(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const void* lse, void* dq, void* delta, int B,
+                         int Hq, int Hkv, int Lq, int Lk, int head_dim, int kv_len, int causal,
+                         int window, float scale, int dtype, void* stream) {
+  FA_TC_DISPATCH(bwd_dq_tc, q, k, v, o, dout, (const float*)lse, dq, (float*)delta, B, Hq, Hkv,
+                 Lq, Lk, kv_len, causal, window, scale, (cudaStream_t)stream);
+}
+
 int flash_attn_bwd_dkdv_tc(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int B,
                            int Hq, int Hkv, int Lq, int Lk, int head_dim, int kv_len,
@@ -716,19 +923,25 @@ const char* flash_attn_tc_error_string(int code) {
 }
 
 // Blocks of each kernel that fit on one SM at once, at head_dim.
-int flash_attn_tc_blocks_per_sm(int head_dim, int* fwd_blocks, int* dkdv_blocks) {
+int flash_attn_tc_blocks_per_sm(int head_dim, int* fwd_blocks, int* dkdv_blocks,
+                                int* dq_blocks) {
   cudaError_t e = cudaErrorInvalidValue;
-#define FA_TC_OCC(DIM)                                                                   \
-  if (head_dim == DIM) {                                                                 \
-    e = prepare_max_shared(fwd_tc_kernel<DIM>, fwd_tc_smem<DIM>());                      \
-    if (e == cudaSuccess)                                                                \
-      e = prepare_max_shared(bwd_dkdv_tc_kernel<DIM>, bwd_dkdv_tc_smem<DIM>());          \
-    if (e == cudaSuccess)                                                                \
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(fwd_blocks, fwd_tc_kernel<DIM>,  \
+#define FA_TC_OCC(DIM)                                                                     \
+  if (head_dim == DIM) {                                                                   \
+    e = prepare_max_shared(fwd_tc_kernel<DIM>, fwd_tc_smem<DIM>());                        \
+    if (e == cudaSuccess)                                                                  \
+      e = prepare_max_shared(bwd_dkdv_tc_kernel<DIM>, bwd_dkdv_tc_smem<DIM>());            \
+    if (e == cudaSuccess)                                                                  \
+      e = prepare_max_shared(bwd_dq_tc_kernel<DIM>, bwd_dq_tc_smem<DIM>());                \
+    if (e == cudaSuccess)                                                                  \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(fwd_blocks, fwd_tc_kernel<DIM>,    \
                                                         FWD_WGS * WG, fwd_tc_smem<DIM>()); \
-    if (e == cudaSuccess)                                                                \
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                 \
-          dkdv_blocks, bwd_dkdv_tc_kernel<DIM>, WG, bwd_dkdv_tc_smem<DIM>());            \
+    if (e == cudaSuccess)                                                                  \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                   \
+          dkdv_blocks, bwd_dkdv_tc_kernel<DIM>, WG, bwd_dkdv_tc_smem<DIM>());              \
+    if (e == cudaSuccess)                                                                  \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                   \
+          dq_blocks, bwd_dq_tc_kernel<DIM>, DQ_WGS * WG, bwd_dq_tc_smem<DIM>());           \
   }
   FA_TC_OCC(16)
   FA_TC_OCC(32)

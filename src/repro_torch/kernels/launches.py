@@ -24,11 +24,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 FAMILIES = {
-    # csrc/flash_attn.cu, then csrc/flash_attn_tc.cu (bf16's forward and
-    # dK/dV on the tensor cores) (kernels/attention/ops.py)
+    # csrc/flash_attn.cu (fp32), then csrc/flash_attn_tc.cu (bf16 on the
+    # tensor cores) (kernels/attention/ops.py)
     "attention": ("flash_attn_fwd", "flash_attn_bwd_dq",
                   "flash_attn_bwd_dkdv", "flash_attn_fwd_tc",
-                  "flash_attn_bwd_dkdv_tc"),
+                  "flash_attn_bwd_dq_tc", "flash_attn_bwd_dkdv_tc"),
     # csrc/wkv6.cu (kernels/rwkv/ops.py)
     "rwkv": ("wkv6_fwd", "wkv6_bwd_dr", "wkv6_bwd_dk", "wkv6_bwd_dv"),
 }

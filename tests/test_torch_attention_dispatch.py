@@ -1,9 +1,8 @@
 """Which kernels the attention wrapper dispatches to, by dtype, as the
-dry-run sees it on ``meta`` (no card): bf16's forward and dK/dV are the
-tensor-core kernels of ``flash_attn_tc.cu`` (``flash_attn_fwd_tc``,
-``flash_attn_bwd_dkdv_tc``), with the bf16 ``flash_attn_bwd_dq``; fp32
-keeps ``flash_attn_fwd``, ``flash_attn_bwd_dq`` and
-``flash_attn_bwd_dkdv``. ``COSTS`` books each call's work under the
+dry-run sees it on ``meta`` (no card): bf16's forward, dQ and dK/dV are
+the tensor-core kernels of ``flash_attn_tc.cu`` (``flash_attn_fwd_tc``,
+``flash_attn_bwd_dq_tc``, ``flash_attn_bwd_dkdv_tc``); fp32 keeps
+``flash_attn_fwd``, ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv``. ``COSTS`` books each call's work under the
 kernels that would run, at ``flash_work``'s flops and bytes."""
 import dataclasses
 
@@ -49,9 +48,11 @@ def test_a_tensor_core_kernel_does_the_work_of_the_one_it_stands_in_for():
     q, k = _meta(1, 4, 200, 96, dtype=BF16), _meta(1, 2, 200, 96, dtype=BF16)
     work = ops.flash_work(q, k, True, 0, 200)
     assert work["flash_attn_fwd_tc"] == work["flash_attn_fwd"]
+    assert work["flash_attn_bwd_dq_tc"] == work["flash_attn_bwd_dq"]
     assert work["flash_attn_bwd_dkdv_tc"] == work["flash_attn_bwd_dkdv"]
     pairs = 4 * ops.visible_pairs(200, 200, True, 0, 200)
     assert work["flash_attn_fwd_tc"][0] == 4 * 96 * pairs
+    assert work["flash_attn_bwd_dq_tc"][0] == 6 * 96 * pairs
     assert work["flash_attn_bwd_dkdv_tc"][0] == 8 * 96 * pairs
 
 

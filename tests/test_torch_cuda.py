@@ -125,8 +125,9 @@ def test_backward_pair_on_unaligned_inputs(card, Hq, Hkv):
 @pytest.mark.parametrize("Hq,Hkv,D", [(4, 4, 96), (12, 1, 128)])
 def test_tensor_core_kernels_on_unaligned_bf16_inputs(card, Hq, Hkv, D):
     """bf16 inputs off a 16-byte boundary: the wrappers copy them before
-    ``flash_attn_fwd_tc`` and ``flash_attn_bwd_dkdv_tc``, which agree with
-    the plain versions and give the same bits twice."""
+    ``flash_attn_fwd_tc``, ``flash_attn_bwd_dq_tc`` and
+    ``flash_attn_bwd_dkdv_tc``, which agree with the plain versions and
+    give the same bits twice."""
     gen = torch.Generator(device=card).manual_seed(5)
     B, L = 1, 200
 
@@ -144,15 +145,17 @@ def test_tensor_core_kernels_on_unaligned_bf16_inputs(card, Hq, Hkv, D):
     for _ in range(2):
         o, lse = ops.flash_attn_fwd_cuda(q, k, v, **opts)
         dq, delta = ops.flash_attn_bwd_dq_cuda(q, k, v, o, lse, do, **opts)
-        runs.append((o, lse, *ops.flash_attn_bwd_dkdv_cuda(
+        runs.append((o, lse, dq, delta, *ops.flash_attn_bwd_dkdv_cuda(
             q, k, v, lse, delta, do, **opts)))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
-    o, lse, dk, dv = runs[0]
+    o, lse, dq, delta, dk, dv = runs[0]
     o_p, lse_p = ops.flash_attn_fwd_plain(q, k, v, **opts)
+    dq_p, delta_p = ops.flash_attn_bwd_dq_plain(q, k, v, o, lse, do, **opts)
     dk_p, dv_p = ops.flash_attn_bwd_dkdv_plain(q, k, v, lse, delta, do,
                                                **opts)
-    for got, want in ((o, o_p), (lse, lse_p), (dk, dk_p), (dv, dv_p)):
+    for got, want in ((o, o_p), (lse, lse_p), (dq, dq_p), (delta, delta_p),
+                      (dk, dk_p), (dv, dv_p)):
         got, want = got.float(), want.float()
         assert bool(((got - want).abs() <= 2e-2 * (1 + want.abs())).all())
 

@@ -2,7 +2,7 @@
 
 ``flash_attn_fwd``, ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv`` of
 ``src/repro_torch/kernels/csrc/flash_attn.cu`` (and, for the bf16 cases,
-the forward and dK/dV of ``flash_attn_tc.cu``, as ``ops.kernel_names``
+the forward, dQ and dK/dV of ``flash_attn_tc.cu``, as ``ops.kernel_names``
 picks them) and the WKV6 forward and
 backward kernels of ``src/repro_torch/kernels/csrc/wkv6.cu`` are
 translated into C++
@@ -385,8 +385,8 @@ def run(lib, B, Hq, Hkv, Lq, Lk, D, causal, window, kv_len, dtype, tol,
     dq, delta = torch.empty_like(q), torch.empty(B, Hq, Lq)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _, dq_name, dkdv_name = ops.kernel_names(dtype)
-    if dkdv_name in ops.TC_SIGNATURES:   # as the wrapper hands them over
-        q, k, v, do = (ops.aligned16(t) for t in (q, k, v, do))
+    if dq_name in ops.TC_SIGNATURES:   # as the wrappers hand them over
+        q, k, v, o, do = (ops.aligned16(t) for t in (q, k, v, o, do))
     for fn, ts in ((dq_name, (q, k, v, o, do, lse, dq, delta)),
                    (dkdv_name, (q, k, v, do, lse, delta, dk, dv))):
         err = getattr(lib, fn)(*[t.data_ptr() for t in ts], *dims, scale,

@@ -1,6 +1,7 @@
 """The tensor-core flash-attention kernels' source, run on the CPU.
 
-``flash_attn_fwd_tc`` and ``flash_attn_bwd_dkdv_tc`` of
+``flash_attn_fwd_tc``, ``flash_attn_bwd_dq_tc`` and
+``flash_attn_bwd_dkdv_tc`` of
 ``src/repro_torch/kernels/csrc/flash_attn_tc.cu`` go through the translator
 of ``test_torch_cuda_emulate.py`` (each CUDA thread a ``std::thread``;
 ``wgmma`` by its stand-ins there: the shared-memory descriptors decoded
@@ -11,9 +12,8 @@ the plain PyTorch versions at small shapes: head dims 16 to 128, GQA at G
 1, 4, 5 and 12, a window that ends inside a tile, ``kv_len`` with Lq != Lk,
 non-causal, lengths at the tiles' edges, rows that do not start on a
 16-byte boundary (copied by the wrapper's ``aligned16``), and two runs that
-must give the same bits. dK/dV runs after the bf16 ``flash_attn_bwd_dq`` of
-``flash_attn.cu``, which writes its delta, as on the card. Run from the
-repo root:
+must give the same bits. dK/dV runs after ``flash_attn_bwd_dq_tc``, which
+writes its delta, as on the card. Run from the repo root:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_emulate_tc.py
 """
@@ -59,7 +59,8 @@ def libs(request, tmp_path_factory):
 
 
 def test_bf16_goes_to_the_tensor_core_kernels():
-    assert ops.kernel_names(BF16) == ("flash_attn_fwd_tc", "flash_attn_bwd_dq",
+    assert ops.kernel_names(BF16) == ("flash_attn_fwd_tc",
+                                      "flash_attn_bwd_dq_tc",
                                       "flash_attn_bwd_dkdv_tc")
     assert ops.kernel_names(torch.float32) == (
         "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv")
@@ -73,7 +74,7 @@ def test_forward_tc_matches_plain(libs, case):
 
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_dkdv_tc_matches_plain(libs, case):
-    """dQ (``flash_attn_bwd_dq``, bf16, writing delta), then
+    """``flash_attn_bwd_dq_tc`` (dq, and the delta it writes), then
     ``flash_attn_bwd_dkdv_tc``; each against its plain version on the same
     inputs."""
     worst, ok, _ = run(libs, *case, BF16, TOL)
@@ -104,7 +105,8 @@ def test_tc_kernels_give_the_same_bits_twice(libs, kernel):
 
 def test_tc_entry_points_refuse_fp32_and_unaligned_rows(libs):
     """dtype 0 is flash_attn.cu's; a bf16 tensor off a 16-byte boundary is
-    refused (cudaErrorMisalignedAddress), not read by cp.async."""
+    refused (cudaErrorMisalignedAddress), not read by cp.async or as bf16
+    pairs (dQ's o)."""
     gen = torch.Generator().manual_seed(0)
     B, H, L, D = 1, 2, 64, 64
     q, k, v = (randn(gen, (B, H, L, D), BF16) for _ in range(3))
@@ -119,3 +121,23 @@ def test_tc_entry_points_refuse_fp32_and_unaligned_rows(libs):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bwd = [t.data_ptr() for t in (qu, k, v, q, lse, lse, dk, dv)]
     assert libs.flash_attn_bwd_dkdv_tc(*bwd, *dims, D ** -0.5, 1, None) == 716
+    dq, delta = torch.empty_like(q), torch.empty(B, H, L)
+    dq_args = [q, k, v, o, q, lse, dq, delta]
+    assert libs.flash_attn_bwd_dq_tc(*[t.data_ptr() for t in dq_args], *dims,
+                                     D ** -0.5, 0, None) == 1
+    dq_args[3] = qu   # o
+    assert libs.flash_attn_bwd_dq_tc(*[t.data_ptr() for t in dq_args], *dims,
+                                     D ** -0.5, 1, None) == 716
+
+
+def test_cuda_core_dq_refuses_bf16(libs):
+    """Every bf16 dQ is ``flash_attn_bwd_dq_tc``'s: ``flash_attn.cu``'s
+    ``flash_attn_bwd_dq`` refuses dtype 1 (cudaErrorInvalidValue), as its
+    forward and dK/dV do."""
+    gen = torch.Generator().manual_seed(0)
+    B, H, L, D = 1, 2, 64, 64
+    q, k, v, o, do = (randn(gen, (B, H, L, D), BF16) for _ in range(5))
+    lse, delta, dq = torch.zeros(B, H, L), torch.empty(B, H, L), torch.empty_like(q)
+    dims = [B, H, H, L, L, D, L, 1, 0]
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, dq, delta)]
+    assert libs.flash_attn_bwd_dq(*ptrs, *dims, D ** -0.5, 1, None) == 1

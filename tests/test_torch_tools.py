@@ -35,6 +35,10 @@ NAMES = [
     (WKV_NS + "18wkv6_bwd_dk_kernelILi64EEEvPKfS2_S2_S2_S2_S2_S2_S2_S2_PfS3_S3_S3_iii",
      "wkv6_bwd_dk"),
     (ATT_NS + "10fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_Pfiiiiiiifi", "flash_attn_fwd"),
+    # flash_attn.cu's kernels since they take fp32 only (no type parameter)
+    (ATT_NS + "10fwd_kernelILi64EEEvPKfS2_S2_PfS3_iiiiiiifi", "flash_attn_fwd"),
+    (ATT_NS + "13bwd_dq_kernelILi64EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiiiifi",
+     "flash_attn_bwd_dq"),
     ("void (anonymous namespace)::wkv6_fwd_kernel<64>(float const*, float const*, "
      "float const*, float const*, float const*, float const*, float*, float*, "
      "int, int, int)", "wkv6_fwd"),
@@ -44,11 +48,20 @@ NAMES = [
     ("void (anonymous namespace)::fwd_kernel<float, 64>(float const*, float const*, "
      "float const*, float*, float*, int, int, int, int, int, int, int, float, int)",
      "flash_attn_fwd"),
+    ("void (anonymous namespace)::fwd_kernel<64>(float const*, float const*, "
+     "float const*, float*, float*, int, int, int, int, int, int, int, float, int)",
+     "flash_attn_fwd"),
     # flash_attn_tc.cu's, for sm_90a
     (TC_NS + "13fwd_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiiiif",
      "flash_attn_fwd_tc"),
     (TC_NS + "18bwd_dkdv_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_"
      "PS1_S6_iiiiiiif", "flash_attn_bwd_dkdv_tc"),
+    (TC_NS + "16bwd_dq_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_S3_S3_PKfPS1_"
+     "Pfiiiiiiif", "flash_attn_bwd_dq_tc"),
+    ("void (anonymous namespace)::bwd_dq_tc_kernel<96>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, float*, int, int, "
+     "int, int, int, int, int, float)", "flash_attn_bwd_dq_tc"),
     ("void (anonymous namespace)::fwd_tc_kernel<128>(__nv_bfloat16 const*, "
      "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, "
      "int, int, int, int, int, int, float)", "flash_attn_fwd_tc"),

@@ -13,7 +13,8 @@ started together. Prints each kernel's registers and spills from
 ``HGMMA`` instructions that ``cuobjdump -sass`` finds in each tensor-core
 kernel. Each build is
 checked against the plain versions (and for the same bits on two runs) at
-the main shapes, then ``flash_attn_fwd``, the backward pair (dq then dkdv),
+the main shapes, its fp32 outputs against this checkout's bit for bit,
+then ``flash_attn_fwd``, the backward pair (dq then dkdv),
 ``wkv6_fwd``, ``wkv6_bwd_dr``, ``wkv6_bwd_dk`` and ``wkv6_bwd_dv`` are
 timed with CUDA events, the builds in turns (A B B A)
 so that they share the card's state, beside
@@ -23,15 +24,16 @@ the edl_paper path (B 8 at p = 1, 4 at p = 2; H 12, L 1024, D 64, fp32,
 causal) and of the rwkv6 path (B 8 / 4, L 1024, H 32, hd 64, fp32), where
 each WKV6 kernel's bound by bytes is printed beside its times. In bf16,
 at the zoo's five training shapes (B 4, L 1024, causal: phi3, nemo /
-llava / mixtral, qwen2.5, starcoder2, musicgen), each build's bf16
-forward and dK/dV (the tensor-core ``flash_attn_fwd_tc`` and
+llava / mixtral, qwen2.5, starcoder2, musicgen), the window-4096 pair (B 1,
+L 5120: starcoder2, mixtral) and mixtral's mp = 2 shard (B 4, H 16:4),
+each build's bf16 forward, dQ and dK/dV (the tensor-core
+``flash_attn_fwd_tc``, ``flash_attn_bwd_dq_tc`` and
 ``flash_attn_bwd_dkdv_tc`` where a build has them, else its
-``flash_attn_fwd`` and ``flash_attn_bwd_dkdv`` at dtype 1) are held
-against the plain versions on the same inputs, their worst errors
-printed side by side (dK/dV on the delta of this checkout's bf16
-``flash_attn_bwd_dq``), the new ones run twice for the same bits, and all
+``flash_attn.cu`` ones at dtype 1, as ``flash_attn_bwd_dq`` at 28773cc)
+are held against the plain versions on the same inputs, their worst
+errors printed side by side, each run twice for the same bits, and all
 timed in turns beside SDPA's forward and whole backward and the bf16
-bound (4 D and 8 D flops a visible pair at 989 TFLOP/s). A build
+bound (4 D, 6 D and 8 D flops a visible pair at 989 TFLOP/s). A build
 from before du was folded into dk (it has a ``wkv6_bwd_du`` kernel, as at
 ec2815a) is driven through its own interface: its dk is timed alone and,
 as ``wkv6_bwd_dk+du``, followed by its du kernel, the work that the folded
@@ -57,12 +59,17 @@ sys.path.insert(0, str(ROOT / "src"))
 FAMILIES = {"flash_attn": "flash_attn.cu", "flash_attn_tc": "flash_attn_tc.cu",
             "wkv6": "wkv6.cu"}
 ATT_SHAPES = {"edl_p1": (8, 12, 1024, 64), "edl_p2": (4, 12, 1024, 64)}
-# the zoo's bf16 training shapes (chip_smoke.py's ZOO_SHAPES): Hq, Hkv, D at
-# B 4, L 1024, causal
+# the zoo's bf16 shapes (chip_smoke.py's ATT_ZOO_CASES), causal: B, Hq, Hkv,
+# L, D, window. The five training shapes at B 4 x L 1024; window 4096 at B 1
+# x L 5120 (starcoder2, mixtral); mixtral's and jamba's mp = 2 shard
 ZOO_SHAPES = {"phi3": (32, 32, 96), "nemo_llava_mixtral": (32, 8, 128),
               "qwen": (40, 8, 128), "starcoder2": (48, 4, 128),
               "musicgen": (24, 24, 64)}
-ZOO_B, ZOO_L = 4, 1024
+BF16_SHAPES = {**{n: (4, Hq, Hkv, 1024, D, 0)
+                  for n, (Hq, Hkv, D) in ZOO_SHAPES.items()},
+               "starcoder2_w4096": (1, 48, 4, 5120, 128, 4096),
+               "mixtral_w4096": (1, 32, 8, 5120, 128, 4096),
+               "mixtral_jamba_mp2": (4, 16, 4, 1024, 128, 0)}
 BF16_TOL = 2e-2                       # chip_smoke.py's bf16 tolerance
 BF16_FLOPS = 989e12                   # H100 SXM, bf16 tensor cores, dense
 WKV_SHAPES = {"rwkv_p1": (8, 1024, 32, 64), "rwkv_p2": (4, 1024, 32, 64)}
@@ -76,14 +83,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SPLIT_DU_SIGNATURES = {"wkv6_bwd_dk": [_P] * 11 + [_I] * 4 + [_P],
                        "wkv6_bwd_du": [_P] * 2 + [_I] * 3 + [_P]}
 # the kernels whose registers are reported: fp32 at head dim 64
-PTXAS_KERNELS = {"flash_attn": ("fwd_kernelIfLi64E", "bwd_dq_kernelIfLi64E",
+PTXAS_KERNELS = {"flash_attn": ("fwd_kernelILi64E", "bwd_dq_kernelILi64E",
+                                "bwd_dkdv_kernelILi64E",
+                                # the instances of a baseline whose kernels
+                                # were templates on the type too (28773cc)
+                                "fwd_kernelIfLi64E", "bwd_dq_kernelIfLi64E",
                                 "bwd_dkdv_kernelIfLi64E",
-                                # the bf16 instances a baseline may have
                                 *(f"{k}_kernelI13__nv_bfloat16Li{d}E"
                                   for k in ("fwd", "bwd_dq", "bwd_dkdv")
                                   for d in (64, 96, 128))),
                  "flash_attn_tc": tuple(f"{k}_tc_kernelILi{d}E"
-                                        for k in ("fwd", "bwd_dkdv")
+                                        for k in ("fwd", "bwd_dq", "bwd_dkdv")
                                         for d in (16, 32, 64, 96, 128)),
                  "wkv6": ("wkv6_fwd_kernelILi64E", "wkv6_bwd_dr_kernelILi64E",
                           "wkv6_bwd_dk_kernelILi64E", "wkv6_bwd_dv_kernelILi64E")}
@@ -199,13 +209,17 @@ def typed(lib, fam):
         sigs = aops._SIGNATURES
     elif fam == "flash_attn_tc":
         sigs = aops.TC_SIGNATURES
+        # forward and dK/dV, and dQ where the build has it
         lib.flash_attn_tc_blocks_per_sm.argtypes = [_I] + [
-            ctypes.POINTER(ctypes.c_int)] * 2
+            ctypes.POINTER(ctypes.c_int)] * (
+                3 if hasattr(lib, "flash_attn_bwd_dq_tc") else 2)
         lib.flash_attn_tc_blocks_per_sm.restype = ctypes.c_int
     else:
         sigs = {**wops._SIGNATURES,
                 **(SPLIT_DU_SIGNATURES if split_du(lib) else {})}
     for fn, argtypes in sigs.items():
+        if not hasattr(lib, fn):    # an earlier build's tensor-core library
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -225,15 +239,16 @@ def blocks_per_sm(lib, fam) -> dict | None:
     tensor-core kernels' at the zoo's head dims."""
     out = {}
     if fam == "flash_attn_tc":
+        keys = ("fwd_tc", "dkdv_tc", "dq_tc")[
+            :len(lib.flash_attn_tc_blocks_per_sm.argtypes) - 1]
         for d in sorted({D for _, _, D in ZOO_SHAPES.values()}):
-            n = [ctypes.c_int() for _ in range(2)]
+            n = [ctypes.c_int() for _ in keys]
             err = lib.flash_attn_tc_blocks_per_sm(d, *(ctypes.byref(x)
                                                        for x in n))
             if err:
                 raise RuntimeError(f"flash_attn_tc_blocks_per_sm: cudaError "
                                    f"{err}")
-            out.update({f"fwd_tc_d{d}": n[0].value,
-                        f"dkdv_tc_d{d}": n[1].value})
+            out.update({f"{k}_d{d}": x.value for k, x in zip(keys, n)})
         return out
     for fn, keys in OCCUPANCY[fam]:
         if not hasattr(lib, fn) or (fam == "flash_attn" and out):
@@ -253,29 +268,38 @@ def call(lib, fn, *args):
 
 
 def bf16_entries(fams: dict):
-    """A build's bf16 forward and dK/dV: ((lib, entry), (lib, entry)), the
-    tensor-core kernels where it has them; None where it has neither."""
-    if "flash_attn_tc" in fams:
-        lib = fams["flash_attn_tc"][0]
-        return (lib, "flash_attn_fwd_tc"), (lib, "flash_attn_bwd_dkdv_tc")
-    if "flash_attn" in fams:
-        lib = fams["flash_attn"][0]
-        return (lib, "flash_attn_fwd"), (lib, "flash_attn_bwd_dkdv")
-    return None
+    """A build's bf16 forward, dQ and dK/dV: {kernel: (lib, entry)}, the
+    tensor-core kernels where it has them, else its ``flash_attn.cu`` ones
+    (at dtype 1, as at 28773cc for dQ); None where it has neither
+    library."""
+    tc = fams.get("flash_attn_tc", (None,))[0]
+    fa = fams.get("flash_attn", (None,))[0]
+    if tc is None and fa is None:
+        return None
+    out = {}
+    for kname, tc_entry, fa_entry in (
+            ("fwd", "flash_attn_fwd_tc", "flash_attn_fwd"),
+            ("dq", "flash_attn_bwd_dq_tc", "flash_attn_bwd_dq"),
+            ("dkdv", "flash_attn_bwd_dkdv_tc", "flash_attn_bwd_dkdv")):
+        if tc is not None and hasattr(tc, tc_entry):
+            out[kname] = (tc, tc_entry)
+        elif fa is not None:
+            out[kname] = (fa, fa_entry)
+    return out
 
 
 def bench_bf16(torch, libs, order, timed, stream, result) -> bool:
-    """The bf16 forward and dK/dV of each build at the zoo's shapes: held
-    against the plain versions (the worst error of each build on the same
-    inputs), the same bits twice, and timed in turns beside SDPA and the
-    bf16 bound. dK/dV reads the delta of this checkout's bf16
-    ``flash_attn_bwd_dq``. False where a check fails."""
+    """The bf16 forward, dQ and dK/dV of each build at ``BF16_SHAPES``:
+    held against the plain versions on the same inputs (o and lse; dq and
+    the delta it writes; dk and dv on the plain o, lse and delta, the same
+    for every build), each build's worst error printed beside the others',
+    the same bits twice, and timed in turns beside SDPA's forward and whole
+    backward and the bf16 bound (4 D, 6 D and 8 D flops a visible pair at
+    989 TFLOP/s, or the bytes). False where a check fails."""
     from repro_torch.kernels.attention import ops as aops
     F = torch.nn.functional
     builds = {n: e for n in libs for e in (bf16_entries(libs[n]),) if e}
-    dq_lib = libs["new"]["flash_attn"][0]
-    for sname, (Hq, Hkv, D) in ZOO_SHAPES.items():
-        B, L = ZOO_B, ZOO_L
+    for sname, (B, Hq, Hkv, L, D, window) in BF16_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(0)
 
         def rnd(*shape):
@@ -284,77 +308,82 @@ def bench_bf16(torch, libs, order, timed, stream, result) -> bool:
         q, do = rnd(B, Hq, L, D), rnd(B, Hq, L, D)
         k, v = rnd(B, Hkv, L, D), rnd(B, Hkv, L, D)
         scale = D ** -0.5
-        opts = dict(causal=True, window=0, scale=scale, kv_len=L)
-        dims = [B, Hq, Hkv, L, L, D, L, 1, 0]
+        opts = dict(causal=True, window=window, scale=scale, kv_len=L)
+        dims = [B, Hq, Hkv, L, L, D, L, 1, window]
         o, lse = torch.empty_like(q), torch.empty((B, Hq, L), device="cuda")
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty((B, Hq, L), device="cuda")
         o_p, lse_p = aops.flash_attn_fwd_plain(q, k, v, **opts)
-        # the same o, lse and delta for every build's dK/dV
-        o_in = o_p.to(torch.bfloat16)
-        call(dq_lib, "flash_attn_bwd_dq", *[t.data_ptr() for t in (
-            q, k, v, o_in, do, lse_p, dq, delta)], *dims, scale, 1, stream)
+        dq_p, delta_p = aops.flash_attn_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                                     **opts)
+        dk_p, dv_p = aops.flash_attn_bwd_dkdv_plain(q, k, v, lse_p, delta_p,
+                                                    do, **opts)
         torch.cuda.synchronize()
-        dk_p, dv_p = aops.flash_attn_bwd_dkdv_plain(q, k, v, lse_p, delta, do,
-                                                    **opts)
+        launch = {   # kernel: its pointers; dQ and dK/dV on the plain o, lse
+            "fwd": lambda: (q, k, v, o, lse),
+            "dq": lambda: (q, k, v, o_p, do, lse_p, dq, delta),
+            "dkdv": lambda: (q, k, v, do, lse_p, delta_p, dk, dv)}
+        want = {"fwd": (o_p, lse_p), "dq": (dq_p, delta_p),
+                "dkdv": (dk_p, dv_p)}
+        got = {"fwd": (o, lse), "dq": (dq, delta), "dkdv": (dk, dv)}
 
-        def fwd(entry):
-            call(*entry, *[t.data_ptr() for t in (q, k, v, o, lse)], *dims,
+        def run(entry, kname):
+            call(*entry, *[t.data_ptr() for t in launch[kname]()], *dims,
                  scale, 1, stream)
 
-        def dkdv(entry):
-            call(*entry, *[t.data_ptr() for t in (
-                q, k, v, do, lse_p, delta, dk, dv)], *dims, scale, 1, stream)
-
         errs = {}
-        for name, (f_entry, kv_entry) in builds.items():
-            runs = []
-            for _ in range(2):
-                fwd(f_entry)
-                dkdv(kv_entry)
-                torch.cuda.synchronize()
-                runs.append([t.clone() for t in (o, lse, dk, dv)])
+        for name, entries in builds.items():
             errs[name] = {}
-            for kname, got, want in (("fwd", runs[0][:2], (o_p, lse_p)),
-                                     ("dkdv", runs[0][2:], (dk_p, dv_p))):
-                pairs = [(a.float(), b.float()) for a, b in zip(got, want)]
+            for kname, entry in entries.items():
+                runs = []
+                for _ in range(2):
+                    run(entry, kname)
+                    torch.cuda.synchronize()
+                    runs.append([t.clone() for t in got[kname]])
+                pairs = [(a.float(), b.float())
+                         for a, b in zip(runs[0], want[kname])]
                 err = max(float((a - b).abs().max()) for a, b in pairs)
                 if not all(bool(((a - b).abs() <= BF16_TOL * (1 + b.abs())).all())
                            for a, b in pairs):
-                    print(f"{name} bf16 {kname} at {sname} disagrees with its "
-                          f"plain version: max_abs_err {err:.3e}",
+                    print(f"{name} bf16 {kname} ({entry[1]}) at {sname} "
+                          f"disagrees with its plain version: max_abs_err "
+                          f"{err:.3e}", file=sys.stderr)
+                    return False
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    print(f"{name}: two bf16 {kname} runs at {sname} differ",
                           file=sys.stderr)
                     return False
                 errs[name][kname] = err
-            if not all(torch.equal(a, b) for a, b in zip(*runs)):
-                print(f"{name}: two bf16 runs at {sname} differ",
-                      file=sys.stderr)
-                return False
-        del runs, o_p, dk_p, dv_p
-        pairs = B * Hq * aops.visible_pairs(L, L, True, 0, L)
-        work = aops.flash_work(q, k, True, 0, L)
+        del runs, pairs, dq_p, dk_p, dv_p
+        pairs = B * Hq * aops.visible_pairs(L, L, True, window, L)
+        work = aops.flash_work(q, k, True, window, L)
         bound = {kn: max(f / BF16_FLOPS, b / HBM_BYTES_S) * 1e3
                  for kn, (f, b) in (("fwd", work["flash_attn_fwd_tc"]),
+                                    ("dq", work["flash_attn_bwd_dq_tc"]),
                                     ("dkdv", work["flash_attn_bwd_dkdv_tc"]))}
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                             enable_gqa=Hq != Hkv)
-        times = {n: {"fwd": [], "dkdv": []} for n in builds}
+        sdpa_args = dict(is_causal=window == 0, enable_gqa=Hq != Hkv)
+        if window:   # the causal window as a boolean mask
+            mask = aops._mask(L, L, True, window, L, q.device)
+            sdpa_args = dict(attn_mask=mask, enable_gqa=Hq != Hkv)
+        out = F.scaled_dot_product_attention(ql, kl, vl, **sdpa_args)
+        times = {n: {kn: [] for kn in builds[n]} for n in builds}
         sdpa = {"fwd": [], "bwd": []}
         for name in order:
             if name not in builds:
                 continue
-            f_entry, kv_entry = builds[name]
-            times[name]["fwd"].append(timed(lambda: fwd(f_entry)))
-            times[name]["dkdv"].append(timed(lambda: dkdv(kv_entry)))
+            for kname, entry in builds[name].items():
+                times[name][kname].append(timed(lambda: run(entry, kname)))
             sdpa["fwd"].append(timed(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=Hq != Hkv)))
+                q, k, v, **sdpa_args)))
             sdpa["bwd"].append(timed(lambda: torch.autograd.grad(
                 out, (ql, kl, vl), do, retain_graph=True)))
         del out, ql, kl, vl
         rec = result["shapes"][f"bf16_{sname}"] = {
-            "B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "D": D, "pairs": pairs,
-            "kernels": {n: [e[1] for e in builds[n]] for n in builds},
+            "B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "D": D, "window": window,
+            "pairs": pairs,
+            "kernels": {n: {kn: e[1] for kn, e in builds[n].items()}
+                        for n in builds},
             "ms": {n: {w: sum(x) / len(x) for w, x in t.items()}
                    for n, t in times.items()},
             "ms_each_turn": times, "max_abs_err": errs,
@@ -464,6 +493,7 @@ def main(argv=None) -> int:
                                                          **opts)
             dk_p, dv_p = aops.flash_attn_bwd_dkdv_plain(q, k, v, lse_p, delta_p,
                                                         do, **opts)
+            first = {}   # build: its first run's outputs
             for name in att:
                 lib = libs[name]["flash_attn"][0]
                 runs = []
@@ -489,7 +519,14 @@ def main(argv=None) -> int:
                     print(f"{name}: two runs differ", file=sys.stderr)
                     return 1
                 result["max_err"].setdefault(name, {}).update(errs)
-            del dq_p, delta_p, dk_p, dv_p, runs
+                first[name] = runs[0]
+            # the fp32 outputs of every build against this checkout's
+            result["fp32_same_bits_as_new"] = {
+                name: all(torch.equal(a, b) for a, b in zip(out, first["new"]))
+                for name, out in first.items() if name != "new"}
+            print(f"fp32 o, lse, dq, delta, dk, dv bit-identical to this "
+                  f"checkout's: {result['fp32_same_bits_as_new']}", flush=True)
+            del dq_p, delta_p, dk_p, dv_p, runs, first
 
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)

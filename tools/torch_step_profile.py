@@ -43,6 +43,7 @@ GROUPS = (("wkv6_fwd", "wkv6_fwd_kernel"), ("wkv6_bwd_dr", "wkv6_bwd_dr_kernel")
           ("wkv6_bwd_dk", "wkv6_bwd_dk_kernel"),
           ("wkv6_bwd_dv", "wkv6_bwd_dv_kernel"),
           ("flash_attn_fwd_tc", "fwd_tc_kernel"),
+          ("flash_attn_bwd_dq_tc", "bwd_dq_tc_kernel"),
           ("flash_attn_bwd_dkdv_tc", "bwd_dkdv_tc_kernel"),
           ("flash_attn_fwd", "fwd_kernel"), ("flash_attn_bwd_dq",
                                              "bwd_dq_kernel"),
