@@ -199,7 +199,20 @@ Phases, in order; any failure exits non-zero:
    compile cache: a fresh process that calls ``enable_compile_cache`` on
    a new directory must run nvcc for every source (it runs beside (a)
    and (b)), and a second one on it must build nothing and load both
-   libraries from it.
+   libraries from it;
+13. per-period FSDP: the default step (``make_train_step``), which
+   gathers its params over the data axis one period at a time and
+   reduce-scatters each period's gradients as the backward leaves it,
+   against its whole-gather plain version (``make_whole_gather_step``),
+   the control: phi3-mini at its published widths in bf16, 8 layers, B 4
+   x L 1024, AdamW, at (4, 1) and (2, 2) on four slots of the card, two
+   steps of each from one seeded state and batch: the same bits (each
+   step's loss and metrics, every slot's state), the flash kernels
+   launched as phase 11 predicts for a GQA layer, and the peak of the
+   step up to its update below the control's by at least half of (p - 1)
+   whole gradient trees plus the layer params less one period's; both
+   peaks (and the steps' whole peaks), both step medians and the
+   dry-run's per-slot prediction at that layout printed.
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
@@ -218,8 +231,8 @@ kernel launches layers x K times a step, and a prep warms one shard. Then
 print
 ``{"backward_pair": {...}}`` (the two backward kernels together against
 SDPA's backward), ``{"kernels": [...]}``, the paths' step times, the
-serving path's record, the zoo's records, phase 12's record, the whole
-run's time,
+serving path's record, the zoo's records, phase 12's and phase 13's
+records, the whole run's time,
 ``{"fsdp": {...}}`` (the trainers checked at init, each phase's switches
 with their bytes copied behind the step, the planner's bytes and each
 slot's bytes after the switch), the card line, and last
@@ -3949,6 +3962,198 @@ def run_phase12(torch, launches_of, kernels) -> dict:
             "seconds": time.monotonic() - t_all}
 
 
+# phase 13: the default step's params held as the reference's scan holds
+# them (training/step.py: fsdp_group_step), one period of layers gathered
+# over the data axis at a time and each period's gradients reduce-scattered
+# as the backward leaves it: phi3-mini at its published widths in bf16,
+# PERIOD_LAYERS layers (phase 11's depth cut), B ZOO_BATCH x ZOO_SEQ, AdamW,
+# at each of PERIOD_LAYOUTS on four slots of the card, PERIOD_STEPS steps
+# from one seeded state and batch, then the same steps of its whole-gather
+# plain version (make_whole_gather_step), the control. Gates: the same bits
+# (the loss and metrics of every step, every slot's state after the last);
+# the flash kernels launched as phase 11 predicts for a GQA layer, p x mp
+# slot shards a step; and the peak of the step up to its update (the
+# gathers, forward, backward and reduce-scatter; reset just before the
+# step, read as the update starts, less the bytes allocated before) below
+# the control's by at least half of (p - 1) whole gradient trees plus the
+# layer params less one period's. The update itself holds the old state
+# and the new one at once in either form (10 bytes a parameter each,
+# against 2 for a gradient tree), so the step's whole peak is printed
+# beside it, not gated. Written before the first run on the card, from the
+# trees (1.103 B parameters, 2.206 GB a bf16 tree, 1.812 GB of it in the 8
+# layers): the gate's margin 4.10 GB at (4, 1) and 1.90 GB at (2, 2); the
+# control's peak up to the update about 11.0 GB above the state at (4, 1)
+# (three whole gradient trees kept, the fourth group's params gathered and
+# its gradients formed) and 6.6 GB at (2, 2), the step's 3.4 GB at both.
+PERIOD_ARCH, PERIOD_LAYERS, PERIOD_STEPS = "phi3-mini-3.8b", 8, 2
+PERIOD_LAYOUTS = ((4, 1), (2, 2))
+PERIOD_TIMED = 3
+
+
+def period_run(torch, launches_of, make, cfg, opt, slots, batch, p: int,
+               mp: int) -> dict:
+    """PERIOD_STEPS steps of the step ``make`` builds at (p, mp) on the
+    card from ``slots``, the counts and the peak reset just before: the
+    launches, each step's metrics, the last state (flattened), the peak
+    as the first update starts and the step's whole peak (both less the
+    bytes allocated before), the step ms, and the median of PERIOD_TIMED
+    more steps from ``slots``."""
+    from unittest import mock
+
+    from repro_torch.reshape import flatten_tree
+    from repro_torch.training import step as S
+    step = make(cfg, opt, [torch.device(DEVICE)] * (p * mp), mp=mp)
+    real_update = S.apply_update
+    at_update = []
+
+    def update(*args, **kw):
+        if not at_update:
+            torch.cuda.synchronize()
+            at_update.append(torch.cuda.max_memory_allocated())
+        return real_update(*args, **kw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches_of.reset()
+    state, metrics, step_ms = slots, [], []
+    with mock.patch.object(S, "apply_update", update):
+        for _ in range(PERIOD_STEPS):
+            t0 = time.monotonic()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            metrics.append(m)
+    launches = launches_of.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    last = [flatten_tree(s) for s in state]
+    del state
+    median = timed_steps(torch, step, slots, batch, PERIOD_TIMED)
+    return {"launches": launches, "metrics": metrics, "last": last,
+            "peak_to_update": at_update[0] - base, "peak": peak - base,
+            "step_ms": step_ms, "median_step_ms": median}
+
+
+def period_case(torch, launches_of, kernels, cfg, opt, whole: dict, batch,
+                p: int, mp: int) -> dict:
+    """One layout of phase 13; see PERIOD_ARCH."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import dryrun
+    from repro_torch.models.blocks import scan_plan
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.reshape import place_state
+    from repro_torch.training import step as S
+    dev = torch.device(DEVICE)
+    layout = S.port_layout(cfg, opt, p, mp)
+    slots = place_state(layout, whole, [dev] * (p * mp))
+    leaves = tree_leaves(whole["params"])
+    tree_b = sum(t.nbytes for _, t in leaves)
+    layer_b = sum(t.nbytes for k, t in leaves if k.startswith("layers/"))
+    n_periods = scan_plan(cfg)[1]
+    margin = ((p - 1) * tree_b + layer_b - layer_b // n_periods) / 2
+    n_gqa = gqa_layers(cfg)
+    fwd_n, dq_n, kv_n = attn_names(cfg)
+    shards = p * mp * PERIOD_STEPS
+    want = {**dict.fromkeys(kernels, 0),
+            fwd_n: shards * n_gqa * (2 if cfg.remat else 1),
+            dq_n: shards * n_gqa, kv_n: shards * n_gqa}
+    per = period_run(torch, launches_of, S.make_train_step, cfg, opt, slots,
+                     batch, p, mp)
+    ctl = period_run(torch, launches_of, S.make_whole_gather_step, cfg, opt,
+                     slots, batch, p, mp)
+    del slots
+    at = f"phase 13 at ({p}, {mp})"
+    for name, run in (("the per-period step", per), ("the control", ctl)):
+        got = {k: n for k, n in run["launches"].items() if n or k in want}
+        if got != want:
+            fail(f"{at}: {name} launched {got}, predicted {want}")
+    for i, (a, b) in enumerate(zip(per["metrics"], ctl["metrics"])):
+        diff = [k for k in b if not torch.equal(a[k], b[k])]
+        if diff:
+            fail(f"{at}: step {i}'s {diff} differ from the control's: "
+                 f"{ {k: float(a[k]) for k in diff} } against "
+                 f"{ {k: float(b[k]) for k in diff} }")
+    for i, (a, b) in enumerate(zip(per["last"], ctl["last"])):
+        diff = [k for k in b if not torch.equal(a[k], b[k])]
+        if diff:
+            fail(f"{at}: slot {i}'s state differs from the control's at "
+                 f"{diff[:5]}")
+    losses = [float(m["loss"]) for m in per["metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{at}: losses {losses}")
+    t0 = time.monotonic()
+    pred = dryrun(cfg, InputShape("period_train", ZOO_SEQ, ZOO_BATCH,
+                                  "train"), (p, mp), cost=False)
+    dry_s = time.monotonic() - t0
+    fell = ctl["peak_to_update"] - per["peak_to_update"]
+    gib = 2 ** 30
+    print(f"  ({p}, {mp}): losses {losses}, the control's the same bits, "
+          f"every slot's state too; launches {want}, as predicted "
+          f"({n_gqa} GQA layers, {p * mp} slot shards a step); peak up to "
+          f"the update {per['peak_to_update'] / gib:.3f} GiB, the control's "
+          f"{ctl['peak_to_update'] / gib:.3f} GiB: {fell / gib:.3f} GiB less,"
+          f" gate at least {margin / gib:.3f} GiB; the step's whole peak "
+          f"{per['peak'] / gib:.3f} GiB, the control's "
+          f"{ctl['peak'] / gib:.3f} GiB (not gated); step ms median "
+          f"{per['median_step_ms']:.1f}, the control's "
+          f"{ctl['median_step_ms']:.1f} (gated steps {per['step_ms']} and "
+          f"{ctl['step_ms']}); the dry-run's slot at ({p}, {mp}) "
+          f"{pred['per_device_bytes'] / gib:.3f} GiB (temp "
+          f"{pred['temp_bytes'] / gib:.3f}, {dry_s:.1f} s on meta)",
+          flush=True)
+    if not fell >= margin:
+        fail(f"{at}: the peak up to the update fell {fell} bytes, less "
+             f"than {margin}")
+    return {"layout": [p, mp], "losses": losses,
+            "grad_norms": [float(m["grad_norm"]) for m in per["metrics"]],
+            "launches": want, "gradient_tree_bytes": tree_b,
+            "layer_param_bytes": layer_b, "n_periods": n_periods,
+            "gate_margin_bytes": margin,
+            "peak_to_update_bytes": per["peak_to_update"],
+            "control_peak_to_update_bytes": ctl["peak_to_update"],
+            "peak_bytes": per["peak"], "control_peak_bytes": ctl["peak"],
+            "step_ms": per["step_ms"], "control_step_ms": ctl["step_ms"],
+            "median_step_ms": per["median_step_ms"],
+            "control_median_step_ms": ctl["median_step_ms"],
+            "dry_run_per_slot_bytes": pred["per_device_bytes"],
+            "dry_run_temp_bytes": pred["temp_bytes"],
+            "dry_run_arg_bytes": pred["arg_bytes"]}
+
+
+def run_phase13(torch, launches_of, kernels) -> dict:
+    """Phase 13: the per-period FSDP step against its whole-gather control
+    at each of PERIOD_LAYOUTS; see PERIOD_ARCH."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.training import step as S
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config(PERIOD_ARCH),
+                              n_layers=PERIOD_LAYERS)
+    opt = adamw(1e-3)
+    whole = S.init_train_state(cfg, opt, torch.Generator(dev).manual_seed(0),
+                               dev)
+    import numpy as np
+    toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                             (ZOO_BATCH, ZOO_SEQ + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    cases = {f"{p}x{mp}": period_case(torch, launches_of, kernels, cfg, opt,
+                                      whole, batch, p, mp)
+             for p, mp in PERIOD_LAYOUTS}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": PERIOD_ARCH, "layers": PERIOD_LAYERS,
+            "batch": [ZOO_BATCH, ZOO_SEQ], "steps": PERIOD_STEPS,
+            "cases": cases, "seconds": time.monotonic() - t0}
+
+
 def main() -> int:
     t_run = time.monotonic()
     import torch
@@ -3963,12 +4168,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/13] device: {kind} ({card}), torch {torch.__version__}, "
+    print(f"[1/14] device: {kind} ({card}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
     built = build.build_all(force=True)
-    print(f"[2/13] built {sorted(built)} with {build.nvcc_path()} "
+    print(f"[2/14] built {sorted(built)} with {build.nvcc_path()} "
           f"{' '.join(build.NVCC_FLAGS)} in {time.monotonic() - t0:.1f} s",
           flush=True)
     if sorted(built) != sorted(build.SOURCES):
@@ -3978,10 +4183,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/13] attention kernels against their plain versions", flush=True)
+    print("[3/14] attention kernels against their plain versions", flush=True)
     timed, pair = check_attention(torch, aops)
     records = dict(timed[ATT_MAIN_CASE[0]])
-    print("[3/13] past 2**31 elements: " + ", ".join(
+    print("[3/14] past 2**31 elements: " + ", ".join(
         f"{c[0]} (B {c[1]}, H {c[2]}:{c[3]}, L {c[4]}, D {c[6]}, {c[10]})"
         for c in ATT_LARGE_CASES), flush=True)
     large = check_attention_large(torch, aops)
@@ -3991,7 +4196,7 @@ def main() -> int:
     watch = SwitchWatch(torch)
 
     edl = get_config("edl-paper")
-    print("[4/13] edl_paper path: python -m repro_torch.launch.train "
+    print("[4/14] edl_paper path: python -m repro_torch.launch.train "
           + " ".join(EDL_ARGS), flush=True)
     # fp32: forward, dq and dkdv of flash_attn.cu once per layer and shard,
     # and no tensor-core kernel
@@ -4002,21 +4207,21 @@ def main() -> int:
         torch, LAUNCHES, train, EDL_ARGS, f32_att, edl_shard)}
     scale_out_moves("phase 4", watch.phases["4"], 1)
 
-    print("[5/13] edl_paper virtual-worker path: python -m "
+    print("[5/14] edl_paper virtual-worker path: python -m "
           "repro_torch.launch.train " + " ".join(VW_ARGS) + " with "
           + "; ".join(f"({n}) {' '.join(a)}" for n, a in VW_RUNS.items()),
           flush=True)
     watch.mark("5")
     vw = run_vw_path(torch, LAUNCHES, train, f32_att, edl_shard)
 
-    print("[6/13] edl_paper model-parallel path on four slots of the card",
+    print("[6/14] edl_paper model-parallel path on four slots of the card",
           flush=True)
     watch.mark("6")
     mp = run_mp_path(torch, LAUNCHES, train, f32_att, edl_shard,
                      paths["edl-paper"],
                      vw["runs"]["static"]["losses"][:VW_STEPS])
 
-    print("[7/13] WKV6 kernels against their plain versions", flush=True)
+    print("[7/14] WKV6 kernels against their plain versions", flush=True)
     wkv_timed = check_wkv(torch, wops)
     records.update(wkv_timed[WKV_MAIN_CASE[0]])
     wkv_decodes = {case[0]: check_wkv_decode(torch, wops, case)
@@ -4024,7 +4229,7 @@ def main() -> int:
     wkv_decode = wkv_decodes[WKV_DECODE_CASES[0][0]]
 
     rwkv = get_config("rwkv6-1.6b")
-    print("[8/13] rwkv6 path: python -m repro_torch.launch.train "
+    print("[8/14] rwkv6 path: python -m repro_torch.launch.train "
           + " ".join(RWKV_ARGS), flush=True)
     # each kernel once per layer and shard; remat runs the forward again
     rwkv_shard = dict.fromkeys(wops.KERNELS, rwkv.n_layers)
@@ -4037,7 +4242,7 @@ def main() -> int:
                                    loss_must_fall=False)
     scale_out_moves("phase 8", watch.phases["8"], 1)
     paths["rwkv6-1.6b"].update(refit_and_hold_out(torch, "rwkv6-1.6b"))
-    print("[8/13] rwkv6 on the model axis: the WKV6 kernels on H/mp heads a "
+    print("[8/14] rwkv6 on the model axis: the WKV6 kernels on H/mp heads a "
           "slot shard", flush=True)
     t0 = time.monotonic()
     watch.mark("8 (c)-(e)")
@@ -4094,7 +4299,7 @@ def main() -> int:
                 name: {"launches": run["launches"][kname],
                        "warmup_launches": run["warmup_launches"][kname]}
                 for name, run in mp["runs"].items()}
-    print(f"[9/13] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
+    print(f"[9/14] the cluster tier on {CLUSTER_SLOTS} slots of the card: "
           f"ClusterExecutor with full-width edl_paper tenants, then "
           f"repro_torch.launch.cluster.main", flush=True)
     watch.mark("9")
@@ -4108,14 +4313,14 @@ def main() -> int:
                        "warmup_launches":
                            run["warmup_launches"][entry["name"]]}
                 for name, run in cluster.items()}
-    print("[10/13] the serving path: serve_batch at full width on one slot "
+    print("[10/14] the serving path: serve_batch at full width on one slot "
           "(edl_paper fp32, rwkv6-1.6b bf16), then a live serving tenant "
           "beside a trainer on four slots", flush=True)
     watch.mark("10")
     serving = {arch: run_serve(torch, LAUNCHES, arch) for arch in SERVE_ARCHS}
     serving["tier"] = run_serving_tier(torch, LAUNCHES, f32_att,
                                        edl_shard)
-    print(f"[10/13] (b) serving over the model axis at (1, {SERVE_MP}) on "
+    print(f"[10/14] (b) serving over the model axis at (1, {SERVE_MP}) on "
           f"{SERVE_MP} slots of the card: "
           + ", ".join(SERVE_ARCHS) + " at full width", flush=True)
     t0 = time.monotonic()
@@ -4168,7 +4373,7 @@ def main() -> int:
                     "rwkv6-1.6b"]["launches_per_shard_decode_step"][name],
                 "prefill_launches_mp2": serve_mp["rwkv6-1.6b"][
                     "prefill_launches"][name]}
-    print("[11/13] the zoo: each config at its published widths, bf16, "
+    print("[11/14] the zoo: each config at its published widths, bf16, "
           "its depth cut; an ElasticTrainer at (1, 1) and serving on one "
           "slot", flush=True)
     gc.collect()
@@ -4182,14 +4387,14 @@ def main() -> int:
            for arch in ZOO_ARCHS}
     zoo_s = time.monotonic() - t0
     print(f"  phase 11 (a) took {zoo_s:.1f} s", flush=True)
-    print(f"[11/13] (b) the zoo on the model axis at (1, {ZOO_MP}) on "
+    print(f"[11/14] (b) the zoo on the model axis at (1, {ZOO_MP}) on "
           f"{ZOO_MP} slots of the card: mixtral and jamba train, deepseek's "
           f"MLA block and MoE FFN; each against (1, 1) in fp32", flush=True)
     t0 = time.monotonic()
     zoo_mp = run_zoo_mp(torch, LAUNCHES, aops.KERNELS)
     zoo_mp_s = time.monotonic() - t0
     print(f"  phase 11 (b) took {zoo_mp_s:.1f} s", flush=True)
-    print(f"[11/13] (c) the zoo served at (1, {SERVE_MP}) on {SERVE_MP} slots "
+    print(f"[11/14] (c) the zoo served at (1, {SERVE_MP}) on {SERVE_MP} slots "
           f"of the card: " + ", ".join(ZOO_SERVE_MP_ARCHS) + ", bf16, each "
           f"with an fp32 control against (1, 1)", flush=True)
     t0 = time.monotonic()
@@ -4260,7 +4465,7 @@ def main() -> int:
                        "launches_per_slot_step": zoo_mp[arch][
                            "launches_per_slot_step"].get(entry["name"], 0)}
                 for arch in ZOO_MP_TRAIN}
-    print("[12/13] MoE routed over the whole batch at (2, 1) against (1, 1) "
+    print("[12/14] MoE routed over the whole batch at (2, 1) against (1, 1) "
           "(mixtral, published widths, phase 11's depth, fp32, B 4 x L 1024 "
           "and B 4 x L 64), the reference's dropout bits (edl_paper, K = 2, "
           "p = 1 and 2), the persistent compile cache", flush=True)
@@ -4274,8 +4479,21 @@ def main() -> int:
                 for case, run in phase12["moe_routing"].items()}
             entry["dropout_path"] = phase12["dropout"]["launches_each"][
                 entry["name"]]
+    print("[13/14] per-period FSDP: phi3-mini at its published widths, "
+          f"bf16, {PERIOD_LAYERS} layers, B {ZOO_BATCH} x L {ZOO_SEQ}, AdamW, "
+          "at " + " and ".join(f"({p}, {mp})" for p, mp in PERIOD_LAYOUTS)
+          + " on four slots of the card, against the whole-gather control",
+          flush=True)
+    phase13 = run_phase13(torch, LAUNCHES, aops.KERNELS)
+    print(f"  phase 13 took {phase13['seconds']:.1f} s", flush=True)
+    for entry in kernels:
+        if entry["name"] in aops.KERNELS:
+            # phase 13's per-period steps, counted from 0 just before each
+            entry["period_fsdp_path"] = {
+                case: run["launches"][entry["name"]]
+                for case, run in phase13["cases"].items()}
     print(f"  {card}", flush=True)
-    print("[13/13] results; library_ms is F.scaled_dot_product_attention for "
+    print("[14/14] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd and "
           "flash_attn_fwd_tc, its whole backward for the backward kernels) "
           "and null for the WKV6 "
@@ -4299,6 +4517,7 @@ def main() -> int:
     print(json.dumps({"zoo_serving_model_parallel": zoo_serve_mp,
                       "seconds": zoo_serve_mp_s, "card": card}))
     print(json.dumps({"phase12": phase12, "card": card}))
+    print(json.dumps({"phase13": phase13, "card": card}))
     seconds = time.monotonic() - t_run
     print(f"  the whole run took {seconds:.1f} s (the kernels' build "
           f"included)", flush=True)

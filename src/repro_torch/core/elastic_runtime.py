@@ -53,11 +53,12 @@ from repro_torch.kernels.launches import LAUNCHES
 from repro_torch.models.model import param_spec_tree
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import Optimizer, adamw
-from repro_torch.parallel import model_dims
+from repro_torch.parallel import GradBoxes, model_dims
 from repro_torch.reshape import StateSpec, apply_plan, copied_bytes, \
     flatten_tree, gather_state, place_state, plan_reshard, unflatten_tree
-from repro_torch.training.step import group_loss_and_grads, \
-    init_train_state, make_train_step, port_layout, split_tree
+from repro_torch.training.step import fsdp_group_step, \
+    group_loss_and_grads, init_train_state, make_train_step, \
+    params_layout, port_layout, split_tree
 
 TIME_ALLOWANCE_S = 0.5      # paper's T_a
 EXEC_CACHE_MAX = 8          # prepared topologies retained per job (LRU)
@@ -324,34 +325,50 @@ class ElasticTrainer:
         distinct data group (``groups``: each group's slot devices), with
         zero params and inputs, on side streams: one virtual worker's shard
         on the group's first slot in virtual mode, else one data group's
-        shard over its mp slots. Touches no trainer state; its kernel
-        launches are tallied as warm-ups."""
+        shard over its mp slots, through the default step's own per-group
+        function. Touches no trainer state; its kernel launches are
+        tallied as warm-ups."""
         mp = len(groups[0])
         per = self.global_batch // (self.n_virtual or len(groups))
-        dims = model_dims(port_layout(self.cfg, self.optimizer, len(groups),
-                                      mp))
+        layout = port_layout(self.cfg, self.optimizer, len(groups), mp)
         for group in dict.fromkeys(groups):
             devs = group[:1] if self.n_virtual else group
             with self._on_side_streams(devs, after_main=False) as sides, \
                     LAUNCHES.warming():
-                self._warm_once(devs, dims, per)
+                self._warm_once(devs, layout, per)
             for side in sides:
                 side.synchronize()
 
-    def _warm_once(self, devs, dims: dict, per: int):
+    def _warm_once(self, devs, layout: StateSpec, per: int):
+        """One shard's forward and backward on zeros: the virtual step's
+        (the whole params on one slot), or data group 0's share of the
+        default step (``fsdp_group_step``) on zero boxes of its slots,
+        which stand in for every group's, as the dry-run's do."""
         dtype = {"float32": torch.float32,
                  "bfloat16": torch.bfloat16}[self.cfg.param_dtype]
-        params = tree_map(lambda s: torch.zeros(s.shape, dtype=dtype,
-                                                device=devs[0]),
-                          param_spec_tree(self.cfg))
-        trees = split_tree(params, dims, devs)
         toks = torch.zeros((per, self.seq_len), dtype=torch.long,
                            device=devs[0])
         batch = {"tokens": toks, "labels": toks}
         if self.cfg.frontend == "embeds":
             batch["embeds"] = torch.zeros((per, self.seq_len,
                                            self.cfg.d_model), device=devs[0])
-        loss, _, _ = group_loss_and_grads(self.cfg, trees, dims, devs, batch)
+        if self.n_virtual:
+            dims = model_dims(layout)
+            params = tree_map(lambda s: torch.zeros(s.shape, dtype=dtype,
+                                                    device=devs[0]),
+                              param_spec_tree(self.cfg))
+            loss, _, _ = group_loss_and_grads(
+                self.cfg, split_tree(params, dims, devs), dims, devs, batch)
+        else:
+            grads_layout = params_layout(layout)
+            boxes = [unflatten_tree({t.path: torch.zeros(
+                [hi - lo for lo, hi in t.box(layout.dp, layout.mp, m)],
+                dtype=dtype, device=dev) for t in grads_layout.tensors})
+                for m, dev in enumerate(devs)]
+            params = boxes * layout.dp
+            loss, _ = fsdp_group_step(
+                self.cfg, layout, params, 0, devs, batch,
+                GradBoxes(layout, params, keep=range(len(devs))))
         loss.item()
 
     def _build_exec(self, p: int, mp: int | None = None,

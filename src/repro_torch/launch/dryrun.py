@@ -12,9 +12,10 @@ x input shape x layout ``(p, mp)``):
      trainer_params`` gathers them); and the group's batch,
      ``global_batch / p`` (at least 1). Then the full config's real step
      runs, at full width and depth: for train, the group's share of the
-     default step (``group_train_step``: the all-gather of its params over
-     the data axis, forward and backward, the reduce-scatter of its
-     gradients and its slots' update), ``prefill`` for prefill,
+     default step (``group_train_step``: its params gathered over the data
+     axis a period at a time in the forward and again in the backward,
+     each period's gradients reduce-scattered as the backward leaves it,
+     and its slots' update), ``prefill`` for prefill,
      ``serve_step`` against a cache split by ``cache_dims``
      (``init_cache_shards``) for decode. So every tensor-parallel shape
      of the step has to cohere, and every kernel's wrapper applies the
@@ -106,12 +107,11 @@ from repro_torch.models import model as M
 from repro_torch.models.cache import init_cache_shards
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import adamw
-from repro_torch.parallel import COLLECTIVES, ShardedParams, model_dims, \
-    placing
+from repro_torch.parallel import COLLECTIVES, GradBoxes, ShardedParams, \
+    model_dims, placing
 from repro_torch.reshape import place_state
-from repro_torch.training.step import apply_update, gather_group, \
-    group_loss_and_grads, port_layout, scatter_group, shard_batch, \
-    split_tree, state_shapes
+from repro_torch.training.step import apply_update, fsdp_group_step, \
+    port_layout, routing_prepass, shard_batch, split_tree, state_shapes
 
 META = torch.device("meta")
 # the data axis's collectives (``parallel.py``)
@@ -231,29 +231,27 @@ def group_train_step(cfg, optimizer, layout, slots: list[dict],
                      batch: dict):
     """Data group 0's share of the default train step
     (``training/step.py: make_train_step``) at ``layout``'s (p, mp) on
-    ``meta``: ``slots`` are its mp slots' trees, and the gather, forward
-    and backward, reduce-scatter and update run as the step runs them for
-    one group. The boxes and the gradients of the other p - 1 groups,
-    which the two collectives read, are stand-ins of the same shapes: the
-    group's own, copied onto its slots as the real ones are. An MoE config
-    at p > 1 first walks the group's routing pre-pass
-    (``M.route_globally``), the other groups' claims stand-ins too."""
+    ``meta``: ``slots`` are its mp slots' trees, and the group runs the
+    step's own ``fsdp_group_step`` — the leaves outside ``layers``
+    gathered over the data axis, each period gathered in the forward and
+    again in the backward, each period's gradients reduce-scattered as the
+    backward leaves it — then its slots' update. The boxes of the other
+    p - 1 groups, which the gathers read, are stand-ins of the same
+    shapes: the group's own, copied onto its slots as the real ones are;
+    the slices its gradients send to their boxes are counted and dropped
+    (``GradBoxes(keep=...)``), and the other groups' slices that reach
+    its boxes later are not walked. An MoE config at p > 1 first walks the
+    group's routing pre-pass (``routing_prepass``), the other groups'
+    claims stand-ins too."""
     p, mp = layout.dp, layout.mp
     devices = [META] * mp
     (shard,) = shard_batch(batch, 1, devices[:1])
     params = [s["params"] for s in slots] * p
-    dims = model_dims(layout)
-    plan = None
-    if cfg.moe and p > 1:
-        (plan,) = M.route_globally(cfg, [ShardedParams(
-            gather_group(layout, params, 0, devices), dims,
-            tuple(devices))], [shard], p)
-    loss, parts, grads = group_loss_and_grads(
-        cfg, gather_group(layout, params, 0, devices), dims, devices, shard,
-        routing=plan)
-    boxes = [tree_map(lambda g: g / p, box)
-             for box in scatter_group(layout, [grads] * p, 0, devices)]
-    return apply_update(optimizer, slots, boxes, layout, loss,
+    (plan,) = routing_prepass(cfg, layout, params, [devices], [shard])
+    grads = GradBoxes(layout, params, keep=range(mp))
+    loss, parts = fsdp_group_step(cfg, layout, params, 0, devices, shard,
+                                  grads, routing=plan)
+    return apply_update(optimizer, slots, grads.boxes(), layout, loss,
                         parts["xent"], parts["aux"], slots=range(mp))
 
 

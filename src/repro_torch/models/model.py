@@ -10,7 +10,10 @@ mode: only the period's input is kept. Grouped remat (``remat_group = g
 > 1``, under the reference's condition) checkpoints groups of g periods,
 each period's own checkpoint nested inside, so only every g-th period's
 input is kept between the forward and the backward. The reference's
-``_barrier`` steers XLA and has no counterpart.
+``_barrier`` steers XLA and has no counterpart. The default train step
+hands in ``parallel.FsdpParams``, whose period i is gathered over the
+data axis when the loop reads it, inside the checkpointed function, as
+the reference's scan gathers each period's FSDP boxes in its body.
 
 There is one path: ``forward_tp`` and ``loss_fn_tp`` run over the model
 axis of one data group (``parallel.ShardedParams``) — vocab-parallel
@@ -198,18 +201,25 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
             aux_total = aux_total + aux
         return x, aux_total
 
-    def body(x, p_i, i: int):
-        return remat(period, x, p_i, i) if train and cfg.remat else \
-            period(x, p_i, i)
+    # period i's params are read inside the function that remat
+    # checkpoints, so a form that gathers them on use (``parallel.
+    # FsdpGroup``) gathers them there and again in the recomputation
+    periods = sp["layers"].periods()
 
-    def group(x, g0: int, *p_group):
+    def period_at(x, i: int):
+        return period(x, periods[i], i)
+
+    def body(x, i: int):
+        return remat(period_at, x, i) if train and cfg.remat else \
+            period_at(x, i)
+
+    def group(x, g0: int):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for k, p_i in enumerate(p_group):
-            x, aux = body(x, p_i, g0 + k)
+        for i in range(g0, g0 + g):
+            x, aux = body(x, i)
             aux_total = aux_total + aux
         return x, aux_total
 
-    periods = sp["layers"].periods()
     g = max(1, cfg.remat_group)
     auxes = []
     if (cfg.scan_layers and train and g > 1 and n_periods % g == 0
@@ -217,16 +227,16 @@ def forward_tp(cfg, sp: ShardedParams, batch, *, mode: str = "train",
         # grouped remat, the reference's condition and aux: the mean over
         # groups of each group's summed aux, over g
         for g0 in range(0, n_periods, g):
-            x, aux = remat(group, x, g0, *periods[g0:g0 + g])
+            x, aux = remat(group, x, g0)
             auxes.append(aux)
         aux = torch.stack(auxes).mean() / g
     else:
         rows = sc["layers"].periods() if mode == "decode" else None
-        for i, p_i in enumerate(periods):
+        for i in range(n_periods):
             if mode == "decode":
-                x, aux = period(x, p_i, i, rows[i])
+                x, aux = period(x, periods[i], i, rows[i])
             else:
-                x, aux = body(x, p_i, i)
+                x, aux = body(x, i)
             auxes.append(aux)
         aux = torch.stack(auxes).mean()
     x = apply_rmsnorm(sp["final_norm"].whole(), x, cfg.norm_eps)
@@ -306,7 +316,10 @@ def route_globally(cfg, groups: list[ShardedParams], batches: list[dict],
     ``batches`` are data groups 0 .. len(groups) - 1 of ``p`` (their
     params, and their shards of the batch on their first slots); the claims
     of the groups past them are stand-ins of their shapes, all zero (the
-    dry-run walks group 0 alone)."""
+    dry-run walks group 0 alone). Groups given one params object read
+    each period once (on one card the step gives all of them one), and
+    only the period that runs is held (``parallel.FsdpGroup`` gathers it
+    on use)."""
     slots, n_periods = B.scan_plan(cfg)
     at = [(i, j) for i in range(n_periods)
           for j, (_, ffn) in enumerate(slots) if ffn == "moe"]
@@ -319,10 +332,17 @@ def route_globally(cfg, groups: list[ShardedParams], batches: list[dict],
         home = xs[0].device
         positions = [torch.arange(x.shape[1], device=x.device).expand(
             x.shape[0], x.shape[1]) for x in xs]
-        periods = [sp["layers"].periods() for sp in groups]
-        for i in range(n_periods):
+        # one sequence of periods for each params object: groups that
+        # share one read (and gather) each period once
+        layers = {id(sp): sp["layers"].periods() for sp in groups}
+
+        def walk(i: int) -> bool:
+            """Period i of every group, in lockstep; True at the last MoE
+            layer. Its params go when it returns."""
+            rows = {k: per[i] for k, per in layers.items()}
+            periods = [rows[id(sp)] for sp in groups]
             for j, (mixer, ffn) in enumerate(slots):
-                blocks = [per[i][f"slot{j}"] for per in periods]
+                blocks = [p_i[f"slot{j}"] for p_i in periods]
                 hs = []
                 for d, blk in enumerate(blocks):
                     xs[d], h = B.block_mix(cfg, blk, xs[d], mixer=mixer,
@@ -342,9 +362,13 @@ def route_globally(cfg, groups: list[ShardedParams], batches: list[dict],
                     for plan, sh in zip(plans, shares):
                         plan[(i, j)] = sh
                     if (i, j) == at[-1]:
-                        return plans
+                        return True
                 for d, blk in enumerate(blocks):
                     xs[d] = xs[d] + B.block_ffn(cfg, blk, hs[d], ffn=ffn,
                                                 share=shares[d])[0]
-    return plans
+            return False
 
+        for i in range(n_periods):
+            if walk(i):
+                break
+    return plans

@@ -48,6 +48,23 @@ device ``meta``, a collective under ``placing(fn)`` hands each slot a
 copy of its own (free on ``meta``) and calls ``fn(copy, slot)``, so the
 dry-run can tell the slots' tensors apart.
 
+The default train step holds its params as the reference's scan does,
+one period of layers gathered at a time (``FsdpGroup``, ``GradBoxes``):
+
+  * ``gather_box(boxes, d, dim, device, slot, row)`` — row ``row`` of a
+    stacked ``[n_periods, ...]`` leaf's boxes (the whole boxes where it is
+    None) joined by ``all_gather_data``;
+  * ``FsdpGroup`` — data group d's view of every slot's boxes: the leaves
+    outside ``layers`` gathered once (``params()``), period i's layer
+    leaves gathered when the period's forward reads them
+    (``params()["layers"].periods()[i]``), each through an autograd node
+    whose backward hands the period's gradient to a ``GradBoxes`` and lets
+    it go; ``saving()`` keeps a gathered layer leaf that the forward saves
+    for the backward as its name, and gathers it again there;
+  * ``GradBoxes`` — each slot's boxes of the gradients, summed over the
+    groups in group order as the backwards hand them in, the slices for
+    other slots counted as ``reduce_scatter_data``'s.
+
 ``ShardedParams`` is what a tensor-parallel forward reads: the parameter
 tree of each model shard with the dim each leaf is split along over the
 model axis (``None``: replicated, read from shard 0), from the layout. A
@@ -59,10 +76,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import weakref
 
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+
+LAYERS = "layers/"          # the stacked ``[n_periods, ...]`` leaves' prefix
 
 
 class ByteCounter:
@@ -249,6 +269,239 @@ def reduce_scatter_data(parts, d: int, dim: int | None, device, slot: int
     return acc
 
 
+def gather_box(boxes, d: int, dim: int | None, device, slot: int,
+               row: int | None = None) -> torch.Tensor:
+    """Row ``row`` of a stacked leaf's data boxes (``boxes[g]``, slot (g,
+    slot)'s; the whole boxes where ``row`` is None) whole over the data
+    axis on ``device``, data group ``d``'s slot: ``all_gather_data`` along
+    ``dim``, the boxes' data dim. A leaf with no data split (``dim`` None)
+    is group d's own box, a view."""
+    if row is not None:
+        boxes = [b[row] for b in boxes]
+        dim = None if dim is None else dim - 1
+    if dim is None:
+        return boxes[d].view_as(boxes[d])
+    return all_gather_data(boxes, d, dim, device, slot)
+
+
+class GradBoxes:
+    """Each slot's boxes of one step's gradients summed over the data
+    axis, filled as the data groups' backwards hand them in: slot (e, m)'s
+    box of a leaf, or row i of it, is the left fold in group order of
+    the groups' e-th slices along the leaf's data dim (their wholes where
+    it has none) — group 0's assigned, each later group's added, so the
+    bits are ``reduce_scatter_data``'s (a sum begun at zero would turn
+    -0.0 into 0.0). The groups run in order 0 .. p - 1. ``like`` holds
+    every slot's params tree (the boxes' shapes, dtypes and devices). Kept
+    are the slots in ``keep`` (all by default); the slices for the others
+    are counted as sent and dropped (the dry-run walks group 0 alone)."""
+
+    def __init__(self, layout, like: list[dict], keep=None):
+        self.p, self.mp = layout.dp, layout.mp
+        self.dims = dict(tree_leaves(data_dims(layout)))
+        keep = range(len(like)) if keep is None else keep
+        self.like = {s: dict(tree_leaves(like[s])) for s in keep}
+        self.acc: dict[int, dict] = {s: {} for s in keep}
+
+    def add(self, d: int, m: int, path: str, row: int | None,
+            g: torch.Tensor):
+        """Data group ``d``'s gradient ``g`` of model shard ``m``'s leaf
+        ``path`` (of its row ``row``), whole over the data axis on slot
+        (d, m), into every slot (e, m)'s box."""
+        dim = self.dims[path]
+        if dim is not None and row is not None:
+            dim -= 1
+        for e in range(self.p):
+            x = g
+            if dim is not None:
+                size = g.shape[dim] // self.p
+                x = g.narrow(dim, e * size, size)
+            if e != d:
+                COLLECTIVES.add("reduce_scatter_data", m, x.nbytes)
+            s = e * self.mp + m
+            box = self.acc.get(s)
+            if box is None:
+                continue
+            if path not in box:
+                box[path] = torch.empty_like(self.like[s][path])
+            dst = box[path] if row is None else box[path][row]
+            if e != d or x.device != dst.device:
+                x = _move(x, dst.device, m)
+            if d == 0:
+                dst.copy_(x)
+            else:
+                dst.add_(x)
+
+    def boxes(self) -> list[dict]:
+        """The kept slots' gradient trees, in slot order, each box divided
+        by p in place."""
+        return [tree_unflatten((k, t.div_(self.p))
+                               for k, t in sorted(self.acc[s].items()))
+                for s in sorted(self.acc)]
+
+
+class _Gathered(torch.autograd.Function):
+    """A leaf of an ``FsdpGroup`` gathered in the forward; the backward
+    hands its gradient to the group's ``GradBoxes``. It holds no tensor:
+    ``anchor`` only links it to the graph."""
+
+    @staticmethod
+    def forward(ctx, anchor, src: "FsdpGroup", key: tuple):
+        ctx.src, ctx.key = src, key
+        return src.gather(*key)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.src.scatter(ctx.key, g)
+        return None, None, None
+
+
+class FsdpGroup:
+    """Data group ``d``'s params as the default step reads them, the
+    reference's scan over periods under FSDP: ``params`` holds one tree per
+    slot of ``layout``, model shard m of the group lies on ``group[m]``,
+    and a leaf of model shard m is gathered from slots (0, m) .. (p - 1,
+    m) (``gather_box``; a leaf with no data split is slot (d, m)'s own).
+    ``params()`` gathers the leaves outside ``layers`` once, and its
+    ``["layers"].periods()[i]`` (this group's item i) period i's layer
+    leaves when it is read, so only the period that runs is held. With
+    ``grads`` (a ``GradBoxes``)
+    and autograd recording, each leaf that takes a gradient — every leaf
+    of shard 0 and the model-split ones of the others, as
+    ``training/step.py: group_loss_and_grads`` takes them — is gathered
+    through a node whose backward hands the gradient to ``grads`` and lets
+    it go; a replicated leaf's gradient is sent from shard 0 to the
+    others' boxes (``replicated_grads``). ``finish()`` hands in zeros for
+    the leaves the backward did not reach, as the whole form's
+    ``torch.zeros_like``."""
+
+    def __init__(self, layout, params: list[dict], d: int, group,
+                 grads: GradBoxes | None = None):
+        self.p, self.mp, self.d = layout.dp, layout.mp, d
+        self.devices = tuple(group)
+        self.ddims = dict(tree_leaves(data_dims(layout)))
+        self.mdims = model_dims(layout)
+        self._split = dict(tree_leaves(self.mdims))
+        flat = [dict(tree_leaves(t)) for t in params]
+        self.boxes = [{k: [flat[g * self.mp + m][k] for g in range(self.p)]
+                       for k in flat[d * self.mp + m]}
+                      for m in range(self.mp)]
+        self.n_periods = next(b[0].shape[0] for k, b in self.boxes[0].items()
+                              if k.startswith(LAYERS))
+        self.grads = grads
+        self.anchor = None if grads is None else torch.zeros(
+            (), device=self.devices[0], requires_grad=True)
+        self._done: set = set()
+        self._made: dict = {}       # storage: (weakref, key) of a gathered row
+
+    def gather(self, m: int, path: str, row: int | None) -> torch.Tensor:
+        """Model shard ``m``'s leaf ``path`` (its row ``row``) whole over
+        the data axis, outside autograd."""
+        t = gather_box(self.boxes[m][path], self.d, self.ddims[path],
+                       self.devices[m], m, row)
+        if row is not None and self.ddims[path] is not None:
+            key = t.untyped_storage()._cdata
+
+            def drop(ref, key=key):
+                if self._made.get(key, (None,))[0] is ref:
+                    del self._made[key]
+            self._made[key] = (weakref.ref(t, drop), (m, path, row))
+        return t
+
+    def _takes_grad(self, m: int, path: str) -> bool:
+        return m == 0 or self._split[path] is not None
+
+    def leaf(self, m: int, path: str, row: int | None) -> torch.Tensor:
+        if (self.grads is None or not torch.is_grad_enabled()
+                or not self._takes_grad(m, path)):
+            return self.gather(m, path, row)
+        return _Gathered.apply(self.anchor, self, (m, path, row))
+
+    def scatter(self, key: tuple, g: torch.Tensor):
+        """The gradient ``g`` of the leaf ``key`` into ``grads``."""
+        m, path, row = key
+        self._done.add(key)
+        self.grads.add(self.d, m, path, row, g)
+        if m == 0 and self._split[path] is None:
+            for m2 in range(1, self.mp):
+                self.grads.add(self.d, m2, path, row, send(
+                    g, self.devices[m2], 0, m2, "replicated_grads"))
+
+    def finish(self):
+        """Zeros into ``grads`` for each leaf that takes a gradient and got
+        none in the backward."""
+        for m, leaves in enumerate(self.boxes):
+            for path, boxes in leaves.items():
+                if not self._takes_grad(m, path):
+                    continue
+                rows = range(self.n_periods) if path.startswith(LAYERS) \
+                    else (None,)
+                for row in rows:
+                    if (m, path, row) in self._done:
+                        continue
+                    box = boxes[self.d] if row is None else boxes[self.d][row]
+                    shape = list(box.shape)
+                    dim = self.ddims[path]
+                    if dim is not None:
+                        shape[dim - (row is not None)] *= self.p
+                    self.scatter((m, path, row), torch.zeros(
+                        shape, dtype=box.dtype, device=self.devices[m]))
+
+    def __len__(self) -> int:
+        return self.n_periods
+
+    def __getitem__(self, i: int) -> "ShardedParams":
+        """Period ``i``'s layer params, gathered now."""
+        trees = [tree_unflatten((k[len(LAYERS):], self.leaf(m, k, i))
+                                for k in leaves if k.startswith(LAYERS))
+                 for m, leaves in enumerate(self.boxes)]
+        dims = tree_map(lambda d: None if d is None else d - 1,
+                        self.mdims["layers"])
+        return ShardedParams(trees, dims, self.devices)
+
+    def periods(self) -> "FsdpGroup":
+        """The layers' periods: item i gathers period i when read."""
+        return self
+
+    def params(self) -> "FsdpParams":
+        """The group's params: the leaves outside ``layers`` gathered now,
+        ``layers`` by period on use."""
+        trees = [tree_unflatten((k, self.leaf(m, k, None))
+                                for k in leaves if not k.startswith(LAYERS))
+                 for m, leaves in enumerate(self.boxes)]
+        return FsdpParams(trees, self.mdims, self.devices, layers=self)
+
+    @contextlib.contextmanager
+    def saving(self):
+        """Within, a gathered layer row (or a view of it) that autograd
+        saves for the backward is kept as its key and gathered again when
+        the backward reads it, so no period's gathered weights are held
+        from the forward to the backward (under remat the checkpoint's own
+        hooks take its place: the recomputation gathers again)."""
+        again: dict = {}
+
+        def pack(t):
+            entry = self._made.get(t.untyped_storage()._cdata)
+            base = None if entry is None else entry[0]()
+            if base is None or base.dtype != t.dtype:
+                return t
+            return entry[1], tuple(t.shape), t.stride(), t.storage_offset()
+
+        def unpack(x):
+            if isinstance(x, torch.Tensor):
+                return x
+            key, shape, stride, offset = x
+            ref = again.get(key)
+            base = None if ref is None else ref()
+            if base is None:
+                base = self.gather(*key)
+                again[key] = weakref.ref(base)
+            return base.as_strided(shape, stride, offset)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+
+
 def whole_cache(cache: "ShardedParams | None"):
     """The one tree of a cache that a form running whole reads and writes
     in place: its first slot's, which must hold every leaf whole."""
@@ -341,3 +594,15 @@ class ShardedParams:
                     [send(t, lead, m, 0, "whole")
                      for m, (_, t) in enumerate(parts)], dim=d)))
         return tree_unflatten(leaves)
+
+
+@dataclasses.dataclass
+class FsdpParams(ShardedParams):
+    """``ShardedParams`` of the leaves outside ``layers``, whose
+    ``["layers"]`` is the ``FsdpGroup`` that gathers a period on use."""
+    layers: FsdpGroup | None = None
+
+    def __getitem__(self, key: str):
+        if key == "layers":
+            return self.layers
+        return super().__getitem__(key)

@@ -15,15 +15,24 @@ shard m; slots ``d * mp .. d * mp + mp - 1`` are data group d.
 
   * ``make_train_step(cfg, opt, devices, mp=M)`` — the default step: the
     global batch splits into p = len(devices) / mp equal shards, one per
-    data group; group d gathers its model shards' params whole over the
-    data axis (``gather_group``: boxes (0, m) .. (p - 1, m) in that order
-    onto slot (d, m)), runs forward and backward on its slots' devices,
-    tensor-parallel over its mp slots (``models.model.loss_fn_tp``), and
-    lets the gathered params go; box (d, m) of each gradient is then the
-    sum over the groups, in group order, of their d-th slices, on slot (d,
-    m), divided by p (``scatter_group``; a leaf that every data slot holds
-    whole is summed in the same order on each, so the copies stay the same
-    bits), and the optimizer update runs slot by slot on its boxes.
+    data group; the groups run in order, each its forward and backward on
+    its slots' devices, tensor-parallel over its mp slots
+    (``models.model.loss_fn_tp``), holding its params as the reference's
+    scan does (``fsdp_group_step``, ``parallel.FsdpGroup``): the leaves
+    outside ``layers`` gathered whole over the data axis once, period i's
+    layer leaves when its forward runs (boxes (0, m) .. (p - 1, m) in
+    that order onto slot (d, m)) and dropped when it ends, gathered again
+    in the backward (in remat's recomputation, or where a saved one is
+    read), and each period's gradients reduce-scattered as the backward
+    leaves it into every slot's boxes (``parallel.GradBoxes``). Box (d, m)
+    of each gradient is so the sum over the groups, in group order, of
+    their d-th slices, on slot (d, m), divided by p (a leaf that every
+    data slot holds whole is summed in the same order on each, so the
+    copies stay the same bits), and the optimizer update runs slot by
+    slot on its boxes. The whole-gather form it replaced
+    (``make_whole_gather_step``: ``gather_group``, ``group_loss_and_grads``
+    and ``scatter_group``) gives the same bits and stays as its plain
+    version.
     Because the global batch is constant, the step computes the same math
     at every (p, mp), up to fp32 summation order (the shard shapes follow
     p and mp). For an MoE config at p > 1 that holds because a routing
@@ -63,8 +72,8 @@ from repro_torch import prng
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import Optimizer
-from repro_torch.parallel import ShardedParams, all_gather_data, \
-    data_dims, model_dims, reduce_scatter_data, send
+from repro_torch.parallel import FsdpGroup, GradBoxes, ShardedParams, \
+    all_gather_data, data_dims, model_dims, reduce_scatter_data, send
 from repro_torch.reshape.apply import place_state
 from repro_torch.reshape.spec import StateSpec, TensorLayout
 
@@ -306,7 +315,6 @@ def make_train_step(cfg, optimizer: Optimizer, devices, *, mp: int = 1,
     p = len(devices) // mp
     groups = [devices[d * mp:(d + 1) * mp] for d in range(p)]
     layout = port_layout(cfg, optimizer, p, mp)
-    dims = model_dims(layout)
     if n_virtual:
         if not global_batch:
             raise ValueError("the virtual-worker step needs global_batch")
@@ -318,9 +326,71 @@ def make_train_step(cfg, optimizer: Optimizer, devices, *, mp: int = 1,
         params = [s["params"] for s in state]
         shards = shard_batch(batch, p, [g[0] for g in groups])
         plans = routing_prepass(cfg, layout, params, groups, shards)
+        grads = GradBoxes(layout, params)
+        outs = [fsdp_group_step(cfg, layout, params, d, group, shard, grads,
+                                routing=plans[d])
+                for d, (group, shard) in enumerate(zip(groups, shards))]
+        loss = sum(o[0].to(home) for o in outs) / p
+        xent = sum(o[1]["xent"].to(home) for o in outs) / p
+        aux = sum(o[1]["aux"].to(home) for o in outs) / p
+        check_routing(plans)
+        return apply_update(optimizer, state, grads.boxes(), layout, loss,
+                            xent, aux)
+
+    return train_step
+
+
+def fsdp_group_step(cfg, layout: StateSpec, params: list[dict], d: int,
+                    group, batch: dict, grads: GradBoxes, *, routing=None):
+    """Data group ``d``'s forward and backward in the default step, its
+    batch on ``group[0]``: its params read through ``parallel.FsdpGroup``
+    (``params`` holds one tree per slot of ``layout``), one period's layer
+    leaves gathered at a time and none held from the forward to the
+    backward, and each gradient handed to ``grads`` as the backward leaves
+    its period. Returns (loss, parts); ``routing`` is the group's plan
+    from ``routing_prepass``."""
+    src = FsdpGroup(layout, params, d, group, grads)
+    with src.saving():
+        loss, parts = M.loss_fn_tp(cfg, src.params(), batch,
+                                   routing=routing)
+    torch.autograd.grad(loss, src.anchor, allow_unused=True)
+    src.finish()
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+
+def make_whole_gather_step(cfg, optimizer: Optimizer, devices, *,
+                           mp: int = 1) -> Callable:
+    """The default step's plain version, the same bits: each group gathers
+    its params whole at its start (``gather_group``) and keeps them and
+    its whole gradient trees (``group_loss_and_grads``) until the groups'
+    gradients are reduce-scattered at the end (``scatter_group``), summed
+    in group order and divided by p. Its routing pre-pass gathers whole
+    too. Held against the default step by the tests and by
+    ``chip_smoke.py``; nothing else runs it."""
+    devices = [torch.device(d) for d in devices]
+    p = len(devices) // mp
+    groups = [devices[d * mp:(d + 1) * mp] for d in range(p)]
+    layout = port_layout(cfg, optimizer, p, mp)
+    dims = model_dims(layout)
+    home = devices[0]
+
+    def train_step(state, batch: dict):
+        params = [s["params"] for s in state]
+        shards = shard_batch(batch, p, [g[0] for g in groups])
+        plans = [{}] * p
+        if cfg.moe and p > 1:
+            gathered: dict = {}
+            sps = []
+            for d, group in enumerate(groups):
+                on = tuple(group)
+                if on not in gathered:
+                    gathered[on] = ShardedParams(
+                        gather_group(layout, params, d, group), dims, on)
+                sps.append(gathered[on])
+            plans = M.route_globally(cfg, sps, shards, p)
+            del gathered, sps
         outs = []
         for d, (group, shard) in enumerate(zip(groups, shards)):
-            # the gathered params go when the group's backward is done
             outs.append(group_loss_and_grads(
                 cfg, gather_group(layout, params, d, group), dims, group,
                 shard, routing=plans[d]))
@@ -344,22 +414,22 @@ def routing_prepass(cfg, layout: StateSpec, params: list[dict], groups,
     """Each data group's plan of its MoE layers' routing over the global
     batch (``models/model.py: route_globally``), for an MoE config at
     p > 1; empty plans otherwise, where a group's own routing is the
-    reference's. The groups' params are gathered as the step gathers them,
-    once for groups on the same devices (all of them on one card), and go
-    when the plans are made."""
-    p = len(groups)
-    if not cfg.moe or p == 1:
-        return [{}] * p
-    dims = model_dims(layout)
-    gathered: dict = {}
+    reference's. ``groups`` are the first data groups of ``layout`` (all
+    of them in the step; the dry-run's group 0 alone). The groups' params
+    are read as the step reads them (``parallel.FsdpGroup``), once for
+    groups on the same devices (all of them on one card): the leaves
+    outside ``layers`` gathered whole, each period gathered when the
+    groups reach it and dropped when they leave it."""
+    if not cfg.moe or layout.dp == 1:
+        return [{}] * len(groups)
+    srcs: dict = {}
     sps = []
     for d, group in enumerate(groups):
         on = tuple(group)
-        if on not in gathered:
-            gathered[on] = ShardedParams(gather_group(layout, params, d,
-                                                      group), dims, on)
-        sps.append(gathered[on])
-    return M.route_globally(cfg, sps, shards, p)
+        if on not in srcs:
+            srcs[on] = FsdpGroup(layout, params, d, group).params()
+        sps.append(srcs[on])
+    return M.route_globally(cfg, sps, shards, layout.dp)
 
 
 def check_routing(plans: list[dict]):
