@@ -52,6 +52,7 @@ from repro_torch.devices import Slot, as_slots, default_pool
 from repro_torch.kernels.launches import LAUNCHES
 from repro_torch.models.model import param_spec_tree
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.obs.trace import span
 from repro_torch.optim import Optimizer, adamw
 from repro_torch.parallel import GradBoxes, model_dims
 from repro_torch.reshape import StateSpec, apply_plan, copied_bytes, \
@@ -471,12 +472,20 @@ class ElasticTrainer:
         return batch
 
     def step(self) -> dict | None:
-        """One synchronous mini-batch across the current topology."""
+        """One synchronous mini-batch across the current topology. Under
+        a ``torch.profiler`` the step is the ``edl.step`` span, its batch
+        assembly ``edl.data`` and its metrics' host sync ``edl.sync``
+        (``obs.trace.span``); the step function opens the rest."""
+        with span("edl.step"):
+            return self._step()
+
+    def _step(self) -> dict | None:
         if self._prep_error is not None:
             err, self._prep_error = self._prep_error, None
             raise RuntimeError("background context prep failed") from err
         t0 = time.monotonic()
-        batch = self._assemble_batch()
+        with span("edl.data"):
+            batch = self._assemble_batch()
         if batch is None:
             return None
         self.state, metrics = self.exec.step_fn(self.state, batch)
@@ -484,7 +493,8 @@ class ElasticTrainer:
         # (the DRAINING mini-batch); CUDA launches are asynchronous, so a
         # state move staged now overlaps the step's device work
         self._maybe_stage_switch()
-        metrics = {k: float(v) for k, v in metrics.items()}  # waits for it
+        with span("edl.sync"):      # waits for the step
+            metrics = {k: float(v) for k, v in metrics.items()}
         # second chance: the prep landed DURING this step
         self._maybe_stage_switch()
         # simulated per-worker sync times (straggler injection adds delay)
@@ -808,7 +818,8 @@ class ElasticTrainer:
                         side.synchronize()
             self.state = plan.staged_state
         else:
-            self.state, _ = self._state_for(handle, plan.record)
+            self.state, plan.record.bytes_moved_in_stop = self._state_for(
+                handle, plan.record)
             plan.record.bytes_moved_overlapped = 0
             for dev in self._state_devices(self.state):
                 if dev.type == "cuda":

@@ -57,6 +57,11 @@ class ScalingRecord:
     # (overlapped with the draining mini-batch); 0 = the whole state move
     # ran inside the stop
     bytes_moved_overlapped: int = 0
+    # bytes the commit copied inside the stop window when the switch was
+    # not staged (same-card copies of kept boxes included); 0 when staged.
+    # The port's own: not in summary(), which the reference's records
+    # match; the Tracer's stop_window span carries it as bytes_moved
+    bytes_moved_in_stop: int = 0
     # staged-reshard window (overlapped state move issued by the draining
     # mini-batch, see elastic_runtime._stage_switch); both 0.0 when the
     # switch took the in-stop move instead

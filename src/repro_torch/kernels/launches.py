@@ -23,6 +23,8 @@ import threading
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.obs.trace import span
+
 FAMILIES = {
     # csrc/flash_attn.cu (fp32), then csrc/flash_attn_tc.cu (bf16 on the
     # tensor cores) (kernels/attention/ops.py)
@@ -158,5 +160,12 @@ def recompute_context():
     """A ``context_fn`` for ``torch.utils.checkpoint``: nothing around the
     forward, and around its recomputation, which autograd may run on a
     thread of its own, the warm-up flag of the thread that ran the forward,
-    so that the kernels launched again count where the forward's did."""
-    return contextlib.nullcontext(), LAUNCHES.warming(LAUNCHES.is_warming())
+    so that the kernels launched again count where the forward's did, and
+    the ``edl.recompute`` span (``obs.trace.span``)."""
+    return contextlib.nullcontext(), _recomputing(LAUNCHES.is_warming())
+
+
+@contextlib.contextmanager
+def _recomputing(warming: bool):
+    with LAUNCHES.warming(warming), span("edl.recompute"):
+        yield

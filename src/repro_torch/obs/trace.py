@@ -18,7 +18,15 @@ share the monotonic clock, so span edges are exact, not re-measured):
 Checkpoint saves, fault recoveries and serving reclaims get flat spans
 on the same timeline. ``chrome_trace()`` exports the Trace Event JSON
 that chrome://tracing and Perfetto load directly — "X" complete events
-in microseconds, one track (tid) per job.
+in microseconds, one track (tid) per job — with ``baseTimeNanoseconds``
+on the epoch clock, as ``torch.profiler`` writes it, so the file can be
+laid over a profiler trace of the same run.
+
+``span(name)`` is the step path's own span: inside
+``ElasticTrainer.step`` the ``edl.*`` ranges (step, data, forward,
+backward, recompute, update, sync) open a ``torch.profiler``
+``record_function`` while a profiler records, and nothing otherwise,
+nor inside a context prep's warm-up.
 """
 from __future__ import annotations
 
@@ -26,6 +34,27 @@ import contextlib
 import json
 import threading
 import time
+
+import torch
+
+_NOOP = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range called ``name`` while a
+    profiler records on this thread (autograd's threads inherit the
+    flag), so the range lands in the profiler's trace on its own clock;
+    otherwise a shared no-op context, at the cost of one flag check. The
+    profiler is the switch: nothing else turns the spans on. A context
+    prep's warm-up (``LAUNCHES.warming()``) runs the step's functions on
+    zeros and opens no span, so the step's phases hold the step's work
+    alone."""
+    if torch._C._autograd._profiler_enabled():
+        # imported here: kernels.launches imports this module
+        from repro_torch.kernels.launches import LAUNCHES
+        if not LAUNCHES.is_warming():
+            return torch.profiler.record_function(name)
+    return _NOOP
 
 
 class Tracer:
@@ -35,6 +64,8 @@ class Tracer:
 
     def __init__(self, clock=time.monotonic):
         self.clock = clock
+        # the epoch time of the clock's zero, taken once
+        self.epoch_ns = time.time_ns() - round(clock() * 1e9)
         self.spans: list[dict] = []
         self.instants: list[dict] = []
         self._lock = threading.Lock()
@@ -90,8 +121,13 @@ class Tracer:
             self.add_span("staged_reshard", t_stage[0], t_stage[1],
                           tid=tid, cat="adjust",
                           bytes_moved=rec.bytes_moved_overlapped)
+        # the port's own count: the bytes a switch that was not staged
+        # copied inside its stop (none for a staged one, nor in the
+        # reference's records)
+        in_stop = getattr(rec, "bytes_moved_in_stop", 0)
         self.add_span("stop_window", rec.t_switch_start, rec.t_switch_end,
-                      tid=tid, cat="adjust")
+                      tid=tid, cat="adjust",
+                      **({"bytes_moved": in_stop} if in_stop else {}))
         self.instant("commit", t=rec.t_switch_end, tid=tid, cat="adjust",
                      switch_step=rec.switch_step)
         return root
@@ -100,7 +136,9 @@ class Tracer:
     def chrome_trace(self) -> dict:
         """Trace Event Format (Perfetto / chrome://tracing): "X" complete
         events plus "i" instants, timestamps rebased to the earliest span
-        and converted to microseconds."""
+        and converted to microseconds. ``baseTimeNanoseconds`` is that
+        span's epoch time, as in ``torch.profiler``'s export: an event's
+        ``ts + baseTimeNanoseconds / 1e3`` is its epoch time in µs."""
         with self._lock:
             spans = [dict(s) for s in self.spans]
             instants = [dict(m) for m in self.instants]
@@ -119,7 +157,8 @@ class Tracer:
             out.append({"ph": "i", "name": m["name"], "cat": m["cat"],
                         "pid": 1, "tid": m["tid"], "s": "t",
                         "ts": (m["t"] - t_base) * 1e6, "args": m["args"]})
-        return {"traceEvents": out, "displayTimeUnit": "ms"}
+        return {"traceEvents": out, "displayTimeUnit": "ms",
+                "baseTimeNanoseconds": self.epoch_ns + round(t_base * 1e9)}
 
     def save(self, path: str):
         with open(path, "w") as f:

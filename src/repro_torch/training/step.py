@@ -71,6 +71,7 @@ import torch
 from repro_torch import prng
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.obs.trace import span
 from repro_torch.optim import Optimizer
 from repro_torch.parallel import FsdpGroup, GradBoxes, ShardedParams, \
     all_gather_data, data_dims, model_dims, reduce_scatter_data, send
@@ -102,22 +103,24 @@ def state_shapes(cfg, optimizer: Optimizer) -> dict:
 def shard_batch(batch: dict, p: int, devices) -> list[dict]:
     """p equal shards of a batch of host (numpy) arrays or tensors (the
     dry-run's ``meta`` ones), each on its slot's device. Integer arrays
-    become int64 (embedding and gather indices)."""
+    become int64 (embedding and gather indices). The copies are the step's
+    ``edl.data`` span."""
     n = len(next(iter(batch.values())))
     if n % p:
         raise ValueError(f"global batch {n} not divisible by p={p}")
     per = n // p
     out = []
-    for s in range(p):
-        shard = {}
-        for k, v in batch.items():
-            t = v[s * per:(s + 1) * per]
-            if not isinstance(t, torch.Tensor):
-                t = torch.from_numpy(np.ascontiguousarray(t))
-            if not t.is_floating_point():
-                t = t.long()
-            shard[k] = t.to(devices[s])
-        out.append(shard)
+    with span("edl.data"):
+        for s in range(p):
+            shard = {}
+            for k, v in batch.items():
+                t = v[s * per:(s + 1) * per]
+                if not isinstance(t, torch.Tensor):
+                    t = torch.from_numpy(np.ascontiguousarray(t))
+                if not t.is_floating_point():
+                    t = t.long()
+                shard[k] = t.to(devices[s])
+            out.append(shard)
     return out
 
 
@@ -249,9 +252,11 @@ def group_loss_and_grads(cfg, trees: list[dict], dims: dict, devices,
              for k, p in tree_leaves(t)] for m, t in enumerate(trees)]
     sp = ShardedParams([tree_unflatten(leaves) for leaves in live], dims,
                        tuple(devices))
-    loss, parts = M.loss_fn_tp(cfg, sp, batch, rng=rng, routing=routing)
+    with span("edl.forward"):
+        loss, parts = M.loss_fn_tp(cfg, sp, batch, rng=rng, routing=routing)
     wanted = [t for leaves in live for _, t in leaves if t.requires_grad]
-    got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
+    with span("edl.backward"):
+        got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
     grads: list[dict] = []
     for m, (dev, leaves) in enumerate(zip(devices, live)):
         g = {}
@@ -274,24 +279,25 @@ def apply_update(optimizer: Optimizer, state: list[dict],
     slots' indices in ``layout`` (every slot by default). grad_norm counts
     each element once, a box that several slots hold from the first; it
     is diagnostic only, outside the virtual step's bitwise contract, as in
-    the reference."""
-    new = []
-    for s, g in zip(state, grads):
-        new_params, new_opt = optimizer.update(g, s["opt"], s["params"])
-        new.append({"params": new_params, "opt": new_opt,
-                    "step": s["step"] + 1})
-    home = loss.device
-    tensors = {t.path: t for t in params_layout(layout).tensors}
-    seen, total = set(), torch.zeros((), device=home)
-    for i, g in zip(slots if slots is not None else range(len(grads)),
-                    grads):
-        for k, t in tree_leaves(g):
-            box = (k, tensors[k].box(layout.dp, layout.mp, i))
-            if box not in seen:
-                seen.add(box)
-                total = total + t.float().square().sum().to(home)
-    metrics = {"loss": loss, "xent": xent, "aux": aux,
-               "grad_norm": torch.sqrt(total)}
+    the reference. Both are the step's ``edl.update`` span."""
+    with span("edl.update"):
+        new = []
+        for s, g in zip(state, grads):
+            new_params, new_opt = optimizer.update(g, s["opt"], s["params"])
+            new.append({"params": new_params, "opt": new_opt,
+                        "step": s["step"] + 1})
+        home = loss.device
+        tensors = {t.path: t for t in params_layout(layout).tensors}
+        seen, total = set(), torch.zeros((), device=home)
+        for i, g in zip(slots if slots is not None else range(len(grads)),
+                        grads):
+            for k, t in tree_leaves(g):
+                box = (k, tensors[k].box(layout.dp, layout.mp, i))
+                if box not in seen:
+                    seen.add(box)
+                    total = total + t.float().square().sum().to(home)
+        metrics = {"loss": loss, "xent": xent, "aux": aux,
+                   "grad_norm": torch.sqrt(total)}
     return new, metrics
 
 
@@ -350,11 +356,12 @@ def fsdp_group_step(cfg, layout: StateSpec, params: list[dict], d: int,
     its period. Returns (loss, parts); ``routing`` is the group's plan
     from ``routing_prepass``."""
     src = FsdpGroup(layout, params, d, group, grads)
-    with src.saving():
+    with span("edl.forward"), src.saving():
         loss, parts = M.loss_fn_tp(cfg, src.params(), batch,
                                    routing=routing)
-    torch.autograd.grad(loss, src.anchor, allow_unused=True)
-    src.finish()
+    with span("edl.backward"):
+        torch.autograd.grad(loss, src.anchor, allow_unused=True)
+        src.finish()
     return loss.detach(), {k: v.detach() for k, v in parts.items()}
 
 
