@@ -80,7 +80,13 @@ Phases, in order; any failure exits non-zero:
    same bits; time kernel and plain version there (no single PyTorch call
    computes a WKV6
    kernel's outputs; ``du_part.sum(0)``, the one call that computes dk's
-   du, is timed beside dk);
+   du, is timed beside dk); then the optimizer's kernels (``adamw.cu``,
+   ``OPTIM_PHI3``): ``adamw_update`` on phi3-mini-16l's largest leaf in
+   bf16 and on every edl_paper leaf in fp32, the eager formula's bits
+   with the inputs untouched, and ``sq_sum`` (``grad_sq_sum`` a leaf,
+   ``grad_sq_sum_final``) over both trees, the same bits twice and within
+   ``OPTIM_SUM_RTOL`` of the eager sum; each timed beside its bound and
+   the eager version (the square-sum beside ``torch._foreach_norm`` too);
 8. rwkv6 path: ``repro_torch.launch.train.main`` trains the full-width
    ``rwkv6_1p6b`` (bf16, remat) through a stop-free scale-out, staged with
    its bytes copied as in phase 4, timing the host-side init of its
@@ -208,7 +214,9 @@ Phases, in order; any failure exits non-zero:
    x L 1024, AdamW, at (4, 1) and (2, 2) on four slots of the card, two
    steps of each from one seeded state and batch: the same bits (each
    step's loss and metrics, every slot's state), the flash kernels
-   launched as phase 11 predicts for a GQA layer, and the peak of the
+   launched as phase 11 predicts for a GQA layer, the optimizer's a
+   leaf a slot shard (``adamw_update``), a counted box (``grad_sq_sum``)
+   and once (``grad_sq_sum_final``) a step, and the peak of the
    step up to its update below the control's by at least half of (p - 1)
    whole gradient trees plus the layer params less one period's; both
    peaks (and the steps' whole peaks), both step medians and the
@@ -216,7 +224,11 @@ Phases, in order; any failure exits non-zero:
 
 Each path runs with the launch counts reset just before and read just after;
 the loss must be finite, the scale-out commit stop-free, the data
-exactly-once, every kernel of the path launched and no other. On the
+exactly-once, every kernel of the path launched and no other but the
+optimizer's (``adamw.cu``), which every training step launches exactly as
+``optim_launches`` predicts from the layout each step ran at: AdamW's
+update once a leaf a slot, the norm's square-sum once a box it counts,
+one final sum a step, and none in a warm-up. On the
 edl_paper path the last loss must be below the first; on the rwkv6 path,
 where from the reference's init the loss of fresh noise tokens rises in
 the JAX trainer as in the port, the refit and held-out checks take its
@@ -397,6 +409,29 @@ HOLD_OUT_MARGIN = 0.1
 # remat on and off run the same bf16 math; a remat fault (another input or
 # weight recomputed) moves the gradients by O(1)
 REMAT_RTOL = 1e-2
+
+# phase 7's optimizer cases (adamw.cu, which replaces no TPU kernel: the
+# reference's update is plain jnp, which XLA fuses into one loop a leaf).
+# The update, after OPTIM_COUNT steps, with weight decay 0 and 0.01, on
+# phi3-mini's largest leaf at the benchmark's 16 layers (its stacked MLP
+# input matrix, [16, 3072, 8192], bf16) and on every leaf of edl_paper's
+# tree (fp32): p', m' and v' the eager formula's bits on the same card
+# tensors, the inputs untouched. The gradient norm's square-sum over
+# phi3-mini-16l's whole tree (bf16) and edl_paper's (fp32): the same bits
+# twice, within OPTIM_SUM_RTOL of the eager sum. The two add in other
+# orders in fp32: over phi3-mini-16l's 2.01 B squares each of the
+# kernel's threads adds ~7,400 in turn, and the card read 1.8e-6 to
+# 4.2e-6 against the eager sum at 1 to 8 blocks an SM (tools/
+# torch_kernel_bench.py --parts optim; NVIDIA H100 80GB HBM3, 700 W), so
+# the limit is 1e-5 (the card tests hold small trees to 1e-6). Bounds by
+# bytes: 22 a bf16 parameter for the update (28 fp32), 2 for the
+# square-sum (4 fp32).
+OPTIM = {"source": "src/repro_torch/kernels/csrc/adamw.cu",
+         "replaces": "none: src/repro/optim/optimizers.py adam is plain jnp"}
+OPTIM_PHI3 = ("phi3-mini-3.8b", 16)
+OPTIM_HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+OPTIM_COUNT = 1000
+OPTIM_SUM_RTOL = 1e-5
 
 # the device of phase 11 and of phase 10's decode trace: the card
 DEVICE = "cuda"
@@ -1080,6 +1115,144 @@ def check_wkv(torch, wops):
     return timed
 
 
+def optim_grads(torch, cfg, dtype, gen) -> list:
+    """A gradient of ``cfg``'s params' shapes a leaf, drawn on the card."""
+    from repro_torch.models.model import param_spec_tree
+    from repro_torch.models.params import tree_leaves
+    return [(torch.randn(t.shape, generator=gen, device=DEVICE) * 1e-2).to(
+        dtype) for _, t in tree_leaves(param_spec_tree(cfg))]
+
+
+def check_optim(torch, oops) -> dict:
+    """Phase 7's optimizer cases (``OPTIM_PHI3``). Returns a record a
+    kernel: the checks, and the times beside their bounds and the eager
+    versions at phi3-mini-16l's largest leaf (the update) and whole tree
+    (the square-sum)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    count = torch.full((), OPTIM_COUNT, dtype=torch.int32, device=dev)
+    bc1 = 1.0 - torch.full((), OPTIM_HYPER["b1"], device=dev) ** count
+    bc2 = 1.0 - torch.full((), OPTIM_HYPER["b2"], device=dev) ** count
+    phi3 = dataclasses.replace(get_config(OPTIM_PHI3[0]),
+                               n_layers=OPTIM_PHI3[1])
+    trees = {"phi3-mini-16l": optim_grads(torch, phi3, bf16, gen),
+             "edl_paper": optim_grads(torch, get_config("edl-paper"), f32,
+                                      gen)}
+
+    def moments(g):
+        m = torch.randn(g.shape, generator=gen, device=dev) * 1e-3
+        v = (torch.randn(g.shape, generator=gen, device=dev) * 1e-3).square()
+        return m, v
+
+    def held(what, g, wd):
+        p = torch.randn(g.shape, generator=gen, device=dev).to(g.dtype)
+        ins = (p, g, *moments(g))
+        before = [t.clone() for t in ins]
+        got = oops.adamw_update(*ins, bc1, bc2, **OPTIM_HYPER,
+                                weight_decay=wd)
+        want = oops.adamw_update_plain(*ins, bc1, bc2, **OPTIM_HYPER,
+                                       weight_decay=wd)
+        differ = [n for n, a, b in zip(("p", "m", "v"), got, want)
+                  if a.dtype != b.dtype or not torch.equal(a, b)]
+        moved = [n for n, a, b in zip("pgmv", ins, before)
+                 if not torch.equal(a, b)]
+        if differ or moved:
+            fail(f"adamw_update on {what}, wd {wd}: {differ} differ from the "
+                 f"eager formula's bits; inputs {moved} changed")
+        return ins
+
+    big = max(trees["phi3-mini-16l"], key=lambda g: g.numel())
+    for wd in (0.0, 0.01):
+        ins = held(f"phi3-mini-16l's {list(big.shape)}", big, wd)
+        n_edl = 0
+        for g in trees["edl_paper"]:
+            held(f"edl_paper's {list(g.shape)}", g, wd)
+            n_edl += 1
+        print(f"  adamw_update, wd {wd}, count {OPTIM_COUNT}: "
+              f"phi3-mini-16l's {list(big.shape)} bf16 leaf and edl_paper's "
+              f"{n_edl} fp32 leaves the eager formula's bits, inputs "
+              f"untouched", flush=True)
+    n = big.numel()
+    h = dict(OPTIM_HYPER, weight_decay=0.01)
+    t_bytes = 22 * n / HBM_BYTES_S * 1e3
+    update = {"max_abs_err": 0.0, "tolerance": 0.0,
+              "tolerance_scale": "bits",
+              "ms": cuda_ms(torch, lambda: oops.adamw_update(*ins, bc1, bc2,
+                                                             **h)),
+              "plain_ms": cuda_ms(torch, lambda: oops.adamw_update_plain(
+                  *ins, bc1, bc2, **h), reps=3, warm=1),
+              "bound_ms": t_bytes, "bound_by": "bytes", "bytes": 22 * n,
+              "flops": 0, "library_ms": None,
+              "shape": {"leaf": list(big.shape), "dtype": "bfloat16",
+                        "weight_decay": 0.01}}
+    del ins
+    print(f"  adamw_update on {list(big.shape)} bf16: {update['ms']:.3f} ms, "
+          f"bound {t_bytes:.3f} ms (22 bytes a parameter), eager formula "
+          f"{update['plain_ms']:.3f} ms", flush=True)
+    sums = {}
+    for name, grads in trees.items():
+        got = [oops.sq_sum(grads, dev) for _ in range(2)]
+        want = oops.sq_sum_plain(grads, dev)
+        rel = abs(float(got[0]) - float(want)) / float(want)
+        if not torch.equal(got[0], got[1]) or not rel <= OPTIM_SUM_RTOL:
+            fail(f"sq_sum over {name}'s tree: {float(got[0])!r} then "
+                 f"{float(got[1])!r}, the eager sum {float(want)!r} (rel "
+                 f"err {rel:.2e}, tolerance {OPTIM_SUM_RTOL})")
+        sums[name] = rel
+        print(f"  sq_sum over {name}'s {len(grads)} leaves "
+              f"({sum(g.numel() for g in grads)} elements, {grads[0].dtype}):"
+              f" the same bits twice, rel err {rel:.2e} against the eager "
+              f"sum (tolerance {OPTIM_SUM_RTOL})", flush=True)
+    grads = trees["phi3-mini-16l"]
+    del trees
+    n_all = sum(g.numel() for g in grads)
+    reps = 10
+
+    def run():
+        for _ in range(reps):
+            oops.sq_sum(grads, dev)
+    oops.sq_sum(grads, dev)
+    top = traced(torch, run)["top"]
+    by = {k: sum(ms for name, ms in top if k in name) / reps or None
+          for k in ("grad_sq_sum_kernel", "grad_sq_sum_final_kernel")}
+    n_partials = len(grads) * oops.SUM_BLOCKS_PER_SM * \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    sq = {"max_abs_err": None, "max_rel_err": sums["phi3-mini-16l"],
+          "max_rel_err_edl_paper": sums["edl_paper"],
+          "tolerance": OPTIM_SUM_RTOL, "tolerance_scale": "eager sum",
+          "ms": cuda_ms(torch, lambda: oops.sq_sum(grads, dev)),
+          "device_ms": by["grad_sq_sum_kernel"],
+          "plain_ms": cuda_ms(torch, lambda: oops.sq_sum_plain(grads, dev),
+                              reps=3, warm=1),
+          "bound_ms": 2 * n_all / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+          "bytes": 2 * n_all, "flops": 0,
+          "library_ms": cuda_ms(torch, lambda: torch.stack(
+              torch._foreach_norm(grads, 2, dtype=torch.float32)).square(
+              ).sum()),
+          "shape": {"tree": "phi3-mini-16l", "leaves": len(grads),
+                    "elements": n_all, "dtype": "bfloat16"}}
+    final = {"max_abs_err": None, "tolerance": None, "tolerance_scale": None,
+             "ms": by["grad_sq_sum_final_kernel"],
+             "plain_ms": None, "bound_ms": 4 * n_partials / HBM_BYTES_S * 1e3,
+             "bound_by": "bytes", "bytes": 4 * n_partials, "flops": 0,
+             "library_ms": None,
+             "shape": {"partials_at_most": n_partials}}
+    print(f"  sq_sum over phi3-mini-16l's tree: {sq['ms']:.3f} ms (traced: "
+          f"grad_sq_sum {by['grad_sq_sum_kernel']} ms, grad_sq_sum_final "
+          f"{by['grad_sq_sum_final_kernel']} ms), bound {sq['bound_ms']:.3f}"
+          f" ms (2 bytes a parameter), eager {sq['plain_ms']:.3f} ms, "
+          f"torch._foreach_norm in fp32 {sq['library_ms']:.3f} ms",
+          flush=True)
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"adamw_update": update, "grad_sq_sum": sq,
+            "grad_sq_sum_final": final}
+
+
 def check_wkv_decode(torch, wops, case) -> dict:
     """One of phase 7's decode cases (``WKV_DECODE_CASES``): ``wkv6_fwd``
     at L = 1 with a nonzero s0, the shape each decode step of rwkv6 gives
@@ -1150,14 +1323,91 @@ def warm_shards(events: list, init: tuple[int, int], virtual: bool) -> int:
     return len(mps) if virtual else sum(mps)
 
 
+# each ElasticTrainer step that ran a batch since the launch counts were
+# last reset: (config, optimizer name, p, mp), the layout it ran at
+# (``record_trainer_steps``)
+TRAINER_STEPS: list = []
+# each launch check's optimizer launches and their prediction, by check
+OPTIM_CHECKED: dict = {}
+
+
+def record_trainer_steps(launches_of):
+    """From here on, record in ``TRAINER_STEPS`` each step of any
+    ``ElasticTrainer`` that ran a batch, at the layout it ran at (a switch
+    commits after its step), and empty the list whenever ``launches_of``
+    is reset."""
+    from repro_torch.core import elastic_runtime
+    cls = elastic_runtime.ElasticTrainer
+    inner, reset = cls._step, launches_of.reset
+
+    def recorded(trainer):
+        layout = trainer.exec.layout
+        out = inner(trainer)
+        if out is not None:
+            TRAINER_STEPS.append((trainer.cfg, trainer.optimizer.name,
+                                  layout.dp, layout.mp))
+        return out
+
+    def cleared():
+        reset()
+        TRAINER_STEPS.clear()
+
+    cls._step = recorded
+    launches_of.reset = cleared
+
+
+def optim_launches(steps) -> dict:
+    """The optimizer kernels' launches over ``steps``, each a (config,
+    optimizer name, p, mp) step with all its slots on the card: Adam's
+    update one a leaf a slot (none under SGD), the norm's square-sum one a
+    box it counts (a box that several slots hold, once: apply_update's
+    count), and one final sum a step."""
+    from repro_torch.optim import adamw
+    from repro_torch.training.step import params_layout, port_layout
+    want = {"adamw_update": 0, "grad_sq_sum": 0, "grad_sq_sum_final": 0}
+    for cfg, opt, p, mp in steps:
+        tensors = params_layout(port_layout(cfg, adamw(1e-3), p, mp)).tensors
+        if opt in ("adam", "adamw"):
+            want["adamw_update"] += p * mp * len(tensors)
+        want["grad_sq_sum"] += len({(t.path, t.box(p, mp, i))
+                                    for i in range(p * mp) for t in tensors})
+        want["grad_sq_sum_final"] += 1
+    return want
+
+
+def check_optim_launches(name: str, launches: dict, warm: dict,
+                         steps) -> dict:
+    """Fail unless the optimizer's kernels launched as ``optim_launches``
+    predicts over ``steps`` (at least one) and none of them in a warm-up;
+    record the check in ``OPTIM_CHECKED``. Returns the launches."""
+    want = optim_launches(steps)
+    got = {k: launches[k] for k in want}
+    if not steps or got != want or any(warm[k] for k in want):
+        fail(f"{name}: the optimizer's kernels launched {got} (warm-ups "
+             f"{ {k: warm[k] for k in want} }), predicted {want} over "
+             f"{len(steps)} steps")
+    key, i = name, 2
+    while key in OPTIM_CHECKED:
+        key, i = f"{name} ({i})", i + 1
+    OPTIM_CHECKED[key] = {"launches": got, "steps": len(steps)}
+    return got
+
+
 def check_launches(name: str, launches: dict, warm: dict, kernels,
-                   per_shard: dict, n_shards: int, n_warm: int) -> dict:
-    """Fail unless every kernel of the path launched and no other did, the
-    context preps' warm-ups launched ``n_warm`` shards' worth and the rest
-    ``per_shard`` a shard over the ``n_shards`` shards stepped. Returns the
-    launches per shard stepped."""
+                   per_shard: dict, n_shards: int, n_warm: int, *,
+                   steps=None) -> dict:
+    """Fail unless every kernel of the path launched and no other did but
+    the optimizer's, the context preps' warm-ups launched ``n_warm``
+    shards' worth and the rest ``per_shard`` a shard over the ``n_shards``
+    shards stepped, and the optimizer's kernels launched as its
+    ``steps`` predict (``check_optim_launches``; by default the trainer
+    steps recorded since the counts were reset). Returns the launches per
+    shard stepped."""
+    optim = check_optim_launches(name, launches, warm, TRAINER_STEPS
+                                 if steps is None else steps)
     missing = [k for k in kernels if launches[k] <= 0]
-    strays = {k: n for k, n in launches.items() if k not in kernels and n}
+    strays = {k: n for k, n in launches.items()
+              if k not in kernels and k not in optim and n}
     if missing or strays:
         fail(f"{name}: kernels of the path not launched: {missing}; kernels "
              f"off the path launched: {strays}")
@@ -2212,7 +2462,10 @@ def run_cluster_path(torch, launches_of, kernels, per_shard: dict,
     launches = launches_of.snapshot()
     warm = launches_of.snapshot(warm=True)
     stats = json.loads(buf.getvalue().strip().splitlines()[-1])
-    strays = {k: n for k, n in launches.items() if k not in kernels and n}
+    optim = check_optim_launches("cluster main", launches, warm,
+                                 TRAINER_STEPS)
+    strays = {k: n for k, n in launches.items()
+              if k not in kernels and k not in optim and n}
     stepped = {k: launches[k] - warm[k] for k in kernels}
     if rc != 0 or not stats["conserved"] or strays or \
             warm != {**dict.fromkeys(launches, 0),
@@ -2227,7 +2480,8 @@ def run_cluster_path(torch, launches_of, kernels, per_shard: dict,
           f"{seconds:.2f} s, device conservation: OK; launches "
           f"{ {k: launches[k] for k in kernels} }, warm-ups "
           f"{ {k: warm[k] for k in kernels} } ({sum(warmed)} shards "
-          f"warmed at {smoke_layers} layers)", flush=True)
+          f"warmed at {smoke_layers} layers); the optimizer's {optim} over "
+          f"{len(TRAINER_STEPS)} steps, as predicted", flush=True)
     out["main"] = {"args": CLUSTER_MAIN_ARGS, "seconds": seconds,
                    "rounds": stats["rounds"], "conserved": True,
                    "events": stats["events"],
@@ -3037,7 +3291,8 @@ def zoo_train(torch, launches_of, kernels, cfg, serve_cfg, *,
     torch.cuda.empty_cache()
     launches = {k: warm_all[k] + steps[k] for k in warm_all}
     per_step = check_launches(f"zoo {cfg.name} at (1, {mp})", launches, warm,
-                              path_kernels, per_shard, ZOO_STEPS * mp, mp)
+                              path_kernels, per_shard, ZOO_STEPS * mp, mp,
+                              steps=[(cfg, "adamw", 1, mp)] * ZOO_STEPS)
     fell = all(b < a for a, b in zip(losses, losses[1:]))
     trend = ("each below the one before" if fell
              else "not each below the one before (not gated)")
@@ -3750,6 +4005,9 @@ def moe_routing_case(torch, launches_of, kernels, cfg, opt, B: int,
     if {k: launches[k] for k in kernels} != per_step:
         fail(f"phase 12 (a) at B {B} x L {L}: launches "
              f"{ {k: launches[k] for k in kernels} }, predicted {per_step}")
+    check_optim_launches(f"phase 12 (a) B {B} x L {L}", launches,
+                         launches_of.snapshot(warm=True),
+                         [(cfg, opt.name, 2, 1)])
     with_ms = timed_steps(torch, two, slots, batch, MOE_ROUTE_REPS)
     prepass_ms = []
     for _ in range(MOE_ROUTE_REPS):
@@ -3856,6 +4114,10 @@ def dropout_check(torch, launches_of, kernels) -> dict:
         if got != per_kernel:
             fail(f"phase 12 (b): launches at p = {p} {got}, predicted "
                  f"{per_kernel}")
+        check_optim_launches(f"phase 12 (b) p = {p}",
+                             launches[(p, DROPOUT_RATE)],
+                             dict.fromkeys(launches[(p, DROPOUT_RATE)], 0),
+                             [(cfg, opt.name, p, 1)] * DROPOUT_STEPS)
     shape = (DROPOUT_BATCH // DROPOUT_K, 1024, cfg.d_model)
     keep = 1.0 - DROPOUT_RATE
 
@@ -4058,7 +4320,8 @@ def period_case(torch, launches_of, kernels, cfg, opt, whole: dict, batch,
     shards = p * mp * PERIOD_STEPS
     want = {**dict.fromkeys(kernels, 0),
             fwd_n: shards * n_gqa * (2 if cfg.remat else 1),
-            dq_n: shards * n_gqa, kv_n: shards * n_gqa}
+            dq_n: shards * n_gqa, kv_n: shards * n_gqa,
+            **optim_launches([(cfg, opt.name, p, mp)] * PERIOD_STEPS)}
     per = period_run(torch, launches_of, S.make_train_step, cfg, opt, slots,
                      batch, p, mp)
     ctl = period_run(torch, launches_of, S.make_whole_gather_step, cfg, opt,
@@ -4069,6 +4332,9 @@ def period_case(torch, launches_of, kernels, cfg, opt, whole: dict, batch,
         got = {k: n for k, n in run["launches"].items() if n or k in want}
         if got != want:
             fail(f"{at}: {name} launched {got}, predicted {want}")
+        OPTIM_CHECKED[f"{at}, {name}"] = {
+            "launches": {k: got[k] for k in optim_launches(())},
+            "steps": PERIOD_STEPS}
     for i, (a, b) in enumerate(zip(per["metrics"], ctl["metrics"])):
         diff = [k for k in b if not torch.equal(a[k], b[k])]
         if diff:
@@ -4163,6 +4429,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ops as aops
     from repro_torch.kernels.launches import LAUNCHES
+    from repro_torch.kernels.optim import ops as oops
     from repro_torch.kernels.rwkv import ops as wops
     from repro_torch.launch import train
 
@@ -4192,8 +4459,10 @@ def main() -> int:
     large = check_attention_large(torch, aops)
 
     # from here on every trainer built and every switch committed is held
-    # to the FSDP layout on the card
+    # to the FSDP layout on the card, and every trainer step is recorded
+    # for the optimizer's launch counts
     watch = SwitchWatch(torch)
+    record_trainer_steps(LAUNCHES)
 
     edl = get_config("edl-paper")
     print("[4/14] edl_paper path: python -m repro_torch.launch.train "
@@ -4227,6 +4496,9 @@ def main() -> int:
     wkv_decodes = {case[0]: check_wkv_decode(torch, wops, case)
                    for case in WKV_DECODE_CASES}
     wkv_decode = wkv_decodes[WKV_DECODE_CASES[0][0]]
+    print("[7/14] the optimizer's kernels (adamw.cu) against their plain "
+          "versions", flush=True)
+    optim_records = check_optim(torch, oops)
 
     rwkv = get_config("rwkv6-1.6b")
     print("[8/14] rwkv6 path: python -m repro_torch.launch.train "
@@ -4492,12 +4764,28 @@ def main() -> int:
             entry["period_fsdp_path"] = {
                 case: run["launches"][entry["name"]]
                 for case, run in phase13["cases"].items()}
+    # the optimizer's kernels: their main path is phase 4's, and every
+    # stepped path's launches were held to the prediction (OPTIM_CHECKED)
+    for kname, r in optim_records.items():
+        kernels.append({
+            "name": kname, "route": "cuda", **OPTIM,
+            "launches": paths["edl-paper"]["launches"][kname],
+            "warmup_launches": paths["edl-paper"]["warmup_launches"][kname],
+            "path": "edl-paper", **r,
+            "share_of_bound": (r["bound_ms"] / r["ms"] if r["ms"]
+                               else None),
+            "launches_by_path": {name: c["launches"][kname]
+                                 for name, c in OPTIM_CHECKED.items()},
+            "steps_by_path": {name: c["steps"]
+                              for name, c in OPTIM_CHECKED.items()},
+            "card": card})
     print(f"  {card}", flush=True)
     print("[14/14] results; library_ms is F.scaled_dot_product_attention for "
           "the attention kernels (its forward for flash_attn_fwd and "
-          "flash_attn_fwd_tc, its whole backward for the backward kernels) "
-          "and null for the WKV6 "
-          "kernels, whose outputs no single PyTorch call computes; "
+          "flash_attn_fwd_tc, its whole backward for the backward kernels), "
+          "torch._foreach_norm in fp32 for grad_sq_sum, and null for the "
+          "WKV6 kernels, whose outputs no single PyTorch call computes, and "
+          "for adamw_update and grad_sq_sum_final; "
           "wkv6_bwd_dk's du_library_ms is du_part.sum(0), the one call that "
           "computes its du", flush=True)
     print(json.dumps({"backward_pair": {**pair, "card": card}}))

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"flash_attn": "flash_attn.cu", "flash_attn_tc": "flash_attn_tc.cu",
-           "wkv6": "wkv6.cu"}
+           "wkv6": "wkv6.cu", "adamw": "adamw.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

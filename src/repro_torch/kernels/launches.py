@@ -12,7 +12,8 @@ card, its plain version on the CPU, its output shapes alone on ``meta``),
 by the formulas of the bounds in ``PERF.md`` §6: flash attention 4·D flops
 a visible (query, key) pair forward, 6·D for dQ and 8·D for dK/dV; WKV6
 5·hd² a token and head in each scan; bytes as each input read once and
-each output written once. The dry-run (``launch/dryrun.py``) reads it,
+each output written once (the optimizer's kernels: bytes alone, 22 a
+bf16 parameter for AdamW). The dry-run (``launch/dryrun.py``) reads it,
 since no aten op stands for a kernel's work.
 """
 from __future__ import annotations
@@ -33,6 +34,9 @@ FAMILIES = {
                   "flash_attn_bwd_dq_tc", "flash_attn_bwd_dkdv_tc"),
     # csrc/wkv6.cu (kernels/rwkv/ops.py)
     "rwkv": ("wkv6_fwd", "wkv6_bwd_dr", "wkv6_bwd_dk", "wkv6_bwd_dv"),
+    # csrc/adamw.cu (kernels/optim/ops.py): a leaf's AdamW update, a leaf's
+    # square-sum of the gradient norm, and a device's sum of those
+    "optim": ("adamw_update", "grad_sq_sum", "grad_sq_sum_final"),
 }
 KERNELS = tuple(n for names in FAMILIES.values() for n in names)
 

@@ -3,7 +3,9 @@
 The reference's functional form and state: ``update(grads, state, params)``
 returns new params and ``{"count", "mu"[, "nu"]}`` without touching its
 inputs. Moments are fp32 regardless of param dtype; the bias correction is
-computed in fp32 from the int32 count, as the reference does.
+computed in fp32 from the int32 count, as the reference does. Adam's leaf
+update is ``kernels/optim/ops.py: adamw_update``: one kernel a leaf on the
+card, with the eager formula's bits; the formula itself on the CPU.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.kernels.optim.ops import adamw_update
 from repro_torch.models.params import tree_leaves, tree_unflatten
 
 
@@ -60,21 +63,19 @@ def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     @torch.no_grad()
     def update(grads, state, params):
         c = state["count"] + 1
-        cf = c.float()
-        bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=c.device) ** cf
-        bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=c.device) ** cf
+        # the bases filled on the device (no copy from the host, no wait for
+        # the stream), raised to the int32 count as fp32
+        bc1 = 1.0 - torch.full((), b1, dtype=torch.float32, device=c.device) ** c
+        bc2 = 1.0 - torch.full((), b2, dtype=torch.float32, device=c.device) ** c
         g = dict(tree_leaves(grads))
         mu0 = dict(tree_leaves(state["mu"]))
         nu0 = dict(tree_leaves(state["nu"]))
         new_p, mu, nu = [], [], []
         for k, p in tree_leaves(params):
-            g32 = g[k].float()
-            m = b1 * mu0[k] + (1 - b1) * g32
-            v = b2 * nu0[k] + (1 - b2) * g32.square()
-            step = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if weight_decay:
-                step = step + lr * weight_decay * p.float()
-            new_p.append((k, (p.float() - step).to(p.dtype)))
+            p1, m, v = adamw_update(p, g[k], mu0[k], nu0[k], bc1, bc2, lr=lr,
+                                    b1=b1, b2=b2, eps=eps,
+                                    weight_decay=weight_decay)
+            new_p.append((k, p1))
             mu.append((k, m))
             nu.append((k, v))
         return tree_unflatten(new_p), {"count": c, "mu": tree_unflatten(mu),

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels.optim.ops import sq_sum
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.obs.trace import span
@@ -279,25 +280,25 @@ def apply_update(optimizer: Optimizer, state: list[dict],
     slots' indices in ``layout`` (every slot by default). grad_norm counts
     each element once, a box that several slots hold from the first; it
     is diagnostic only, outside the virtual step's bitwise contract, as in
-    the reference. Both are the step's ``edl.update`` span."""
+    the reference (on the card its square-sum is ``kernels/optim/ops.py:
+    sq_sum``'s fixed order). Both are the step's ``edl.update`` span."""
     with span("edl.update"):
         new = []
         for s, g in zip(state, grads):
             new_params, new_opt = optimizer.update(g, s["opt"], s["params"])
             new.append({"params": new_params, "opt": new_opt,
                         "step": s["step"] + 1})
-        home = loss.device
         tensors = {t.path: t for t in params_layout(layout).tensors}
-        seen, total = set(), torch.zeros((), device=home)
+        seen, counted = set(), []
         for i, g in zip(slots if slots is not None else range(len(grads)),
                         grads):
             for k, t in tree_leaves(g):
                 box = (k, tensors[k].box(layout.dp, layout.mp, i))
                 if box not in seen:
                     seen.add(box)
-                    total = total + t.float().square().sum().to(home)
+                    counted.append(t)
         metrics = {"loss": loss, "xent": xent, "aux": aux,
-                   "grad_norm": torch.sqrt(total)}
+                   "grad_norm": torch.sqrt(sq_sum(counted, loss.device))}
     return new, metrics
 
 

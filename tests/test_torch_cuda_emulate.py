@@ -18,7 +18,10 @@ indexing and synchronisation, not their speed, and knows only the CUDA
 features those sources use: a new asm construct there needs a stand-in in
 ``REWRITES``. The stand-ins for ``wgmma`` (``flash_attn_tc.cu``) are
 here too; ``test_torch_cuda_emulate_tc.py`` holds those kernels at more
-shapes.
+shapes. The AdamW update and the gradient norm's square-sum of
+``adamw.cu`` are held at small ragged sizes, on grids of a few blocks so
+that the grid-stride loops wrap: the update bit for bit against the
+eager formula, the square-sum against the eager one.
 Run from the repo root:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_emulate.py
@@ -29,11 +32,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.optim import ops as optim_ops
 from repro_torch.kernels.rwkv import ops as wops
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
@@ -103,6 +108,13 @@ inline void emu_bar_sync(int id, int n) {
   b->arrive_and_wait();
 }
 inline void __syncwarp() { emu_blk->warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+// the round-to-nearest intrinsics (adamw.cu): one IEEE fp32 operation each
+// (built with -ffp-contract=off, so that none is fused into another)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 // a shared-memory address is the offset into the block's shared memory
 inline size_t __cvta_generic_to_shared(const void* p) {
   return (size_t)((const char*)p - (const char*)emu_smem());
@@ -623,3 +635,127 @@ def test_wkv6_backward_kernels_give_the_same_bits_twice(wkv_emu):
     runs = [run_wkv_bwd(wkv_emu, 2, 35, 2, 64, "model", seed=5)[1]
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ----------------------------------------------------------- adamw.cu
+@pytest.fixture(scope="module")
+def optim_emu(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the translated kernels")
+    lib = ctypes.CDLL(str(build("adamw", tmp_path_factory.mktemp("adamw"),
+                                ["-ffp-contract=off"])))
+    for name, argtypes in optim_ops._SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+OPTIM_DTYPES = {F32: 0, BF16: 1}
+HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def adamw_ieee(p, g, m, v, bc1, bc2, *, lr, b1, b2, eps, weight_decay):
+    """``optim_ops.adamw_update_plain``'s operations in its order, each
+    rounded correctly in fp32 (numpy's), as they are on the card: torch's
+    vectorised sqrt on a CPU is off by one unit in the last place now and
+    then. Returns (p', m', v') as torch tensors, p' in p's dtype."""
+    f = np.float32
+    g32, p32 = g.float().numpy(), p.float().numpy()
+    bc1, bc2 = f(bc1.item()), f(bc2.item())
+    m1 = f(b1) * m.numpy() + f(1 - b1) * g32
+    v1 = f(b2) * v.numpy() + f(1 - b2) * (g32 * g32)
+    step = (f(lr) * (m1 / bc1)) / (np.sqrt(v1 / bc2) + f(eps))
+    if weight_decay:
+        step = step + f(lr * weight_decay) * p32
+    return (torch.from_numpy(p32 - step).to(p.dtype), torch.from_numpy(m1),
+            torch.from_numpy(v1))
+
+
+def optim_inputs(n, p_dtype, g_dtype, count, seed=0, offset=False):
+    """Seeded p, g, m (signed) and v (positive) of n elements, and the bias
+    corrections after ``count`` steps as the optimizer forms them."""
+    gen = torch.Generator().manual_seed(seed)
+    p = randn(gen, (n,), p_dtype, offset)
+    g = randn(gen, (n,), g_dtype, offset, scale=1e-2)
+    m = randn(gen, (n,), F32, offset, scale=1e-3)
+    v = randn(gen, (n,), F32, scale=1e-3).square()
+    v = unaligned(v) if offset else v
+    cf = torch.tensor(float(count))
+    bc1 = 1.0 - torch.full((), HYPER["b1"]) ** cf
+    bc2 = 1.0 - torch.full((), HYPER["b2"]) ** cf
+    return p, g, m, v, bc1, bc2
+
+
+def run_update(lib, p, g, m, v, bc1, bc2, weight_decay, cap):
+    """The translated ``adamw_update`` on one leaf, the grid as the wrapper
+    plans it under a cap of ``cap`` blocks. Returns (p', m', v')."""
+    outs = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+    ts = (p, g, m, v, *outs)
+    n_vec, blocks = optim_ops.launch_shape(p.numel(), ts, cap)
+    h = HYPER
+    err = lib.adamw_update(*(t.data_ptr() for t in ts), p.numel(), n_vec,
+                           blocks, bc1.data_ptr(), bc2.data_ptr(), h["b1"],
+                           1 - h["b1"], h["b2"], 1 - h["b2"], h["lr"],
+                           h["eps"], h["lr"] * weight_decay,
+                           int(bool(weight_decay)), OPTIM_DTYPES[p.dtype],
+                           None)
+    assert err == 0, f"adamw_update returned {err}"
+    return outs
+
+
+OPTIM_CASES = [  # n, p dtype, g dtype, weight decay, count, unaligned
+    *[(n, dt, dt, wd, count, False)
+      for n, count in ((1, 1), (7, 1000), (9, 1), (1023, 1000), (4099, 1))
+      for dt in (F32, BF16) for wd in (0.0, 0.01)],
+    (1023, F32, F32, 0.01, 2, True),        # not 16-byte aligned: one by one
+    (1023, BF16, BF16, 0.01, 2, True),
+]
+
+
+@pytest.mark.parametrize("case", OPTIM_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_adamw_kernel_gives_the_eager_formulas_bits(optim_emu, case):
+    """p', m' and v' bit for bit, on grids of at most 2 blocks (the
+    grid-stride loop wraps from 2 048 elements); the inputs untouched."""
+    n, p_dtype, g_dtype, wd, count, offset = case
+    ins = optim_inputs(n, p_dtype, g_dtype, count, offset=offset)
+    before = [t.clone() for t in ins]
+    got = run_update(optim_emu, *ins, wd, cap=2)
+    want = adamw_ieee(*ins, **HYPER, weight_decay=wd)
+    for name, a, b in zip(("p", "m", "v"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), \
+            f"{name}: {int((a != b).sum())} of {n} elements differ"
+    assert all(torch.equal(a, b) for a, b in zip(ins, before))
+
+
+def run_sq_sum(lib, xs, cap):
+    """The translated ``grad_sq_sum`` on each of ``xs`` into its slice of
+    the partials, then ``grad_sq_sum_final``, as ``sq_sum_cuda`` launches
+    them. Returns the 0-d sum."""
+    plans = [optim_ops.launch_shape(x.numel(), (x,), cap) for x in xs]
+    partial = torch.empty(sum(b for _, b in plans))
+    out, at = torch.empty(()), 0
+    for x, (n_vec, blocks) in zip(xs, plans):
+        err = lib.grad_sq_sum(x.data_ptr(), x.numel(), n_vec, blocks,
+                              partial.data_ptr() + 4 * at,
+                              OPTIM_DTYPES[x.dtype], None)
+        assert err == 0, f"grad_sq_sum returned {err}"
+        at += blocks
+    assert lib.grad_sq_sum_final(partial.data_ptr(), at, out.data_ptr(),
+                                 None) == 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+def test_grad_sq_sum_kernels_match_eager_and_repeat_their_bits(optim_emu,
+                                                               dtype):
+    """Leaves of 1, 1023, 4099 and 9000 elements (one unaligned), on grids
+    of at most 3 blocks: within 1e-6 of the eager sum, the same bits
+    twice."""
+    gen = torch.Generator().manual_seed(1)
+    xs = [randn(gen, (n,), dtype, offset=n == 1023) for n in (1, 1023, 4099,
+                                                             9000)]
+    got = [run_sq_sum(optim_emu, xs, cap=3) for _ in range(2)]
+    want = optim_ops.sq_sum_plain(xs, "cpu")
+    assert torch.equal(got[0], got[1])
+    torch.testing.assert_close(got[0], want, rtol=1e-6, atol=0)

@@ -27,6 +27,7 @@ from repro_torch.configs import ARCH_IDS, InputShape, get_config, \
     input_specs
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.launches import COSTS, KernelRefusal
+from repro_torch.kernels.optim import ops as optim_ops
 from repro_torch.kernels.rwkv import ops as rwkv_ops
 from repro_torch.launch import dryrun as D
 from repro_torch.models import model as M
@@ -185,7 +186,9 @@ def _meta(*shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("case", ["head_dim_80", "elements_2_31",
-                                  "wkv6_bf16"])
+                                  "wkv6_bf16", "adamw_fp16",
+                                  "adamw_bf16_params_fp32_grads",
+                                  "adamw_fp32_params_bf16_grads"])
 def test_meta_branches_raise_the_cuda_paths_errors(case):
     """On ``meta`` each wrapper applies the CUDA path's checks and raises
     its error (a ``KernelRefusal``) with the kernel's message, where the
@@ -203,11 +206,32 @@ def test_meta_branches_raise_the_cuda_paths_errors(case):
         q = _meta(1, 1, 65535 * 64 + 1, 16)       # one q tile too many
         with pytest.raises(KernelRefusal, match="grid"):
             attn_ops.flash_attention_bhld(q, q, q)
-    else:
+    elif case == "wkv6_bf16":
         r = _meta(1, 4, 2, 64, dtype=torch.bfloat16)
         with pytest.raises(KernelRefusal, match="take float32"):
             rwkv_ops.wkv6(r, r, r, r, _meta(2, 64, dtype=torch.bfloat16),
                           _meta(1, 2, 64, 64, dtype=torch.bfloat16))
+    elif case != "adamw_fp16":
+        p_dtype, g_dtype = ((torch.bfloat16, torch.float32)
+                            if case.startswith("adamw_bf16")
+                            else (torch.float32, torch.bfloat16))
+        m, bc = _meta(8), _meta()
+        with pytest.raises(KernelRefusal, match="its param's dtype"):
+            optim_ops.adamw_update(_meta(8, dtype=p_dtype),
+                                   _meta(8, dtype=g_dtype), m, m, bc, bc,
+                                   lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                                   weight_decay=0.0)
+    else:
+        p, m, bc = (_meta(8, dtype=torch.float16), _meta(8), _meta())
+        with pytest.raises(KernelRefusal, match="float32 or bfloat16"):
+            optim_ops.adamw_update(p, p, m, m, bc, bc, lr=1e-3, b1=0.9,
+                                   b2=0.999, eps=1e-8, weight_decay=0.0)
+        cpu = torch.zeros(8, dtype=torch.float16)
+        p1, _, _ = optim_ops.adamw_update(
+            cpu, cpu, torch.zeros(8), torch.zeros(8), torch.ones(()),
+            torch.ones(()), lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+            weight_decay=0.0)
+        assert p1.dtype == torch.float16
 
 
 def test_meta_branches_give_the_kernels_output_shapes_forward_and_back():
@@ -233,6 +257,33 @@ def test_meta_branches_give_the_kernels_output_shapes_forward_and_back():
                                               6 * 64 * pairs,
                                               8 * 64 * pairs)
     assert flops["wkv6_fwd"] == 5 * 2 * 3 * 4 * 64 * 64
+
+
+@pytest.mark.parametrize("dtype,per_param", [(torch.bfloat16, 22),
+                                             (torch.float32, 28)])
+def test_meta_optimizer_gives_the_kernels_outputs_and_bytes(dtype,
+                                                            per_param):
+    """AdamW's update of a tree on ``meta``: empty tensors of each leaf's
+    p', m' and v', and ``COSTS`` books the kernel's bytes, 22 a bf16
+    parameter and 28 an fp32 one; the norm's square-sum its gradients'
+    bytes."""
+    opt = adamw(1e-3)
+    params = {"a": _meta(16, 96, 256, dtype=dtype), "b": _meta(7, dtype=dtype)}
+    grads = {k: torch.empty_like(t) for k, t in params.items()}
+    COSTS.reset()
+    new, state = opt.update(grads, opt.init(params), params)
+    norm = optim_ops.sq_sum(list(grads.values()), "meta")
+    n = 16 * 96 * 256 + 7
+    for k, t in params.items():
+        assert new[k].is_meta and new[k].shape == t.shape
+        assert new[k].dtype == dtype
+        assert state["mu"][k].shape == t.shape
+        assert state["nu"][k].dtype == torch.float32
+    booked = COSTS.snapshot()
+    assert booked["bytes"]["adamw_update"] == per_param * n
+    assert booked["bytes"]["grad_sq_sum"] == n * grads["a"].element_size()
+    assert norm.is_meta and norm.shape == ()
+    assert not any(booked["flops"][k] for k in optim_ops.KERNELS)
 
 
 def test_a_kernel_limit_ends_the_record_as_its_refusal():

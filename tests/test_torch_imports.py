@@ -39,7 +39,8 @@ MODULES = [
     "repro_torch.data.worker",
     "repro_torch.kernels", "repro_torch.kernels.build",
     "repro_torch.kernels.attention", "repro_torch.kernels.attention.ops",
-    "repro_torch.kernels.launches", "repro_torch.kernels.rwkv",
+    "repro_torch.kernels.launches", "repro_torch.kernels.optim",
+    "repro_torch.kernels.optim.ops", "repro_torch.kernels.rwkv",
     "repro_torch.kernels.rwkv.ops",
     "repro_torch.launch", "repro_torch.launch.cluster",
     "repro_torch.launch.dryrun", "repro_torch.launch.mesh",

@@ -192,11 +192,13 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_launch_counter_names_every_kernel():
-    """One counter holds every kernel of the port: the attention kernels'
-    and the WKV6 kernels'."""
+    """One counter holds every kernel of the port: the attention kernels',
+    the WKV6 kernels' and the optimizer's."""
     from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.optim import ops as optim_ops
     from repro_torch.kernels import build, launches
-    assert launches.KERNELS == attn_ops.KERNELS + ops.KERNELS
+    assert launches.KERNELS == (attn_ops.KERNELS + ops.KERNELS
+                                + optim_ops.KERNELS)
     assert set(LAUNCHES.snapshot()) == set(launches.KERNELS)
     assert build.SOURCES["wkv6"] == "wkv6.cu"
     assert (build.CSRC / "wkv6.cu").is_file()

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's hand-written kernels on the card against an earlier source.
 
-Builds ``src/repro_torch/kernels/csrc/{flash_attn,flash_attn_tc,wkv6}.cu``
+Builds ``src/repro_torch/kernels/csrc/{flash_attn,flash_attn_tc,wkv6,adamw}.cu``
 with the flags of ``kernels/build.py`` and, with ``--baseline-rev REV``,
 the same files at git revision REV (read with ``git show``, and kept under
 ``build/kernel_bench/src-REV/`` so that a copy of the checkout without its
 git history finds them there; a source that REV does not have is left
 out), plus any ``--variant NAME=FILE`` (a ``flash_attn*.cu``,
-``flash_attn_tc*.cu`` or ``wkv6*.cu`` to try), one nvcc per source, all
+``flash_attn_tc*.cu``, ``wkv6*.cu`` or ``adamw*.cu`` to try), one nvcc per source, all
 started together. Prints each kernel's registers and spills from
 ``-Xptxas -v``, the blocks per SM that each build reports, and the
 ``HGMMA`` instructions that ``cuobjdump -sass`` finds in each tensor-core
@@ -37,15 +37,28 @@ bound (4 D, 6 D and 8 D flops a visible pair at 989 TFLOP/s). A build
 from before du was folded into dk (it has a ``wkv6_bwd_du`` kernel, as at
 ec2815a) is driven through its own interface: its dk is timed alone and,
 as ``wkv6_bwd_dk+du``, followed by its du kernel, the work that the folded
-dk does in one launch. Prints one JSON line per shape, then the whole
-record, which it also writes to ``--out``. Run from the repo root on a
-machine with a card:
+dk does in one launch. The optimizer (``--parts optim``): each build's
+AdamW update (``adamw_update``) at the benchmark's phi3-mini-16l
+(``edlbench/configs/phi3-mini-16l.json``: 12 bf16 leaves, 2.01 B
+parameters, the cell's AdamW) on its largest leaf ([16, 3072, 8192]) and
+over its whole tree, and the gradient norm's square-sum over the tree
+(``grad_sq_sum`` a leaf, ``grad_sq_sum_final``), at each grid cap of
+``--optim-grids`` blocks an SM, in turns, beside the eager formula's
+update (``adamw_update_plain``, the "plain" column) and square-sum,
+``torch._foreach_norm``'s norm of the tree in fp32, squared (the
+"library" column, with its bits on two runs), and
+the bound: 22 bytes a parameter (the square-sum 2) at 3.35 TB/s; each
+build's update held bit for bit against the eager formula on the largest
+leaf, and the same bits twice. Prints one JSON line per shape, then the
+whole record, which it also writes to ``--out``. Run from the repo root
+on a machine with a card:
 
     python3 tools/torch_kernel_bench.py [--baseline-rev REV] [--variant NAME=FILE] [--reps 20]
-        [--parts fp32,bf16,wkv]
+        [--parts fp32,bf16,wkv,optim] [--optim-grids 2,8]
 """
 import argparse
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -57,7 +70,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 FAMILIES = {"flash_attn": "flash_attn.cu", "flash_attn_tc": "flash_attn_tc.cu",
-            "wkv6": "wkv6.cu"}
+            "wkv6": "wkv6.cu", "adamw": "adamw.cu"}
 ATT_SHAPES = {"edl_p1": (8, 12, 1024, 64), "edl_p2": (4, 12, 1024, 64)}
 # the zoo's bf16 shapes (chip_smoke.py's ATT_ZOO_CASES), causal: B, Hq, Hkv,
 # L, D, window. The five training shapes at B 4 x L 1024; window 4096 at B 1
@@ -96,7 +109,14 @@ PTXAS_KERNELS = {"flash_attn": ("fwd_kernelILi64E", "bwd_dq_kernelILi64E",
                                         for k in ("fwd", "bwd_dq", "bwd_dkdv")
                                         for d in (16, 32, 64, 96, 128)),
                  "wkv6": ("wkv6_fwd_kernelILi64E", "wkv6_bwd_dr_kernelILi64E",
-                          "wkv6_bwd_dk_kernelILi64E", "wkv6_bwd_dv_kernelILi64E")}
+                          "wkv6_bwd_dk_kernelILi64E", "wkv6_bwd_dv_kernelILi64E"),
+                 "adamw": ("adamw_update_kernelI13__nv_bfloat16E",
+                           "adamw_update_kernelIfE", "grad_sq_sum_kernelI13",
+                           "grad_sq_sum_final_kernel")}
+# the benchmark's phi3-mini-16l and its cell's AdamW (edlbench/configs,
+# edlbench/traffic/b2x8k.json)
+PHI3_ARCH, PHI3_LAYERS = "phi3-mini-3.8b", 16
+ADAMW = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
 
 
 def baseline_sources(rev: str) -> dict:
@@ -204,8 +224,11 @@ def split_du(lib) -> bool:
 
 def typed(lib, fam):
     from repro_torch.kernels.attention import ops as aops
+    from repro_torch.kernels.optim import ops as oops
     from repro_torch.kernels.rwkv import ops as wops
-    if fam == "flash_attn":
+    if fam == "adamw":
+        sigs = oops._SIGNATURES
+    elif fam == "flash_attn":
         sigs = aops._SIGNATURES
     elif fam == "flash_attn_tc":
         sigs = aops.TC_SIGNATURES
@@ -250,7 +273,7 @@ def blocks_per_sm(lib, fam) -> dict | None:
                                    f"{err}")
             out.update({f"{k}_d{d}": x.value for k, x in zip(keys, n)})
         return out
-    for fn, keys in OCCUPANCY[fam]:
+    for fn, keys in OCCUPANCY.get(fam, ()):
         if not hasattr(lib, fn) or (fam == "flash_attn" and out):
             continue
         n = [ctypes.c_int() for _ in keys]
@@ -396,15 +419,150 @@ def bench_bf16(torch, libs, order, timed, stream, result) -> bool:
     return True
 
 
+def bench_optim(torch, libs, timed, stream, result, grids) -> bool:
+    """AdamW's update and the gradient norm's square-sum of each build with
+    ``adamw.cu``, at each grid cap of ``grids`` blocks an SM, on phi3-mini-
+    16l's tree (the module docstring): the update held bit for bit against
+    the eager formula on the largest leaf and run twice for the same bits,
+    then timed in turns with the eager update and square-sum. False where
+    a check fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.optim import ops as oops
+    from repro_torch.models.model import param_spec_tree
+    from repro_torch.models.params import tree_leaves
+    builds = [n for n in libs if "adamw" in libs[n]]
+    if not builds:
+        return True
+    cfg = dataclasses.replace(get_config(PHI3_ARCH), n_layers=PHI3_LAYERS)
+    shapes = [tuple(t.shape) for _, t in tree_leaves(param_spec_tree(cfg))]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    tree = [(rnd(s, 1.0).bfloat16(), rnd(s, 1e-2).bfloat16(), rnd(s, 1e-3),
+             rnd(s, 1e-3).square_()) for s in shapes]
+    outs = [(torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+            for p, _, m, v in tree]
+    big = max(range(len(tree)), key=lambda i: tree[i][0].numel())
+    h = ADAMW
+    count = torch.full((), 3, dtype=torch.int32, device="cuda")
+    bc1 = 1.0 - torch.full((), h["b1"], device="cuda") ** count
+    bc2 = 1.0 - torch.full((), h["b2"], device="cuda") ** count
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    partial = torch.empty(len(tree) * sms * max(grids), device="cuda")
+    total = torch.empty((), device="cuda")
+
+    def update(lib, cap, leaves):
+        for i in leaves:
+            p, g, m, v = tree[i]
+            ts = (p, g, m, v, *outs[i])
+            n_vec, blocks = oops.launch_shape(p.numel(), ts, cap)
+            call(lib, "adamw_update", *(t.data_ptr() for t in ts), p.numel(),
+                 n_vec, blocks, bc1.data_ptr(), bc2.data_ptr(), h["b1"],
+                 1 - h["b1"], h["b2"], 1 - h["b2"], h["lr"], h["eps"],
+                 h["lr"] * h["weight_decay"], 1, 1, stream)
+
+    def sq_sum(lib, cap):
+        at = 0
+        for _, g, _, _ in tree:
+            n_vec, blocks = oops.launch_shape(g.numel(), (g,), cap)
+            call(lib, "grad_sq_sum", g.data_ptr(), g.numel(), n_vec, blocks,
+                 partial.data_ptr() + 4 * at, 1, stream)
+            at += blocks
+        call(lib, "grad_sq_sum_final", partial.data_ptr(), at,
+             total.data_ptr(), stream)
+
+    def plain(leaves):
+        for i in leaves:
+            oops.adamw_update_plain(*tree[i], bc1, bc2, **h)
+
+    grads = [g for _, g, _, _ in tree]
+
+    def library_sq_sum():
+        # torch's multi-tensor norm (a yardstick: the port never calls it),
+        # each leaf's in fp32, squared and summed
+        return torch.stack(torch._foreach_norm(
+            grads, 2, dtype=torch.float32)).square().sum()
+
+    want = oops.adamw_update_plain(*tree[big], bc1, bc2, **h)
+    norm_plain = float(oops.sq_sum_plain(grads, "cuda"))
+    lib_runs = [library_sq_sum() for _ in range(2)]
+    checks = {"library_sq_sum": {
+        "same_bits_twice": bool(torch.equal(*lib_runs)),
+        "rel_to_eager": abs(float(lib_runs[0]) - norm_plain) / norm_plain}}
+    for name in builds:
+        lib = libs[name]["adamw"][0]
+        for cap in grids:
+            runs, sums = [], []
+            for _ in range(2):
+                update(lib, cap * sms, [big])
+                sq_sum(lib, cap * sms)
+                torch.cuda.synchronize()
+                runs.append([t.clone() for t in outs[big]])
+                sums.append(total.clone())
+            same = all(torch.equal(a, b) for a, b in zip(runs[0], want))
+            if not same or not all(torch.equal(a, b)
+                                   for a, b in zip(runs[0], runs[1])) \
+                    or not torch.equal(sums[0], sums[1]):
+                print(f"{name} at {cap} blocks an SM: the update differs from "
+                      f"the eager formula's bits ({not same}) or two runs "
+                      f"differ", file=sys.stderr)
+                return False
+            checks[f"{name}@{cap}"] = {
+                "same_bits_as_eager": same,
+                "sq_sum_rel_to_eager": abs(float(sums[0]) - norm_plain)
+                / norm_plain}
+            del runs
+    del want
+    every = range(len(tree))
+    turns = [(n, c) for n in builds for c in grids]
+    times = {f"{n}@{c}": {"leaf": [], "tree": [], "sq_sum": []}
+             for n, c in turns}
+    eager = {"leaf": [], "tree": [], "sq_sum": [], "library_sq_sum": []}
+    for name, cap in turns + turns[::-1]:
+        lib, t = libs[name]["adamw"][0], times[f"{name}@{cap}"]
+        t["leaf"].append(timed(lambda: update(lib, cap * sms, [big])))
+        t["tree"].append(timed(lambda: update(lib, cap * sms, every)))
+        t["sq_sum"].append(timed(lambda: sq_sum(lib, cap * sms)))
+        eager["leaf"].append(timed(lambda: plain([big])))
+        eager["tree"].append(timed(lambda: plain(every)))
+        eager["sq_sum"].append(timed(lambda: oops.sq_sum_plain(grads,
+                                                               "cuda")))
+        eager["library_sq_sum"].append(timed(library_sq_sum))
+    n_big, n_all = tree[big][0].numel(), sum(p.numel() for p, *_ in tree)
+    bound = {"leaf": 22 * n_big / HBM_BYTES_S * 1e3,
+             "tree": 22 * n_all / HBM_BYTES_S * 1e3,
+             "sq_sum": 2 * n_all / HBM_BYTES_S * 1e3}
+    ms = {k: {w: sum(x) / len(x) for w, x in t.items()}
+          for k, t in times.items()}
+    rec = result["shapes"]["optim_phi3_16l"] = {
+        "leaf_shape": list(tree[big][0].shape), "params": n_all,
+        "leaves": len(tree), "hyper": h, "checks": checks, "ms": ms,
+        "ms_each_turn": times, "bound_ms": bound,
+        "share_of_bound": {k: {w: bound[w] / x for w, x in v.items()}
+                           for k, v in ms.items()},
+        "plain_ms": {w: sum(x) / len(x) for w, x in eager.items()},
+        "plain_ms_each_turn": eager}
+    print(json.dumps({"optim_phi3_16l": ms, "bound_ms": bound,
+                      "plain_ms": rec["plain_ms"], "checks": checks}),
+          flush=True)
+    return True
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-rev", help="git revision whose sources to time")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=FILE: another flash_attn*.cu or wkv6*.cu")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--parts", default="fp32,bf16,wkv",
+    ap.add_argument("--parts", default="fp32,bf16,wkv,optim",
                     help="which of fp32 (edl_paper attention), bf16 (the "
-                         "zoo's attention) and wkv to run")
+                         "zoo's attention), wkv and optim (AdamW and the "
+                         "gradient norm) to run")
+    ap.add_argument("--optim-grids", default="2,8",
+                    help="grid caps to time the optimizer kernels at, "
+                         "blocks an SM, comma-separated")
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_bench.json"))
     args = ap.parse_args(argv)
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -556,6 +714,10 @@ def main(argv=None) -> int:
 
     if "bf16" in parts and not bench_bf16(torch, libs, order, timed, stream,
                                           result):
+        return 1
+    if "optim" in parts and not bench_optim(
+            torch, libs, timed, stream, result,
+            [int(x) for x in args.optim_grids.split(",")]):
         return 1
 
     for sname, (B, L, H, hd) in WKV_SHAPES.items():
