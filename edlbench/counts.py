@@ -1,5 +1,7 @@
 """The yardstick's arithmetic: the chip's peaks, each port kernel's bytes
-and operations from its shapes, and a training step's model flops.
+and operations from its shapes, and a training step's model flops, whose
+parts (``matmul_params``, ``mixer_forward_flops``) each model kind's
+module counts (``reference/<model>.py``).
 
 ``attention_work`` and ``wkv_work`` are frozen copies of the kernel
 counts in ``chip_smoke.py``: bytes count each input read once and each
@@ -8,6 +10,8 @@ the forward, 6·D for dQ and 8·D for dK/dV, and 5·hd² a token and head for
 each WKV6 scan.
 """
 from __future__ import annotations
+
+from edlbench.reference import kind
 
 # NVIDIA H100 SXM data sheet, dense rates, at the full 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -97,32 +101,15 @@ def wkv_bound_s(model: dict, traffic: dict, p: int) -> float:
 
 
 def matmul_params(model: dict) -> int:
-    """Parameters that enter a matrix product a token: the layers' and the
-    head's, not the embedding lookup."""
-    D, n, V = (model["hidden_size"], model["num_hidden_layers"],
-               model["vocab_size"])
-    F = model["intermediate_size"]
-    if model["model"] == "rwkv6":
-        lora = model["decay_lora"]
-        layer = 6 * D * D + 2 * D * F + 2 * D * lora
-    else:
-        H, Hkv = model["num_attention_heads"], model["num_key_value_heads"]
-        Dh = D // H
-        layer = 2 * D * H * Dh + 2 * D * Hkv * Dh + 3 * D * F
-    return n * layer + D * V
+    """Parameters that enter a matrix product a token, by the
+    configuration's kind (``reference/<model>.py``)."""
+    return kind(model).matmul_params(model)
 
 
 def mixer_forward_flops(model: dict, B: int, L: int) -> int:
-    """The token mixer's forward flops over a batch of B rows of L: causal
-    attention's 4·D a visible pair and head, or WKV6's 5·hd² a token and
-    head."""
-    n = model["num_hidden_layers"]
-    if model["model"] == "rwkv6":
-        hd = model["head_size"]
-        return n * 5 * B * L * model["hidden_size"] * hd
-    H = model["num_attention_heads"]
-    D = model["hidden_size"] // H
-    return n * 4 * D * B * H * causal_pairs(L)
+    """The token mixer's forward flops over a batch of B rows of L, by the
+    configuration's kind."""
+    return kind(model).mixer_forward_flops(model, B, L)
 
 
 def step_model_flops(model: dict, B: int, L: int) -> int:

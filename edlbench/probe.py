@@ -26,7 +26,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from edlbench import run  # noqa: E402
+from edlbench import reference, run  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -39,6 +39,7 @@ def main(argv=None) -> int:
     seeds = [int(x) for x in args.seeds.split(",")]
     control = [int(x) for x in args.control_seeds.split(",") if x]
     files = run.cell_files(args.workload)
+    reference.kind(files["model"])      # a kind with no module: refused
     run.set_cache_dirs()
     import torch
     from edlbench import check

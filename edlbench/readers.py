@@ -3,13 +3,23 @@ metric's reader, ``read(run) -> float | None``, found by the metric's name.
 
 ``run`` is the record a run leaves (``run.py``): ``model`` and ``traffic``
 (the cell's files), ``chips``, ``setup_s``, ``window`` (its ``seconds``,
-its ``steps``, each ``{"t0", "t1", "p", "tokens"}``, and their ``tokens``),
-``switches`` (the scaling records of the switches committed in the
-window: ``op``, ``prep_s``, ``stop_s``, ``bytes_moved_overlapped``,
+its ``steps``, each ``{"t0", "t1", "p", "tokens", "values"}``, ``values``
+being every number the program's ``step()`` returned, and their
+``tokens``), ``switches`` (the scaling records of the switches committed
+in the window: ``op``, ``prep_s``, ``stop_s``, ``bytes_moved_overlapped``,
 ``staged``), and in a traced run ``trace`` (``trace.summarize`` of the
-traced stretch), ``trace_steps`` (the steps inside it) and
-``untraced_steps`` (the window's others). A reader that finds
-nothing to read returns None, and the run leaves the metric out.
+traced stretch, the program's spans with it), ``trace_steps`` (the steps
+inside it) and ``untraced_steps`` (the window's others). A reader that
+finds nothing to read returns None, and the run leaves the metric out.
+
+A reader of a span the program opens is three lines::
+
+    from edlbench.readers import span_ms
+
+    def read(run):
+        return span_ms(run, "edl.<name>", within=True)
+
+and one of a number ``step()`` returns reads ``step_values(run, key)``.
 """
 from __future__ import annotations
 
@@ -27,14 +37,33 @@ def traced(run: dict):
 
 
 def per_step_ms(run: dict, seconds_of) -> float | None:
-    """Device ms a step of what ``seconds_of(trace)`` sums, summed over
-    the cards."""
+    """ms a traced step of what ``seconds_of(trace)`` sums (device time
+    summed over the cards); None where it gives None or nothing."""
     t = traced(run)
     if t is None:
         return None
     tr, steps = t
     s = seconds_of(tr)
-    return None if s <= 0 else 1e3 * s / len(steps)
+    return None if s is None or s <= 0 else 1e3 * s / len(steps)
+
+
+def span_ms(run: dict, name: str, within: bool = False) -> float | None:
+    """Device ms a traced step under the program's span ``name``: the
+    work launched while it was the innermost of the step's phases
+    (``trace.PHASES``), or with ``within`` all the work launched while it
+    was open (for a span the program opens inside a phase)."""
+    key = "span_within_s" if within else "span_device_s"
+    return per_step_ms(run, lambda tr: tr[key].get(name))
+
+
+def step_values(run: dict, key: str) -> list | None:
+    """The number ``key`` that ``step()`` returned at each of the window's
+    steps, traced and untraced, in order; None where no step returned
+    it."""
+    w = run.get("window") or {}
+    out = [s["values"][key] for s in w.get("steps") or []
+           if key in s.get("values", {})]
+    return out or None
 
 
 def kernel_seconds(tr: dict, marks) -> float:

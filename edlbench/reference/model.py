@@ -1,118 +1,54 @@
-"""The plain reference of the benchmark's models, in plain PyTorch.
+"""What the plain reference of every model kind shares, in plain PyTorch.
 
-It imports nothing of the program. It holds each configuration's
-parameter tree (the paths and shapes of the train state the program keeps,
-so one state can be handed to both), the benchmark's own initial weights,
-the two models' forward and loss in float32, and AdamW.
-
-The models follow the repo's own model definition, which the program
-implements:
-
-* ``llama`` (Phi-3-mini): pre-norm blocks of RMSNorm, split-half RoPE,
-  causal multi-head attention (grouped where kv heads < heads), a SwiGLU
-  MLP, a final RMSNorm and an untied unembedding; mean cross-entropy over
-  every position. Phi-3's fused qkv and gate/up matrices are kept apart,
-  which is the same product; its LongRoPE scaling is not modelled.
-* ``rwkv6``: pre-norm blocks of an RWKV6 time-mix (static token-shift
-  mixes, a decay LoRA ``exp(-exp(clamp(w0 + tanh(x W_a) W_b, -8, 4)))``,
-  the bonus ``u``, a per-head group norm, a SiLU gate) and a channel mix
-  (``sigmoid(x_r W_r) * relu(x_k W_k)^2 W_v``). Departures from the
-  published Finch: the token-shift mixes are static (no ddlerp LoRA), the
-  norms are RMSNorm, and the group norm has a scale and no bias.
+It imports nothing of the program. The kind of a configuration (its
+``"model"`` key) has a module of its own, ``reference/<model>.py``
+(``edlbench.reference.kind``), which holds its parameter tree (the paths
+and shapes of the train state the program keeps, so one state can be
+handed to both), its forward and loss in float32, and its counts. This
+module holds the rest: the benchmark's initial weights drawn from a
+kind's tree, float8 rounding, RMSNorm, RoPE, chunked causal attention,
+the chunked cross-entropy, a stack of layers under that loss, and AdamW
+training; ``param_specs`` and ``loss_sum`` dispatch to the kind.
 
 Numbers: the weights are kept in the configuration's dtype (bfloat16) as
 the program keeps them, and everything is computed from their float32
 values in float32 with TF32 off; the AdamW moments are float32. With
 ``low=True`` the activations the program keeps in bfloat16 are rounded to
 float8 (e4m3, one scale per tensor) instead: every matrix product's
-operands, the residual stream after each layer and the WKV6 inputs. That
-is the precision below the configuration's bfloat16: the control.
+operands, the residual stream after each layer, and what else a kind
+rounds. That is the precision below the configuration's bfloat16: the
+control.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from edlbench.reference import kind
+
 FP8_MAX = 448.0         # the largest float8 e4m3 value
+LAYERS = "layers/slot0/"
 
 
 # ------------------------------------------------------------ the tree
-def param_specs(m: dict) -> list[tuple[str, tuple, str, float]]:
-    """(path, shape, init, std) of every parameter, in sorted-path order.
-    Layer leaves are stacked ``[layers, ...]``; a matrix ``[d_in, d_out]``
-    is drawn with std ``scale / sqrt(d_in)`` of one layer's shape.
+def param_specs(m: dict) -> list[tuple[str, tuple, object, float]]:
+    """(path, shape, init, std) of every parameter of the configuration's
+    kind, in sorted-path order. ``init`` is ``"normal"`` (drawn with std
+    ``std``), ``"ones"``, ``"zeros"``, or a function of the shape giving
+    the float64 values."""
+    return kind(m).param_specs(m)
 
-    RWKV6 follows its published init where the model is otherwise
-    ill-conditioned: the embedding has unit scale (the published model
-    normalises it, ``ln0``, before the first block; this one does not),
-    the decay's ``w0`` and the bonus ``u`` are the published per-channel
-    ramps (``decay_ramp``, ``bonus_ramp``), and the projections that write
-    into the residual stream (``mixer/wo``, ``ffn/wv``) are scaled by
-    1 / sqrt(2 layers). With an embedding of scale 1 / sqrt(vocab), every
-    layer's RMSNorm multiplies the backward by the inverse of a small
-    residual stream's scale, and through 24 layers the gradients grow a
-    thousandfold and turn chaotic: float32 and float64 gradients of the
-    same weights differ by half."""
-    D, n, V = m["hidden_size"], m["num_hidden_layers"], m["vocab_size"]
-    F_ = m["intermediate_size"]
-    specs: dict[str, tuple] = {
-        "embed/table": ((V, D), "normal",
-                        1.0 if m["model"] == "rwkv6" else 1.0 / math.sqrt(V)),
-        "final_norm/scale": ((D,), "ones", 0.0),
-        "unembed/w": ((D, V), "normal", 1.0 / math.sqrt(D)),
-    }
-    layer: dict[str, tuple] = {"norm1/scale": ((D,), "ones", 0.0),
-                               "norm2/scale": ((D,), "ones", 0.0)}
-    if m["model"] == "rwkv6":
-        lora = m["decay_lora"]
-        out = 1 / math.sqrt(2 * n)
-        for k in ("wr", "wk", "wv", "wg"):
-            layer[f"mixer/{k}/w"] = ((D, D), "normal", 1 / math.sqrt(D))
-        layer.update({
-            "mixer/wo/w": ((D, D), "normal", out / math.sqrt(D)),
-            "mixer/mix/w": ((5, D), "normal", 0.1 / math.sqrt(5)),
-            "mixer/w0/w": ((D,), "decay_ramp", 0.0),
-            "mixer/w_lora_a/w": ((D, lora), "normal", 1 / math.sqrt(D)),
-            "mixer/w_lora_b/w": ((lora, D), "normal", 0.1 / math.sqrt(lora)),
-            "mixer/u/w": ((D,), "bonus_ramp", 0.0),
-            "mixer/ln_x/scale": ((D,), "ones", 0.0),
-            "ffn/mix/w": ((2, D), "normal", 0.1 / math.sqrt(2)),
-            "ffn/wk/w": ((D, F_), "normal", 1 / math.sqrt(D)),
-            "ffn/wv/w": ((F_, D), "normal", out / math.sqrt(F_)),
-            "ffn/wr/w": ((D, D), "normal", 1 / math.sqrt(D)),
-        })
-    else:
-        H, Hkv = m["num_attention_heads"], m["num_key_value_heads"]
-        Dh = D // H
-        layer.update({
-            "mixer/wq/w": ((D, H * Dh), "normal", 1 / math.sqrt(D)),
-            "mixer/wk/w": ((D, Hkv * Dh), "normal", 1 / math.sqrt(D)),
-            "mixer/wv/w": ((D, Hkv * Dh), "normal", 1 / math.sqrt(D)),
-            "mixer/wo/w": ((H * Dh, D), "normal", 1 / math.sqrt(H * Dh)),
-            "ffn/wi_gate": ((D, F_), "normal", 1 / math.sqrt(D)),
-            "ffn/wi_up": ((D, F_), "normal", 1 / math.sqrt(D)),
-            "ffn/wo": ((F_, D), "normal", 1 / math.sqrt(F_)),
-        })
+
+def stacked_specs(top: dict, layer: dict, n: int) -> list:
+    """``param_specs``' list of a tree of ``top`` leaves and ``n`` layers
+    of ``layer`` leaves, each stacked ``[n, ...]`` under ``LAYERS``
+    (path -> (shape, init, std) in both)."""
+    specs = dict(top)
     for k, (shape, init, std) in layer.items():
-        specs[f"layers/slot0/{k}"] = ((n,) + shape, init, std)
+        specs[f"{LAYERS}{k}"] = ((n,) + shape, init, std)
     return [(k, *specs[k]) for k in sorted(specs)]
-
-
-def _ramp(kind: str, shape: tuple) -> torch.Tensor:
-    """RWKV6's published per-channel ramps over [layers, D], layer l at
-    ``r = l / (layers - 1)``, channel i at ``c = i / (D - 1)``: the decay's
-    ``-6 + 5 c ** (0.7 + 1.3 r)`` and the bonus's ``r (1 - c) + ((i + 1)
-    mod 3 - 1) / 10``."""
-    n, D = shape
-    i = torch.arange(D, dtype=torch.float64)
-    c = i / max(D - 1, 1)
-    r = torch.arange(n, dtype=torch.float64)[:, None] / max(n - 1, 1)
-    if kind == "decay_ramp":
-        return -6 + 5 * c ** (0.7 + 1.3 * r)
-    return r * (1 - c) + ((i + 1) % 3 - 1) * 0.1
 
 
 def init_params(m: dict, seed: int, device, dtype=torch.bfloat16) -> dict:
@@ -134,12 +70,12 @@ def init_params(m: dict, seed: int, device, dtype=torch.bfloat16) -> dict:
         elif init == "zeros":
             out[path] = torch.zeros(shape, dtype=dtype, device=device)
         else:
-            out[path] = _ramp(init, shape).to(device=device, dtype=dtype)
+            out[path] = init(shape).to(device=device, dtype=dtype)
     return out
 
 
 # ------------------------------------------------------------ numbers
-def _q8(x: torch.Tensor) -> torch.Tensor:
+def q8(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to float8 e4m3 under one scale, gradient passed
     straight through."""
     scale = x.detach().abs().amax().clamp(min=1e-30) / FP8_MAX
@@ -147,26 +83,21 @@ def _q8(x: torch.Tensor) -> torch.Tensor:
     return x + (q - x).detach()
 
 
-def _same(x):
+def same(x):
     return x
 
 
 def matmul(low: bool):
     if low:
-        return lambda a, b: torch.matmul(_q8(a), _q8(b))
+        return lambda a, b: torch.matmul(q8(a), q8(b))
     return torch.matmul
 
 
-def _rmsnorm(x, scale, eps):
+def rmsnorm(x, scale, eps):
     return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * scale
 
 
-def _shift(x):
-    """Each position's previous token (zeros before the first)."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
-
-
-def _rope(x, theta):
+def rope(x, theta):
     """Split-half RoPE of x [B, H, L, Dh] at positions 0..L-1."""
     L, Dh = x.shape[-2], x.shape[-1]
     freqs = 1.0 / theta ** (torch.arange(0, Dh, 2, dtype=torch.float32,
@@ -189,7 +120,7 @@ def _attention_block(mm, q, k, v, c0):
     return mm(torch.softmax(s, dim=-1), v)
 
 
-def _attention(q, k, v, mm, chunk):
+def attention(q, k, v, mm, chunk):
     """Causal softmax attention, q [B, H, L, Dh], k/v [B, H, L, Dh], a
     block of ``chunk`` queries at a time against the keys up to it, each
     block's scores recomputed in the backward."""
@@ -203,92 +134,6 @@ def _attention(q, k, v, mm, chunk):
     return torch.cat(outs, dim=2)
 
 
-def _llama_layer(m, mm, x, n1, wq, wk, wv, wo, n2, wg, wu, wd, rnd=_same):
-    B, L, D = x.shape
-    H, Hkv = m["num_attention_heads"], m["num_key_value_heads"]
-    Dh = D // H
-    eps = m["rms_norm_eps"]
-    h = _rmsnorm(x, n1, eps)
-    q = mm(h, wq).view(B, L, H, Dh).transpose(1, 2)
-    k = mm(h, wk).view(B, L, Hkv, Dh).transpose(1, 2)
-    v = mm(h, wv).view(B, L, Hkv, Dh).transpose(1, 2)
-    q, k = _rope(q, m["rope_theta"]), _rope(k, m["rope_theta"])
-    if Hkv != H:
-        k = k.repeat_interleave(H // Hkv, dim=1)
-        v = v.repeat_interleave(H // Hkv, dim=1)
-    o = _attention(q, k, v, mm, m["reference_attn_chunk"])
-    x = x + mm(o.transpose(1, 2).reshape(B, L, D), wo)
-    h = _rmsnorm(x, n2, eps)
-    return x + mm(F.silu(mm(h, wg)) * mm(h, wu), wd)
-
-
-def _wkv(r, k, v, logw, u, chunk):
-    """The WKV6 recurrence y_t = r_t (S_{t-1} + diag(u) k_t v_t^T),
-    S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T from S_0 = 0, in chunks:
-    every decay factor is exp of a cumulative log-decay difference <= 0.
-    r/k/v/logw [B, L, H, hd], u [H, hd]."""
-    B, L, H, hd = r.shape
-    S = torch.zeros(B, H, hd, hd, dtype=r.dtype, device=r.device)
-    ys = []
-    for c0 in range(0, L, chunk):
-        rc, kc, vc, lw = (a[:, c0:c0 + chunk] for a in (r, k, v, logw))
-        t = torch.arange(rc.shape[1], device=r.device)
-        strict = (t[:, None] > t[None, :])[None, :, :, None, None]
-        cum = torch.cumsum(lw, dim=1)
-        prev = cum - lw
-        diff = prev[:, :, None] - cum[:, None]          # [B, t, s, H, hd]
-        fac = torch.exp(torch.where(strict, diff, 0.0)) * strict
-        A = torch.einsum("bthd,bshd,btshd->btsh", rc, kc, fac)
-        bonus = torch.einsum("bthd,bthd,hd->bth", rc, kc, u)
-        y = torch.einsum("btsh,bshd->bthd", A, vc) + bonus[..., None] * vc
-        y = y + torch.einsum("bthi,bhij->bthj", rc * torch.exp(prev), S)
-        last = cum[:, -1]
-        S = torch.exp(last)[..., None] * S + torch.einsum(
-            "bshi,bshj->bhij", kc * torch.exp(last[:, None] - cum), vc)
-        ys.append(y)
-    return torch.cat(ys, dim=1)
-
-
-def _rwkv6_layer(m, mm, x, n1, mix, wr, wk, wv, wg, w0, la, lb, u, lnx, wo,
-                 n2, cmix, cwk, cwv, cwr, rnd=_same):
-    B, L, D = x.shape
-    hd = m["head_size"]
-    H = D // hd
-    eps = m["rms_norm_eps"]
-    h = _rmsnorm(x, n1, eps)
-    xs = _shift(h)
-    xr, xk, xv, xw, xg = (h + (xs - h) * mix[i] for i in range(5))
-    r = rnd(mm(xr, wr)).view(B, L, H, hd)
-    k = rnd(mm(xk, wk)).view(B, L, H, hd)
-    v = rnd(mm(xv, wv)).view(B, L, H, hd)
-    g = mm(xg, wg)
-    raw = w0 + mm(torch.tanh(mm(xw, la)), lb)
-    logw = -torch.exp(torch.clamp(raw, -8.0, 4.0)).view(B, L, H, hd)
-    y = _wkv(r, k, v, logw, u.view(H, hd), m["reference_wkv_chunk"])
-    mu = y.mean(-1, keepdim=True)
-    var = y.var(-1, keepdim=True, correction=0)
-    y = ((y - mu) * torch.rsqrt(var + 64e-5)).reshape(B, L, D) * lnx
-    x = x + mm(y * F.silu(g), wo)
-    h = _rmsnorm(x, n2, eps)
-    xs = _shift(h)
-    xk, xr = h + (xs - h) * cmix[0], h + (xs - h) * cmix[1]
-    vv = mm(torch.square(F.relu(mm(xk, cwk))), cwv)
-    return x + torch.sigmoid(mm(xr, cwr)) * vv
-
-
-LAYER_ARGS = {
-    "llama": ("norm1/scale", "mixer/wq/w", "mixer/wk/w", "mixer/wv/w",
-              "mixer/wo/w", "norm2/scale", "ffn/wi_gate", "ffn/wi_up",
-              "ffn/wo"),
-    "rwkv6": ("norm1/scale", "mixer/mix/w", "mixer/wr/w", "mixer/wk/w",
-              "mixer/wv/w", "mixer/wg/w", "mixer/w0/w", "mixer/w_lora_a/w",
-              "mixer/w_lora_b/w", "mixer/u/w", "mixer/ln_x/scale",
-              "mixer/wo/w", "norm2/scale", "ffn/mix/w", "ffn/wk/w",
-              "ffn/wv/w", "ffn/wr/w"),
-}
-LAYERS = {"llama": _llama_layer, "rwkv6": _rwkv6_layer}
-
-
 def _xent_chunk(mm, x, w, labels):
     logits = mm(x, w)
     gold = logits.gather(-1, labels[..., None])[..., 0]
@@ -298,17 +143,26 @@ def _xent_chunk(mm, x, w, labels):
 def loss_sum(m: dict, P: dict, tokens, labels, low: bool = False):
     """The summed cross-entropy over every position of ``tokens`` [B, L]
     (labels the next tokens), from float32 params ``P`` (path -> tensor;
-    a layer leaf as a list of its layers' tensors). Each layer, and each
-    block of the loss, is recomputed in the backward."""
+    a layer leaf as a list of its layers' tensors), by the configuration's
+    kind; ``low``: the float8 control."""
+    return kind(m).loss_sum(m, P, tokens, labels, low)
+
+
+def stacked_loss_sum(m: dict, P: dict, tokens, labels, low: bool, layer,
+                     args: tuple):
+    """``loss_sum`` of a stack of ``num_hidden_layers`` layers between the
+    embedding and a final RMSNorm and unembedding: ``layer(m, mm, x,
+    *leaves, rnd=rnd)`` with the leaves ``args`` (paths under ``LAYERS``)
+    of its layer. Each layer, and each block of the loss, is recomputed in
+    the backward."""
     mm = matmul(low)
-    rnd = _q8 if low else _same
-    fn = LAYERS[m["model"]]
+    rnd = q8 if low else same
     x = rnd(P["embed/table"][tokens])
-    args = [P[f"layers/slot0/{k}"] for k in LAYER_ARGS[m["model"]]]
+    leaves = [P[f"{LAYERS}{k}"] for k in args]
     for i in range(m["num_hidden_layers"]):
-        x = rnd(checkpoint(lambda x_, *a: fn(m, mm, x_, *a, rnd=rnd), x,
-                           *(a[i] for a in args), use_reentrant=False))
-    x = _rmsnorm(x, P["final_norm/scale"], m["rms_norm_eps"])
+        x = rnd(checkpoint(lambda x_, *a: layer(m, mm, x_, *a, rnd=rnd), x,
+                           *(a[i] for a in leaves), use_reentrant=False))
+    x = rmsnorm(x, P["final_norm/scale"], m["rms_norm_eps"])
     total = x.new_zeros(())
     C = m["reference_loss_chunk"]
     for c0 in range(0, x.shape[1], C):

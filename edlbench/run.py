@@ -18,7 +18,9 @@ configuration (``configs/<config>.json``), its traffic mix
    reference follows;
 2. the window: the mix's ``cycle`` of ops (``step``, ``scale_in``,
    ``scale_out``), whole cycles until ``--seconds`` have passed; with
-   ``--trace 1`` a stretch of it under ``torch.profiler``;
+   ``--trace 1`` a stretch of it under ``torch.profiler``, whose trace
+   (``trace.py``) the per-layer readers take, the program's own ``edl.*``
+   spans with it;
 3. once the window has closed and the program's state is freed, the
    reference, and the comparison (``check.py``) against the limits.
 
@@ -26,7 +28,9 @@ The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and last ``compared``: each number compared beside its
-limit, which the last lines of standard error repeat. Without enough
+limit, which the last lines of standard error repeat. The line before it
+holds what the run saw besides (the losses, each card's peak, the mean
+step, with ``--trace 1`` the device time by span). Without enough
 cards, with the program missing, or with JAX or the JAX package loaded, it
 exits with another code than 0 and prints no result.
 """
@@ -54,19 +58,10 @@ for p in (str(ROOT), str(ROOT / "src")):
         sys.path.insert(0, p)
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-# the benchmark's configuration keys and the port config's fields
-PORT_FIELDS = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
-               "num_attention_heads": "n_heads",
-               "num_key_value_heads": "n_kv_heads",
-               "intermediate_size": "d_ff", "vocab_size": "vocab",
-               "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps",
-               "tie_word_embeddings": "tie_embeddings", "remat": "remat",
-               "max_position_embeddings": "max_seq"}
-# the keys of a configuration file that are the benchmark's own
+# the keys of a configuration file that are the benchmark's own, besides
+# those that begin with ``reference_`` (the reference's chunk sizes)
 OWN_KEYS = {"source", "arch", "model", "torch_dtype", "reduced", "published",
-            "assumed", "deployment", "reference_attn_chunk",
-            "reference_wkv_chunk", "reference_loss_chunk"}
-RWKV_DECAY_LORA = 64    # the port's decay LoRA width, which it fixes
+            "assumed", "deployment"}
 
 
 def load_json(path: Path) -> dict:
@@ -121,27 +116,47 @@ def set_cache_dirs():
 
 def port_config(model: dict):
     """The port's ``ArchConfig`` of the benchmark's configuration: the
-    port's published config with the file's sizes. A key that the port
-    would not run as the file states it is refused: one it has no field
-    for, or a value it fixes otherwise."""
-    import dataclasses
+    port's published config with the file's values, each set on the field
+    its kind's ``PORT_FIELDS`` names (``mla.kv_lora``: a field of the
+    nested config). A key that the port would not run as the file
+    states it is refused: one it has no field for, or a value other than
+    the one it fixes (the kind's ``fixed``)."""
+    from edlbench.reference import kind
     from repro_torch.configs import get_config
-    base = get_config(model["arch"])
-    kw = {f: model[k] for k, f in PORT_FIELDS.items() if k in model}
-    kw["param_dtype"] = kw["compute_dtype"] = model["torch_dtype"]
-    fixed = {"rope_scaling": None}
-    if model["model"] == "rwkv6":
-        kw["ssm"] = dataclasses.replace(base.ssm,
-                                        rwkv_head_dim=model["head_size"])
-        fixed.update(head_size=model["head_size"],
-                     attention_hidden_size=model["hidden_size"],
-                     decay_lora=RWKV_DECAY_LORA)
-    unknown = sorted(set(model) - set(PORT_FIELDS) - OWN_KEYS - set(fixed))
-    wrong = sorted(k for k in fixed if k in model and model[k] != fixed[k])
+    k = kind(model)
+    fixed = k.fixed(model)
+    unknown = sorted(
+        key for key in set(model) - set(k.PORT_FIELDS) - OWN_KEYS
+        - set(fixed) if not key.startswith("reference_"))
+    wrong = sorted(key for key in fixed if key in model
+                   and model[key] != fixed[key])
     if unknown or wrong:
         raise ValueError(f"the port does not run these keys as the "
                          f"configuration states them: {unknown + wrong}")
-    return dataclasses.replace(base, **kw)
+    fields = {f: model[key] for key, f in k.PORT_FIELDS.items()
+              if key in model}
+    fields["param_dtype"] = fields["compute_dtype"] = model["torch_dtype"]
+    return _replace(get_config(model["arch"]), fields)
+
+
+def _replace(obj, fields: dict):
+    """The dataclass ``obj`` with ``fields`` set; a dotted name sets a field
+    of the nested dataclass its first part names."""
+    import dataclasses
+    top, inner = {}, {}
+    for name, value in fields.items():
+        head, _, rest = name.partition(".")
+        if rest:
+            inner.setdefault(head, {})[rest] = value
+        else:
+            top[name] = value
+    for head, sub in inner.items():
+        child = getattr(obj, head)
+        if child is None:
+            raise ValueError(f"the port's {type(obj).__name__} has no "
+                             f"{head!r} to set {sorted(sub)} in")
+        top[head] = _replace(child, sub)
+    return dataclasses.replace(obj, **top)
 
 
 def power_limits(n: int) -> list:
@@ -159,7 +174,9 @@ def power_limits(n: int) -> list:
 
 class Runner:
     """Drives the trainer through a mix's ops, records every call it makes
-    into the port as a span, and each step's rows."""
+    into the port as a span, and each step's rows; a step's record keeps
+    every number ``step()`` returned (``values``: the loss, the gradient's
+    norm and the program's counters, already on the host)."""
 
     def __init__(self, trainer, traffic: dict, profile_fn=None):
         self.trainer = trainer
@@ -185,7 +202,7 @@ class Runner:
         if out is None:
             raise RuntimeError("the data pipeline ran dry inside a run")
         self.ids.append(self.trainer._last_sample_ids.copy())
-        rec.update(p=p, tokens=self.tokens, loss=out["loss"],
+        rec.update(p=p, tokens=self.tokens, values=dict(out),
                    idle=self.trainer.controller.phase is Phase.IDLE)
         self.steps.append(rec)
         return rec
@@ -305,7 +322,7 @@ def checked(drv, files: dict, seed: int, fault=None) -> tuple[dict, list]:
         k = len(drv.steps) - first
         if rec is None or k > n:
             continue
-        prog["loss"].append(rec["loss"])
+        prog["loss"].append(rec["values"]["loss"])
         if k == 1:
             prog["grad_norm"] = leaf_norms(trainer.whole_state(home),
                                            "opt/mu/", 1.0 / (1.0 - b1))
@@ -499,6 +516,12 @@ def run_cell(files: dict, seed: int, seconds: float, trace: bool,
                         "window": len(window_steps)}}
 
 
+# the trace's span keys the run prints beside its result (``trace.py``)
+SPAN_KEYS = ("span_device_s", "span_group_s", "span_kernels",
+             "span_within_s", "span_host_s", "idle_by_span",
+             "launch_host_s", "host_own_s")
+
+
 def step_seconds(run: dict) -> dict:
     """The mean host seconds of a window step, traced and untraced: what
     the profiler costs a step."""
@@ -537,6 +560,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 5
     res = out["result"]
+    tr = out["run"]["trace"] or {}
     print(json.dumps({"memory_peak_bytes_per_card": out["peaks"],
                       "steps": out["n_steps"],
                       "reference_s": out["reference_s"],
@@ -544,7 +568,9 @@ def main(argv=None) -> int:
                       "reference": out["reference"]["loss"],
                       "worst_leaf": out["compare"]["worst_leaf"],
                       "step_s": step_seconds(out["run"]),
-                      "switches": out["run"]["switches"]}), flush=True)
+                      "switches": out["run"]["switches"],
+                      "spans": {k: tr.get(k) for k in SPAN_KEYS}}),
+          flush=True)
     for k, c in res["compared"].items():
         print(f"{k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()

@@ -1,25 +1,43 @@
 """Small configurations of the benchmark's cells for the CPU tests."""
 import copy
+import importlib
 
 from edlbench import run
+from edlbench.reference import CONTRACT, kind
 
-TINY = {"llama": dict(hidden_size=64, num_hidden_layers=2,
-                      num_attention_heads=4, num_key_value_heads=2,
-                      intermediate_size=128, vocab_size=256,
-                      reference_attn_chunk=16, reference_loss_chunk=16),
-        "rwkv6": dict(hidden_size=128, attention_hidden_size=128,
-                      num_hidden_layers=2, num_attention_heads=2,
-                      num_key_value_heads=2, intermediate_size=256,
-                      vocab_size=256, reference_loss_chunk=16)}
+
+def kinds() -> list[str]:
+    """Every model kind whose module is found under ``reference/``."""
+    out = []
+    for path in sorted((run.HERE / "reference").glob("[!_]*.py")):
+        mod = importlib.import_module(f"edlbench.reference.{path.stem}")
+        if all(hasattr(mod, k) for k in CONTRACT):
+            out.append(path.stem)
+    return out
+
+
+def configs(model: str) -> list[str]:
+    """The names of the configuration files of one kind."""
+    return [p.stem for p in sorted((run.HERE / "configs").glob("*.json"))
+            if run.load_json(p)["model"] == model]
+
+
+def small(config: str, dtype: str = "float32") -> dict:
+    """A configuration file cut to its kind's ``TINY`` sizes, in
+    ``dtype``."""
+    m = run.load_json(run.HERE / "configs" / f"{config}.json")
+    m.update(kind(m).TINY)
+    m["torch_dtype"] = dtype
+    return m
 
 
 def tiny_files(workload: str, *, seq_len: int = 32,
                dtype: str = "float32") -> dict:
     """The cell's files with its model cut to a few thousand parameters
-    and its sequences to ``seq_len``, in ``dtype``; its limits as
-    committed."""
+    (its kind's ``TINY``) and its sequences to ``seq_len``, in ``dtype``;
+    its limits as committed."""
     files = copy.deepcopy(run.cell_files(workload))
-    files["model"].update(TINY[files["model"]["model"]])
+    files["model"].update(kind(files["model"]).TINY)
     files["model"]["torch_dtype"] = dtype
     files["traffic"]["seq_len"] = seq_len
     return files

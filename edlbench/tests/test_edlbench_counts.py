@@ -1,7 +1,13 @@
 """The yardstick's arithmetic against the bounds PERF.md reports."""
+import math
+
 import pytest
 
 from edlbench import counts, run
+from edlbench.reference import kind
+from edlbench.reference import model as ref
+
+from helpers import configs, kinds, small
 
 
 def test_flash_attn_fwd_bound_is_perf_md_s():
@@ -28,10 +34,36 @@ def test_wkv6_fwd_bound_is_perf_md_s():
 def test_model_flops(config, matmul, step_tflop):
     m = run.load_json(run.HERE / "configs" / f"{config}.json")
     t = run.load_json(run.HERE / "traffic" / (
-        "b8x1k.json" if m["model"] == "rwkv6" else "b2x8k.json"))
+        "b2x8k.json" if config.startswith("phi3") else "b8x1k.json"))
     assert counts.matmul_params(m) == pytest.approx(matmul, rel=1e-3)
     flops = counts.step_model_flops(m, t["global_batch"], t["seq_len"])
     assert flops / 1e12 == pytest.approx(step_tflop, rel=2e-3)
+
+
+def test_phi3_counts_are_pinned():
+    """``phi3.b2x8k``'s counts, which ``step_mfu.steady`` divides by, to
+    the integer."""
+    m = run.load_json(run.HERE / "configs" / "phi3-mini-16l.json")
+    assert counts.matmul_params(m) == 1_910_439_936
+    assert counts.mixer_forward_flops(m, 2, 8192) == 13_195_750_146_048
+    assert counts.step_model_flops(m, 2, 8192) == 227_391_137_906_688
+
+
+@pytest.mark.parametrize("model", kinds())
+def test_counts_go_through_the_kind(model):
+    """At the kind's ``TINY`` sizes: the counts are its module's, no more
+    matrix parameters than its tree holds, the mixer's flops linear in the
+    rows."""
+    m = small(configs(model)[0])
+    k = kind(m)
+    n_params = sum(math.prod(s) for _, s, _, _ in ref.param_specs(m))
+    assert 0 < counts.matmul_params(m) == k.matmul_params(m) <= n_params
+    B, L = 3, 16
+    mixer = counts.mixer_forward_flops(m, B, L)
+    assert mixer == k.mixer_forward_flops(m, B, L) > 0
+    assert counts.mixer_forward_flops(m, 2 * B, L) == 2 * mixer
+    assert counts.step_model_flops(m, B, L) == \
+        6 * counts.matmul_params(m) * B * L + 3 * mixer
 
 
 def test_per_step_bounds():

@@ -1,5 +1,6 @@
 """The plain reference against the program (``repro_torch``) on the CPU at
-small sizes, in float32, where the two agree to rounding."""
+small sizes, in float32, where the two agree to rounding: every model kind
+whose module is found, on its configuration files cut to its ``TINY``."""
 import pytest
 import torch
 
@@ -8,28 +9,31 @@ from edlbench.reference import model as ref
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_leaves, tree_unflatten
 
-from helpers import TINY
+from helpers import configs, kinds, small
+
+KINDS = kinds()
 
 
-def small(config: str, dtype="float32") -> dict:
-    m = run.load_json(run.HERE / "configs" / f"{config}.json")
-    m.update(TINY[m["model"]])
-    m["torch_dtype"] = dtype
-    return m
+def first_config(model: str) -> str:
+    found = configs(model)
+    assert found, f"no configuration file of the kind {model!r}"
+    return found[0]
 
 
-@pytest.mark.parametrize("config", ["rwkv6-1.6b", "phi3-mini-16l"])
-def test_reference_tree_is_the_programs(config):
-    for m in (small(config),
-              run.load_json(run.HERE / "configs" / f"{config}.json")):
-        cfg = run.port_config(m)
-        prog = {p: tuple(s.shape)
-                for p, s in tree_leaves(M.param_spec_tree(cfg))}
-        assert prog == {p: s for p, s, _, _ in ref.param_specs(m)}
+@pytest.mark.parametrize("model", KINDS)
+def test_reference_tree_is_the_programs(model):
+    for config in configs(model):
+        for m in (small(config),
+                  run.load_json(run.HERE / "configs" / f"{config}.json")):
+            cfg = run.port_config(m)
+            prog = {p: tuple(s.shape)
+                    for p, s in tree_leaves(M.param_spec_tree(cfg))}
+            assert prog == {p: s for p, s, _, _ in ref.param_specs(m)}
 
 
-def test_init_params_repeat_from_the_seed():
-    m = small("phi3-mini-16l")
+@pytest.mark.parametrize("model", KINDS)
+def test_init_params_repeat_from_the_seed(model):
+    m = small(first_config(model))
     a = ref.init_params(m, 2**31 + 5, "cpu")
     b = ref.init_params(m, 2**31 + 5, "cpu")
     c = ref.init_params(m, 2**31 + 6, "cpu")
@@ -38,9 +42,9 @@ def test_init_params_repeat_from_the_seed():
     assert a["unembed/w"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("config", ["rwkv6-1.6b", "phi3-mini-16l"])
-def test_loss_and_gradients_match_the_program(config):
-    m = small(config)
+@pytest.mark.parametrize("model", KINDS)
+def test_loss_and_gradients_match_the_program(model):
+    m = small(first_config(model))
     cfg = run.port_config(m)
     start = ref.init_params(m, 11, "cpu", dtype=torch.float32)
     tok = torch.randint(0, m["vocab_size"], (3, 49),
@@ -66,10 +70,11 @@ def test_loss_and_gradients_match_the_program(config):
                               atol=1e-4 * float(grads[k].abs().max())), k
 
 
-def test_reference_training_repeats_and_splits_over_devices():
+@pytest.mark.parametrize("model", KINDS)
+def test_reference_training_repeats_and_splits_over_devices(model):
     """Three AdamW steps give the same numbers whether the rows run on one
     device or are split over two (on the CPU, both the CPU)."""
-    m = small("phi3-mini-16l", "bfloat16")
+    m = small(first_config(model), "bfloat16")
     opt = {"lr": 1e-3, "b1": 0.9, "b2": 0.999, "eps": 1e-8,
            "weight_decay": 0.01}
     gen = torch.Generator().manual_seed(1)

@@ -150,3 +150,14 @@ def test_step_mfu_reads_the_untraced_steps():
     assert readers.step_mfu(rec) == pytest.approx(want)
     assert readers.step_mfu(dict(rec, trace=None)) is None
     assert readers.step_mfu(dict(rec, untraced_steps=[])) is None
+
+
+def test_every_metric_has_its_reader():
+    """Each metric of ``BENCHMARK.json`` has a reader file whose layer and
+    moved metric are those the benchmark gives."""
+    bench = run.load_json(run.ROOT / "BENCHMARK.json")
+    for m in bench["end_to_end"]:
+        assert callable(run.reader(m["name"]).read), m["name"]
+    for m in bench["per_layer"]:
+        mod = run.reader(m["name"])
+        assert (mod.LAYER, mod.MOVES) == (m["layer"], m["moves"]), m["name"]

@@ -1,10 +1,11 @@
-"""The span attribution (``spans.py``) on a synthetic trace of one step:
-a forward, a backward whose recompute and kernels run on autograd's
-thread, an update with a copy, a host sync, and device work under no
-span."""
+"""The attribution of device time to the program's spans (``trace.py``)
+and the readers of the span metrics (``metrics/``, ``readers.py``) on a
+synthetic trace of one step: a forward, a backward whose recompute and
+kernels run on autograd's thread, an update with a copy, a host sync, and
+device work under no span."""
 import pytest
 
-from edlbench import spans, trace
+from edlbench import readers, run, trace
 
 
 def host(name, ts, dur, tid=1):
@@ -53,14 +54,14 @@ EVENTS = [
 
 
 def test_device_time_goes_to_the_innermost_span_at_launch():
-    s = spans.summarize(EVENTS)["span_device_s"]
+    s = trace.summarize(EVENTS)["span_device_s"]
     assert s == pytest.approx({"edl.forward": 97e-6, "edl.recompute": 120e-6,
                                "edl.backward": 90e-6, "edl.update": 40e-6,
                                "unattributed": 90e-6})
 
 
 def test_device_time_by_kernel_group_and_kernel_count():
-    s = spans.summarize(EVENTS)
+    s = trace.summarize(EVENTS)
     assert s["span_group_s"] == {
         "edl.forward": {"matmul": pytest.approx(90e-6),
                         "other": pytest.approx(7e-6)},
@@ -74,7 +75,7 @@ def test_device_time_by_kernel_group_and_kernel_count():
 
 
 def test_host_time_by_span_name():
-    s = spans.summarize(EVENTS)["span_host_s"]
+    s = trace.summarize(EVENTS)["span_host_s"]
     assert s == pytest.approx({"edl.step": 1000e-6, "edl.data": 40e-6,
                                "edl.forward": 250e-6, "edl.backward": 400e-6,
                                "edl.update": 100e-6, "edl.sync": 190e-6,
@@ -83,7 +84,7 @@ def test_host_time_by_span_name():
 
 def test_launch_calls_host_time():
     """Six launches of 2 us each inside the window."""
-    assert spans.summarize(EVENTS)["launch_host_s"] == pytest.approx(12e-6)
+    assert trace.summarize(EVENTS)["launch_host_s"] == pytest.approx(12e-6)
 
 
 def test_host_own_time_leaves_out_the_sync_and_every_cuda_call():
@@ -93,8 +94,8 @@ def test_host_own_time_leaves_out_the_sync_and_every_cuda_call():
     sync span, counted once: 1000 - 10 - 205 = 785 us."""
     wait = {"cat": "cuda_runtime", "name": "cudaStreamSynchronize",
             "ts": 1790, "dur": 205, "ph": "X", "tid": 1, "args": {}}
-    assert spans.summarize(EVENTS)["host_own_s"] == pytest.approx(800e-6)
-    assert spans.summarize(EVENTS + [wait])["host_own_s"] == \
+    assert trace.summarize(EVENTS)["host_own_s"] == pytest.approx(800e-6)
+    assert trace.summarize(EVENTS + [wait])["host_own_s"] == \
         pytest.approx(785e-6)
 
 
@@ -104,32 +105,54 @@ def test_idle_gaps_are_named_by_the_open_span():
     1380] in the forward (middle 1295); [1500, 1600] in the backward;
     [1690, 1750] in the update; [1790, 2000] in the sync; [2050, 2100]
     outside."""
-    s = spans.summarize(EVENTS)["idle_by_span"]
+    s = trace.summarize(EVENTS)["idle_by_span"]
     assert s == pytest.approx({"outside": 110e-6, "edl.forward": 280e-6,
                                "edl.backward": 100e-6, "edl.update": 60e-6,
                                "edl.sync": 210e-6})
-
-
-def test_the_summary_adds_to_the_trace_readers_keys():
-    """``load``'s summary holds ``trace.summarize``'s keys as they were
-    and the span keys beside them."""
-    old = trace.summarize(EVENTS)
-    both = {**old, **spans.summarize(EVENTS)}
-    assert {k: both[k] for k in old} == old
-    assert {"span_device_s", "span_host_s", "idle_by_span"} <= set(both)
 
 
 def test_a_trace_without_spans_reads_nothing():
     """The parent's program opens no ``edl.*`` span: every device second
     is unattributed and no reader gives a value."""
     plain = [e for e in EVENTS if not e["name"].startswith("edl.")]
-    s = spans.summarize(plain)
+    s = trace.summarize(plain)
     assert set(s["span_device_s"]) == {"unattributed"}
-    assert s["span_host_s"] == {}
-    run = {"trace": {**trace.summarize(plain), **s},
-           "trace_steps": [{"p": 1}]}
-    assert all(r(run) is None for r in spans.READERS.values())
+    assert s["span_host_s"] == {} and s["span_within_s"] == {}
+    rec = {"trace": s, "trace_steps": [{"p": 1}]}
+    assert all(run.reader(n).read(rec) is None for n in SPAN_METRICS)
 
+
+def test_a_span_nested_in_a_phase_leaves_the_phases_as_they_are():
+    """The program opens ``edl.moe`` inside the forward around its second
+    kernel: the phases' device time is as it was, and the nested span's
+    is readable through ``span_within_s``, where the forward holds it
+    too."""
+    nested = EVENTS + [host("edl.moe", 1102, 10)]
+    before, after = trace.summarize(EVENTS), trace.summarize(nested)
+    for k in ("span_device_s", "span_group_s", "span_kernels"):
+        assert after[k] == before[k]
+    assert after["span_within_s"] == pytest.approx(
+        {**before["span_within_s"], "edl.moe": 7e-6})
+    assert after["span_within_s"]["edl.forward"] == pytest.approx(97e-6)
+    rec = {"trace": after, "trace_steps": [{"p": 1}]}
+    assert readers.span_ms(rec, "edl.moe", within=True) == \
+        pytest.approx(7e-3)
+    assert readers.span_ms(rec, "edl.moe") is None
+    assert run.reader("forward_ms").read(rec) == pytest.approx(97e-3)
+
+
+def test_device_time_within_every_open_span():
+    """Each kernel counts under every span open at its launch: autograd's
+    thread's recompute alone where that thread has one open, else the main
+    thread's step and backward."""
+    s = trace.summarize(EVENTS)["span_within_s"]
+    assert s == pytest.approx({"edl.step": 227e-6, "edl.forward": 97e-6,
+                               "edl.recompute": 120e-6,
+                               "edl.backward": 90e-6, "edl.update": 40e-6})
+
+
+SPAN_METRICS = ("forward_ms", "backward_ms", "recompute_ms", "update_ms",
+                "data_wait_ms", "host_ms")
 
 # a run record of two traced steps, made by hand
 RUN = {"trace": {"busy_s": {0: 2.0}, "window_s": 2.1,
@@ -147,44 +170,45 @@ RUN = {"trace": {"busy_s": {0: 2.0}, "window_s": 2.1,
     ("forward_ms", 250.0), ("backward_ms", 450.0), ("recompute_ms", 200.0),
     ("update_ms", 100.0), ("data_wait_ms", 2.0), ("host_ms", 240.0)])
 def test_reader(name, value):
-    assert spans.READERS[name](RUN) == pytest.approx(value)
+    assert run.reader(name).read(RUN) == pytest.approx(value)
 
 
 def test_reader_without_a_trace_reads_nothing():
-    assert all(r({"trace": None, "trace_steps": None}) is None
-               for r in spans.READERS.values())
+    assert all(run.reader(n).read({"trace": None, "trace_steps": None})
+               is None for n in SPAN_METRICS)
 
 
-def test_coverage():
-    c = spans.coverage(RUN["trace"])
-    assert c["phases_of_busy"] == pytest.approx(100.0)
-    assert c["unattributed_share"] == pytest.approx(100 * 0.02 / 2.02)
-    assert c["idle_in_spans_share"] == pytest.approx(75.0)
+def test_step_values_read_what_the_step_returned():
+    """A counter the program's ``step()`` returns reaches the readers, over
+    the traced and the untraced steps in order."""
+    steps = [{"values": {"loss": 5.0, "dropped": 3.0}},
+             {"values": {"loss": 4.0}},
+             {"values": {"loss": 3.5, "dropped": 1.0}}]
+    rec = {"window": {"steps": steps}, "trace_steps": steps[1:2],
+           "untraced_steps": steps[:1] + steps[2:]}
+    assert readers.step_values(rec, "dropped") == [3.0, 1.0]
+    assert readers.step_values(rec, "loss") == [5.0, 4.0, 3.5]
+    assert readers.step_values(rec, "absent") is None
+    assert readers.step_values({"window": None}, "loss") is None
 
 
-def test_a_traced_cpu_run_holds_the_step_spans(monkeypatch):
-    """The tiny phi3 cell traced on the CPU with ``spans.load`` as the
-    trace reader: the host times name each of the step's seven spans; the
-    CPU trace has no device work to attribute."""
+def test_a_traced_cpu_run_holds_the_step_spans_and_values():
+    """The tiny phi3 cell traced on the CPU: the host times name each of
+    the step's seven spans; the CPU trace has no device work to
+    attribute; every window step keeps what ``step()`` returned."""
     import time
     import torch
-    from edlbench import run
     from helpers import tiny_files
-    monkeypatch.setattr(trace, "load", spans.load)
     out = run.run_cell(tiny_files("phi3.b2x8k"), 2**31 + 5, 0.5, True,
                        [torch.device("cpu")],
                        trainer_kw={"time_allowance_s": 0},
                        t_start=time.monotonic())
-    tr = out["run"]["trace"]
-    assert set(tr["span_host_s"]) == {
-        "edl.step", "edl.data", "edl.forward", "edl.backward",
-        "edl.recompute", "edl.update", "edl.sync"}
+    rec = out["run"]
+    tr = rec["trace"]
+    assert set(tr["span_host_s"]) == set(trace.PHASES)
     assert tr["span_device_s"] == {} and tr["idle_by_span"] == {}
     assert out["result"]["correct"], out["result"]["compared"]
-
-
-def test_main_fails_cleanly_without_cards(monkeypatch):
-    import torch
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert spans.main(["--workload", "phi3.b2x8k", "--seed", "1",
-                       "--seconds", "1"]) == 3
+    losses = readers.step_values(rec, "loss")
+    assert len(losses) == len(rec["window"]["steps"]) >= 1
+    assert readers.step_values(rec, "grad_norm")[0] > 0
+    assert set(readers.step_values(rec, "p")) == {1}
